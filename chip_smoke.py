@@ -10,10 +10,13 @@ result line:
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every CUDA kernel from the sources in the checkout;
-2. every kernel of the serving path (rmsnorm, flash prefill, ring decode)
-   against its plain PyTorch version on the card, at the main path's shapes,
-   in bf16 and fp32, with its time beside its bound, the plain version's
-   time and one PyTorch library call's time (a yardstick only);
+2. every kernel of the serving paths (rmsnorm, flash prefill -- plain and
+   with a cached prefix --, ring decode, paged decode) against its plain
+   PyTorch version on the card, at the main paths' shapes, in bf16 and
+   fp32, with its time beside its bound, the plain version's time and one
+   PyTorch library call's time where one computes the same function (a
+   yardstick only); the paged kernel also against the ring kernel on the
+   same K/V laid out densely (bitwise equal);
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps, the card through
    the kernels and the CPU through the plain versions, both fed the card's
@@ -26,7 +29,16 @@ result line:
    engine under torch.profiler -- host wall, device first-to-last span and
    device busy time per step, all from that one profiled run, the device's
    idle share and the kernels that take the most time; and, from a separate
-   unprofiled run of the same steps, the host wall per step alone.
+   unprofiled run of the same steps, the host wall per step alone;
+6. the paged path on the same 32-layer llama3-8b and weights:
+   ServingEngine(max_batch=8, max_seq=2048) serves one shared-prefix
+   workload (2 Zipf-weighted 1024-token system prompts, 64-token suffixes,
+   32 new tokens; one priming request per prefix, then 24 requests at once)
+   three times: (a) the ring pool, (b) paged without and (c) paged with
+   prefix reuse. (b)'s greedy tokens must equal (a)'s, (c)'s prefix counters
+   must be exactly 24 hits of 1024 tokens, every launch count must follow
+   the path's structure, and clearing the index must leave no block live;
+   it prints TTFT/TPOT p50 per run and where (c)'s tokens part from (b)'s.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2 (the kernel and the plain version sum in
@@ -49,6 +61,13 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 FMA
 TOLS = {"bf16": 2e-2, "fp32": 2e-5}
 RTOL = 1e-2
 N_LAYERS = 32
+# phase 2's paged case: max_seq 2048 in pages of 16, ragged lengths of two
+# shared 1024-token prefixes plus 64-96 tokens of each row's own
+PAGED_PAGES = 128
+PAGED_LENS = [1088, 1092, 1097, 1101, 1105, 1110, 1115, 1120]
+# phase 6's workload (loadgen.shared_prefix_schedule arguments)
+PAGED_TRAFFIC = dict(n_requests=24, n_prefixes=2, prefix_len=1024,
+                     suffix_len=64, zipf_a=1.1, max_new=32, seed=0)
 MAIN_ARGV = ["--arch", "llama3-8b", "--max-batch", "8", "--max-seq", "2048",
              "--clients", "12", "--requests", "1", "--prompt-len", "64:1024",
              "--new-tokens", "32", "--transport", "gdr"]
@@ -119,10 +138,22 @@ def main():
     results["decode_profile"] = decode_profile(torch, engine)
     done(t0)
 
+    t0 = phase("phase 6: paged KV pool + prefix reuse on llama3-8b")
+    results["paged_path"] = paged_path(torch, ops, engine)
+    done(t0)
+
+    # each kernel's launches come from the run of the path that carries it:
+    # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
+    # with reuse (phase 6 (c)) for paged decode
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
-        k["launches"] = results["main_path"]["launches"][k["name"]]
+        run = (results["paged_path"]["runs"]["reuse"]
+               if k["name"] == "paged_decode_attention"
+               else results["main_path"])
+        k["launches"] = run["launches"][k["name"]]
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} never launched on its path")
         kernel_line.append(k)
     results["kernel_line"] = kernel_line
     out_dir = ROOT / "chiprun_out"
@@ -303,11 +334,14 @@ def check_kernels(torch, ops, dev):
             time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens)),
             lib, nbytes, 4 * hd * H * n_pos))
 
+    cases += paged_cases(torch, ops, ref, dev)
+
     # the line's entry per kernel: bf16 (the serving dtype) at the shape the
     # main path launches most (decode for rmsnorm, the 1024 bucket for flash)
     pick = {"rmsnorm": [8, 4096],
             "flash_attention": [B, 1024, H, Hkv, hd, "window=0", "segments=False"],
-            "decode_attention": [B, W, H, Hkv, hd, lens_host]}
+            "decode_attention": [B, W, H, Hkv, hd, lens_host],
+            "paged_decode_attention": [B, PAGED_PAGES, H, Hkv, hd, PAGED_LENS]}
     meta = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -315,6 +349,9 @@ def check_kernels(torch, ops, dev):
                             "src/repro/kernels/flash_attention.py:103"),
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:79"),
+        "paged_decode_attention": (
+            "cuda", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:145"),
     }
     summary = []
     for name, shape in pick.items():
@@ -328,6 +365,100 @@ def check_kernels(torch, ops, dev):
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                         "shape": shape, "dtype": "bf16"})
     return {"cases": cases, "summary": summary}
+
+
+def paged_cases(torch, ops, ref, dev):
+    """Phase 2's cases of the paged path: the paged decode kernel on a
+    shuffled pool where rows share two 1024-token prefixes (held against
+    its plain version and, bitwise, the ring kernel on the same K/V laid
+    out densely), and the flash kernel with a 1024-token prior (held
+    against its plain version; SDPA over the concatenated K/V with a
+    boolean mask as the yardstick)."""
+    import torch.nn.functional as F
+
+    B, H, Hkv, hd, page = 8, 32, 8, 128, 16
+    n_pages, lens_host = PAGED_PAGES, PAGED_LENS
+    N = 1 + 2 * B * n_pages  # the main path's pool: sentinel + 2 per slot
+    shared = 1024 // page
+    cases = []
+    for dtype in ("bf16", "fp32"):
+        g = torch.Generator(device="cpu").manual_seed(8)
+        ids = (torch.randperm(N - 1, generator=g) + 1).tolist()
+        prefix = [[ids.pop() for _ in range(shared)] for _ in range(2)]
+        pt = torch.zeros((B, n_pages), dtype=torch.int32)
+        for b, n in enumerate(lens_host):
+            row = prefix[b % 2] + [ids.pop() for _ in range(-(-n // page) - shared)]
+            pt[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
+        pt = pt.to(dev)
+        kb = rand(torch, (N, page, Hkv, hd), dtype, dev, 9)
+        vb = rand(torch, (N, page, Hkv, hd), dtype, dev, 10)
+        kb[0] = 0
+        vb[0] = 0
+        q = rand(torch, (B, 1, H, hd), dtype, dev, 11)
+        lens = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+        got = ops.paged_decode_attention(q, kb, vb, pt, lens)
+        want = ref.paged_decode_attention_ref(q, kb, vb, pt, lens)
+        kd, vd = (blk[pt.long()].reshape(B, n_pages * page, Hkv, hd)
+                  for blk in (kb, vb))
+        ring = ops.decode_attention(q, kd, vd, lens)
+        if not torch.equal(got, ring):
+            raise AssertionError(
+                f"paged kernel {dtype}: differs from the ring kernel on the "
+                f"same K/V by {float((got.float() - ring.float()).abs().max()):.3e}")
+        isz = q.element_size()
+        # each input read once: the positions the rows need, shared prefix
+        # blocks once (q, o and the page table besides)
+        uniq = 2 * 1024 + sum(n - 1024 for n in lens_host)
+        nbytes = (2 * B * H * hd + 2 * uniq * Hkv * hd) * isz + pt.numel() * 4 + B * 4
+        per_row = 2 * sum(lens_host) * Hkv * hd * isz
+        rec = case_record(
+            torch, "paged_decode_attention", dtype,
+            [B, n_pages, H, Hkv, hd, lens_host], got, want,
+            time_ms(torch, lambda: ops.paged_decode_attention(q, kb, vb, pt, lens)),
+            time_ms(torch, lambda: ref.paged_decode_attention_ref(q, kb, vb, pt, lens)),
+            None, nbytes, 4 * hd * H * sum(lens_host))
+        rec["ring_kernel_bitwise_equal"] = True
+        rec["ring_ms_same_kv"] = time_ms(
+            torch, lambda: ops.decode_attention(q, kd, vd, lens))
+        rec["bytes_read_per_row"] = per_row
+        rec["library"] = "none: no single PyTorch call computes paged attention"
+        print(f"   {'':16s} ring kernel on the same K/V: bitwise equal, "
+              f"{rec['ring_ms_same_kv']:.4f} ms; K/V bytes if every row read "
+              f"its prefix: {per_row / 1e6:.1f} MB, unique: "
+              f"{2 * uniq * Hkv * hd * isz / 1e6:.1f} MB")
+        cases.append(rec)
+        del kb, vb, kd, vd
+
+    # flash with a prior: phase 6's suffix prefill group, one layer
+    L, Pp = 64, 1024
+    for dtype in ("bf16", "fp32"):
+        q = rand(torch, (B, L, H, hd), dtype, dev, 12)
+        k = rand(torch, (B, L, Hkv, hd), dtype, dev, 13)
+        v = rand(torch, (B, L, Hkv, hd), dtype, dev, 14)
+        pk = rand(torch, (B, Pp, Hkv, hd), dtype, dev, 15)
+        pv = rand(torch, (B, Pp, Hkv, hd), dtype, dev, 16)
+        valid = torch.full((B,), Pp, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, prior_k=pk, prior_v=pv, prior_valid=valid)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        isz = q.element_size()
+        nbytes = (2 * B * L * H * hd + 2 * B * (L + Pp) * Hkv * hd) * isz + B * 4
+        pairs = B * H * (L * Pp + L * (L + 1) // 2)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (torch.cat([a, b], dim=1).transpose(1, 2).contiguous()
+                  for a, b in ((pk, k), (pv, v)))
+        col = torch.arange(Pp + L, device=dev)[None, :]
+        amask = (col < Pp) | (col - Pp <= torch.arange(L, device=dev)[:, None])
+        lib = library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask, enable_gqa=True))
+        cases.append(case_record(
+            torch, "flash_attention", dtype,
+            [B, L, H, Hkv, hd, f"prior={Pp}"], got, want,
+            time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
+            time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw)),
+            lib, nbytes, 4 * hd * pairs))
+        del q, k, v, pk, pv, kt, vt, got, want
+    return cases
 
 
 # --------------------------------------------------------------------------- #
@@ -422,9 +553,10 @@ def main_path(torch, ops):
     forwards = c["prefill_calls"] + c["decode_steps"]
     want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
             "flash_attention": N_LAYERS * c["prefill_calls"],
-            "decode_attention": N_LAYERS * c["decode_steps"]}
+            "decode_attention": N_LAYERS * c["decode_steps"],
+            "paged_decode_attention": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
-    if min(launches.values()) == 0 or launches != want:
+    if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
     peak = torch.cuda.max_memory_allocated()
     slo = out["slo"]
@@ -508,6 +640,148 @@ def decode_profile(torch, eng, steps=10):
     for k in res["top"]:
         print(f"   {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:<5g} {k['name']}")
     return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 6
+# --------------------------------------------------------------------------- #
+def paged_path(torch, ops, ring_engine):
+    """Serve one shared-prefix workload on phase 4's model and weights three
+    times: (a) the ring pool, (b) paged without, (c) paged with prefix
+    reuse. Submitting each wave at once keeps the admission groups, and so
+    every count, deterministic."""
+    import numpy as np
+
+    from repro_torch.core.metrics import percentile
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.loadgen import shared_prefix_schedule
+
+    model, params = ring_engine.model, ring_engine.params
+    cfg = model.cfg
+    sched = shared_prefix_schedule(cfg.vocab_size, rate_rps=1.0,
+                                   **PAGED_TRAFFIC)
+    prompts = [a.request.prompt_tokens for a in sched]
+    plen = PAGED_TRAFFIC["prefix_len"]
+    prefixes = []
+    for p in prompts:
+        if not any(np.array_equal(p[:plen], x) for x in prefixes):
+            prefixes.append(p[:plen])
+    rng = np.random.default_rng(1)
+    primes = [np.concatenate([x, rng.integers(0, cfg.vocab_size,
+                                              PAGED_TRAFFIC["suffix_len"],
+                                              dtype=np.int32)])
+              for x in prefixes]
+    n, new = len(prompts), PAGED_TRAFFIC["max_new"]
+    print(f"   {n} requests over {len(prefixes)} prefixes "
+          f"({[sum(np.array_equal(p[:plen], x) for p in prompts) for x in prefixes]}"
+          f" requests each), prompts of {len(prompts[0])} tokens, "
+          f"{len(primes)} priming requests")
+
+    def drain(eng, toks):
+        reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=new) for t in toks]
+        for r in reqs:
+            eng.submit(r)
+        out = {r.request_id: r for r in eng.run_until_drained()}
+        if len(out) != len(reqs):
+            raise AssertionError(f"{len(out)} of {len(reqs)} requests returned")
+        return reqs, [out[r.request_id] for r in reqs]
+
+    runs, tokens = {}, {}
+    for name, kw in (("ring", {}), ("paged", dict(paged=True, prefix_reuse=False)),
+                     ("reuse", dict(paged=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                            device=ring_engine.device, **kw)
+        drain(eng, primes)
+        c0 = eng.counters()
+        t0 = time.perf_counter()
+        reqs, rsps = drain(eng, prompts)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        c = eng.counters()
+        if any(len(r.tokens) != new for r in rsps):
+            raise AssertionError(f"({name}) token counts {[len(r.tokens) for r in rsps]}")
+        if not eng.logits_all_finite():
+            raise AssertionError(f"({name}) a logit was not finite")
+        forwards = c["prefill_calls"] + c["decode_steps"]
+        decode = "paged_decode_attention" if eng.paged else "decode_attention"
+        want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
+                "flash_attention": N_LAYERS * c["prefill_calls"],
+                "decode_attention": 0, "paged_decode_attention": 0}
+        want[decode] = N_LAYERS * c["decode_steps"]
+        if launches != want:
+            raise AssertionError(f"({name}) launch counts {launches} != path "
+                                 f"structure {want}")
+        delta = {k: c[k] - c0[k] for k in c}
+        tpots = [(r.total_s - r.ttft_s) / (len(r.tokens) - 1) for r in rsps]
+        res = {"counters": c, "measured": delta, "launches": launches,
+               "wall_s": wall, "tokens_per_s": n * new / wall,
+               "ttft_ms_p50": percentile([r.ttft_s for r in rsps], 0.5) * 1e3,
+               "ttft_ms_p99": percentile([r.ttft_s for r in rsps], 0.99) * 1e3,
+               "tpot_ms_p50": percentile(tpots, 0.5) * 1e3,
+               "preprocess_ms_mean": 1e3 * sum(r.stage_s["preprocess"] for r in rsps) / n,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"   ({name}) measured counters {delta}; launches {launches}")
+        print(f"   ({name}) ttft p50 {res['ttft_ms_p50']:.2f} ms, p99 "
+              f"{res['ttft_ms_p99']:.2f} ms; tpot p50 {res['tpot_ms_p50']:.2f} ms; "
+              f"preprocess mean {res['preprocess_ms_mean']:.2f} ms; "
+              f"{res['tokens_per_s']:.1f} tokens/s; peak device memory "
+              f"{res['peak_mem_gb']:.2f} GB", flush=True)
+        if name == "reuse":
+            want_c = {"prefix_hits": n, "prefix_hit_tokens": n * plen,
+                      "prefill_tokens_uncached": n * (len(prompts[0]) - plen)}
+            got_c = {k: delta[k] for k in want_c}
+            if got_c != want_c:
+                raise AssertionError(f"(reuse) prefix counters {got_c} != {want_c}")
+            alloc = eng.pool.allocator
+            res["live_blocks_before_clear"] = alloc.live_blocks
+            for (p, d) in eng.prefix_index.clear():
+                alloc.deref([p])
+                alloc.deref([d])
+            if alloc.live_blocks != 0:
+                raise AssertionError(f"(reuse) {alloc.live_blocks} blocks live "
+                                     "after the index was cleared")
+            print(f"   (reuse) {res['live_blocks_before_clear']} blocks live "
+                  "after the drain, all held by the index; 0 after clearing it")
+        runs[name] = res
+        tokens[name] = [list(r.generated) for r in reqs]
+        del eng
+    if tokens["paged"] != tokens["ring"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["paged"], tokens["ring"]))
+               if a != b]
+        raise AssertionError(f"(b) paged tokens differ from (a) ring tokens "
+                             f"in requests {bad}")
+    print(f"   (b) paged == (a) ring: all {n * new} tokens equal")
+
+    # suffix prefill reassociates bf16 sums: where (c) parts from (b), (b)'s
+    # top-2 logit gap at that position, from an exact prefill of the context
+    agree, parts = 0, []
+    for i, (a, b) in enumerate(zip(tokens["paged"], tokens["reuse"])):
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        agree += sum(x == y for x, y in zip(a, b))
+        if k is None:
+            continue
+        ctx = np.concatenate([prompts[i], np.asarray(a[:k], np.int32)])
+        with torch.no_grad():
+            lg, _, _ = model.prefill(params, torch.from_numpy(ctx)[None].to(
+                ring_engine.device))
+        top = lg[0].float().topk(2)
+        parts.append({"request": i, "token": k, "b_token": a[k], "c_token": b[k],
+                      "b_top2_gap": float(top.values[0] - top.values[1]),
+                      "top1_is_b_token": int(top.indices[0]) == a[k]})
+        print(f"   (c) parts from (b) in request {i} at token {k}: "
+              f"{a[k]} vs {b[k]}, top-2 gap {parts[-1]['b_top2_gap']:.4g} "
+              f"(exact prefill's top-1 is (b)'s token: "
+              f"{parts[-1]['top1_is_b_token']})")
+    print(f"   (c) reuse vs (b) paged: {agree}/{n * new} tokens equal; "
+          f"ttft p50 {runs['reuse']['ttft_ms_p50']:.2f} vs "
+          f"{runs['paged']['ttft_ms_p50']:.2f} ms")
+    return {"traffic": PAGED_TRAFFIC, "runs": runs,
+            "reuse_tokens_equal_paged": agree, "tokens_total": n * new,
+            "reuse_parts": parts}
 
 
 if __name__ == "__main__":

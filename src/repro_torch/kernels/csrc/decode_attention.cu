@@ -88,34 +88,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     rows_update<HD, GMAX>(st, qs, ks, vs, valid, G, scale, lane);
   }
 
-  // merge the warps' partial states: out = sum_w acc_w e^(m_w - M) / sum_w l_w e^(m_w - M)
-#pragma unroll
-  for (int r = 0; r < GMAX; ++r) {
-    if (r >= G) break;
-    if (lane == 0) {
-      m_all[warp * GMAX + r] = st.m[r];
-      l_all[warp * GMAX + r] = st.l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < HD / 32; ++i)
-      acc_all[(warp * GMAX + r) * HD + lane + 32 * i] = st.acc[r][i];
-  }
-  __syncthreads();
-  for (int e = tid; e < G * HD; e += DEC_THREADS) {
-    const int g = e / HD;
-    const int d = e - g * HD;
-    float M = NEG_INF_F;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, m_all[w * GMAX + g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float c = expf(m_all[w * GMAX + g] - M);
-      L += l_all[w * GMAX + g] * c;
-      O += acc_all[(w * GMAX + g) * HD + d] * c;
-    }
-    o[((long long)b * H + (long long)kvh * G + g) * HD + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
-  }
+  merge_warps_store<T, HD, GMAX, DEC_WARPS>(st, m_all, l_all, acc_all,
+                                            o + ((long long)b * H + (long long)kvh * G) * HD,
+                                            G, tid);
 }
 
 template <typename T, int HD, int GMAX>

@@ -8,6 +8,17 @@
 // key only when their ids match), NEG_INF = -1e30 masking and l floored at
 // 1e-30 (a fully masked row writes zeros).
 //
+// Beyond the TPU kernel it takes an optional prior -- the dense K/V of a
+// cached prefix [B, Pp, Hkv, hd] with prior_valid[b] keys valid in row b --
+// for suffix prefill over reused pages. The JAX package computes that case in
+// jnp (models/attention.py chunked_attention: prior columns valid below
+// prior_valid[b] and visible to every query, suffix columns causal relative
+// to the suffix, the window on absolute positions, query i at prior_valid[b]
+// + i); the port's model calls this kernel on every prefill, so the kernel
+// carries it. The KV sweep first walks the prior tiles below prior_valid[b]
+// (from the window start, when there is a window), then the suffix tiles as
+// before; with no prior the sweep is the plain one, unchanged.
+//
 // Design. One CTA per (q-tile of BQ = 64 rows, q-head, batch row); 8 warps,
 // each owning 8 query rows. The CTA walks the KV tiles its rows can reach
 // (causal: up to the tile's last row; window: from its first row's window
@@ -45,10 +56,13 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(FLASH_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, const int* __restrict__ q_seg,
-                 const int* __restrict__ k_seg, int Sq, int Skv, int H, int G,
-                 long long sqb, long long sqs, long long sqh, long long skb, long long sks,
-                 long long skh, long long svb, long long svs, long long svh, int causal,
-                 int window, int sq_real, int skv_real, float scale) {
+                 const int* __restrict__ k_seg, const T* __restrict__ pk,
+                 const T* __restrict__ pv, const int* __restrict__ prior_valid, int Sq,
+                 int Skv, int Pp, int H, int G, long long sqb, long long sqs, long long sqh,
+                 long long skb, long long sks, long long skh, long long svb, long long svs,
+                 long long svh, long long spkb, long long spks, long long spkh,
+                 long long spvb, long long spvs, long long spvh, int causal, int window,
+                 int sq_real, int skv_real, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                           // [BQ][HD]
   float* ks = qs + BQ * HD;                   // [TILE_K][HD + 1]
@@ -82,7 +96,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     qseg_r[r] = (segmented && qi < Sq) ? q_seg[(long long)b * Sq + qi] : -2;
   }
 
-  // KV tiles any row of this q-tile can reach.
+  // The cached prefix first: row b's prior keys below pvalid, visible to every
+  // query; query row qpos sits at absolute position pvalid + qpos.
+  const int pvalid = prior_valid != nullptr ? max(0, min(prior_valid[b], Pp)) : 0;
+  int p_begin = 0;
+  if (window > 0) p_begin = max(0, pvalid + q0 - window + 1);
+  p_begin = (p_begin / TILE_K) * TILE_K;
+  const T* pkbase = pk + b * spkb + kvh * spkh;
+  const T* pvbase = pv + b * spvb + kvh * spvh;
+  for (int t0 = p_begin; t0 < pvalid; t0 += TILE_K) {
+    __syncthreads();  // the previous tile is consumed (and the q tile staged)
+    load_kv_tile<T, HD, FLASH_THREADS>(ks, vs, pkbase, pvbase, spks, spvs, t0, pvalid, tid);
+    __syncthreads();
+
+    const int kpos = t0 + lane;
+    bool valid[ROWS_PER_WARP];
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int qpos = q0 + row0 + r;
+      bool ok = kpos < pvalid && qpos < sq_real;
+      if (window > 0) ok = ok && kpos > pvalid + qpos - window;
+      valid[r] = ok;
+    }
+    rows_update<HD, ROWS_PER_WARP>(st, qs + row0 * HD, ks, vs, valid, ROWS_PER_WARP,
+                                   scale, lane);
+  }
+
+  // Then the suffix: the KV tiles any row of this q-tile can reach.
   int kv_end = skv_real;
   if (causal) kv_end = min(kv_end, q0 + BQ);
   int kv_begin = 0;
@@ -126,10 +166,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_seg,
-           const void* k_seg, int B, int Sq, int Skv, int H, int Hkv, long long sqb,
-           long long sqs, long long sqh, long long skb, long long sks, long long skh,
-           long long svb, long long svs, long long svh, int causal, int window, int sq_real,
-           int skv_real, float scale, cudaStream_t stream) {
+           const void* k_seg, const void* pk, const void* pv, const void* prior_valid, int B,
+           int Sq, int Skv, int Pp, int H, int Hkv, long long sqb, long long sqs, long long sqh,
+           long long skb, long long sks, long long skh, long long svb, long long svs,
+           long long svh, long long spkb, long long spks, long long spkh, long long spvb,
+           long long spvs, long long spvh, int causal, int window, int sq_real, int skv_real,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   auto kernel = flash_fwd_kernel<T, HD>;
   cudaError_t err =
@@ -138,34 +180,43 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, FLASH_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg), Sq,
-      Skv, H, H / Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, window, sq_real,
+      static_cast<T*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
+      static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
+      skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
       skv_real, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: [B, Sq, H, hd], k/v: [B, Skv, Hkv, hd] addressed through the given
-// element strides (last dim contiguous); o: contiguous [B, Sq, H, hd].
-// q_seg / k_seg: contiguous int32 [B, Sq] / [B, Skv], or both null.
-// Returns the cudaError_t of the launch (0 on success).
+// q: [B, Sq, H, hd], k/v: [B, Skv, Hkv, hd] and pk/pv: [B, Pp, Hkv, hd]
+// addressed through the given element strides (last dim contiguous);
+// o: contiguous [B, Sq, H, hd]. q_seg / k_seg: contiguous int32 [B, Sq] /
+// [B, Skv], or both null. prior_valid: contiguous int32 [B], or null with
+// no prior (pk / pv are then not read). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const void* q_seg, const void* k_seg, int B, int Sq,
-                                   int Skv, int H, int Hkv, int hd, long long sqb,
+                                   const void* q_seg, const void* k_seg, const void* pk,
+                                   const void* pv, const void* prior_valid, int B, int Sq,
+                                   int Skv, int Pp, int H, int Hkv, int hd, long long sqb,
                                    long long sqs, long long sqh, long long skb, long long sks,
                                    long long skh, long long svb, long long svs, long long svh,
-                                   int causal, int window, int sq_real, int skv_real,
-                                   float scale, int is_bf16, void* stream) {
+                                   long long spkb, long long spks, long long spkh,
+                                   long long spvb, long long spvs, long long spvh, int causal,
+                                   int window, int sq_real, int skv_real, float scale,
+                                   int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     DISPATCH_HD(hd, HD, return launch<__nv_bfloat16, HD>(
-                            q, k, v, o, q_seg, k_seg, B, Sq, Skv, H, Hkv, sqb, sqs, sqh, skb,
-                            sks, skh, svb, svs, svh, causal, window, sq_real, skv_real, scale, s))
+                            q, k, v, o, q_seg, k_seg, pk, pv, prior_valid, B, Sq, Skv, Pp, H,
+                            Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
+                            spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
   } else {
     DISPATCH_HD(hd, HD, return launch<float, HD>(
-                            q, k, v, o, q_seg, k_seg, B, Sq, Skv, H, Hkv, sqb, sqs, sqh, skb,
-                            sks, skh, svb, svs, svh, causal, window, sq_real, skv_real, scale, s))
+                            q, k, v, o, q_seg, k_seg, pk, pv, prior_valid, B, Sq, Skv, Pp, H,
+                            Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
+                            spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
   }
   return 0;
 }

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
@@ -27,7 +28,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since the last reset_launches(); only a CUDA launch counts
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0,
+                            "paged_decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -91,12 +93,17 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: Optional[float] = None, segment_ids=None,
                     sq_real: Optional[int] = None,
-                    skv_real: Optional[int] = None):
+                    skv_real: Optional[int] = None, prior_k=None,
+                    prior_v=None, prior_valid=None):
     """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
 
     ``segment_ids``: optional [B, S] int packed-prefill ids (Sq == Skv,
     pads -1) forbidding cross-segment attention. ``sq_real``/``skv_real``
     mask query rows / keys at or past them (default: the full lengths).
+    ``prior_k``/``prior_v`` [B,Pp,Hkv,hd] with ``prior_valid`` [B] int32:
+    a cached prefix the queries attend to first (suffix prefill; query i of
+    row b sits at absolute position ``prior_valid[b] + i``). Segment ids
+    and a prior exclude each other.
     """
     B, Sq, H, hd = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
@@ -109,26 +116,43 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or tuple(segment_ids.shape) != (B, Sq)):
         raise ValueError(f"flash_attention: segment_ids must be [B, S] with "
                          f"Sq == Skv: {tuple(segment_ids.shape)}")
+    prior = (prior_k, prior_v, prior_valid)
+    if any(t is not None for t in prior):
+        if any(t is None for t in prior) or segment_ids is not None:
+            raise ValueError("flash_attention: prior_k, prior_v and "
+                             "prior_valid go together, without segment_ids")
+        if (prior_k.ndim != 4 or prior_k.shape != prior_v.shape
+                or prior_k.shape[0] != B or prior_k.shape[2:] != k.shape[2:]
+                or tuple(prior_valid.shape) != (B,)):
+            raise ValueError(f"flash_attention: prior {tuple(prior_k.shape)}, "
+                             f"prior_valid {tuple(prior_valid.shape)}")
     sq_real = Sq if sq_real is None else int(sq_real)
     skv_real = Skv if skv_real is None else int(skv_real)
     if not (0 <= sq_real <= Sq and 0 <= skv_real <= Skv):
         raise ValueError(f"flash_attention: sq_real={sq_real}, "
                          f"skv_real={skv_real} outside [0, {Sq}] / [0, {Skv}]")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    tensors = (q, k, v) if segment_ids is None else (q, k, v, segment_ids)
+    tensors = [q, k, v] + [t for t in (segment_ids, *prior) if t is not None]
     if not _on_cuda(*tensors):
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, scale=scale,
-            segment_ids=segment_ids, sq_real=sq_real, skv_real=skv_real)
-    _check_kernel_dtype("flash_attention", q, k, v)
-    _check_last_dim_contiguous("flash_attention", q, k, v)
-    _check_rows_aligned("flash_attention", k, v)
+            segment_ids=segment_ids, sq_real=sq_real, skv_real=skv_real,
+            prior_k=prior_k, prior_v=prior_v, prior_valid=prior_valid)
+    kv = (k, v) if prior_k is None else (k, v, prior_k, prior_v)
+    _check_kernel_dtype("flash_attention", q, *kv)
+    _check_last_dim_contiguous("flash_attention", q, *kv)
+    _check_rows_aligned("flash_attention", *kv)
     if hd not in _fa.HEAD_DIMS:
         raise ValueError(f"flash_attention kernel head_dim {hd} not in "
                          f"{_fa.HEAD_DIMS}")
+    if prior_valid is not None and (prior_valid.dtype != torch.int32
+                                    or not prior_valid.is_contiguous()):
+        raise TypeError(f"flash_attention kernel: prior_valid must be "
+                        f"contiguous int32: {prior_valid.dtype}")
     out = _fa.launch(q, k, v, causal=causal, window=window, scale=scale,
                      segment_ids=segment_ids, sq_real=sq_real,
-                     skv_real=skv_real)
+                     skv_real=skv_real, prior_k=prior_k, prior_v=prior_v,
+                     prior_valid=prior_valid)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -163,4 +187,43 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
                         f"int32: {lengths.dtype}")
     out = _dec.launch(q, k, v, lengths, scale=scale, w_real=w_real)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
+                           scale: Optional[float] = None):
+    """q: [B,1,H,hd]; k_blocks, v_blocks: [N,page,Hkv,hd] block pool;
+    page_table: [B,n_pages] int32 (logical page j of row b lives in block
+    ``page_table[b, j]``); lengths: [B] int32 valid positions per row ->
+    [B,1,H,hd]. Positions at or past ``n_pages * page`` are masked, as the
+    JAX wrapper's ``w_real``."""
+    B, one, H, hd = q.shape
+    if one != 1 or k_blocks.ndim != 4 or k_blocks.shape != v_blocks.shape \
+            or k_blocks.shape[3] != hd or page_table.ndim != 2 \
+            or page_table.shape[0] != B or tuple(lengths.shape) != (B,):
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, blocks "
+                         f"{tuple(k_blocks.shape)}, page_table "
+                         f"{tuple(page_table.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    Hkv = k_blocks.shape[2]
+    if H % Hkv:
+        raise ValueError(f"paged_decode_attention: H={H} not a multiple of "
+                         f"Hkv={Hkv}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if not _on_cuda(q, k_blocks, v_blocks, page_table, lengths):
+        return ref.paged_decode_attention_ref(q, k_blocks, v_blocks,
+                                              page_table, lengths, scale=scale)
+    _check_kernel_dtype("paged_decode_attention", q, k_blocks, v_blocks)
+    _check_last_dim_contiguous("paged_decode_attention", q, k_blocks, v_blocks)
+    _check_rows_aligned("paged_decode_attention", k_blocks, v_blocks)
+    if hd not in _pdec.HEAD_DIMS or H // Hkv > _pdec.MAX_GROUP:
+        raise ValueError(f"paged_decode_attention kernel: head_dim {hd} not in "
+                         f"{_pdec.HEAD_DIMS} or group {H // Hkv} > "
+                         f"{_pdec.MAX_GROUP}")
+    for name, t in (("page_table", page_table), ("lengths", lengths)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"paged_decode_attention kernel: {name} must be "
+                            f"contiguous int32: {t.dtype}")
+    out = _pdec.launch(q, k_blocks, v_blocks, page_table, lengths, scale=scale)
+    LAUNCHES["paged_decode_attention"] += 1
     return out

@@ -5,11 +5,12 @@ straightforward tensor code: the CPU path of :mod:`repro_torch.kernels.ops`
 and the reference the kernels are held against on the card. They transcribe
 the JAX package's ``kernels/ref.py`` oracles, plus the arguments the TPU
 kernels take that those oracles lack (``sq_real``/``skv_real``, segment ids,
-``w_real``, per-row lengths). Masking uses NEG_INF = -1e30, not -inf, so a
-masked term contributes exactly ``exp(-1e30 - m) == 0`` and packed segments
-stay bitwise independent of each other; probabilities are zeroed where
-masked and the row sum is floored at 1e-30, so a fully masked row (an empty
-decode slot) returns zeros, not NaN.
+``w_real``, per-row lengths, a prior KV for suffix prefill). Masking uses
+NEG_INF = -1e30, not -inf, so a masked term contributes exactly
+``exp(-1e30 - m) == 0`` and packed segments stay bitwise independent of
+each other; probabilities are zeroed where masked and the row sum is
+floored at 1e-30, so a fully masked row (an empty decode slot) returns
+zeros, not NaN.
 """
 
 from __future__ import annotations
@@ -44,12 +45,20 @@ def _softmax_rows(s, mask):
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None,
                         segment_ids=None, sq_real: Optional[int] = None,
-                        skv_real: Optional[int] = None):
+                        skv_real: Optional[int] = None, prior_k=None,
+                        prior_v=None, prior_valid=None):
     """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd] in q's dtype.
 
     GQA: query head h reads KV head h // G. ``segment_ids`` [B, S]
     (Sq == Skv, pads -1) forbids attention across segments. Rows at or past
     ``sq_real`` and keys at or past ``skv_real`` are masked.
+
+    ``prior_k``/``prior_v`` [B,Pp,Hkv,hd] and ``prior_valid`` [B] make it a
+    suffix prefill over a cached prefix, with the mask of the JAX package's
+    ``chunked_attention``: row b's prior columns below ``prior_valid[b]``
+    are visible to every query (they precede it), its suffix columns are
+    causal relative to the suffix, and query i sits at absolute position
+    ``prior_valid[b] + i`` for the window test.
     """
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -57,8 +66,6 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     sq_real = Sq if sq_real is None else sq_real
     skv_real = Skv if skv_real is None else skv_real
-    qg = q.float().reshape(B, Sq, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     qi = torch.arange(Sq, device=q.device)[:, None]
     ki = torch.arange(Skv, device=q.device)[None, :]
     mask = (qi < sq_real) & (ki < skv_real)
@@ -66,12 +73,23 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask = mask & (qi >= ki)
     if window > 0:
         mask = mask & (ki > qi - window)
-    mask = mask[None, None, None]  # [1,1,1,Sq,Skv]
+    mask = mask[None].expand(B, Sq, Skv)
     if segment_ids is not None:
         seg = segment_ids.to(torch.int32)
-        smask = seg[:, :, None] == seg[:, None, :]  # [B,Sq,Skv]
-        mask = mask & smask[:, None, None]
-    p = _softmax_rows(s, mask)
+        mask = mask & (seg[:, :, None] == seg[:, None, :])
+    if prior_k is not None:
+        Pp = prior_k.shape[1]
+        pv = prior_valid.to(torch.int64)[:, None, None]  # [B,1,1]
+        col = torch.arange(Pp, device=q.device)[None, None, :]
+        pmask = (col < pv) & (qi < sq_real)[None]
+        if window > 0:
+            pmask = pmask & (col > pv + qi[None] - window)
+        mask = torch.cat([pmask, mask], dim=-1)
+        k = torch.cat([prior_k.to(k.dtype), k], dim=1)
+        v = torch.cat([prior_v.to(v.dtype), v], dim=1)
+    qg = q.float().reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    p = _softmax_rows(s, mask[:, None, None])
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -95,3 +113,21 @@ def decode_attention_ref(q, k, v, lengths, *, scale: Optional[float] = None,
     p = _softmax_rows(s, valid[:, None, None, :])
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_blocks, v_blocks, page_table, lengths, *,
+                               scale: Optional[float] = None):
+    """q: [B,1,H,hd]; k_blocks, v_blocks: [N,page,Hkv,hd] block pool;
+    page_table: [B,n_pages] int; lengths: [B] int -> [B,1,H,hd].
+
+    Gathers each row's pages (ids clamped into the pool, like the JAX
+    gather's ``mode="clip"``) into a dense ``n_pages * page`` cache and
+    runs the ring version on it, ``w_real`` = that width.
+    """
+    B, n_pages = page_table.shape
+    page = k_blocks.shape[1]
+    idx = page_table.to(torch.int64).clamp(0, k_blocks.shape[0] - 1)
+    dense = [blk[idx].reshape((B, n_pages * page) + tuple(blk.shape[2:]))
+             for blk in (k_blocks, v_blocks)]
+    return decode_attention_ref(q, dense[0], dense[1], lengths, scale=scale,
+                                w_real=n_pages * page)

@@ -1,5 +1,7 @@
-"""GQA attention: projections, prefill through the flash kernel, and ring
-decode through the decode kernel (the plain PyTorch versions on the CPU).
+"""GQA attention: projections, prefill through the flash kernel (with a
+cached prefix for suffix prefill), ring decode through the decode kernel and
+paged decode through the paged kernel (the plain PyTorch versions on the
+CPU).
 
 Unlike the JAX package, whose model runs pure-jnp attention beside its
 Pallas kernels, the port's model calls the kernels, so on the card they do
@@ -45,10 +47,17 @@ def project_qkv(p, cfg, x, positions):
     return q, k, v
 
 
-def prefill_attention(q, k, v, *, window: int = 0):
+def prefill_attention(q, k, v, *, window: int = 0, prior=None,
+                      prior_valid=None):
     """Causal self-attention over a (right-padded) prompt batch: trailing
-    pad is invisible to real positions under the causal mask."""
-    return ops.flash_attention(q, k, v, causal=True, window=window)
+    pad is invisible to real positions under the causal mask. ``prior``
+    ({"k","v"} [B,Pp,Hkv,hd], RoPE'd at absolute positions) with
+    ``prior_valid`` [B] makes it suffix attention over a cached prefix."""
+    if prior is None:
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               prior_k=prior["k"], prior_v=prior["v"],
+                               prior_valid=prior_valid)
 
 
 def decode_attention_update(q, k_new, v_new, k_cache, v_cache, lengths, *,
@@ -62,3 +71,20 @@ def decode_attention_update(q, k_new, v_new, k_cache, v_cache, lengths, *,
     kvc.ring_write(k_cache, k_new, lengths)
     kvc.ring_write(v_cache, v_new, lengths)
     return ops.decode_attention(q, k_cache, v_cache, valid_len)
+
+
+def paged_decode_attention_update(q, k_new, v_new, blocks, page_table,
+                                  lengths, *, valid_len):
+    """Write the new K/V into the row's block at position ``lengths`` (in
+    place, through the page table), then one token's attention over the
+    row's first ``valid_len[b]`` positions through the paged kernel.
+    Nothing is gathered.
+
+    q, k_new, v_new: [B,1,H/Hkv,hd]; blocks: {"k","v"} [N+1,page,Hkv,hd];
+    page_table: [B,n_pages] int32; lengths, valid_len: [B] int32. Returns
+    out [B,1,H,hd].
+    """
+    kvc.paged_write(blocks["k"], k_new, lengths, page_table)
+    kvc.paged_write(blocks["v"], v_new, lengths, page_table)
+    return ops.paged_decode_attention(q, blocks["k"], blocks["v"], page_table,
+                                      valid_len)

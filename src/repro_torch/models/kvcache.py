@@ -1,17 +1,20 @@
-"""Ring-buffer KV caches as nested dicts/lists of tensors.
+"""KV caches as nested dicts/lists of tensors: ring caches and the paged
+block pool.
 
 An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``.
 Ring semantics: token ``t`` of a row lives at slot ``t % W``, so a prefill
 of ``true_len <= W`` tokens occupies slots ``[0, true_len)`` and a full
 ring models a sliding-window cache exactly (W = window).
 
-Unlike the JAX package, whose arrays are immutable, :func:`ring_write`
-updates the cache in place: the decode step then holds one cache buffer,
-as the JAX engine gets by donating it.
+Unlike the JAX package, whose arrays are immutable, :func:`ring_write`,
+:func:`scatter_pages` and :func:`paged_write` update the cache in place:
+the decode step then holds one cache buffer, as the JAX engine gets by
+donating it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -59,3 +62,168 @@ def grow_cache(caches, new_w: int):
         return F.pad(leaf, (0, 0, 0, 0, 0, new_w - w))
 
     return tree_map(grow, caches)
+
+
+# --------------------------------------------------------------------------- #
+# Paged KV pool: fixed-size blocks + per-request page tables + refcounts.
+#
+# A paged layer cache is {"k","v"}: [N + 1, page, Hkv, hd] -- the dense
+# [B, W, Hkv, hd] leaf with (batch, ring) replaced by (block, page). Block 0
+# is the permanent zero sentinel: page tables initialise to it and gathers
+# through it read zeros (masked by the valid length downstream). JAX sends a
+# write aimed at the sentinel out of bounds, where its scatter drops it; a
+# CUDA index_put would write it (or fault). So the pool carries one extra
+# *sink* block, index N, that no page table ever maps: device-side writes
+# aimed at the sentinel are redirected there with torch.where (no host
+# sync), and host-built writes drop sentinel rows on the host.
+# --------------------------------------------------------------------------- #
+def paged_specs(dense_specs, num_blocks: int, page_size: int):
+    """Shape tree of the block pool backing ``dense_specs`` (a dense
+    ``(B, W, Hkv, hd)`` cache-shape tree): ``num_blocks`` blocks (block 0
+    the sentinel) plus the write sink, ``page_size`` rows each."""
+    return tree_map(lambda s: (num_blocks + 1, page_size) + tuple(s[2:]),
+                    dense_specs)
+
+
+def init_paged(dense_specs, num_blocks: int, page_size: int, *, dtype,
+               device):
+    """Zeroed block pool tree (block 0 = the zero sentinel, block
+    ``num_blocks`` = the write sink)."""
+    return tree_map(lambda s: torch.zeros(s, dtype=dtype, device=device),
+                    paged_specs(dense_specs, num_blocks, page_size))
+
+
+def gather_leaf(blocks, page_table):
+    """blocks: [N(+1), page, ...]; page_table: [B, n_pages] int -> the dense
+    [B, n_pages * page, ...] rows, pages in table order. Ids are clamped
+    into the pool like the JAX gather's ``mode="clip"``."""
+    B, n_pages = page_table.shape
+    idx = page_table.to(torch.int64).clamp(0, blocks.shape[0] - 1)
+    g = blocks[idx]  # [B, n_pages, page, ...]
+    return g.reshape((B, n_pages * blocks.shape[1]) + tuple(blocks.shape[2:]))
+
+
+def gather_pages(paged, page_table):
+    """Materialise per-request dense caches from a block pool tree:
+    ``[B, n_pages * page, Hkv, hd]`` per leaf; unallocated entries (block
+    0) read zeros."""
+    return tree_map(lambda leaf: gather_leaf(leaf, page_table), paged)
+
+
+def scatter_pages(paged, dense, dest_blocks):
+    """Write a dense ``[B, L, Hkv, hd]`` tree into the pool page-wise, in
+    place; returns the pool tree.
+
+    ``dest_blocks``: host ``[B, L / page]`` int destination block per page.
+    Entries that are the zero sentinel or out of range (dummy admission
+    rows, pages past a row's table) are dropped on the host before the
+    device write, as JAX's scatter drops them.
+    """
+    dest = np.asarray(dest_blocks).reshape(-1)
+
+    def put(blocks, new):
+        B, L = new.shape[:2]
+        page = blocks.shape[1]
+        keep = np.nonzero((dest > 0) & (dest < blocks.shape[0] - 1))[0]
+        if keep.size == 0:
+            return
+        pages = new.reshape((B * (L // page), page) + tuple(new.shape[2:]))
+        sel = torch.as_tensor(keep, device=new.device)
+        ids = torch.as_tensor(dest[keep].astype(np.int64), device=blocks.device)
+        blocks[ids] = pages[sel].to(blocks.dtype)
+
+    _zip_leaves(put, paged, dense)
+    return paged
+
+
+def paged_write(blocks, new, lengths, page_table):
+    """The paged counterpart of the JAX package's ``scatter_token``: write
+    row b's new entry ``new[b, 0]`` at block ``page_table[b, slot // page]``,
+    offset ``slot % page``, with ``slot = lengths[b] % (n_pages * page)``,
+    in place. Rows whose entry is the zero sentinel (freed or never
+    admitted slots) write the sink block instead. Returns ``blocks``."""
+    B, n_pages = page_table.shape
+    page = blocks.shape[1]
+    slot = torch.remainder(lengths.to(torch.int64), n_pages * page)
+    blk = torch.gather(page_table.to(torch.int64), 1,
+                       (slot // page)[:, None])[:, 0]
+    blk = torch.where(blk == 0, blocks.shape[0] - 1, blk)
+    blocks[blk, slot % page] = new[:, 0].to(blocks.dtype)
+    return blocks
+
+
+def _zip_leaves(fn, a, b):
+    """Call ``fn(leaf_a, leaf_b)`` on paired leaves of two trees."""
+    if isinstance(a, dict):
+        for k in a:
+            _zip_leaves(fn, a[k], b[k])
+    elif isinstance(a, list):
+        for x, y in zip(a, b):
+            _zip_leaves(fn, x, y)
+    else:
+        fn(a, b)
+
+
+class PagedKVPool:
+    """Host-side allocator for a block pool: refcounts + free list (a copy
+    of the JAX package's ``PagedKVPool``).
+
+    The device blocks live with their owner (the decode pool); this class
+    owns only the bookkeeping that makes shared prefixes safe: a block is
+    reusable only when its refcount reaches zero, so an evicting prefix
+    index can never free a block a live request still reads. Block 0 is the
+    permanent zero sentinel and is never handed out.
+    """
+
+    def __init__(self, num_blocks: int, page_size: int):
+        if num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2: {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        self.page = int(page_size)
+        self.reset()
+
+    def reset(self):
+        self.refs = np.zeros((self.num_blocks,), np.int32)
+        self.refs[0] = 1  # sentinel: permanently live
+        # pop() from the end -> ascending allocation order (deterministic)
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_blocks(self) -> int:
+        """Blocks currently referenced (excluding the sentinel)."""
+        return int((self.refs[1:] > 0).sum())
+
+    def alloc(self, n: int):
+        """Claim ``n`` blocks (refcount 1 each) or None if short."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self.refs[b] = 1
+        return out
+
+    def ref(self, ids):
+        for b in ids:
+            if b == 0:
+                continue
+            if self.refs[b] <= 0:
+                raise RuntimeError(f"ref of a free block {b}")
+            self.refs[b] += 1
+
+    def deref(self, ids) -> list:
+        """Drop one reference per id; returns the ids that became free."""
+        freed = []
+        for b in ids:
+            if b == 0:
+                continue
+            if self.refs[b] <= 0:
+                raise RuntimeError(f"deref of a free block {b}")
+            self.refs[b] -= 1
+            if self.refs[b] == 0:
+                self._free.append(int(b))
+                freed.append(int(b))
+        return freed

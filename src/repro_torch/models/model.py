@@ -24,6 +24,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.transformer import (
     layer_groups,
     stack_apply_decode,
+    stack_apply_decode_paged,
     stack_apply_full,
     stack_schema,
 )
@@ -104,6 +105,36 @@ class Model:
         logits = lm_head(params["embed"], x_last, self.cfg.vocab_size)
         return logits[:, 0], caches, lengths.to(torch.int32)
 
+    def prefill_suffix(self, params, tokens, lengths, cached_lens, prior_pt,
+                       blocks):
+        """Suffix-only bucketed prefill over a cached prefix (paged reuse).
+
+        tokens [B, L] hold each row's UNCACHED suffix (right-padded,
+        ``lengths`` [B] real suffix lengths); ``cached_lens`` [B] int32 is
+        each row's reused prefix, whose already-RoPE'd KV lives in
+        ``blocks`` (the paged pool tree) at the pages ``prior_pt`` [B, Pn]
+        names (Pn pages: the group's longest prefix; shorter rows pad with
+        the zero sentinel). Queries run at absolute positions
+        ``cached_lens[b] + i``; each layer gathers its own prior right
+        before its flash launch. Returns (first_logits [B,V],
+        suffix_caches, total_lengths = cached_lens + lengths); the caches
+        hold ONLY the suffix KV.
+        """
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        S = x.shape[1]
+        pos = cached_lens.to(torch.int64)[:, None] + torch.arange(
+            S, device=x.device)[None, :]
+        x, caches = stack_apply_full(
+            params["decoder"], self.cfg, x, pos, groups=self.groups,
+            prior_blocks=blocks, prior_pt=prior_pt, prior_valid=cached_lens)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
+        rows = torch.arange(x.shape[0], device=x.device)
+        logits = lm_head(params["embed"], x[rows, idx][:, None],
+                         self.cfg.vocab_size)
+        total = (cached_lens + lengths).to(torch.int32)
+        return logits[:, 0], caches, total
+
     def decode_step(self, params, caches, tokens, lengths):
         """tokens [B,1], lengths [B] int32 -> (logits [B,V], caches,
         lengths+1). The caches are ring-written in place and returned."""
@@ -113,6 +144,19 @@ class Model:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         logits = lm_head(params["embed"], x, self.cfg.vocab_size)
         return logits[:, 0], caches, lengths + 1
+
+    def decode_step_paged(self, params, blocks, page_table, tokens, lengths):
+        """One decode step over the paged pool: tokens [B,1], page_table
+        [B, n_pages] int32, lengths [B] int32 -> (logits [B,V], lengths+1).
+        Each layer writes its new K/V into the row's block and attends
+        through the page table (the paged kernel on the card); ``blocks``
+        are updated in place."""
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        x = stack_apply_decode_paged(params["decoder"], self.cfg, x, blocks,
+                                     page_table, lengths, groups=self.groups)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = lm_head(params["embed"], x, self.cfg.vocab_size)
+        return logits[:, 0], lengths + 1
 
     # ------------------------------------------------------------------ #
     # Cache construction

@@ -13,9 +13,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (
     attn_schema,
     decode_attention_update,
+    paged_decode_attention_update,
     prefill_attention,
     project_qkv,
 )
@@ -108,12 +110,23 @@ def _layers(groups):
 # --------------------------------------------------------------------------- #
 # Full-sequence (prefill) and one-token (decode) layer application
 # --------------------------------------------------------------------------- #
-def apply_layer_full(lp, cfg, sig, x, positions):
-    """x: [B,S,d] -> (x, cache {"k","v"} [B,S,Hkv,hd])."""
+def apply_layer_full(lp, cfg, sig, x, positions, *, prior_blocks=None,
+                     prior_pt=None, prior_valid=None):
+    """x: [B,S,d] -> (x, cache {"k","v"} [B,S,Hkv,hd]).
+
+    With ``prior_blocks`` (this layer's block pool), ``prior_pt`` [B, Pn]
+    and ``prior_valid`` [B] it is a suffix prefill: the layer's prior KV is
+    gathered from the pool here, right before its flash launch, and only
+    ``Pn`` pages wide."""
     B, S, _ = x.shape
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
-    o = prefill_attention(q, k, v, window=cfg.sliding_window)
+    prior = None
+    if prior_blocks is not None:
+        prior = {n: kvc.gather_leaf(prior_blocks[n], prior_pt)
+                 for n in ("k", "v")}
+    o = prefill_attention(q, k, v, window=cfg.sliding_window, prior=prior,
+                          prior_valid=prior_valid)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     x = x + ffn_apply(lp["ffn"], h2)
@@ -135,14 +148,37 @@ def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     return x + ffn_apply(lp["ffn"], h2)
 
 
-def stack_apply_full(params, cfg, x, positions, *, groups):
+def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
+    """x: [B,1,d]; the new K/V lands in lblocks' blocks through the page
+    table (in place). A paged row never wraps, so ``valid_len`` is
+    ``lengths + 1`` (clamped to the table's width, as the ring's is to W).
+    Returns x."""
+    B = x.shape[0]
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    width = page_table.shape[1] * lblocks["k"].shape[1]
+    valid_len = torch.clamp(lengths + 1, max=width).to(torch.int32)
+    q, k, v = project_qkv(lp["attn"], cfg, h, lengths[:, None])
+    o = paged_decode_attention_update(q, k, v, lblocks, page_table, lengths,
+                                      valid_len=valid_len)
+    x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn_apply(lp["ffn"], h2)
+
+
+def stack_apply_full(params, cfg, x, positions, *, groups, prior_blocks=None,
+                     prior_pt=None, prior_valid=None):
     """Prefill pass over every layer. Returns (x, caches) with caches in
-    the parameter tree's layout."""
+    the parameter tree's layout. ``prior_blocks`` (a block pool tree),
+    ``prior_pt`` and ``prior_valid`` make it a suffix prefill (see
+    :func:`apply_layer_full`)."""
     caches = {f"g{gi}": [{} for _ in range(g.count)]
               for gi, g in enumerate(groups)}
     for gname, i, lname, sig in _layers(groups):
+        lblocks = (None if prior_blocks is None
+                   else prior_blocks[gname][i][lname])
         x, cache = apply_layer_full(params[gname][i][lname], cfg, sig, x,
-                                    positions)
+                                    positions, prior_blocks=lblocks,
+                                    prior_pt=prior_pt, prior_valid=prior_valid)
         caches[gname][i][lname] = cache
     return x, caches
 
@@ -152,4 +188,15 @@ def stack_apply_decode(params, cfg, x, caches, lengths, *, groups):
     for gname, i, lname, sig in _layers(groups):
         x = apply_layer_decode(params[gname][i][lname], cfg, sig, x,
                                caches[gname][i][lname], lengths)
+    return x
+
+
+def stack_apply_decode_paged(params, cfg, x, blocks, page_table, lengths, *,
+                             groups):
+    """One-token decode pass over the paged pool; ``blocks`` are updated in
+    place."""
+    for gname, i, lname, sig in _layers(groups):
+        x = apply_layer_decode_paged(params[gname][i][lname], cfg, sig, x,
+                                     blocks[gname][i][lname], page_table,
+                                     lengths)
     return x

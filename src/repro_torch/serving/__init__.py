@@ -1,4 +1,5 @@
-"""Serving tier of the port: the fused engine on its bucketed ring path."""
+"""Serving tier of the port: the fused engine on its bucketed ring path and
+its paged path with radix prefix reuse, and seeded traffic for it."""
 
 from repro_torch.serving.client import ClosedLoopClient, run_closed_loop
 from repro_torch.serving.engine import DecodePool, PrefillArtifact, ServingEngine

@@ -1,4 +1,5 @@
-"""Serving engine of the port: continuous batching over a ring KV slot pool.
+"""Serving engine of the port: continuous batching over a ring KV slot pool
+or a paged KV block pool with radix prefix reuse.
 
 The PyTorch twin of the JAX package's ``serving/engine.py`` fused engine on
 its bucketed fast path: the paper's pipeline (request -> [copy] ->
@@ -20,6 +21,14 @@ TransportProfile, composed into one per-request record (paper Table I).
   waits on only when it harvests that step.
 * **Fused admission splice** -- an admission writes its prefill KV into the
   free slots of the pool and updates the per-slot state in one pass.
+* **Paged KV pool** (``paged=True``) -- the ring pool becomes a block pool
+  of ``PAGE``-token blocks with per-slot page tables (host-built, pushed to
+  the device before a dispatch) and refcounts. With ``prefix_reuse`` a radix
+  index maps page-aligned prompt prefixes to the blocks that hold their KV:
+  an admission reuses the longest indexed prefix, prefills only its suffix
+  (each layer gathers its prior right before its flash launch), and decode
+  writes and reads the pool through the page table with the paged kernel --
+  nothing is gathered on the decode path.
 
 The KV pool is updated in place (the JAX engine donates it); the small
 per-slot state tensors are replaced on every update, and each in-flight
@@ -41,10 +50,13 @@ from repro_torch import resolve_device
 from repro_torch.core.profiler import ProfileStore, RequestRecord
 from repro_torch.core.transport import PAPER_A2, Transport
 from repro_torch.models import Model
+from repro_torch.models import kvcache as kvc
+from repro_torch.serving.prefix import RadixPrefixIndex
 from repro_torch.serving.request import Request, Response
 
 
 MIN_BUCKET = 16  # smallest prefill length bucket
+PAGE = 16  # tokens per KV block of the paged pool (a divisor of MIN_BUCKET)
 
 
 def _next_pow2(n: int) -> int:
@@ -97,23 +109,49 @@ class PrefillArtifact:
 
     caches: object  # cache tree, [npad, bucket, Hkv, hd] per k/v leaf
     slot_idx: np.ndarray  # [npad] int32 host-side (max_batch => dummy row)
-    lengths: torch.Tensor  # [npad] true prompt lengths
+    lengths: torch.Tensor  # [npad] true cache lengths (prompt tokens)
     next_tokens: torch.Tensor  # [npad] first token per row
     max_new: torch.Tensor  # [npad] per-request token budget
     reqs: list  # the real requests (row-aligned prefix)
     slots: list  # pool slot per request
     n_rows: int = 0  # occupied leading rows (== len(reqs))
+    # paged: ``caches`` holds the SUFFIX cache at bucket width, scattered
+    # page-wise into the blocks named here (0 => dropped); a reused prefix
+    # already lives in shared blocks and never rides the artifact
+    dest_blocks: Optional[np.ndarray] = None  # [npad, bucket / PAGE] int32
+
+
+@dataclasses.dataclass
+class _PagedJob:
+    """Per-request admission bookkeeping for a paged prefill group."""
+
+    req: Request
+    slot: int
+    cached: int  # reused prefix tokens (page-aligned)
+    p_ids: list  # prior blocks gathered by the suffix prefill (pinned)
+    pt_row: list  # shared prefix blocks + own blocks = the row's page table
 
 
 class DecodePool:
-    """Decode-side slot pool: slot occupancy, the ring KV pool, the
+    """Decode-side slot pool: slot occupancy, the ring KV pool (or, paged,
+    the block pool, its allocator and the per-slot page tables), the
     per-slot device decode state (tokens/lengths/gen/done/maxn), the
     decode step and the in-flight window."""
 
     def __init__(self, model: Model, *, max_batch: int, max_seq: int,
                  eos_token: Optional[int], inflight: int,
                  temperature: float = 0.0, top_k: int = 0,
-                 sample_seed: int = 0):
+                 sample_seed: int = 0, paged: bool = False):
+        self.paged = bool(paged)
+        if self.paged:
+            if max_seq % PAGE:
+                raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                                 f"the page size {PAGE}")
+            # sentinel + every slot's worst case + as much again for the
+            # prefix index to keep warm (the JAX engine's default)
+            self.pages_per_seq = max_seq // PAGE
+            self.allocator = kvc.PagedKVPool(
+                1 + 2 * max_batch * self.pages_per_seq, PAGE)
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0: {temperature}")
         if top_k < 0:
@@ -134,7 +172,19 @@ class DecodePool:
     def _init_state(self):
         """Build the device-side slot state: empty pool, all slots done."""
         dev, B = self.device, self.max_batch
-        self.caches = self.model.init_cache(B, self.max_seq)
+        if self.paged:
+            self.caches = None
+            self.blocks = kvc.init_paged(
+                self.model.cache_specs(B, self.max_seq),
+                self.allocator.num_blocks, PAGE, dtype=self.model.dtype,
+                device=dev)
+            self.pt_host = np.zeros((B, self.pages_per_seq), np.int32)
+            self.page_table = torch.zeros((B, self.pages_per_seq),
+                                          dtype=torch.int32, device=dev)
+            self._pt_dirty = False
+            self._slot_blocks: list[list] = [[] for _ in range(B)]
+        else:
+            self.caches = self.model.init_cache(B, self.max_seq)
         self.lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.tokens = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self.gen = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -172,8 +222,14 @@ class DecodePool:
         compute (its output discarded), which keeps token streams step for
         step the JAX engine's."""
         active = ~self.done
-        logits, _, lengths2 = self.model.decode_step(
-            params, self.caches, self.tokens, self.lengths)
+        if self.paged:
+            self._sync_pt()
+            logits, lengths2 = self.model.decode_step_paged(
+                params, self.blocks, self.page_table, self.tokens,
+                self.lengths)
+        else:
+            logits, _, lengths2 = self.model.decode_step(
+                params, self.caches, self.tokens, self.lengths)
         self.note_logits(logits)
         next_tok = self.sample(logits, self.rng)
         next_tok = torch.where(active, next_tok, self.tokens[:, 0])
@@ -198,20 +254,24 @@ class DecodePool:
 
     def splice(self, art: PrefillArtifact):
         """Admit a prefill artifact into the pool: KV into the slots' ring
-        rows, plus every per-slot state update. Only the ``n_rows`` real
-        rows are indexed (dummy rows are dropped here, on the host)."""
+        rows (paged: page-wise into ``art.dest_blocks``), plus every
+        per-slot state update. Only the ``n_rows`` real rows are indexed
+        (dummy rows are dropped here, on the host)."""
         n = art.n_rows
         if n == 0:
             return
         idx = torch.as_tensor(art.slot_idx[:n].astype(np.int64),
                               device=self.device)
-        for gname, group in self.caches.items():
-            for i, block in enumerate(group):
-                for lname, pool_leaves in block.items():
-                    new = art.caches[gname][i][lname]
-                    for key, pool in pool_leaves.items():
-                        src = new[key][:n]
-                        pool[idx, : src.shape[1]] = src.to(pool.dtype)
+        if self.paged:
+            kvc.scatter_pages(self.blocks, art.caches, art.dest_blocks)
+        else:
+            for gname, group in self.caches.items():
+                for i, block in enumerate(group):
+                    for lname, pool_leaves in block.items():
+                        new = art.caches[gname][i][lname]
+                        for key, pool in pool_leaves.items():
+                            src = new[key][:n]
+                            pool[idx, : src.shape[1]] = src.to(pool.dtype)
         col = torch.zeros_like(idx)
         self.lengths = self.lengths.index_put((idx,), art.lengths[:n])
         self.tokens = self.tokens.index_put((idx, col), art.next_tokens[:n])
@@ -220,6 +280,40 @@ class DecodePool:
         # such slots start done so decode never advances them
         self.done = self.done.index_put((idx,), art.max_new[:n] <= 1)
         self.maxn = self.maxn.index_put((idx,), art.max_new[:n])
+
+    # ------------------------------------------------------------------ #
+    # paged page-table plumbing (host-authored, device-consumed)
+    # ------------------------------------------------------------------ #
+    def set_row(self, slot: int, blocks_list: list):
+        """Install a slot's page-table row (admission). The device copy is
+        pushed before the next dispatch; steps already in flight read the
+        old table, whose row for this slot is zero -- their writes land in
+        the sink block, so a stale window is harmless."""
+        self.pt_host[slot, :] = 0
+        self.pt_host[slot, : len(blocks_list)] = blocks_list
+        self._pt_dirty = True
+        self._slot_blocks[slot] = list(blocks_list)
+
+    def release_slot(self, slot: int):
+        """Drop a finished row's block references and zero its page-table
+        row (paged; a no-op on the ring pool). Shared prefix blocks live
+        as long as the prefix index or another row holds them."""
+        if not self.paged:
+            return
+        self.allocator.deref(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self.pt_host[slot, :] = 0
+        self._pt_dirty = True
+
+    def _sync_pt(self):
+        """Push the host page table to the device when it changed, as a
+        fresh tensor copied synchronously from the host array: a later host
+        edit never races the transfer, and steps already in flight keep
+        the table they were dispatched with (the stream runs work in
+        dispatch order)."""
+        if self._pt_dirty:
+            self.page_table = torch.tensor(self.pt_host, device=self.device)
+            self._pt_dirty = False
 
     def fill_one(self, params, limit: int) -> bool:
         """Dispatch one decode step if the in-flight window has room
@@ -236,7 +330,9 @@ class DecodePool:
 
 
 class ServingEngine:
-    """Continuous-batching serving engine over a slot-based ring KV pool.
+    """Continuous-batching serving engine over a slot-based KV pool: the
+    ring pool, or with ``paged=True`` the paged block pool, with radix
+    prefix reuse unless ``prefix_reuse=False``.
 
     :meth:`submit` queues a request, :meth:`step` runs one iteration (admit
     -> dispatch -> harvest) and returns finished
@@ -262,6 +358,8 @@ class ServingEngine:
         temperature: float = 0.0,
         top_k: int = 0,
         sample_seed: int = 0,
+        paged: bool = False,
+        prefix_reuse: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -288,12 +386,20 @@ class ServingEngine:
         # a FLOPs proxy that must equal the JAX engine's on the same load
         self.prefill_padded_tokens = 0
         self.prefill_calls = 0
+        # paged pool + shared-prefix reuse (the ring pool is the A/B
+        # baseline): reused prompt tokens are counted apart from the rest
+        self.paged = bool(paged)
+        self.prefix_reuse = self.paged and bool(prefix_reuse)
+        self.prefix_index = (RadixPrefixIndex(PAGE) if self.prefix_reuse
+                             else None)
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
         self.store = ProfileStore()
         self.queue: deque[Request] = deque()
         self.pool = DecodePool(
             model, max_batch=max_batch, max_seq=max_seq, eos_token=eos_token,
             inflight=self.inflight, temperature=temperature, top_k=top_k,
-            sample_seed=sample_seed,
+            sample_seed=sample_seed, paged=self.paged,
         )
         # the prefill's first-token draws: a stream of their own
         self.prefill_rng = torch.Generator(device=self.device).manual_seed(
@@ -313,6 +419,8 @@ class ServingEngine:
             "prefill_tokens_uncached": self.prefill_tokens_uncached,
             "prefill_padded_tokens": self.prefill_padded_tokens,
             "prefill_calls": self.prefill_calls,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
             "decode_steps": self.decode_steps,
             "useful_steps": self.useful_steps,
             "requests_finished": len(self.store.records),
@@ -333,7 +441,8 @@ class ServingEngine:
         Stamps the arrival clock (``now`` is accepted for API compatibility
         and not used) and charges the modelled INGRESS stages (request wire
         + copy engine, per the transport) to the request's record. Raises
-        if the prompt exceeds ``max_seq``.
+        if the prompt exceeds ``max_seq`` or, paged, if prompt + max_new
+        does.
         """
         req.t_arrival = time.perf_counter()
         if len(req.prompt_tokens) > self.max_seq:
@@ -345,6 +454,14 @@ class ServingEngine:
             raise NotImplementedError(
                 "feature payloads take the exact-shape prefill path, which "
                 "comes with a later slice of the port")
+        if self.paged and len(req.prompt_tokens) + req.max_new_tokens > self.max_seq:
+            # the ring pool wraps a long generation over its own oldest
+            # positions; a paged row may SHARE its prefix blocks, so
+            # wrapping would corrupt other readers -- reject instead
+            raise ValueError(
+                f"prompt + max_new ({len(req.prompt_tokens)} + "
+                f"{req.max_new_tokens}) exceeds max_seq {self.max_seq}: "
+                "the paged pool never ring-wraps")
         rec = RequestRecord(
             request_id=req.request_id, client_id=req.client_id,
             priority=req.priority, t_issue=req.t_arrival,
@@ -373,6 +490,9 @@ class ServingEngine:
         picked = [self.queue[i] for i in order]
         for i in sorted(order, reverse=True):
             del self.queue[i]
+        if self.paged:
+            self._admit_paged(picked, free)
+            return
         free_it = iter(free)
         buckets: dict[int, list[Request]] = {}
         for req in picked:
@@ -380,55 +500,228 @@ class ServingEngine:
         for L, reqs in buckets.items():
             self._prefill_bucket(L, reqs, [next(free_it) for _ in reqs])
 
-    def _prefill_bucket(self, L: int, reqs: list, slots: list):
-        """One padded prefill + fused splice for every request in a bucket,
-        the batch dim padded to the fixed admission width ``max_batch``."""
-        n = len(reqs)
+    def _host_batch(self, L: int, reqs: list, slots: list, cached=None):
+        """Host arrays of one prefill group at the fixed admission width
+        ``max_batch``: tokens (each prompt's uncached suffix, right-padded
+        to ``L``), suffix lengths, budgets and slot indices (``max_batch``
+        marks a dummy row). Charges the group to the prefill counters."""
         npad = self.max_batch
+        cached = cached or [0] * len(reqs)
         toks = np.zeros((npad, L), np.int32)
         lens = np.zeros((npad,), np.int32)
         maxn = np.zeros((npad,), np.int32)
         slot_idx = np.full((npad,), self.max_batch, np.int32)  # dummy rows
-        for j, (req, slot) in enumerate(zip(reqs, slots)):
-            s = len(req.prompt_tokens)
-            toks[j, :s] = req.prompt_tokens
+        for j, (req, slot, c) in enumerate(zip(reqs, slots, cached)):
+            s = len(req.prompt_tokens) - c
+            toks[j, :s] = req.prompt_tokens[c:]
             lens[j] = s
             maxn[j] = req.max_new_tokens
             slot_idx[j] = slot
-        self.prefill_tokens_total += int(lens[:n].sum())
-        self.prefill_tokens_uncached += int(lens[:n].sum())
         self.prefill_padded_tokens += npad * L
         self.prefill_calls += 1
+        return toks, lens, maxn, slot_idx
+
+    def _prefill_bucket(self, L: int, reqs: list, slots: list):
+        """One padded prefill + fused splice for every request in a bucket,
+        the batch dim padded to the fixed admission width ``max_batch``."""
+        toks, lens, maxn, slot_idx = self._host_batch(L, reqs, slots)
+        self.prefill_tokens_total += int(lens.sum())
+        self.prefill_tokens_uncached += int(lens.sum())
         t0 = time.perf_counter()
         dev = self.device
         logits, cache1, lens_d = self.model.prefill_bucketed(
             self.params, torch.from_numpy(toks).to(dev),
             torch.from_numpy(lens).to(dev),
         )
+        self._splice_and_place(logits, cache1, lens_d, slot_idx, maxn, reqs,
+                               slots, t0)
+
+    def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
+                          reqs: list, slots: list, t0: float,
+                          dest_blocks=None, before_place=None):
+        """Sample each row's first token, splice the group into the pool,
+        and hand its requests their first token and slot. ``before_place``
+        runs after the splice and before any request is placed (the paged
+        path indexes its prompts there: a request its prefill token
+        already finishes releases its slot in :meth:`_place`)."""
         self.pool.note_logits(logits)
         next_toks = self.pool.sample(logits, self.prefill_rng)
-        art = PrefillArtifact(cache1, slot_idx, lens_d, next_toks,
-                              torch.from_numpy(maxn).to(dev), reqs,
-                              list(slots), n_rows=n)
+        art = PrefillArtifact(caches, slot_idx, lengths, next_toks,
+                              torch.from_numpy(maxn).to(self.device), reqs,
+                              list(slots), n_rows=len(reqs),
+                              dest_blocks=dest_blocks)
         self.pool.splice(art)
         # deliberate fence: 'preprocess' must include prefill completion
         toks_host = art.next_tokens.cpu().numpy()
         now = time.perf_counter()
         dt = max(now - t0, 0.0)
+        if before_place is not None:
+            before_place()
         for j, (req, slot) in enumerate(zip(reqs, slots)):
             rec = self._records[req.request_id]
             # pre-admission wait: submit -> this admission picking it
             rec.add("queue", max(t0 - rec.t_issue, 0.0))
-            rec.add("preprocess", dt / n)  # prefill = serving "preprocessing"
+            rec.add("preprocess", dt / len(reqs))  # prefill = "preprocessing"
             req.generated.append(int(toks_host[j]))
             req.t_first_token = now
             self._place(req, slot)
         self._t_mark = now  # prefill time is "preprocess", not "inference"
 
+    # ------------------------------------------------------------------ #
+    # Paged admission: prefix match -> block plan -> grouped prefill
+    # ------------------------------------------------------------------ #
+    def _admit_paged(self, picked: list, free: list):
+        """Plan every picked request's page table, then prefill in groups.
+
+        All prefix MATCHES happen before any INSERT, so two requests
+        sharing a prefix admitted in the same batch can't false-match
+        pages whose KV this very admission is still computing: the second
+        request recomputes the shared prefix once, and reuse starts at the
+        next admission. Matched blocks are refcount-pinned here (once for
+        the row's page table, for its lifetime; once more until its suffix
+        prefill has gathered the prior), so index eviction under pool
+        pressure can never free KV a picked request is about to read.
+        """
+        jobs: list[_PagedJob] = []
+        alloc = self.pool.allocator
+        for req, slot in zip(picked, free):
+            P = len(req.prompt_tokens)
+            shared: list = []
+            p_ids: list = []
+            if self.prefix_reuse:
+                # cap the match below the full prompt: at least one suffix
+                # token must remain to produce the first-token logits
+                payloads = self.prefix_index.match(req.prompt_tokens,
+                                                   (P - 1) // PAGE)
+                if payloads:
+                    p_ids = [p for (p, _) in payloads]
+                    shared = [d for (_, d) in payloads]
+                    alloc.ref(p_ids)
+                    alloc.ref(shared)
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += len(shared) * PAGE
+            cached = len(shared) * PAGE
+            n_pages = -(-(P + req.max_new_tokens) // PAGE)
+            pt_row = shared + self._alloc_blocks(n_pages - len(shared))
+            self.pool.set_row(slot, pt_row)
+            self.prefill_tokens_total += P
+            self.prefill_tokens_uncached += P - cached
+            jobs.append(_PagedJob(req, slot, cached, p_ids, pt_row))
+        groups: dict[tuple, list[_PagedJob]] = {}
+        for job in jobs:
+            L = self._bucket(len(job.req.prompt_tokens) - job.cached)
+            groups.setdefault((L, job.cached > 0), []).append(job)
+        for (L, has_prior), gjobs in sorted(groups.items()):
+            self._prefill_paged_group(L, has_prior, gjobs)
+
+    def _alloc_blocks(self, n: int) -> list:
+        """Allocate ``n`` fresh blocks, LRU-evicting cold prefix-index
+        pages under pool pressure. Eviction only drops the INDEX's
+        references: a block a live row still reads is refcount-protected
+        and stays until its last reader releases it."""
+        while True:
+            got = self.pool.allocator.alloc(n)
+            if got is not None:
+                return got
+            payload = (self.prefix_index.evict_lru()
+                       if self.prefix_reuse else None)
+            if payload is None:
+                raise RuntimeError(
+                    "paged KV pool exhausted with no evictable prefix "
+                    "pages; lower max_batch")
+            self._evict_index_page(payload)
+
+    def _evict_index_page(self, payload):
+        """Drop the index's references on one evicted page (one per
+        payload side; in the fused engine both name the same block)."""
+        p, d = payload
+        self.pool.allocator.deref([p])
+        self.pool.allocator.deref([d])
+
+    def _index_insert(self, jobs: list):
+        """Index each admitted prompt's fully-in-prompt pages.
+
+        Existing pages keep their first writer's blocks (matches ref THOSE
+        at admission); only newly created nodes take references, one per
+        payload side, so the index keeps a released slot's prefix KV alive
+        for future hits. A row whose matched interior was LRU-evicted
+        during this very admission's allocations is skipped: its chain
+        would root orphaned payloads the index can no longer reach.
+        """
+        if not self.prefix_reuse:
+            return
+        for job in jobs:
+            toks = job.req.prompt_tokens
+            n_ins = len(toks) // PAGE
+            if n_ins == 0:
+                continue
+            depth = len(self.prefix_index.match(toks, n_ins, peek=True))
+            if depth < job.cached // PAGE:
+                continue
+            payloads = [(job.pt_row[i], job.pt_row[i]) for i in range(n_ins)]
+            for (p, d) in self.prefix_index.insert(toks, payloads, n_ins):
+                self.pool.allocator.ref([p])
+                self.pool.allocator.ref([d])
+
+    def prefix_lookup_tokens(self, tokens) -> int:
+        """Matched prefix length in tokens, LRU- and counter-neutral (a
+        peek, not a hit); 0 when reuse is off."""
+        if not self.prefix_reuse:
+            return 0
+        return self.prefix_index.lookup_tokens(tokens)
+
+    def _prefill_paged_group(self, L: int, has_prior: bool, jobs: list):
+        """One padded (suffix-)prefill + paged splice for a group of
+        admissions sharing a suffix bucket.
+
+        A group with no reused prefix runs the plain bucketed prefill, the
+        ring path's math. A group with one runs the suffix prefill: its
+        prior is ``max(cached)`` tokens wide (rows with less pad with the
+        zero sentinel), and each layer gathers it right before its flash
+        launch. Either way the artifact carries the bucket-width SUFFIX
+        cache only: reused prefix KV never moves again.
+        """
+        reqs = [job.req for job in jobs]
+        slots = [job.slot for job in jobs]
+        cached = [job.cached for job in jobs]
+        toks, lens, maxn, slot_idx = self._host_batch(L, reqs, slots, cached)
+        dest = np.zeros((self.max_batch, L // PAGE), np.int32)  # 0 => drop
+        for j, job in enumerate(jobs):
+            tail = job.pt_row[job.cached // PAGE:][: L // PAGE]
+            dest[j, : len(tail)] = tail
+        t0 = time.perf_counter()
+        dev = self.device
+        toks_d = torch.from_numpy(toks).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        if has_prior:
+            cached_np = np.zeros((self.max_batch,), np.int32)
+            cached_np[: len(jobs)] = cached
+            prior_pt = np.zeros((self.max_batch, max(cached) // PAGE),
+                                np.int32)
+            for j, job in enumerate(jobs):
+                prior_pt[j, : len(job.p_ids)] = job.p_ids
+            logits, caches, total = self.model.prefill_suffix(
+                self.params, toks_d, lens_d,
+                torch.from_numpy(cached_np).to(dev),
+                torch.from_numpy(prior_pt).to(dev), self.pool.blocks)
+            # every layer's gather is enqueued: the prior pins can go (the
+            # page-table rows keep each row's own hold from here)
+            for job in jobs:
+                self.pool.allocator.deref(job.p_ids)
+        else:
+            logits, caches, total = self.model.prefill_bucketed(
+                self.params, toks_d, lens_d)
+        self._splice_and_place(logits, caches, total, slot_idx, maxn, reqs,
+                               slots, t0, dest_blocks=dest,
+                               before_place=lambda: self._index_insert(jobs))
+
     def _place(self, req: Request, slot: int):
         """Occupy ``slot``, or finish the request right away when the
         prefill token already met its budget (max_new_tokens <= 1)."""
         if req.max_new_tokens <= 1:
+            # never occupies the slot; a paged row still drops its
+            # page-table hold (the prefix index took its own first)
+            self.pool.release_slot(slot)
             self._prefill_finished.append(
                 self._finish(req, self._records[req.request_id]))
             return
@@ -490,6 +783,12 @@ class ServingEngine:
                 self._finished_ids.add(req.request_id)
                 if self.pool.slots[i] is req:
                     self.pool.slots[i] = None
+                    # paged: drop the row's block references. Safe with
+                    # stale steps still in flight: their frozen-lane reads
+                    # and writes are dispatched before any splice that
+                    # could reuse a freed block, and the stream runs work
+                    # in dispatch order
+                    self.pool.release_slot(i)
         if done and self._finished_ids:
             # ids matter only while an in-flight snapshot references them
             live_ids = {

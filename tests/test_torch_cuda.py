@@ -1,5 +1,7 @@
 """Port kernels and model on a CUDA card: each hand-written Hopper kernel
-against its plain PyTorch version, and the serving engine's launch counts.
+against its plain PyTorch version (the paged decode kernel also against the
+ring kernel on the same K/V), and the serving engine's launch counts on its
+ring and paged paths.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -101,6 +103,140 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, W, H, Hkv, hd):
     assert (got[0] == 0).all()
 
 
+def _paged_case(B, n_pages, H, Hkv, hd, lens, dtype, dev, seed):
+    """A shuffled block pool where rows 0/1 and 2/3 share their first half
+    of pages (a shared prefix), its page table, and the same K/V laid out
+    densely [B, n_pages * PAGE, Hkv, hd] for the ring kernel."""
+    page = 16
+    g = torch.Generator().manual_seed(seed)
+    N = 1 + B * n_pages
+    kb = torch.randn((N, page, Hkv, hd), generator=g)
+    vb = torch.randn((N, page, Hkv, hd), generator=g)
+    kb[0] = vb[0] = 0.0  # the zero sentinel
+    ids = (torch.randperm(N - 1, generator=g) + 1).tolist()
+    pt = torch.zeros((B, n_pages), dtype=torch.int32)
+    for b in range(B):
+        for j in range(-(-lens[b] // page)):
+            if b % 2 and j < n_pages // 2:
+                pt[b, j] = pt[b - 1, j]  # shared prefix block
+            else:
+                pt[b, j] = ids.pop()
+    dense = [blk[pt.long()].reshape(B, n_pages * page, Hkv, hd)
+             for blk in (kb, vb)]
+    q = torch.randn((B, 1, H, hd), generator=g)
+    cast = lambda t: t.to(device=dev, dtype=TDT[dtype])  # noqa: E731
+    return (cast(q), cast(kb), cast(vb), pt.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            cast(dense[0]), cast(dense[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n_pages,H,Hkv,hd", [
+    (128, 32, 8, 128),  # llama3-8b at max_seq 2048: G = 4
+    (8, 4, 4, 64),  # G = 1
+    (20, 24, 2, 32),  # G = 12
+])
+def test_paged_decode_kernel_matches_plain_and_ring(cuda_device, dtype,
+                                                    n_pages, H, Hkv, hd):
+    W = n_pages * 16
+    lens = [0, 1, 17, 33, W // 3, W // 2 + 5, W - 1, W]
+    q, kb, vb, pt, lens_d, kd, vd = _paged_case(8, n_pages, H, Hkv, hd, lens,
+                                                dtype, cuda_device, 0)
+    ops.reset_launches()
+    got = ops.paged_decode_attention(q, kb, vb, pt, lens_d)
+    assert ops.LAUNCHES["paged_decode_attention"] == 1
+    want = ref.paged_decode_attention_ref(q, kb, vb, pt, lens_d)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+    assert (got[0] == 0).all()
+    # same keys, same order, same arithmetic as the ring kernel: bitwise
+    ring = ops.decode_attention(q, kd, vd, lens_d)
+    assert torch.equal(got, ring)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("window,H,Hkv,hd", [
+    (0, 8, 2, 128),
+    (40, 8, 2, 128),
+    (0, 6, 3, 32),
+])
+def test_flash_kernel_with_prior_matches_plain(cuda_device, dtype, window, H,
+                                               Hkv, hd):
+    B, S, Pp = 3, 70, 96
+    q = _cuda_pair((B, S, H, hd), dtype, cuda_device, 0)
+    k = _cuda_pair((B, S, Hkv, hd), dtype, cuda_device, 1)
+    v = _cuda_pair((B, S, Hkv, hd), dtype, cuda_device, 2)
+    pk = _cuda_pair((B, Pp, Hkv, hd), dtype, cuda_device, 3)
+    pv = _cuda_pair((B, Pp, Hkv, hd), dtype, cuda_device, 4)
+    valid = torch.tensor([96, 48, 0], dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, window=window, prior_k=pk, prior_v=pv,
+              prior_valid=valid)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, sq_real=61, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, sq_real=61, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+    # a row with no valid prior is the plain prefill, bitwise
+    plain = ops.flash_attention(q, k, v, causal=True, window=window,
+                                sq_real=61)
+    assert torch.equal(got[2], plain[2])
+
+
+@pytest.mark.cuda
+def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
+    """A reduced llama3 served paged with prefix reuse on the card: launch
+    counts follow the path's structure, the greedy tokens are the CPU
+    paged engine's on the same weights (fp32), and the card's paged engine
+    without reuse gives the card's ring engine's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("llama3-8b").reduced()
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    rng = np.random.default_rng(0)
+    fams = [rng.integers(0, cfg.vocab_size, 48, dtype=np.int32)
+            for _ in range(2)]
+    prompts = [np.concatenate([f, rng.integers(0, cfg.vocab_size, n,
+                                               dtype=np.int32)])
+               for n in (5, 17, 30) for f in fams]
+
+    def serve(model, p, device, **kw):
+        eng = ServingEngine(model, p, max_batch=2, max_seq=128, device=device,
+                            **kw)
+        reqs = [Request(prompt_tokens=t, max_new_tokens=6) for t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    ops.reset_launches()
+    got, eng = serve(gpu, params, cuda_device, paged=True)
+    c = eng.counters()
+    L = cfg.n_layers
+    assert c["prefix_hits"] > 0
+    assert ops.LAUNCHES == {
+        "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
+        "flash_attention": L * c["prefill_calls"],
+        "decode_attention": 0,
+        "paged_decode_attention": L * c["decode_steps"],
+    }
+    assert eng.logits_all_finite()
+    want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
+    assert got == want
+    assert ceng.counters() == c
+    ring, _ = serve(gpu, params, cuda_device)
+    paged, _ = serve(gpu, params, cuda_device, paged=True, prefix_reuse=False)
+    assert paged == ring
+
+
 @pytest.mark.cuda
 def test_engine_on_card_goes_through_every_kernel(cuda_device):
     """A reduced llama3 served on the card launches each kernel exactly as
@@ -136,6 +272,7 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
         "flash_attention": L * c["prefill_calls"],
         "decode_attention": L * c["decode_steps"],
+        "paged_decode_attention": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")

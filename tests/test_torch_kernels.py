@@ -133,8 +133,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.rmsnorm(x, torch.ones(16))
     ops.flash_attention(x, k, k)
     ops.decode_attention(x[:, :1], k, k, torch.full((4,), 7, dtype=torch.int32))
+    ops.paged_decode_attention(x[:, :1], k, k,
+                               torch.zeros((4, 2), dtype=torch.int32),
+                               torch.full((4,), 7, dtype=torch.int32))
     assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0,
+                            "paged_decode_attention": 0}
 
 
 def test_plain_versions_mask_past_real_lengths():
