@@ -11,16 +11,22 @@ result line:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every CUDA kernel from the sources in the checkout;
 2. every kernel of the serving paths (rmsnorm, flash prefill -- plain and
-   with a cached prefix --, ring decode, paged decode) against its plain
-   PyTorch version on the card, at the main paths' shapes, in bf16 and
-   fp32, with its time beside its bound, the plain version's time and one
-   PyTorch library call's time where one computes the same function (a
-   yardstick only); the paged kernel also against the ring kernel on the
-   same K/V laid out densely (bitwise equal);
+   with a cached prefix --, ring decode, paged decode, the SSD scan)
+   against its plain PyTorch version on the card, at the main paths'
+   shapes, in bf16 and fp32, with its time beside its bound, the plain
+   version's time and one PyTorch library call's time where one computes
+   the same function (a yardstick only); the paged kernel also against the
+   ring kernel on the same K/V laid out densely (bitwise equal); the SSD
+   scan at 1024, 1000 and 77 positions;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps, the card through
    the kernels and the CPU through the plain versions, both fed the card's
    greedy token; where the greedy tokens part, the CPU's top-2 logit gap;
+   3b. the same for mamba2-130m at full width and full depth: one exact
+   prefill of 601 tokens, then 4 decode steps, held to the limit in fp32;
+   in bf16 (where the random 24-layer stack amplifies the two sides'
+   different roundings) the card and the CPU are each held against the
+   CPU model in fp32 on the same weights, the card within SSM_BF16_LIMIT;
 4. the main path: ``repro_torch.launch.serve`` on the full 32-layer
    llama3-8b, ServingEngine(max_batch=8, max_seq=2048), 12 ragged requests
    (64-1024 prompt tokens, 32 new tokens each), with the kernels' launch
@@ -38,11 +44,19 @@ result line:
    prefix reuse. (b)'s greedy tokens must equal (a)'s, (c)'s prefix counters
    must be exactly 24 hits of 1024 tokens, every launch count must follow
    the path's structure, and clearing the index must leave no block live;
-   it prints TTFT/TPOT p50 per run and where (c)'s tokens part from (b)'s.
+   it prints TTFT/TPOT p50 per run and where (c)'s tokens part from (b)'s;
+7. the SSM path: ``repro_torch.launch.serve`` on the 24-layer mamba2-130m,
+   ServingEngine(max_batch=8, max_seq=2048), 12 requests of 64-2048 prompt
+   tokens and 32 new tokens, one exact-shape prefill per request, with the
+   launch counts held against the path's structure; then the SSD kernel's
+   share of the device time of one profiled 2048-token prefill, and where
+   a decode step's time goes, measured as in phase 5.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
-2e-5 / bf16 atol 2e-2, rtol 1e-2 (the kernel and the plain version sum in
-different orders). The full results go to chiprun_out/chip_smoke.json.
+2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
+atol 5e-2, rtol 2e-2 (tests/test_kernels.py's tolerances; the kernel and
+the plain version sum in different orders). The full results go to
+chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -71,6 +85,20 @@ PAGED_TRAFFIC = dict(n_requests=24, n_prefixes=2, prefix_len=1024,
 MAIN_ARGV = ["--arch", "llama3-8b", "--max-batch", "8", "--max-seq", "2048",
              "--clients", "12", "--requests", "1", "--prompt-len", "64:1024",
              "--new-tokens", "32", "--transport", "gdr"]
+# the SSD scan at mamba2-130m's widths (b=1: the exact path prefills one
+# request per call); its tolerances are tests/test_kernels.py's
+SSD_SHAPE = dict(nh=24, hd=64, ds=128, chunk=256)
+SSD_LENS = (1024, 1000, 77)  # 4 chunks, a ragged tail, less than one chunk
+SSD_TOLS = {"bf16": 5e-2, "fp32": 3e-5}
+SSD_RTOL = 2e-2
+SSM_LAYERS = 24
+# phase 3b, bf16: the card's largest distance from the fp32 witness, over
+# the witness's largest logit. Set from a reading on an H100 at 700 W: the
+# card sat 0.077-0.135 from it, the CPU in bf16 0.095-0.140.
+SSM_BF16_LIMIT = 0.2
+SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
+            "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
+            "--new-tokens", "32", "--transport", "gdr"]
 
 
 def phase(name):
@@ -129,6 +157,10 @@ def main():
     results["same_weights"] = same_weights(torch, dev)
     done(t0)
 
+    t0 = phase("phase 3b: same weights on card and CPU (mamba2-130m, 24 layers)")
+    results["same_weights_ssm"] = same_weights_ssm(torch, ops, dev)
+    done(t0)
+
     # ------------------------------------------------------------------ #
     t0 = phase("phase 4: main path, repro_torch.launch.serve on llama3-8b")
     results["main_path"], engine = main_path(torch, ops)
@@ -141,16 +173,23 @@ def main():
     t0 = phase("phase 6: paged KV pool + prefix reuse on llama3-8b")
     results["paged_path"] = paged_path(torch, ops, engine)
     done(t0)
+    del engine
+    torch.cuda.empty_cache()
+
+    t0 = phase("phase 7: the SSM path, repro_torch.launch.serve on mamba2-130m")
+    results["ssm_path"] = ssm_path(torch, ops)
+    done(t0)
 
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
-    # with reuse (phase 6 (c)) for paged decode
+    # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
+    # the SSD scan
+    runs = {"paged_decode_attention": results["paged_path"]["runs"]["reuse"],
+            "ssd_scan": results["ssm_path"]}
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
-        run = (results["paged_path"]["runs"]["reuse"]
-               if k["name"] == "paged_decode_attention"
-               else results["main_path"])
+        run = runs.get(k["name"], results["main_path"])
         k["launches"] = run["launches"][k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on its path")
@@ -196,15 +235,15 @@ def library_ms(torch, fn, **kw):
         return None
 
 
-def compare(torch, got, want, dtype, what):
+def compare(torch, got, want, dtype, what, tols=TOLS, rtol=RTOL):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: kernel output not finite")
     err = (got - want).abs()
-    bad = err > TOLS[dtype] + RTOL * want.abs()
+    bad = err > tols[dtype] + rtol * want.abs()
     if bad.any():
         raise AssertionError(f"{what}: {int(bad.sum())} elements beyond "
-                             f"atol {TOLS[dtype]} rtol {RTOL}; max err "
+                             f"atol {tols[dtype]} rtol {rtol}; max err "
                              f"{float(err.max()):.3e}")
     return float(err.max())
 
@@ -216,8 +255,9 @@ def bound(nbytes, flops, dtype):
 
 
 def case_record(torch, name, dtype, shape, got, want, t_kernel, t_plain,
-                t_lib, nbytes, flops):
-    err = compare(torch, got, want, dtype, f"{name} {dtype} {shape}")
+                t_lib, nbytes, flops, tols=TOLS, rtol=RTOL):
+    err = compare(torch, got, want, dtype, f"{name} {dtype} {shape}", tols,
+                  rtol)
     b_ms, b_by = bound(nbytes, flops, dtype)
     rec = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
@@ -335,13 +375,16 @@ def check_kernels(torch, ops, dev):
             lib, nbytes, 4 * hd * H * n_pos))
 
     cases += paged_cases(torch, ops, ref, dev)
+    cases += ssd_cases(torch, ops, ref, dev)
 
     # the line's entry per kernel: bf16 (the serving dtype) at the shape the
     # main path launches most (decode for rmsnorm, the 1024 bucket for flash)
     pick = {"rmsnorm": [8, 4096],
             "flash_attention": [B, 1024, H, Hkv, hd, "window=0", "segments=False"],
             "decode_attention": [B, W, H, Hkv, hd, lens_host],
-            "paged_decode_attention": [B, PAGED_PAGES, H, Hkv, hd, PAGED_LENS]}
+            "paged_decode_attention": [B, PAGED_PAGES, H, Hkv, hd, PAGED_LENS],
+            "ssd_scan": [1, 1024, SSD_SHAPE["nh"], SSD_SHAPE["hd"],
+                         SSD_SHAPE["ds"]]}
     meta = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -352,6 +395,8 @@ def check_kernels(torch, ops, dev):
         "paged_decode_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "src/repro/kernels/decode_attention.py:145"),
+        "ssd_scan": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:80"),
     }
     summary = []
     for name, shape in pick.items():
@@ -461,9 +506,144 @@ def paged_cases(torch, ops, ref, dev):
     return cases
 
 
+def ssd_cases(torch, ops, ref, dev):
+    """Phase 2's SSD-scan cases at mamba2-130m's widths and b=1, with x, B
+    and C read as the model reads them (strided views of one conv-output
+    row) and dt, A in fp32; y and the final state are each held against
+    the plain version. The kernel computes in fp32 throughout, as the TPU
+    kernel does, while on bf16 inputs the plain version rounds its C.B^T
+    scores to bf16 as the JAX model's ssd_chunked does: the oracle is the
+    plain version run in fp32 on the same input values, and the gap to the
+    bf16 plain version is reported beside it."""
+    nh, hd, ds, chunk = (SSD_SHAPE[k] for k in ("nh", "hd", "ds", "chunk"))
+    cases = []
+    for dtype in ("bf16", "fp32"):
+        for S in SSD_LENS:
+            xBC = rand(torch, (1, S, nh * hd + 2 * ds), dtype, dev, 20)
+            x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
+            B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
+            C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
+            g = torch.Generator(device=dev).manual_seed(21)
+            dt = torch.randn((1, S, nh), generator=g, device=dev).abs() * 0.1 + 0.01
+            A = -torch.randn((nh,), generator=g, device=dev).abs() - 0.1
+            y, st = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(),
+                                               C.float(), chunk)
+            plain_y, _ = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+            gap_plain = float((y.float() - plain_y.float()).abs().max())
+            what = f"ssd_scan {dtype} S={S}"
+            err_st = compare(torch, st, want_st, dtype, what + " state",
+                             SSD_TOLS, SSD_RTOL)
+            isz = x.element_size()
+            # x, B, C, dt, A read once; y and the fp32 state written once
+            nbytes = ((2 * S * nh * hd + 2 * S * ds) * isz + S * nh * 4
+                      + nh * 4 + nh * hd * ds * 4)
+            # what the function needs per chunk of L positions: the causal
+            # half of C.B^T once (one B/C group serves every head); per head
+            # the causal half of the scores times dt x, the state update,
+            # and C.state from the second chunk on (the state starts at 0)
+            flops = 0
+            for c0 in range(0, S, chunk):
+                L = min(chunk, S - c0)
+                causal = L * (L + 1) // 2
+                flops += 2 * causal * ds + nh * (
+                    2 * causal * hd + 2 * L * hd * ds * (2 if c0 else 1))
+            rec = case_record(
+                torch, "ssd_scan", dtype, [1, S, nh, hd, ds], y, want_y,
+                time_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk)),
+                time_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C, chunk),
+                        reps=5, warmup=1),
+                None, nbytes, flops, SSD_TOLS, SSD_RTOL)
+            rec["state_max_abs_err"] = err_st
+            rec["max_abs_diff_vs_plain_in_dtype"] = gap_plain
+            rec["library"] = "none: no single PyTorch call computes the SSD scan"
+            print(f"   {'':16s} state err {err_st:.2e}; vs the plain "
+                  f"version in {dtype} {gap_plain:.2e}")
+            cases.append(rec)
+    return cases
+
+
 # --------------------------------------------------------------------------- #
 # phase 3
 # --------------------------------------------------------------------------- #
+def walk_logits(torch, dev, gpu, params, cpu, params_cpu, first_g, first_c,
+                K, gate=True, witness=None, witness_limit=None):
+    """From each side's prefill result (logits, caches, lengths), K decode
+    steps on both sides, each fed the card's greedy token, so each step
+    compares logits on the same context (a parted token cannot grow into
+    a new sequence). Logits are compared over the true vocabulary (the
+    padded columns hold the -1e9 mask). Returns max|diff| / max|logit| per
+    step, the greedy agreement and, where the tokens part, the CPU's top-2
+    gap, its margin over the card's token and the row's largest logit
+    difference; with ``gate`` a ratio above 0.02 fails.
+
+    ``witness`` is a third side on the CPU, (model, params, prefill result),
+    fed the same tokens: the same weights in fp32. Each step then also
+    gives the card's and the CPU's distance from it, over the witness's
+    largest logit; a card distance above ``witness_limit`` fails."""
+    (lg_g, c_g, n_g), (lg_c, c_c, n_c) = first_g, first_c
+    if witness is not None:
+        wit, params_w, (lg_w, c_w, n_w) = witness
+    V = gpu.cfg.vocab_size
+    rows = lg_c.shape[0]
+    rel, agree, total, misses = [], 0, 0, []
+    wit_card, wit_cpu = [], []
+    for step in range(K + 1):
+        if not torch.isfinite(lg_g).all():
+            raise AssertionError(f"card logits not finite at step {step}")
+        a, b = lg_g[:, :V].float().cpu(), lg_c[:, :V].float()
+        rel.append(float((a - b).abs().max() / b.abs().max()))
+        if witness is not None:
+            w = lg_w[:, :V].float()
+            wit_card.append(float((a - w).abs().max() / w.abs().max()))
+            wit_cpu.append(float((b - w).abs().max() / w.abs().max()))
+        nxt, nxt_c = a.argmax(-1), b.argmax(-1)
+        agree += int((nxt == nxt_c).sum())
+        total += rows
+        for r in (nxt != nxt_c).nonzero().flatten().tolist():
+            top2 = b[r].topk(2).values
+            misses.append({
+                "step": step, "row": r, "card_token": int(nxt[r]),
+                "cpu_token": int(nxt_c[r]),
+                "cpu_top2_gap": float(top2[0] - top2[1]),
+                "cpu_margin_over_card_token": float(b[r, nxt_c[r]] - b[r, nxt[r]]),
+                "row_max_abs_diff": float((a[r] - b[r]).abs().max()),
+                "row_max_abs_logit": float(b[r].abs().max())})
+            print(f"   tokens part at step {step} row {r}: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in misses[-1].items() if k not in ("step", "row")))
+        if step == K:
+            break
+        tok = nxt.to(torch.int32)[:, None]
+        lg_g, c_g, n_g = gpu.decode_step(params, c_g, tok.to(dev), n_g)
+        lg_c, c_c, n_c = cpu.decode_step(params_cpu, c_c, tok, n_c)
+        if witness is not None:
+            lg_w, c_w, n_w = wit.decode_step(params_w, c_w, tok, n_w)
+    worst = max(rel)
+    print(f"   max|logit diff| / max|logit| per step: "
+          f"{', '.join('%.2e' % r for r in rel)}; greedy agreement "
+          f"{agree}/{total}{'' if gate else ' (reported, not gated)'}")
+    if gate and worst > 2e-2:
+        raise AssertionError(f"card vs CPU logits differ by {worst:.3e} > 2e-2 "
+                             "of the largest logit")
+    res = {"rel_err_per_step": rel, "greedy_agree": agree,
+           "greedy_total": total, "greedy_misses": misses,
+           "tolerance": 2e-2 if gate else None}
+    if witness is not None:
+        print(f"   distance from the fp32 witness per step, card: "
+              f"{', '.join('%.2e' % r for r in wit_card)}; CPU: "
+              f"{', '.join('%.2e' % r for r in wit_cpu)} (card limit "
+              f"{witness_limit})")
+        res.update(card_vs_fp32_per_step=wit_card, cpu_vs_fp32_per_step=wit_cpu,
+                   card_vs_fp32_limit=witness_limit)
+        if max(wit_card) > witness_limit:
+            raise AssertionError(
+                f"card logits sit {max(wit_card):.3e} from the fp32 witness "
+                f"> {witness_limit} of its largest logit (the CPU in the "
+                f"same dtype: {max(wit_cpu):.3e})")
+    return res
+
+
 def same_weights(torch, dev):
     import dataclasses
 
@@ -488,48 +668,98 @@ def same_weights(torch, dev):
     lg_g, c_g, n_g = gpu.prefill_bucketed(params, toks.to(dev), lens_t.to(dev))
     lg_c, c_c, n_c = cpu.prefill_bucketed(params_cpu, toks, lens_t)
     c_g, c_c = grow_cache(c_g, L + K), grow_cache(c_c, L + K)
-    rel, agree, total, misses = [], 0, 0, []
-    for step in range(K + 1):
-        if not torch.isfinite(lg_g).all():
-            raise AssertionError(f"card logits not finite at step {step}")
-        a, b = lg_g.float().cpu(), lg_c.float()
-        rel.append(float((a - b).abs().max() / b.abs().max()))
-        nxt, nxt_c = a.argmax(-1), b.argmax(-1)
-        agree += int((nxt == nxt_c).sum())
-        total += len(lens)
-        for r in (nxt != nxt_c).nonzero().flatten().tolist():
-            # where the greedy tokens part: the CPU's top-2 logit gap, the
-            # CPU's margin of its token over the card's, and the row's
-            # largest card-vs-CPU logit difference
-            top2 = b[r].topk(2).values
-            misses.append({
-                "step": step, "row": r, "card_token": int(nxt[r]),
-                "cpu_token": int(nxt_c[r]),
-                "cpu_top2_gap": float(top2[0] - top2[1]),
-                "cpu_margin_over_card_token": float(b[r, nxt_c[r]] - b[r, nxt[r]]),
-                "row_max_abs_diff": float((a[r] - b[r]).abs().max()),
-                "row_max_abs_logit": float(b[r].abs().max())})
-            print(f"   tokens part at step {step} row {r}: " + ", ".join(
-                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in misses[-1].items() if k not in ("step", "row")))
-        if step == K:
-            break
-        # both sides take the card's token, so each step compares logits on
-        # the same context (a parted token cannot grow into a new sequence)
-        tok = nxt.to(torch.int32)[:, None]
-        lg_g, c_g, n_g = gpu.decode_step(params, c_g, tok.to(dev), n_g)
-        lg_c, c_c, n_c = cpu.decode_step(params_cpu, c_c, tok, n_c)
-    worst = max(rel)
-    print(f"   max|logit diff| / max|logit| per step: "
-          f"{', '.join('%.2e' % r for r in rel)}; greedy agreement "
-          f"{agree}/{total}")
-    if worst > 2e-2:
-        raise AssertionError(f"card vs CPU logits differ by {worst:.3e} > 2e-2 "
-                             "of the largest logit")
+    res = walk_logits(torch, dev, gpu, params, cpu, params_cpu,
+                      (lg_g, c_g, n_g), (lg_c, c_c, n_c), K)
     del gpu, params, params_cpu, c_g, c_c
     torch.cuda.empty_cache()
-    return {"rel_err_per_step": rel, "greedy_agree": agree,
-            "greedy_total": total, "greedy_misses": misses, "tolerance": 2e-2}
+    return res
+
+
+def layer_gaps(torch, dev, cfg, params, params_cpu, toks):
+    """Run each decoder layer on the card and on the CPU from the same
+    input (the CPU's stream entering it): its output's max |card - CPU|
+    over its max |output|, per layer. Beside the end-to-end logit gap it
+    separates one layer's difference from its growth through the stack."""
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.models.transformer import apply_layer_full, layer_groups
+
+    (group,) = layer_groups(cfg)
+    x = embed_lookup(params_cpu["embed"], toks).to(params_cpu["embed"].dtype)
+    pos = torch.arange(toks.shape[1])[None]
+    gaps = []
+    for i in range(group.count):
+        y_c, _ = apply_layer_full(params_cpu["decoder"]["g0"][i]["l0"], cfg,
+                                  group.sigs[0], x, pos)
+        y_g, _ = apply_layer_full(params["decoder"]["g0"][i]["l0"], cfg,
+                                  group.sigs[0], x.to(dev), pos.to(dev))
+        gaps.append(float((y_g.float().cpu() - y_c.float()).abs().max()
+                          / y_c.float().abs().max()))
+        x = y_c
+    return gaps
+
+
+def same_weights_ssm(torch, ops, dev):
+    """Phase 3b: mamba2-130m at full width and depth, one exact prefill of
+    601 tokens (two full chunks and a ragged one on the card) and 4 decode
+    steps, the card through the SSD and rmsnorm kernels, the CPU through
+    the plain versions, on the same random weights from seed 0. The fp32
+    run is held to 0.02 of the largest logit. In bf16 the random 24-layer
+    stack amplifies the different roundings of the two sides (the kernel's
+    fp32 scores against the plain version's bf16 ones, cuBLAS against CPU
+    products) from layer to layer, so the card and the CPU are each held
+    against a witness: the CPU model in fp32 on the same bf16 weights, fed
+    the same tokens. The card's bf16 logits must sit within SSM_BF16_LIMIT
+    of it; the CPU's distance in bf16 is printed beside as the rounding
+    that the plain path itself shows. The per-layer gaps, each layer run
+    on both sides from the same input, show the one-layer difference apart
+    from its growth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_map
+
+    cfg = get_config("mamba2-130m")
+    S, K = 601, 4
+    toks = torch.randint(0, cfg.vocab_size, (1, S),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    out = {"prompt_len": S}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gpu = Model(cfg, dtype=dtype, device=dev)
+        params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+        cpu = Model(cfg, dtype=dtype, device="cpu")
+        params_cpu = tree_map(lambda t: t.to("cpu"), params)
+        ops.reset_launches()
+        first_g = gpu.prefill(params, toks.to(dev))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        want = {"rmsnorm": 2 * SSM_LAYERS + 1, "flash_attention": 0,
+                "decode_attention": 0, "paged_decode_attention": 0,
+                "ssd_scan": SSM_LAYERS}
+        if launches != want:
+            raise AssertionError(f"mamba2 prefill launches {launches} != {want}")
+        t0 = time.perf_counter()
+        first_c = cpu.prefill(params_cpu, toks)
+        print(f"   ({name}) card prefill launches {launches}; CPU prefill "
+              f"{time.perf_counter() - t0:.1f} s")
+        witness = None
+        if dtype == torch.bfloat16:
+            wit = Model(cfg, dtype=torch.float32, device="cpu")
+            params_w = tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, params_cpu)
+            witness = (wit, params_w, wit.prefill(params_w, toks))
+        res = walk_logits(torch, dev, gpu, params, cpu, params_cpu, first_g,
+                          first_c, K, gate=witness is None, witness=witness,
+                          witness_limit=SSM_BF16_LIMIT)
+        res["prefill_launches"] = launches
+        res["layer_gaps"] = layer_gaps(torch, dev, cfg, params, params_cpu,
+                                       toks)
+        print(f"   ({name}) each layer on both sides from the CPU's input to "
+              f"it: max|card - CPU| / max|output| {max(res['layer_gaps']):.2e} "
+              f"at most, {min(res['layer_gaps']):.2e} at least")
+        out[name] = res
+        del gpu, params, params_cpu, first_g, first_c, witness
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -554,7 +784,7 @@ def main_path(torch, ops):
     want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
             "flash_attention": N_LAYERS * c["prefill_calls"],
             "decode_attention": N_LAYERS * c["decode_steps"],
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "ssd_scan": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
     if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
@@ -710,7 +940,8 @@ def paged_path(torch, ops, ring_engine):
         decode = "paged_decode_attention" if eng.paged else "decode_attention"
         want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
                 "flash_attention": N_LAYERS * c["prefill_calls"],
-                "decode_attention": 0, "paged_decode_attention": 0}
+                "decode_attention": 0, "paged_decode_attention": 0,
+                "ssd_scan": 0}
         want[decode] = N_LAYERS * c["decode_steps"]
         if launches != want:
             raise AssertionError(f"({name}) launch counts {launches} != path "
@@ -782,6 +1013,113 @@ def paged_path(torch, ops, ring_engine):
     return {"traffic": PAGED_TRAFFIC, "runs": runs,
             "reuse_tokens_equal_paged": agree, "tokens_total": n * new,
             "reuse_parts": parts}
+
+
+# --------------------------------------------------------------------------- #
+# phase 7
+# --------------------------------------------------------------------------- #
+def ssm_path(torch, ops):
+    """Serve ragged long-context load on mamba2-130m through the launcher,
+    then profile one 2048-token exact prefill of the same model and the
+    drained engine's decode steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.main(SSM_ARGV)
+    launches = dict(ops.LAUNCHES)
+    eng = out["engine"]
+    c = eng.counters()
+    responses = out["responses"]
+    if len(responses) != 12 or any(len(r.tokens) != 32 for r in responses):
+        raise AssertionError(f"SSM path: token counts "
+                             f"{[len(r.tokens) for r in responses]}")
+    if not eng.logits_all_finite():
+        raise AssertionError("SSM path: a logit was not finite")
+    prompt_lens = sorted(rec.bytes_in // 4 for rec in eng.store.records)
+    if not eng.exact_prefill or c["prefill_calls"] != 12:
+        raise AssertionError(f"SSM path: {c['prefill_calls']} prefill calls, "
+                             "not one exact prefill per request")
+    if c["prefill_padded_tokens"] != sum(prompt_lens):
+        raise AssertionError(f"SSM path: {c['prefill_padded_tokens']} padded "
+                             f"prefill tokens != {sum(prompt_lens)} prompt tokens")
+    forwards = c["prefill_calls"] + c["decode_steps"]
+    want = {"rmsnorm": (2 * SSM_LAYERS + 1) * forwards, "flash_attention": 0,
+            "decode_attention": 0, "paged_decode_attention": 0,
+            "ssd_scan": SSM_LAYERS * c["prefill_calls"]}
+    print(f"   prompts {prompt_lens}; counters {c}; launches {launches}; "
+          f"expected {want}")
+    if launches != want or launches["ssd_scan"] == 0:
+        raise AssertionError(f"launch counts {launches} != path structure {want}")
+    peak = torch.cuda.max_memory_allocated()
+    slo = out["slo"]
+    res = {
+        "argv": SSM_ARGV, "prompt_lens": prompt_lens, "counters": c,
+        "launches": launches, "wall_s": out["wall_s"], "tokens": out["tokens"],
+        "tokens_per_s": out["tokens"] / out["wall_s"],
+        "ttft_ms": {p: slo["ttft_s"][p] * 1e3 for p in ("p50", "p99", "mean")},
+        "tpot_ms": {p: slo["tpot_s"][p] * 1e3 for p in ("p50", "p99", "mean")},
+        "stage_means_ms": {k: v * 1e3 for k, v in
+                           eng.store.stage_means().items()},
+        "peak_mem_gb": peak / 1e9,
+    }
+    print(f"   ttft p50 {res['ttft_ms']['p50']:.2f} ms, tpot p50 "
+          f"{res['tpot_ms']['p50']:.2f} ms, {res['tokens_per_s']:.1f} tokens/s, "
+          f"'preprocess' mean {res['stage_means_ms'].get('preprocess', 0):.2f} "
+          f"ms, peak device memory {peak / 1e9:.2f} GB")
+
+    # one profiled exact prefill of 2048 tokens: the SSD kernel's share of
+    # the device time, beside the host wall of the same call
+    model, params = eng.model, eng.params
+    toks = torch.randint(0, model.cfg.vocab_size, (1, 2048),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).to(eng.device)
+    model.prefill(params, toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, toks)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, toks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        kernels.append((dev_us / 1e3, evt.key, evt.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    ssd = sum(k[0] for k in kernels if "ssd_scan" in k[1])
+    res["prefill_2048"] = {
+        "unprofiled_host_wall_ms": bare_ms, "profiled_host_wall_ms": wall_ms,
+        "device_busy_ms": busy, "ssd_ms": ssd,
+        "ssd_share_of_device_time": ssd / busy if busy else None,
+        "device_kernels": sum(k[2] for k in kernels),
+        "top": [{"ms": ms, "name": name[:80], "calls": n}
+                for ms, name, n in kernels[:8]]}
+    if busy:
+        print(f"   2048-token prefill: host wall {bare_ms:.2f} ms unprofiled, "
+              f"{wall_ms:.2f} ms profiled; device busy {busy:.2f} ms over "
+              f"{res['prefill_2048']['device_kernels']} kernels, the SSD "
+              f"kernel {ssd:.2f} ms = {ssd / busy:.3f} of it")
+    else:
+        print(f"   2048-token prefill: host wall {bare_ms:.2f} ms; the profiler "
+              "reported no device time: the SSD share is not measured")
+    for k in res["prefill_2048"]["top"]:
+        print(f"   {k['ms']:8.3f} ms  x{k['calls']:<5g} {k['name']}")
+    print("   decode steps of the drained engine (8 lanes):")
+    res["decode_profile"] = decode_profile(torch, eng)
+    return res
 
 
 if __name__ == "__main__":

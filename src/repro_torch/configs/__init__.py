@@ -4,8 +4,10 @@ from __future__ import annotations
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
+from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
 
-ARCHITECTURES: dict[str, ModelConfig] = {c.name: c for c in (LLAMA3_8B,)}
+ARCHITECTURES: dict[str, ModelConfig] = {
+    c.name: c for c in (LLAMA3_8B, MAMBA2_130M)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,5 +1,6 @@
 // Shared pieces of the port's attention kernels (prefill flash, ring decode
-// and paged decode): 16-byte vector tile loads, warp reductions, the fp32
+// and paged decode; the SSD scan takes its conversions and 16-byte vector
+// unpacking): 16-byte vector tile loads, warp reductions, the fp32
 // online-softmax update of R query rows against one shared-memory tile of
 // TILE_K keys, and the max/sum merge of per-warp partial states.
 //

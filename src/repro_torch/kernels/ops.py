@@ -23,13 +23,14 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since the last reset_launches(); only a CUDA launch counts
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -64,11 +65,12 @@ def _check_last_dim_contiguous(name, *tensors):
 
 
 def _check_rows_aligned(name, *tensors):
-    """The attention kernels load K/V rows as 16-byte vectors."""
+    """The attention kernels load K/V rows, the SSD scan its x, B and C
+    rows, as 16-byte vectors."""
     for t in tensors:
         isz = t.element_size()
         if t.data_ptr() % 16 or any(s * isz % 16 for s in t.stride()[:-1]):
-            raise ValueError(f"{name} kernel needs 16-byte-aligned K/V rows: "
+            raise ValueError(f"{name} kernel needs 16-byte-aligned rows: "
                              f"strides {t.stride()}, offset {t.storage_offset()}")
 
 
@@ -227,3 +229,38 @@ def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
     out = _pdec.launch(q, k_blocks, v_blocks, page_table, lengths, scale=scale)
     LAUNCHES["paged_decode_attention"] += 1
     return out
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int):
+    """Chunked Mamba-2 SSD scan from a zero state, in the model's layout.
+
+    x: [b,S,nh,hd]; dt: [b,S,nh] (post-softplus); A: [nh] (negative); B, C:
+    [b,S,1,ds] (one group) -> (y [b,S,nh,hd] in x's dtype, final_state
+    [b,nh,hd,ds] fp32). The plain version chunks by ``min(chunk, S)`` as the
+    JAX model does; the kernel keeps ``chunk`` and masks the ragged tail
+    (the result does not depend on the chunk length, up to rounding).
+    """
+    b, S, nh, hd = x.shape
+    if (dt.shape != (b, S, nh) or A.shape != (nh,) or B.ndim != 4
+            or B.shape != C.shape or B.shape[:3] != (b, S, 1) or S == 0):
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)}")
+    if not _on_cuda(x, dt, A, B, C):
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    _check_kernel_dtype("ssd_scan", x, B, C)
+    _check_last_dim_contiguous("ssd_scan", x, B, C)
+    _check_rows_aligned("ssd_scan", x, B, C)
+    if dt.dtype != torch.float32 or A.dtype != torch.float32 \
+            or not A.is_contiguous():
+        raise TypeError(f"ssd_scan kernel: dt and A must be fp32 (A "
+                        f"contiguous): {dt.dtype}, {A.dtype}")
+    if B.shape[-1] not in _ssd.STATE_DIMS or hd % _ssd.COLS \
+            or chunk % _ssd.TILE or not 0 < chunk <= _ssd.MAX_CHUNK:
+        raise ValueError(f"ssd_scan kernel: d_state {B.shape[-1]} not in "
+                         f"{_ssd.STATE_DIMS}, head_dim {hd} not a multiple of "
+                         f"{_ssd.COLS}, or chunk {chunk} not a multiple of "
+                         f"{_ssd.TILE} up to {_ssd.MAX_CHUNK}")
+    y, state = _ssd.launch(x, dt, A, B, C, chunk=chunk)
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

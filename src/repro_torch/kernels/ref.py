@@ -5,7 +5,9 @@ straightforward tensor code: the CPU path of :mod:`repro_torch.kernels.ops`
 and the reference the kernels are held against on the card. They transcribe
 the JAX package's ``kernels/ref.py`` oracles, plus the arguments the TPU
 kernels take that those oracles lack (``sq_real``/``skv_real``, segment ids,
-``w_real``, per-row lengths, a prior KV for suffix prefill). Masking uses
+``w_real``, per-row lengths, a prior KV for suffix prefill); the SSD scan
+transcribes the JAX model's chunked ``ssd_chunked``, the function the JAX
+model runs where its Pallas kernel stands beside it. Masking uses
 NEG_INF = -1e30, not -inf, so a masked term contributes exactly
 ``exp(-1e30 - m) == 0`` and packed segments stay bitwise independent of
 each other; probabilities are zeroed where masked and the row sum is
@@ -19,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -131,3 +134,62 @@ def paged_decode_attention_ref(q, k_blocks, v_blocks, page_table, lengths, *,
              for blk in (k_blocks, v_blocks)]
     return decode_attention_ref(q, dense[0], dense[1], lengths, scale=scale,
                                 w_real=n_pages * page)
+
+
+def ssd_scan_ref(x, dt, A, B, C, chunk: int):
+    """Chunked Mamba-2 SSD scan from a zero state, in the model's layout.
+
+    x: [b,S,nh,hd]; dt: [b,S,nh] (post-softplus); A: [nh] (negative);
+    B, C: [b,S,1,ds]. Returns (y [b,S,nh,hd] in x's dtype, final_state
+    [b,nh,hd,ds] fp32): h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t =
+    C_t . h_t.
+
+    The JAX model's ``ssd_chunked`` after ``mamba_forward``'s padding rule:
+    chunks of ``min(chunk, S)`` with the sequence zero-padded to a multiple
+    (a padded position has dt = 0: no decay, no input), then three passes
+    -- each chunk's own contribution to the state, the recurrence over
+    chunk summaries, and each chunk's output from its L x L decay-masked
+    C.B^T scores plus the state entering it. The scores are cast to x's
+    dtype before they meet the inputs, as there. With one B/C group the
+    C.B^T product is the same for every head and is computed once.
+    """
+    b, S, nh, hd = x.shape
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:
+        x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // L
+    xa = (x * dt[..., None]).reshape(b, nc, L, nh, hd)  # JAX's promotion
+    dA = (dt * A.float()).reshape(b, nc, L, nh)
+    Bc = B[:, :, 0].reshape(b, nc, L, -1)
+    Cc = C[:, :, 0].reshape(b, nc, L, -1)
+    cums = torch.cumsum(dA, dim=2)  # [b,nc,L,nh]
+
+    # pass 1: each chunk's contribution to the state at its end
+    decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)
+    states = torch.einsum("bcls,bclh,bclhd->bchds", Bc.float(), decay_to_end,
+                          xa.float())
+    # pass 2: the recurrence over chunk summaries
+    chunk_decay = torch.exp(cums[:, :, -1, :])  # [b,nc,nh]
+    carry = torch.zeros((b, nh, hd, Bc.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    prev = []  # the state entering each chunk
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    # pass 3: each chunk's outputs
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nc):
+        cs = cums[:, c].transpose(1, 2)  # [b,nh,L]
+        seg = torch.where(tril, cs[..., :, None] - cs[..., None, :],
+                          torch.full_like(tril, float("-inf"), dtype=cs.dtype))
+        cb = torch.einsum("bls,bms->blm", Cc[:, c], Bc[:, c])  # [b,L,L]
+        sc = (cb[:, None] * torch.exp(seg)).to(x.dtype)  # [b,nh,L,L]
+        y_in = torch.einsum("bhlm,bmhd->blhd", sc.float(), xa[:, c].float())
+        y_x = torch.einsum("bls,bhds->blhd", Cc[:, c].float(), prev[c]) \
+            * torch.exp(cums[:, c])[..., None]
+        ys.append((y_in + y_x).to(x.dtype))
+    y = torch.stack(ys, dim=1).reshape(b, nc * L, nh, hd)[:, :S]
+    return y, carry

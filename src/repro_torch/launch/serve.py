@@ -6,6 +6,10 @@ weights drawn from seed 0:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --reduced --device cpu --clients 2 --requests 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+
+A stack with SSM layers (mamba2-130m) is served through exact-shape
+prefill, one request per prefill call.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """KV caches as nested dicts/lists of tensors: ring caches and the paged
 block pool.
 
-An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``.
-Ring semantics: token ``t`` of a row lives at slot ``t % W``, so a prefill
-of ``true_len <= W`` tokens occupies slots ``[0, true_len)`` and a full
-ring models a sliding-window cache exactly (W = window).
+An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``;
+an SSM layer's is ``{"conv": [B, K-1, d_in + 2 ds], "state": [B, nh, hd,
+ds]}``, its state in fp32 whatever the model's dtype. Ring semantics: token
+``t`` of a row lives at slot ``t % W``, so a prefill of ``true_len <= W``
+tokens occupies slots ``[0, true_len)`` and a full ring models a
+sliding-window cache exactly (W = window). SSM leaves have no sequence dim:
+they always move whole.
 
 Unlike the JAX package, whose arrays are immutable, :func:`ring_write`,
 :func:`scatter_pages` and :func:`paged_write` update the cache in place:
@@ -42,26 +45,54 @@ def attn_cache_shapes(cfg, B: int, W: int) -> dict:
     }
 
 
+def ssm_cache_shapes(cfg, B: int) -> dict:
+    s = cfg.ssm
+    d_in = cfg.d_model * s.expand
+    nh = s.n_heads(cfg.d_model)
+    return {
+        "conv": (B, s.d_conv - 1, d_in + 2 * s.d_state),
+        "state": (B, nh, s.head_dim, s.d_state),
+    }
+
+
 def layer_cache_shapes(cfg, sig, B: int, W: int) -> dict:
     kind, _ = sig
-    if kind != "attn":
-        raise NotImplementedError(
-            "SSM state caches come with the SSM/hybrid slice")
-    return attn_cache_shapes(cfg, B, W)
+    if kind == "attn":
+        return attn_cache_shapes(cfg, B, W)
+    return ssm_cache_shapes(cfg, B)
+
+
+SEQ_KEYS = ("k", "v")  # leaves with a ring (sequence) dim at axis 1
+_F32_KEYS = ("state",)  # the SSM state carries fp32 for numerical stability
+
+
+def leaf_dtype(key: str, dtype):
+    """A cache leaf's dtype: fp32 for the SSM state, else the model's."""
+    return torch.float32 if key in _F32_KEYS else dtype
+
+
+def init_layer_cache(shapes: dict, dtype, device) -> dict:
+    """Zeroed leaves of one layer's cache, each in its :func:`leaf_dtype`."""
+    return {k: torch.zeros(s, dtype=leaf_dtype(k, dtype), device=device)
+            for k, s in shapes.items()}
 
 
 def grow_cache(caches, new_w: int):
     """Zero-pad the ring dim (axis 1) of every k/v leaf of a prefill cache
-    tree to ``new_w`` so decode can append."""
+    tree to ``new_w`` so decode can append; SSM leaves stay as they are."""
 
-    def grow(leaf):
-        w = leaf.shape[1]
-        if w >= new_w:
-            return leaf
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
+        w = tree.shape[1]
+        if key not in SEQ_KEYS or w >= new_w:
+            return tree
         # pad spec runs from the last dim: (hd, Hkv, W)
-        return F.pad(leaf, (0, 0, 0, 0, 0, new_w - w))
+        return F.pad(tree, (0, 0, 0, 0, 0, new_w - w))
 
-    return tree_map(grow, caches)
+    return walk(caches)
 
 
 # --------------------------------------------------------------------------- #

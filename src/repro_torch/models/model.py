@@ -31,7 +31,7 @@ from repro_torch.models.transformer import (
 
 
 class Model:
-    """Decoder-only model (attention-only, dense FFN stacks in this slice).
+    """Decoder-only model: dense attention stacks and Mamba-2 (SSM) stacks.
 
     ``device`` defaults to CUDA; with no CUDA device the constructor raises
     unless ``device="cpu"`` is given. Every tensor method expects its
@@ -45,6 +45,20 @@ class Model:
         self.device = resolve_device(device)
         self.groups = layer_groups(cfg)
         self._schema = self.schema()  # raises for layer kinds not yet ported
+
+    @property
+    def attention_only(self) -> bool:
+        """True when every layer is attention: only then does right-padding
+        (bucketed and suffix prefill) leave the caches exact -- pad tokens
+        would flow through an SSM layer's conv window and state."""
+        return all(kind == "attn" for g in self.groups for (kind, _) in g.sigs)
+
+    def _require_attention_only(self, what: str):
+        if not self.attention_only:
+            raise ValueError(
+                f"{what} right-pads its rows, which would push pad tokens "
+                f"into the recurrent state of {self.cfg.name}'s SSM layers: "
+                "use the exact-shape prefill")
 
     # ------------------------------------------------------------------ #
     # Schema / params
@@ -95,8 +109,10 @@ class Model:
         only the LM-head gather differs from :meth:`prefill`: logits are
         read at each row's last real position. Pad positions write garbage
         KV that decode never reads (valid_len masks it and the next real
-        token overwrites slot ``lengths % W``). Returns (last_logits [B,V],
-        caches, lengths int32)."""
+        token overwrites slot ``lengths % W``). Attention-only stacks; raises
+        ValueError for others. Returns (last_logits [B,V], caches, lengths
+        int32)."""
+        self._require_attention_only("prefill_bucketed")
         x, caches = self.backbone(params, tokens)
         S = x.shape[1]
         idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
@@ -118,8 +134,10 @@ class Model:
         ``cached_lens[b] + i``; each layer gathers its own prior right
         before its flash launch. Returns (first_logits [B,V],
         suffix_caches, total_lengths = cached_lens + lengths); the caches
-        hold ONLY the suffix KV.
+        hold ONLY the suffix KV. Attention-only stacks; raises ValueError
+        for others.
         """
+        self._require_attention_only("prefill_suffix")
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
         S = x.shape[1]
         pos = cached_lens.to(torch.int64)[:, None] + torch.arange(
@@ -167,7 +185,8 @@ class Model:
         return seq_len
 
     def cache_specs(self, B: int, seq_len: int) -> dict:
-        """Shapes of the ring cache tree for B rows of ``seq_len`` slots."""
+        """Shapes of the cache tree for B rows of ``seq_len`` ring slots
+        (an SSM layer's shapes do not depend on ``seq_len``)."""
         W = self._seq_budget(seq_len)
         return {
             f"g{gi}": [
@@ -179,8 +198,11 @@ class Model:
         }
 
     def init_cache(self, B: int, seq_len: int, dtype=None) -> dict:
-        """Zeroed ring caches on the model's device."""
+        """Zeroed caches on the model's device, each leaf in ``dtype``
+        (default: the model's) except the SSM state, which is fp32."""
         dtype = dtype or self.dtype
-        return sch.tree_map(
-            lambda shape: torch.zeros(shape, dtype=dtype, device=self.device),
-            self.cache_specs(B, seq_len))
+        return {
+            gname: [{lname: kvc.init_layer_cache(shapes, dtype, self.device)
+                     for lname, shapes in block.items()} for block in group]
+            for gname, group in self.cache_specs(B, seq_len).items()
+        }

@@ -3,8 +3,9 @@
 Layers are grouped as in the JAX package (``layer_groups``), so parameter
 and cache trees keep its ``g{i}.l{j}`` names; where JAX scans over a
 group's stacked layers, the port keeps one entry per layer in a list and
-runs a Python loop over it. This slice serves attention-only, non-MoE,
-non-MLA stacks; other layer kinds raise and name the slice that brings them.
+runs a Python loop over it. The port serves attention and Mamba-2 (SSM)
+layers without MoE or MLA; other layer kinds raise and name the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.models.attention import (
     project_qkv,
 )
 from repro_torch.models.layers import ffn_apply, ffn_schema, rmsnorm, rmsnorm_schema
+from repro_torch.models.mamba import mamba_forward, mamba_schema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +65,7 @@ def check_supported(cfg):
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention comes with the architectures "
                                   "slice (deepseek-v2)")
-    for kind, is_moe in layer_signatures(cfg):
-        if kind != "attn":
-            raise NotImplementedError("SSM layers come with the SSM/hybrid "
-                                      "slice (mamba2, jamba)")
+    for _, is_moe in layer_signatures(cfg):
         if is_moe:
             raise NotImplementedError("MoE layers come with the architectures "
                                       "slice (grok, deepseek)")
@@ -76,13 +75,19 @@ def check_supported(cfg):
 # Schemas
 # --------------------------------------------------------------------------- #
 def layer_schema(cfg, sig) -> dict:
+    """The JAX package's per-kind rule: ``ln1`` and the mixer (``attn`` or
+    ``ssm``), then ``ln2`` and ``ffn`` unless the family is ``ssm``."""
+    kind, _ = sig
     d = cfg.d_model
-    return {
-        "ln1": rmsnorm_schema(d),
-        "attn": attn_schema(cfg),
-        "ln2": rmsnorm_schema(d),
-        "ffn": ffn_schema(d, cfg.d_ff),
-    }
+    s = {"ln1": rmsnorm_schema(d)}
+    if kind == "attn":
+        s["attn"] = attn_schema(cfg)
+    else:
+        s["ssm"] = mamba_schema(cfg)
+    if cfg.family != "ssm":
+        s["ln2"] = rmsnorm_schema(d)
+        s["ffn"] = ffn_schema(d, cfg.d_ff)
+    return s
 
 
 def stack_schema(cfg) -> dict:
@@ -110,16 +115,27 @@ def _layers(groups):
 # --------------------------------------------------------------------------- #
 # Full-sequence (prefill) and one-token (decode) layer application
 # --------------------------------------------------------------------------- #
+def _ffn_block(lp, cfg, x):
+    """The residual FFN half of a layer (none in an ``ssm``-family stack)."""
+    if cfg.family == "ssm":
+        return x
+    return x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
 def apply_layer_full(lp, cfg, sig, x, positions, *, prior_blocks=None,
                      prior_pt=None, prior_valid=None):
-    """x: [B,S,d] -> (x, cache {"k","v"} [B,S,Hkv,hd]).
+    """x: [B,S,d] -> (x, cache): {"k","v"} [B,S,Hkv,hd] for an attention
+    layer, {"conv","state"} for an SSM layer (prefilled from a zero state).
 
     With ``prior_blocks`` (this layer's block pool), ``prior_pt`` [B, Pn]
     and ``prior_valid`` [B] it is a suffix prefill: the layer's prior KV is
     gathered from the pool here, right before its flash launch, and only
-    ``Pn`` pages wide."""
+    ``Pn`` pages wide (attention layers only)."""
     B, S, _ = x.shape
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if sig[0] != "attn":
+        o, cache = mamba_forward(lp["ssm"], cfg, h)
+        return _ffn_block(lp, cfg, x + o), cache
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     prior = None
     if prior_blocks is not None:
@@ -128,24 +144,25 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior_blocks=None,
     o = prefill_attention(q, k, v, window=cfg.sliding_window, prior=prior,
                           prior_valid=prior_valid)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + ffn_apply(lp["ffn"], h2)
-    return x, {"k": k, "v": v}
+    return _ffn_block(lp, cfg, x), {"k": k, "v": v}
 
 
 def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
-    """x: [B,1,d]; lcache's k/v ring-written in place. Returns x."""
+    """x: [B,1,d]; lcache's k/v ring-written (or its conv window and state
+    updated) in place. Returns x."""
     B = x.shape[0]
-    positions = lengths[:, None]  # [B,1]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if sig[0] != "attn":
+        o, _ = mamba_forward(lp["ssm"], cfg, h, cache=lcache)
+        return _ffn_block(lp, cfg, x + o)
+    positions = lengths[:, None]  # [B,1]
     W = lcache["k"].shape[1]
     valid_len = torch.clamp(lengths + 1, max=W).to(torch.int32)
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     o = decode_attention_update(q, k, v, lcache["k"], lcache["v"], lengths,
                                 valid_len=valid_len)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn_apply(lp["ffn"], h2)
+    return _ffn_block(lp, cfg, x)
 
 
 def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
@@ -161,8 +178,7 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
     o = paged_decode_attention_update(q, k, v, lblocks, page_table, lengths,
                                       valid_len=valid_len)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-    h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn_apply(lp["ffn"], h2)
+    return _ffn_block(lp, cfg, x)
 
 
 def stack_apply_full(params, cfg, x, positions, *, groups, prior_blocks=None,

@@ -12,6 +12,10 @@ TransportProfile, composed into one per-request record (paper Table I).
   fixed admission width ``max_batch`` (dummy rows carry slot index
   ``max_batch`` and are dropped on the host before the splice: a CUDA
   scatter would fault on an out-of-bounds index where JAX's drops it).
+* **Exact-shape prefill** -- a stack with SSM layers cannot be right-padded
+  (pad tokens would flow into its conv window and recurrent state), so, as
+  in the JAX engine, each admitted request of such a stack is prefilled on
+  its own at its true length. The architecture picks the path.
 * **Device-resident decode loop** -- sampling (greedy argmax, or
   temperature/top-k with a ``torch.Generator`` on the pool's device), EOS
   detection, per-slot done flags and length updates all run on the device.
@@ -104,7 +108,9 @@ class PrefillArtifact:
     rows past it are admission padding (slot index == max_batch) and never
     reach the pool. ``caches`` holds the prefill KV at bucket width: the
     splice writes ring slots ``[0, bucket)`` of each slot, and decode never
-    reads a slot past a row's length before writing it.
+    reads a slot past a row's length before writing it. An SSM layer's conv
+    window and state have no such mask, so the splice overwrites the slot's
+    whole rows of them.
     """
 
     caches: object  # cache tree, [npad, bucket, Hkv, hd] per k/v leaf
@@ -270,8 +276,13 @@ class DecodePool:
                     for lname, pool_leaves in block.items():
                         new = art.caches[gname][i][lname]
                         for key, pool in pool_leaves.items():
-                            src = new[key][:n]
-                            pool[idx, : src.shape[1]] = src.to(pool.dtype)
+                            src = new[key][:n].to(pool.dtype)
+                            if key in kvc.SEQ_KEYS:
+                                pool[idx, : src.shape[1]] = src
+                            else:
+                                # a freed or frozen lane kept changing its
+                                # conv/state in every decode step since
+                                pool[idx] = src
         col = torch.zeros_like(idx)
         self.lengths = self.lengths.index_put((idx,), art.lengths[:n])
         self.tokens = self.tokens.index_put((idx, col), art.next_tokens[:n])
@@ -332,7 +343,8 @@ class DecodePool:
 class ServingEngine:
     """Continuous-batching serving engine over a slot-based KV pool: the
     ring pool, or with ``paged=True`` the paged block pool, with radix
-    prefix reuse unless ``prefix_reuse=False``.
+    prefix reuse unless ``prefix_reuse=False``. A stack with SSM layers
+    prefills each request at its exact length and cannot be paged.
 
     :meth:`submit` queues a request, :meth:`step` runs one iteration (admit
     -> dispatch -> harvest) and returns finished
@@ -373,6 +385,13 @@ class ServingEngine:
                 f"slot-pool engine requires max_seq <= sliding_window "
                 f"({max_seq} > {model.cfg.sliding_window})"
             )
+        # bucketed (right-padded) prefill is sound only for attention-only
+        # stacks; the others take the exact-shape path, one request per call
+        self.exact_prefill = not model.attention_only
+        if paged and self.exact_prefill:
+            raise ValueError(
+                "paged KV pool requires the bucketed path (attention-only "
+                f"stack); {model.cfg.name} has SSM layers")
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -452,8 +471,8 @@ class ServingEngine:
             )
         if req.features is not None:
             raise NotImplementedError(
-                "feature payloads take the exact-shape prefill path, which "
-                "comes with a later slice of the port")
+                "feature payloads come with the VLM/audio front-end slice "
+                "of the port")
         if self.paged and len(req.prompt_tokens) + req.max_new_tokens > self.max_seq:
             # the ring pool wraps a long generation over its own oldest
             # positions; a paged row may SHARE its prefix blocks, so
@@ -494,6 +513,10 @@ class ServingEngine:
             self._admit_paged(picked, free)
             return
         free_it = iter(free)
+        if self.exact_prefill:
+            for req in picked:
+                self._prefill_exact(req, next(free_it))
+            return
         buckets: dict[int, list[Request]] = {}
         for req in picked:
             buckets.setdefault(self._bucket(len(req.prompt_tokens)), []).append(req)
@@ -535,6 +558,22 @@ class ServingEngine:
         )
         self._splice_and_place(logits, cache1, lens_d, slot_idx, maxn, reqs,
                                slots, t0)
+
+    def _prefill_exact(self, req: Request, slot: int):
+        """Exact-shape prefill of one request at its true length S, then its
+        sample, splice and record (the JAX engine's ``_prefill_exact``)."""
+        S = len(req.prompt_tokens)
+        self.prefill_calls += 1
+        self.prefill_tokens_total += S
+        self.prefill_tokens_uncached += S
+        self.prefill_padded_tokens += S
+        t0 = time.perf_counter()
+        toks = torch.tensor(np.asarray(req.prompt_tokens, np.int32))[None]
+        logits, caches, lengths = self.model.prefill(self.params,
+                                                     toks.to(self.device))
+        self._splice_and_place(
+            logits, caches, lengths, np.asarray([slot], np.int32),
+            np.asarray([req.max_new_tokens], np.int32), [req], [slot], t0)
 
     def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
                           reqs: list, slots: list, t0: float,

@@ -1,14 +1,15 @@
 """Port kernels and model on a CUDA card: each hand-written Hopper kernel
 against its plain PyTorch version (the paged decode kernel also against the
 ring kernel on the same K/V), and the serving engine's launch counts on its
-ring and paged paths.
+ring, paged and exact-shape (Mamba-2) paths.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances follow tests/test_kernels.py (fp32 atol 2e-5, bf16 atol 2e-2,
-rtol 1e-2): kernel and plain version sum in different orders."""
+rtol 1e-2; for the SSD scan fp32 atol 3e-5, bf16 atol 5e-2, rtol 2e-2):
+kernel and plain version sum in different orders."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOLS = {"fp32": 2e-5, "bf16": 2e-2}
+SSD_TOLS = {"fp32": 3e-5, "bf16": 5e-2}
 TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -185,6 +187,91 @@ def test_flash_kernel_with_prior_matches_plain(cuda_device, dtype, window, H,
     assert torch.equal(got[2], plain[2])
 
 
+def _ssd_case(S, dtype, dev, seed, nh=24, hd=64, ds=128):
+    """tests/test_kernels.py's SSD inputs at mamba2-130m's widths, with x,
+    B and C read as the model reads them: strided views of one conv-output
+    row [1, S, nh * hd + 2 ds]."""
+    g = torch.Generator().manual_seed(seed)
+    xBC = torch.randn((1, S, nh * hd + 2 * ds), generator=g)
+    dt = torch.randn((1, S, nh), generator=g).abs() * 0.1 + 0.01
+    A = -torch.randn((nh,), generator=g).abs() - 0.1
+    xBC = xBC.to(device=dev, dtype=TDT[dtype])
+    x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
+    B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
+    C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
+    return x, dt.to(dev), A.to(dev), B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("S", [77, 1000, 1024])  # < 1 chunk, ragged, 4 chunks
+def test_ssd_kernel_matches_plain(cuda_device, dtype, S):
+    """The kernel computes in fp32 throughout, as the TPU kernel does; on
+    bf16 inputs the plain version rounds its C.B^T scores to bf16, as the
+    JAX model's ssd_chunked does. So the oracle is the plain version run in
+    fp32 on the same input values (test_kernels.py likewise holds the
+    Pallas kernel against an fp32 oracle)."""
+    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, S)
+    ops.reset_launches()
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk=256)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    torch.cuda.synchronize()
+    want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(), C.float(),
+                                       256)
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               atol=SSD_TOLS[dtype], rtol=2e-2)
+    torch.testing.assert_close(st, want_st, atol=SSD_TOLS[dtype], rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_mamba_engine_on_card_matches_cpu(cuda_device):
+    """A 2-layer Mamba-2 stack at the kernel's widths (d_state 128, head_dim
+    64, chunk 64) served on the card: one exact prefill per request, the
+    SSD kernel once per layer per prefill, no attention kernel, and the CPU
+    engine's greedy tokens on the same weights (fp32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    base = get_config("mamba2-130m").reduced()
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, d_state=128, head_dim=64, chunk=64))
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for s in (5, 70, 130, 9, 200)]
+
+    def serve(model, p, device):
+        eng = ServingEngine(model, p, max_batch=2, max_seq=256, device=device)
+        reqs = [Request(prompt_tokens=t, max_new_tokens=6) for t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    ops.reset_launches()
+    got, eng = serve(gpu, params, cuda_device)
+    c = eng.counters()
+    L = cfg.n_layers
+    assert c["prefill_calls"] == len(prompts)
+    assert ops.LAUNCHES == {
+        "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
+        "flash_attention": 0, "decode_attention": 0,
+        "paged_decode_attention": 0, "ssd_scan": L * c["prefill_calls"],
+    }
+    assert eng.logits_all_finite()
+    want, ceng = serve(cpu, params_cpu, "cpu")
+    assert got == want
+    assert ceng.counters() == c
+
+
 @pytest.mark.cuda
 def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
     """A reduced llama3 served paged with prefix reuse on the card: launch
@@ -227,6 +314,7 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
         "flash_attention": L * c["prefill_calls"],
         "decode_attention": 0,
         "paged_decode_attention": L * c["decode_steps"],
+        "ssd_scan": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
@@ -273,6 +361,7 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "flash_attention": L * c["prefill_calls"],
         "decode_attention": L * c["decode_steps"],
         "paged_decode_attention": 0,
+        "ssd_scan": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")

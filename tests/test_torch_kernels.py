@@ -136,9 +136,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.paged_decode_attention(x[:, :1], k, k,
                                torch.zeros((4, 2), dtype=torch.int32),
                                torch.full((4,), 7, dtype=torch.int32))
+    bc = torch.randn(4, 32, 1, 8)
+    ops.ssd_scan(x, torch.rand(4, 32, 2), -torch.ones(2), bc, bc, chunk=16)
     assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0}
 
 
 def test_plain_versions_mask_past_real_lengths():

@@ -176,7 +176,7 @@ def test_cpu_prefill_counts_no_kernel_launch(pair):
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "ssm"},
+    {"frontend": "vision"},
     {"moe": "moe"},
     {"mla": "mla"},
 ])
