@@ -17,7 +17,11 @@ result line:
    version's time and one PyTorch library call's time where one computes
    the same function (a yardstick only); the paged kernel also against the
    ring kernel on the same K/V laid out densely (bitwise equal); the SSD
-   scan at 1024, 1000 and 77 positions;
+   scan at 1024, 1000 and 77 positions; and the preprocess kernel on its
+   path, the entry point ``ops.preprocess`` (4 batches of 8 camera frames,
+   the paper's input), then against its plain version there and at
+   tests/test_kernels.py's shapes, with its device time alone from
+   torch.profiler beside the CUDA-event time (its launch is host-bound);
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps, the card through
    the kernels and the CPU through the plain versions, both fed the card's
@@ -50,7 +54,20 @@ result line:
    tokens and 32 new tokens, one exact-shape prefill per request, with the
    launch counts held against the path's structure; then the SSD kernel's
    share of the device time of one profiled 2048-token prefill, and where
-   a decode step's time goes, measured as in phase 5.
+   a decode step's time goes, measured as in phase 5;
+8. the disaggregated tier: (a) phase 4's 12 requests on the 32-layer
+   llama3-8b, all submitted at once, through the fused engine and
+   DisaggregatedEngine under DIRECT_HBM, DIRECT_DMA and HOST_STAGED (a warm
+   pass each, then two measured passes in turns), holding the direct
+   mechanisms' tokens to the fused engine's, HOST_STAGED's first tokens and
+   budgets, the extents and wire bytes to those worked out by hand from
+   the prompt lengths and to a host-side sum over the handoffs' extents,
+   and the launch counts to the path; (b) phase 6's shared-prefix traffic,
+   paged with reuse, under DIRECT_DMA: phase 6 (c)'s tokens, 24 hits, wire
+   bytes equal to the admission plan's; (c) 4 mamba2-130m requests under
+   DIRECT_HBM: the fused engine's tokens, 19,132,432 wire bytes each. It
+   prints each mechanism's hop wall, wire GB/s, the PAPER_A2 model for the
+   same bytes, TTFT p50 and the 'transfer' and 'preprocess' means.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -96,6 +113,25 @@ SSM_LAYERS = 24
 # the witness's largest logit. Set from a reading on an H100 at 700 W: the
 # card sat 0.077-0.135 from it, the CPU in bf16 0.095-0.140.
 SSM_BF16_LIMIT = 0.2
+# phase 2's preprocess path: the paper's Table II input, a batch of 8
+# 640x480 RGB camera frames (uint8), normalized per channel
+PP_FRAMES = (8, 480, 640, 3)
+PP_BATCHES = 4
+DISAGG_MODES = ("direct_hbm", "direct_dma", "host_staged")
+# phase 8 (a): one pass's handoffs, (rows, ring slots), worked out by hand
+# from the 12 prompt lengths (881 518 868 843 762 708 491 972 | 755 469 810
+# 192): two waves of max_batch 8 (equal budgets, so a wave ends together);
+# in each, one prefill per power-of-two bucket in order of first
+# appearance, its rows and its longest prompt rounded up to powers of two
+RING_EXTENTS = [(8, 1024), (1, 512), (2, 1024), (1, 512), (1, 256)]
+# and their wire bytes a pass: 11,520 slot-rows x 131,072 B (32 layers x
+# k, v x 8 heads x 128 x bf16; int8 halves it), 16 B of int32 metadata a
+# row, and under HOST_STAGED one fp32 scale per k and v leaf a handoff
+RING_WIRE = {"direct_hbm": 1_509_949_648, "direct_dma": 1_509_949_648,
+             "host_staged": 754_974_968}
+# phase 8 (c): one mamba2-130m request's conv + state rows, plus 16 bytes of
+# int32 metadata
+MAMBA_REQUEST_WIRE = 19_132_432
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -171,21 +207,28 @@ def main():
     done(t0)
 
     t0 = phase("phase 6: paged KV pool + prefix reuse on llama3-8b")
-    results["paged_path"] = paged_path(torch, ops, engine)
+    results["paged_path"], shared = paged_path(torch, ops, engine)
     done(t0)
+    llama = (engine.model, engine.params)
     del engine
     torch.cuda.empty_cache()
 
     t0 = phase("phase 7: the SSM path, repro_torch.launch.serve on mamba2-130m")
-    results["ssm_path"] = ssm_path(torch, ops)
+    results["ssm_path"], ssm_engine = ssm_path(torch, ops)
     done(t0)
+
+    t0 = phase("phase 8: the disaggregated prefill->decode tier")
+    results["disagg"] = disagg_path(torch, ops, llama, shared, ssm_engine)
+    done(t0)
+    del llama, ssm_engine
 
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
-    # the SSD scan
+    # the SSD scan, the ops.preprocess entry point (phase 2) for preprocess
     runs = {"paged_decode_attention": results["paged_path"]["runs"]["reuse"],
-            "ssd_scan": results["ssm_path"]}
+            "ssd_scan": results["ssm_path"],
+            "preprocess": results["kernels"]["preprocess_path"]}
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
@@ -225,6 +268,28 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, key, reps=20):
+    """Device time per call of the kernels whose name holds ``key``, from
+    torch.profiler over ``reps`` calls: the kernel alone, without the host
+    launch time that CUDA events around a launch-bound call also catch.
+    None when the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and key in e.key)
+    return us / reps / 1e3 if us else None
+
+
 def library_ms(torch, fn, **kw):
     """Time of a PyTorch library call used as a yardstick only; None when
     this torch build cannot make the call."""
@@ -255,10 +320,10 @@ def bound(nbytes, flops, dtype):
 
 
 def case_record(torch, name, dtype, shape, got, want, t_kernel, t_plain,
-                t_lib, nbytes, flops, tols=TOLS, rtol=RTOL):
+                t_lib, nbytes, flops, tols=TOLS, rtol=RTOL, flop_dtype=None):
     err = compare(torch, got, want, dtype, f"{name} {dtype} {shape}", tols,
                   rtol)
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = bound(nbytes, flops, flop_dtype or dtype)
     rec = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -376,6 +441,8 @@ def check_kernels(torch, ops, dev):
 
     cases += paged_cases(torch, ops, ref, dev)
     cases += ssd_cases(torch, ops, ref, dev)
+    pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
+    cases += pp_cases
 
     # the line's entry per kernel: bf16 (the serving dtype) at the shape the
     # main path launches most (decode for rmsnorm, the 1024 bucket for flash)
@@ -384,7 +451,8 @@ def check_kernels(torch, ops, dev):
             "decode_attention": [B, W, H, Hkv, hd, lens_host],
             "paged_decode_attention": [B, PAGED_PAGES, H, Hkv, hd, PAGED_LENS],
             "ssd_scan": [1, 1024, SSD_SHAPE["nh"], SSD_SHAPE["hd"],
-                         SSD_SHAPE["ds"]]}
+                         SSD_SHAPE["ds"]],
+            "preprocess": list(PP_FRAMES)}
     meta = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -397,6 +465,8 @@ def check_kernels(torch, ops, dev):
             "src/repro/kernels/decode_attention.py:145"),
         "ssd_scan": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:80"),
+        "preprocess": ("triton", "src/repro_torch/kernels/preprocess.py",
+                       "src/repro/kernels/preprocess.py:24"),
     }
     summary = []
     for name, shape in pick.items():
@@ -408,8 +478,73 @@ def check_kernels(torch, ops, dev):
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                        "shape": shape, "dtype": "bf16"})
-    return {"cases": cases, "summary": summary}
+                        "shape": shape, "dtype": "bf16",
+                        **({"device_ms": c["device_ms"]} if "device_ms" in c
+                           else {})})
+    return {"cases": cases, "summary": summary, "preprocess_path": pp_path}
+
+
+def preprocess_cases(torch, ops, ref, dev):
+    """Phase 2's preprocess cases. Its path is the entry point a user calls,
+    ``ops.preprocess`` (no serving path of the JAX package calls it): first
+    that path, run on PP_BATCHES batches of the paper's 8 camera frames
+    with the launch counts set to 0 just before and read just after; then
+    the kernel against its plain version at those frames and at
+    tests/test_kernels.py's shapes, in bf16 and fp32. Tolerances: bf16
+    atol 1e-2 as tests/test_kernels.py; fp32 5e-7 (the kernel multiplies by
+    fp32(1/255) where the plain version divides by 255). The bound counts
+    N*D bytes read, N*D outputs written and 4 fp32 operations per element;
+    no single PyTorch call computes the function."""
+    def inputs(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(0, 256, shape, generator=g, device=dev,
+                          dtype=torch.uint8)
+        D = shape[-1]
+        mean = torch.rand((D,), generator=g, device=dev) * 0.4 + 0.1
+        std = torch.rand((D,), generator=g, device=dev) * 0.2 + 0.3
+        return x, mean, std
+
+    batches = [inputs(PP_FRAMES, 30 + i) for i in range(PP_BATCHES)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = [ops.preprocess(x, m, sd) for x, m, sd in batches]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["preprocess"] != PP_BATCHES or any(
+            v for k, v in launches.items() if k != "preprocess"):
+        raise AssertionError(f"preprocess path launches {launches}")
+    if any(o.shape != PP_FRAMES or o.dtype != torch.bfloat16
+           or not torch.isfinite(o).all() for o in outs):
+        raise AssertionError("preprocess path: outputs not finite bf16 frames")
+    print(f"   preprocess path: ops.preprocess on {PP_BATCHES} batches of "
+          f"{PP_FRAMES} uint8 frames, launches {launches['preprocess']}")
+    del outs, batches
+    tols = {"bf16": 1e-2, "fp32": 5e-7}
+    cases = []
+    for dtype in ("bf16", "fp32"):
+        tdt = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        for shape in (PP_FRAMES, (8, 128), (100, 512), (1000, 64)):
+            x, mean, std = inputs(shape, 40)
+            n = x.numel()
+            D = shape[-1]
+            nbytes = n + n * torch.empty((), dtype=tdt).element_size() + 8 * D
+            rec = case_record(
+                torch, "preprocess", dtype, list(shape),
+                ops.preprocess(x, mean, std, out_dtype=tdt),
+                ref.preprocess_ref(x, mean, std, tdt),
+                time_ms(torch, lambda: ops.preprocess(x, mean, std,
+                                                      out_dtype=tdt)),
+                time_ms(torch, lambda: ref.preprocess_ref(x, mean, std, tdt)),
+                None, nbytes, 4 * n, tols, RTOL, flop_dtype="fp32")
+            rec["library"] = "none: no single PyTorch call computes it"
+            rec["device_ms"] = device_ms(
+                torch, lambda: ops.preprocess(x, mean, std, out_dtype=tdt),
+                "preprocess_kernel")
+            print(f"   {'':16s} device time alone (torch.profiler): "
+                  f"{rec['device_ms']} ms")
+            cases.append(rec)
+    return cases, {"path": "ops.preprocess", "batches": PP_BATCHES,
+                   "launches": launches}
 
 
 def paged_cases(torch, ops, ref, dev):
@@ -734,7 +869,7 @@ def same_weights_ssm(torch, ops, dev):
         launches = dict(ops.LAUNCHES)
         want = {"rmsnorm": 2 * SSM_LAYERS + 1, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd_scan": SSM_LAYERS}
+                "ssd_scan": SSM_LAYERS, "preprocess": 0}
         if launches != want:
             raise AssertionError(f"mamba2 prefill launches {launches} != {want}")
         t0 = time.perf_counter()
@@ -784,7 +919,7 @@ def main_path(torch, ops):
     want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
             "flash_attention": N_LAYERS * c["prefill_calls"],
             "decode_attention": N_LAYERS * c["decode_steps"],
-            "paged_decode_attention": 0, "ssd_scan": 0}
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
     if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
@@ -941,7 +1076,7 @@ def paged_path(torch, ops, ring_engine):
         want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
                 "flash_attention": N_LAYERS * c["prefill_calls"],
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd_scan": 0}
+                "ssd_scan": 0, "preprocess": 0}
         want[decode] = N_LAYERS * c["decode_steps"]
         if launches != want:
             raise AssertionError(f"({name}) launch counts {launches} != path "
@@ -1010,9 +1145,11 @@ def paged_path(torch, ops, ring_engine):
     print(f"   (c) reuse vs (b) paged: {agree}/{n * new} tokens equal; "
           f"ttft p50 {runs['reuse']['ttft_ms_p50']:.2f} vs "
           f"{runs['paged']['ttft_ms_p50']:.2f} ms")
-    return {"traffic": PAGED_TRAFFIC, "runs": runs,
-            "reuse_tokens_equal_paged": agree, "tokens_total": n * new,
-            "reuse_parts": parts}
+    return ({"traffic": PAGED_TRAFFIC, "runs": runs,
+             "reuse_tokens_equal_paged": agree, "tokens_total": n * new,
+             "reuse_parts": parts},
+            {"primes": primes, "prompts": prompts, "new": new,
+             "reuse_tokens": tokens["reuse"]})
 
 
 # --------------------------------------------------------------------------- #
@@ -1049,7 +1186,7 @@ def ssm_path(torch, ops):
     forwards = c["prefill_calls"] + c["decode_steps"]
     want = {"rmsnorm": (2 * SSM_LAYERS + 1) * forwards, "flash_attention": 0,
             "decode_attention": 0, "paged_decode_attention": 0,
-            "ssd_scan": SSM_LAYERS * c["prefill_calls"]}
+            "ssd_scan": SSM_LAYERS * c["prefill_calls"], "preprocess": 0}
     print(f"   prompts {prompt_lens}; counters {c}; launches {launches}; "
           f"expected {want}")
     if launches != want or launches["ssd_scan"] == 0:
@@ -1119,7 +1256,277 @@ def ssm_path(torch, ops):
         print(f"   {k['ms']:8.3f} ms  x{k['calls']:<5g} {k['name']}")
     print("   decode steps of the drained engine (8 lanes):")
     res["decode_profile"] = decode_profile(torch, eng)
-    return res
+    return res, eng
+
+
+# --------------------------------------------------------------------------- #
+# phase 8
+# --------------------------------------------------------------------------- #
+def meta_cache(torch, model, B, W):
+    """The model's cache tree for B rows of W slots as meta tensors: shapes
+    and dtypes, no memory."""
+    from repro_torch.models import kvcache as kvc
+
+    return {g: [{name: kvc.init_layer_cache(shapes, model.dtype, "meta")
+                 for name, shapes in block.items()} for block in group]
+            for g, group in model.cache_specs(B, W).items()}
+
+
+def extent_wire_bytes(torch, template, n, prefix, mode):
+    """Host-side wire bytes of one ring handoff of n rows x prefix slots:
+    ``payload_wire_bytes`` of the sliced template and 4 int32 metadata
+    rows, never reading the engine's payload."""
+    from repro_torch.core.transfer import payload_wire_bytes
+    from repro_torch.models.kvcache import slice_cache
+
+    meta = {k: torch.empty((n,), dtype=torch.int32, device="meta")
+            for k in ("lengths", "next_tokens", "slot_idx", "max_new")}
+    return payload_wire_bytes(
+        {"caches": slice_cache(template, n, prefix), "meta": meta}, mode)
+
+
+def serve_all(eng, prompts, new):
+    """Submit every prompt at once and drain: admission then does not
+    depend on timing. Returns (requests, responses) in prompt order."""
+    from repro_torch.serving import Request
+
+    reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=new)
+            for t in prompts]
+    for r in reqs:
+        eng.submit(r)
+    out = {r.request_id: r for r in eng.run_until_drained()}
+    if len(out) != len(reqs) or any(len(out[r.request_id].tokens) != new
+                                    for r in reqs):
+        raise AssertionError(f"{len(out)} of {len(reqs)} requests returned, "
+                             "or a request fell short of its budget")
+    if not eng.logits_all_finite():
+        raise AssertionError("a logit was not finite")
+    return reqs, [out[r.request_id] for r in reqs]
+
+
+def structure(c, layers, decode="decode_attention", ssm=False):
+    """Launch counts a served run must show: rmsnorm 2 per layer + 1 per
+    forward, flash (or the SSD scan) once per layer per prefill call, the
+    decode kernel once per layer per step."""
+    want = {"rmsnorm": (2 * layers + 1) * (c["prefill_calls"]
+                                           + c["decode_steps"]),
+            "flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+    if ssm:
+        want["ssd_scan"] = layers * c["prefill_calls"]
+    else:
+        want["flash_attention"] = layers * c["prefill_calls"]
+        want[decode] = layers * c["decode_steps"]
+    return want
+
+
+def disagg_path(torch, ops, llama, shared, ssm_engine):
+    """Phase 8: (a) phase 4's 12 llama3-8b requests, all submitted at once,
+    through the fused engine and DisaggregatedEngine under each mechanism:
+    one warm pass per engine, then two measured passes in turns (A B C D
+    D C B A), so a drift of the host's speed falls on every engine alike;
+    (b) phase 6's shared-prefix traffic, paged with reuse, under
+    DIRECT_DMA; (c) 4 mamba2-130m requests under DIRECT_HBM against phase
+    7's fused engine."""
+    from repro_torch.core.metrics import percentile
+    from repro_torch.core.transfer import MODE_TRANSPORT, TransferMode
+    from repro_torch.core.transport import PAPER_A2
+    from repro_torch.serving import DisaggregatedEngine, ServingEngine
+    from repro_torch.serving.client import ClosedLoopClient
+
+    model, params = llama
+    dev = model.device
+    prompts = [ClosedLoopClient(i, model.cfg.vocab_size, prompt_len=(64, 1024))
+               .make_request().prompt_tokens for i in range(12)]
+    template = meta_cache(torch, model, 8, 2048)
+    names = ("fused",) + DISAGG_MODES
+    engines, extents = {}, {}
+    for name in names:
+        if name == "fused":
+            eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                                device=dev)
+        else:
+            eng = DisaggregatedEngine(model, params, max_batch=8,
+                                      max_seq=2048, device=dev,
+                                      transfer_mode=TransferMode(name))
+            extents[name] = []
+            extent = eng._prefix_extent  # record each handoff's extent
+
+            def recorded(art, extent=extent, log=extents[name]):
+                log.append(extent(art))
+                return log[-1]
+
+            eng._prefix_extent = recorded
+        # warm pass: the hop's buffers grow here to the largest extent this
+        # traffic makes (pinned and touched host memory included), so the
+        # measured passes allocate nothing
+        serve_all(eng, prompts, 32)
+        engines[name] = eng
+    runs = {name: [] for name in names}
+    tokens = {}
+    for name in names + names[::-1]:  # in turns: A B C D D C B A
+        eng = engines[name]
+        c0, hop0 = eng.counters(), getattr(eng, "handoff_wall_s", 0.0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        reqs, rsps = serve_all(eng, prompts, 32)
+        torch.cuda.synchronize()
+        launches, c = dict(ops.LAUNCHES), eng.counters()
+        delta = {k: c[k] - c0[k] for k in c}
+        if launches != structure(delta, N_LAYERS):
+            raise AssertionError(f"({name}) launches {launches} != "
+                                 f"{structure(delta, N_LAYERS)}")
+        runs[name].append({"delta": delta, "rsps": rsps, "launches": launches,
+                           "hop_s": getattr(eng, "handoff_wall_s", 0.0)
+                           - hop0})
+        got = [list(r.generated) for r in reqs]
+        if tokens.setdefault(name, got) != got:
+            raise AssertionError(f"({name}) tokens differ between passes")
+    out = {"ring": {}}
+    for name in names:
+        eng, passes = engines[name], runs[name]
+        rsps = [r for p in passes for r in p["rsps"]]
+        stages = ("transfer", "preprocess")
+        res = {"measured": [p["delta"] for p in passes],
+               "launches": [p["launches"] for p in passes],
+               "ttft_ms_p50": percentile([r.ttft_s for r in rsps], 0.5) * 1e3,
+               **{f"{k}_ms_mean": 1e3 * sum(r.stage_s.get(k, 0.0)
+                                            for r in rsps) / len(rsps)
+                  for k in stages}}
+        line = (f"   ({name}) ttft p50 {res['ttft_ms_p50']:.2f} ms over 2 "
+                f"measured passes; 'preprocess' mean "
+                f"{res['preprocess_ms_mean']:.2f} ms, 'transfer' mean "
+                f"{res['transfer_ms_mean']:.3f} ms")
+        if name != "fused":
+            mode = TransferMode(name)
+            c = eng.counters()
+            per = [extent_wire_bytes(torch, template, n, p, mode)
+                   for n, p in extents[name]]
+            if c["handoff_wire_bytes"] != sum(per) or c["handoffs"] != len(per):
+                raise AssertionError(
+                    f"({name}) handoff_wire_bytes {c['handoff_wire_bytes']} "
+                    f"!= host-side sum {sum(per)} over {extents[name]}")
+            k = len(per) // 3  # handoffs per pass (warm + 2 measured)
+            wire = sum(per[:k])
+            if extents[name] != RING_EXTENTS * 3 or wire != RING_WIRE[name]:
+                raise AssertionError(
+                    f"({name}) extents {extents[name]}, {wire} wire bytes a "
+                    f"pass; worked out from the prompts: {RING_EXTENTS}, "
+                    f"{RING_WIRE[name]}")
+            hop_ms = [p["hop_s"] * 1e3 for p in passes]
+            res.update(
+                extents=extents[name][:k], handoffs_per_pass=k,
+                wire_bytes_per_pass=wire, hop_ms_per_pass=hop_ms,
+                hop_ms_per_handoff=sum(hop_ms) / (2 * k),
+                wire_gb_s=2 * wire / sum(hop_ms) / 1e6,
+                paper_a2_modelled_ms_per_pass=1e3 * sum(
+                    PAPER_A2.handoff_time(MODE_TRANSPORT[mode], b)
+                    for b in per[:k]))
+            line = (f"   ({name}) {k} handoffs a pass {extents[name][:k]}, "
+                    f"{wire} wire bytes a pass (all {len(per)} handoffs = "
+                    f"the host-side sum); hop {hop_ms[0]:.3f}, "
+                    f"{hop_ms[1]:.3f} ms a pass, "
+                    f"{res['hop_ms_per_handoff']:.3f} ms a handoff, "
+                    f"{res['wire_gb_s']:.2f} GB/s; PAPER_A2 models "
+                    f"{res['paper_a2_modelled_ms_per_pass']:.2f} ms for the "
+                    "same bytes\n" + line)
+        print(line, flush=True)
+        out["ring"][name] = res
+    del engines
+    torch.cuda.empty_cache()
+    for name in ("direct_hbm", "direct_dma"):
+        if tokens[name] != tokens["fused"]:
+            bad = [i for i, (a, b) in enumerate(zip(tokens[name],
+                                                    tokens["fused"])) if a != b]
+            raise AssertionError(f"({name}) tokens differ from the fused "
+                                 f"engine's in requests {bad}")
+    if [t[0] for t in tokens["host_staged"]] != [t[0] for t in tokens["fused"]]:
+        raise AssertionError("(host_staged) a first token differs")
+    agree = sum(a == b for x, y in zip(tokens["host_staged"], tokens["fused"])
+                for a, b in zip(x, y))
+    out["host_staged_tokens_equal_fused"] = agree
+    ttft = {k: v["ttft_ms_p50"] for k, v in out["ring"].items()}
+    out["gdr_ttft_saving"] = {
+        k: 1 - ttft["direct_hbm"] / ttft[k] for k in ("direct_dma",
+                                                       "host_staged")}
+    print(f"   direct_hbm, direct_dma == fused on all {12 * 32} tokens; "
+          f"host_staged: every first token equal, {agree}/{12 * 32} tokens; "
+          f"GDR's ttft p50 saving vs RDMA "
+          f"{out['gdr_ttft_saving']['direct_dma']:.4f}, vs TCP "
+          f"{out['gdr_ttft_saving']['host_staged']:.4f}", flush=True)
+
+    # (b) paged with prefix reuse, DIRECT_DMA
+    torch.cuda.empty_cache()
+    eng = DisaggregatedEngine(model, params, max_batch=8, max_seq=2048,
+                              paged=True, device=dev,
+                              transfer_mode=TransferMode.DIRECT_DMA)
+    serve_all(eng, shared["primes"], shared["new"])
+    c0 = eng.counters()
+    ops.reset_launches()
+    reqs, rsps = serve_all(eng, shared["prompts"], shared["new"])
+    torch.cuda.synchronize()
+    launches, c = dict(ops.LAUNCHES), eng.counters()
+    delta = {k: c[k] - c0[k] for k in c}
+    want = structure(delta, N_LAYERS, "paged_decode_attention")
+    if launches != want:
+        raise AssertionError(f"(paged) launches {launches} != {want}")
+    if [list(r.generated) for r in reqs] != shared["reuse_tokens"]:
+        raise AssertionError("(paged) tokens differ from phase 6 (c)")
+    if c["handoff_wire_bytes"] != c["handoff_payload_bytes"]:
+        raise AssertionError(f"(paged) wire {c['handoff_wire_bytes']} != "
+                             f"plan {c['handoff_payload_bytes']}")
+    if delta["prefix_hits"] != len(shared["prompts"]):
+        raise AssertionError(f"(paged) {delta['prefix_hits']} prefix hits")
+    out["paged"] = {"counters": c, "measured": delta, "launches": launches,
+                    "hop_ms": eng.handoff_wall_s * 1e3,
+                    "ttft_ms_p50": percentile([r.ttft_s for r in rsps],
+                                              0.5) * 1e3}
+    print(f"   (paged, direct_dma) tokens == phase 6 (c); "
+          f"{delta['prefix_hits']} prefix hits; measured run: "
+          f"{delta['handoffs']} handoffs, {delta['handoff_wire_bytes']} wire "
+          f"bytes; in all {c['handoff_wire_bytes']} == plan "
+          f"{c['handoff_payload_bytes']}; hop {eng.handoff_wall_s * 1e3:.3f} "
+          f"ms over {c['handoffs']} handoffs", flush=True)
+    del eng
+
+    # (c) mamba2-130m, DIRECT_HBM, against phase 7's fused engine
+    m_model, m_params = ssm_engine.model, ssm_engine.params
+    m_prompts = [ClosedLoopClient(i, m_model.cfg.vocab_size,
+                                  prompt_len=(64, 2048))
+                 .make_request().prompt_tokens for i in range(4)]
+    fused, _ = serve_all(ssm_engine, m_prompts, 32)
+    eng = DisaggregatedEngine(m_model, m_params, max_batch=8, max_seq=2048,
+                              device=m_model.device)
+    ops.reset_launches()
+    reqs, rsps = serve_all(eng, m_prompts, 32)
+    torch.cuda.synchronize()
+    launches, c = dict(ops.LAUNCHES), eng.counters()
+    if launches != structure(c, SSM_LAYERS, ssm=True):
+        raise AssertionError(f"(mamba2) launches {launches}")
+    if [r.generated for r in reqs] != [r.generated for r in fused]:
+        raise AssertionError("(mamba2) tokens differ from the fused engine's")
+    m_template = meta_cache(torch, m_model, 8, 2048)
+    per_req = extent_wire_bytes(torch, m_template, 1, 16,
+                                TransferMode.DIRECT_HBM)
+    staged = extent_wire_bytes(torch, m_template, 1, 16,
+                               TransferMode.HOST_STAGED)
+    if (per_req != MAMBA_REQUEST_WIRE or c["handoffs"] != 4
+            or c["handoff_wire_bytes"] != 4 * MAMBA_REQUEST_WIRE):
+        raise AssertionError(f"(mamba2) {c['handoffs']} handoffs, "
+                             f"{c['handoff_wire_bytes']} wire bytes")
+    out["mamba2"] = {"counters": c, "launches": launches,
+                     "prompt_lens": [len(p) for p in m_prompts],
+                     "wire_bytes_per_request": per_req,
+                     "host_staged_bytes_per_request": staged,
+                     "hop_ms": eng.handoff_wall_s * 1e3,
+                     "wire_gb_s": c["handoff_wire_bytes"]
+                     / eng.handoff_wall_s / 1e9}
+    print(f"   (mamba2, direct_hbm) tokens == the fused engine's; 4 handoffs "
+          f"of {per_req} wire bytes each (HOST_STAGED would move {staged}); "
+          f"hop {eng.handoff_wall_s * 1e3:.3f} ms in all, "
+          f"{out['mamba2']['wire_gb_s']:.2f} GB/s", flush=True)
+    del eng
+    return out
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import preprocess as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
@@ -30,7 +31,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # kernel launches since the last reset_launches(); only a CUDA launch counts
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
-                            "paged_decode_attention": 0, "ssd_scan": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0,
+                            "preprocess": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +77,29 @@ def _check_rows_aligned(name, *tensors):
 
 
 # --------------------------------------------------------------------------- #
+def preprocess(x_u8, mean, std, *, out_dtype=torch.bfloat16):
+    """x_u8: [..., D] uint8; mean, std: [D] fp32 -> [..., D] ``out_dtype``
+    (bf16 or fp32): ``(x / 255 - mean) / std`` per feature."""
+    if x_u8.ndim == 0 or not mean.shape == std.shape == x_u8.shape[-1:]:
+        raise ValueError(f"preprocess: x {tuple(x_u8.shape)}, mean "
+                         f"{tuple(mean.shape)}, std {tuple(std.shape)}")
+    if not _on_cuda(x_u8, mean, std):
+        return ref.preprocess_ref(x_u8, mean, std, out_dtype)
+    if x_u8.dtype != torch.uint8 or out_dtype not in KERNEL_DTYPES:
+        raise TypeError(f"preprocess kernel takes uint8 to one of "
+                        f"{KERNEL_DTYPES}: {x_u8.dtype} -> {out_dtype}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in (mean, std)):
+        raise TypeError(f"preprocess kernel: mean and std must be contiguous "
+                        f"fp32: {mean.dtype}, {std.dtype}")
+    if not x_u8.is_contiguous():
+        raise ValueError(f"preprocess kernel needs a contiguous x: "
+                         f"{x_u8.stride()}")
+    out = _pp.launch(x_u8.reshape(-1, x_u8.shape[-1]), mean, std, out_dtype)
+    LAUNCHES["preprocess"] += 1
+    return out.reshape(x_u8.shape)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-5):
     """x: [..., D]; w: [D] -> x's dtype and shape."""
     if x.shape[-1:] != w.shape:

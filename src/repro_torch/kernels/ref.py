@@ -26,6 +26,14 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def preprocess_ref(x_u8, mean, std, out_dtype=torch.bfloat16):
+    """x_u8: [..., D] uint8; mean, std: [D] fp32 -> [..., D] out_dtype:
+    ``(x / 255 - mean) / std`` in fp32, then the cast (the JAX oracle's
+    order: it divides by 255 where the kernel multiplies by fp32(1/255))."""
+    x = x_u8.to(torch.float32) / 255.0
+    return ((x - mean) / std).to(out_dtype)
+
+
 def rmsnorm_ref(x, w, eps: float = 1e-5):
     """x: [..., D]; w: [D] -> x's dtype. fp32 mean of squares, the
     normalised row cast to x's dtype BEFORE the ``* w`` (bf16 rounding

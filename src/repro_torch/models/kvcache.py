@@ -95,6 +95,66 @@ def grow_cache(caches, new_w: int):
     return walk(caches)
 
 
+def _map_keyed(fn, tree, key=None):
+    """``fn(leaf, key)`` over a cache tree, ``key`` the leaf's dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_keyed(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_keyed(fn, v, key) for v in tree]
+    return fn(tree, key)
+
+
+def slice_cache(caches, n_rows: int, prefix_len: int):
+    """A cache tree cut to its valid extent: the first ``n_rows`` rows of
+    every leaf and, for the k/v leaves, the first ``prefix_len`` ring
+    slots, both clamped to the leaf (views, no copy). SSM conv/state leaves
+    keep their whole rows. What a disaggregated handoff puts on the wire:
+    a prefill writes slots ``[0, true_len)``, so a ``prefix_len`` at or
+    above every row's length loses nothing. :func:`pad_cache_rows` is its
+    row inverse."""
+
+    def cut(leaf, key):
+        leaf = leaf[:n_rows]
+        return leaf[:, :prefix_len] if key in SEQ_KEYS else leaf
+
+    return _map_keyed(cut, caches)
+
+
+def pad_cache_rows(caches, n_rows: int):
+    """Zero-pad the batch dim (axis 0) of a row-sliced cache tree back to
+    ``n_rows``; leaves already that wide are returned as they are."""
+
+    def pad(leaf, key):
+        extra = n_rows - leaf.shape[0]
+        if extra <= 0:
+            return leaf
+        return F.pad(leaf, (0, 0) * (leaf.ndim - 1) + (0, extra))
+
+    return _map_keyed(pad, caches)
+
+
+def request_cache_nbytes(caches, true_len: int, *, itemsize=None) -> int:
+    """Bytes of ONE sequence's live cache in a pooled or padded tree: the
+    k/v leaves count their per-token bytes times ``true_len`` (clamped to
+    the ring width), SSM conv/state leaves their whole row. The pool's
+    batch and ring padding is excluded. ``itemsize``: optional fn(leaf) ->
+    bytes per element for a wire format (int8 host staging)."""
+    total = 0
+
+    def count(leaf, key):
+        nonlocal total
+        isz = itemsize(leaf) if itemsize else leaf.element_size()
+        B = leaf.shape[0]
+        if key in SEQ_KEYS:
+            W = leaf.shape[1]
+            total += leaf.numel() // (B * W) * min(true_len, W) * isz
+        else:
+            total += leaf.numel() // B * isz
+
+    _map_keyed(count, caches)
+    return total
+
+
 # --------------------------------------------------------------------------- #
 # Paged KV pool: fixed-size blocks + per-request page tables + refcounts.
 #

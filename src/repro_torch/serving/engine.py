@@ -121,10 +121,14 @@ class PrefillArtifact:
     reqs: list  # the real requests (row-aligned prefix)
     slots: list  # pool slot per request
     n_rows: int = 0  # occupied leading rows (== len(reqs))
+    # max true cache length among the occupied rows: a disaggregated
+    # handoff moves only this valid prefix of the k/v leaves
+    prefix_len: int = 0
     # paged: ``caches`` holds the SUFFIX cache at bucket width, scattered
     # page-wise into the blocks named here (0 => dropped); a reused prefix
     # already lives in shared blocks and never rides the artifact
     dest_blocks: Optional[np.ndarray] = None  # [npad, bucket / PAGE] int32
+    cached_lens: Optional[np.ndarray] = None  # [npad] int32 reused prefix
 
 
 @dataclasses.dataclass
@@ -397,6 +401,7 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.transport = transport
+        self.profile = PAPER_A2
         self.eos = eos_token
         self.inflight = max(1, inflight)
         self.prefill_tokens_total = 0
@@ -486,9 +491,9 @@ class ServingEngine:
             priority=req.priority, t_issue=req.t_arrival,
             bytes_in=req.payload_bytes, bytes_out=4 * req.max_new_tokens,
         )
-        rec.add("request", PAPER_A2.wire_time(self.transport, rec.bytes_in))
+        rec.add("request", self.profile.wire_time(self.transport, rec.bytes_in))
         if self.transport.uses_copy_engine:
-            rec.add("copy_in", PAPER_A2.copy_time(rec.bytes_in))
+            rec.add("copy_in", self.profile.copy_time(rec.bytes_in))
         self._records[req.request_id] = rec
         self.queue.append(req)
 
@@ -557,7 +562,7 @@ class ServingEngine:
             torch.from_numpy(lens).to(dev),
         )
         self._splice_and_place(logits, cache1, lens_d, slot_idx, maxn, reqs,
-                               slots, t0)
+                               slots, t0, prefix_len=int(lens.max()))
 
     def _prefill_exact(self, req: Request, slot: int):
         """Exact-shape prefill of one request at its true length S, then its
@@ -573,27 +578,32 @@ class ServingEngine:
                                                      toks.to(self.device))
         self._splice_and_place(
             logits, caches, lengths, np.asarray([slot], np.int32),
-            np.asarray([req.max_new_tokens], np.int32), [req], [slot], t0)
+            np.asarray([req.max_new_tokens], np.int32), [req], [slot], t0,
+            prefix_len=S)
 
     def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
-                          reqs: list, slots: list, t0: float,
-                          dest_blocks=None, before_place=None):
-        """Sample each row's first token, splice the group into the pool,
-        and hand its requests their first token and slot. ``before_place``
-        runs after the splice and before any request is placed (the paged
-        path indexes its prompts there: a request its prefill token
-        already finishes releases its slot in :meth:`_place`)."""
+                          reqs: list, slots: list, t0: float, *,
+                          prefix_len: int, before_place=None, **paged):
+        """Sample each row's first token, hand the artifact across
+        :meth:`_handoff`, splice it into the pool, and hand its requests
+        their first token and slot. ``paged`` carries the paged
+        artifact's ``dest_blocks`` and ``cached_lens``.
+        ``before_place`` runs after the splice and before any request is
+        placed (the paged path indexes its prompts there: a request its
+        prefill token already finishes releases its slot in
+        :meth:`_place`)."""
         self.pool.note_logits(logits)
         next_toks = self.pool.sample(logits, self.prefill_rng)
         art = PrefillArtifact(caches, slot_idx, lengths, next_toks,
                               torch.from_numpy(maxn).to(self.device), reqs,
                               list(slots), n_rows=len(reqs),
-                              dest_blocks=dest_blocks)
+                              prefix_len=prefix_len, **paged)
+        art, t_xfer = self._handoff(art)  # disagg: the prefill->decode hop
         self.pool.splice(art)
         # deliberate fence: 'preprocess' must include prefill completion
         toks_host = art.next_tokens.cpu().numpy()
         now = time.perf_counter()
-        dt = max(now - t0, 0.0)
+        dt = max(now - t0 - t_xfer, 0.0)
         if before_place is not None:
             before_place()
         for j, (req, slot) in enumerate(zip(reqs, slots)):
@@ -635,7 +645,7 @@ class ServingEngine:
                 if payloads:
                     p_ids = [p for (p, _) in payloads]
                     shared = [d for (_, d) in payloads]
-                    alloc.ref(p_ids)
+                    self._store_alloc().ref(p_ids)
                     alloc.ref(shared)
                     self.prefix_hits += 1
                     self.prefix_hit_tokens += len(shared) * PAGE
@@ -674,10 +684,25 @@ class ServingEngine:
         """Drop the index's references on one evicted page (one per
         payload side; in the fused engine both name the same block)."""
         p, d = payload
-        self.pool.allocator.deref([p])
+        self._store_alloc().deref([p])
         self.pool.allocator.deref([d])
 
-    def _index_insert(self, jobs: list):
+    # seams the disaggregated tier overrides: the prior side of a reused
+    # prefix lives wherever prefill runs (fused: the decode pool itself;
+    # disaggregated: a prefill-side block store, so a suffix prefill never
+    # takes prefix KV back across the hop)
+    def _store_alloc(self):
+        return self.pool.allocator
+
+    def _prior_blocks(self):
+        return self.pool.blocks
+
+    def _store_prepare(self, jobs: list, caches, L: int):
+        """Seam before the handoff (the disaggregated tier stashes the
+        suffix cache into its prefill-side store here). Fused: nothing."""
+        return None
+
+    def _index_insert(self, jobs: list, store_ctx):
         """Index each admitted prompt's fully-in-prompt pages.
 
         Existing pages keep their first writer's blocks (matches ref THOSE
@@ -699,7 +724,7 @@ class ServingEngine:
                 continue
             payloads = [(job.pt_row[i], job.pt_row[i]) for i in range(n_ins)]
             for (p, d) in self.prefix_index.insert(toks, payloads, n_ins):
-                self.pool.allocator.ref([p])
+                self._store_alloc().ref([p])
                 self.pool.allocator.ref([d])
 
     def prefix_lookup_tokens(self, tokens) -> int:
@@ -724,6 +749,8 @@ class ServingEngine:
         slots = [job.slot for job in jobs]
         cached = [job.cached for job in jobs]
         toks, lens, maxn, slot_idx = self._host_batch(L, reqs, slots, cached)
+        cached_np = np.zeros((self.max_batch,), np.int32)
+        cached_np[: len(jobs)] = cached
         dest = np.zeros((self.max_batch, L // PAGE), np.int32)  # 0 => drop
         for j, job in enumerate(jobs):
             tail = job.pt_row[job.cached // PAGE:][: L // PAGE]
@@ -733,8 +760,6 @@ class ServingEngine:
         toks_d = torch.from_numpy(toks).to(dev)
         lens_d = torch.from_numpy(lens).to(dev)
         if has_prior:
-            cached_np = np.zeros((self.max_batch,), np.int32)
-            cached_np[: len(jobs)] = cached
             prior_pt = np.zeros((self.max_batch, max(cached) // PAGE),
                                 np.int32)
             for j, job in enumerate(jobs):
@@ -742,17 +767,20 @@ class ServingEngine:
             logits, caches, total = self.model.prefill_suffix(
                 self.params, toks_d, lens_d,
                 torch.from_numpy(cached_np).to(dev),
-                torch.from_numpy(prior_pt).to(dev), self.pool.blocks)
+                torch.from_numpy(prior_pt).to(dev), self._prior_blocks())
             # every layer's gather is enqueued: the prior pins can go (the
             # page-table rows keep each row's own hold from here)
             for job in jobs:
-                self.pool.allocator.deref(job.p_ids)
+                self._store_alloc().deref(job.p_ids)
         else:
             logits, caches, total = self.model.prefill_bucketed(
                 self.params, toks_d, lens_d)
-        self._splice_and_place(logits, caches, total, slot_idx, maxn, reqs,
-                               slots, t0, dest_blocks=dest,
-                               before_place=lambda: self._index_insert(jobs))
+        store_ctx = self._store_prepare(jobs, caches, L)
+        self._splice_and_place(
+            logits, caches, total, slot_idx, maxn, reqs, slots, t0,
+            prefix_len=int((cached_np + lens).max()), dest_blocks=dest,
+            cached_lens=cached_np,
+            before_place=lambda: self._index_insert(jobs, store_ctx))
 
     def _place(self, req: Request, slot: int):
         """Occupy ``slot``, or finish the request right away when the
@@ -837,25 +865,42 @@ class ServingEngine:
             self._finished_ids &= live_ids
         return done
 
+    # ------------------------------------------------------------------ #
+    # Stage seams (overridden by the disaggregated tier)
+    # ------------------------------------------------------------------ #
+    def _handoff(self, art: PrefillArtifact):
+        """Hook between prefill and the decode-pool splice. The fused
+        engine hands the artifact on as it is; the disaggregated tier moves
+        it across the prefill->decode hop here and returns the seconds to
+        keep out of 'preprocess' alongside."""
+        return art, 0.0
+
+    def _ttft_adjust(self, rec: RequestRecord) -> float:
+        """Modelled latency folded into ttft/total beyond the measured
+        stamps (the disaggregated tier swaps the measured handoff wall for
+        the profile-modelled hop on CPU runs)."""
+        return 0.0
+
     def _finish(self, req: Request, rec: RequestRecord) -> Response:
-        rsp_wire = PAPER_A2.wire_time(self.transport, rec.bytes_out)
+        rsp_wire = self.profile.wire_time(self.transport, rec.bytes_out)
         rec.add("response", rsp_wire)
         egress = rsp_wire
         if self.transport.uses_copy_engine:
-            copy_out = PAPER_A2.copy_time(rec.bytes_out)
+            copy_out = self.profile.copy_time(rec.bytes_out)
             rec.add("copy_out", copy_out)
             egress += copy_out
         # modelled ingress (charged at submit) and egress both reach the
         # latency stamps, so total_s >= sum(stage_s) holds end to end
         ingress = (rec.stage_s.get("request", 0.0)
                    + rec.stage_s.get("copy_in", 0.0))
-        rec.t_done = time.perf_counter() + ingress + egress
+        adj = self._ttft_adjust(rec)
+        rec.t_done = time.perf_counter() + ingress + egress + adj
         req.t_done = rec.t_done
         self.store.add(rec)
         return Response(
             request_id=req.request_id,
             tokens=list(req.generated),
-            ttft_s=req.t_first_token - req.t_arrival + ingress,
+            ttft_s=req.t_first_token - req.t_arrival + ingress + adj,
             total_s=rec.t_done - rec.t_issue,
             stage_s=dict(rec.stage_s),
         )

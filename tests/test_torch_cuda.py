@@ -1,7 +1,8 @@
 """Port kernels and model on a CUDA card: each hand-written Hopper kernel
 against its plain PyTorch version (the paged decode kernel also against the
-ring kernel on the same K/V), and the serving engine's launch counts on its
-ring, paged and exact-shape (Mamba-2) paths.
+ring kernel on the same K/V), the serving engine's launch counts on its
+ring, paged and exact-shape (Mamba-2) paths, and the disaggregated engine
+under each mechanism against the same engine on the CPU.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -265,6 +266,7 @@ def test_mamba_engine_on_card_matches_cpu(cuda_device):
         "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
         "flash_attention": 0, "decode_attention": 0,
         "paged_decode_attention": 0, "ssd_scan": L * c["prefill_calls"],
+        "preprocess": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu")
@@ -315,6 +317,7 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
         "decode_attention": 0,
         "paged_decode_attention": L * c["decode_steps"],
         "ssd_scan": 0,
+        "preprocess": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
@@ -362,7 +365,95 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "decode_attention": L * c["decode_steps"],
         "paged_decode_attention": 0,
         "ssd_scan": 0,
+        "preprocess": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 128), (100, 512), (1000, 64),
+                                   (8, 480, 640, 3)])
+def test_preprocess_kernel_matches_plain(cuda_device, dtype, shape):
+    """The Triton kernel at tests/test_kernels.py's shapes and the paper's
+    batch of 8 camera frames: it multiplies by fp32(1/255) where the plain
+    version divides by 255 (one fp32 rounding step of x/255 at most)."""
+    rng = np.random.default_rng(0)
+    D = shape[-1]
+    x = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+    mean = torch.from_numpy((np.abs(rng.normal(size=D)) * 0.4 + 0.1)
+                            .astype(np.float32))
+    std = torch.from_numpy((np.abs(rng.normal(size=D)) * 0.2 + 0.3)
+                           .astype(np.float32))
+    x, mean, std = (t.to(cuda_device) for t in (x, mean, std))
+    ops.reset_launches()
+    got = ops.preprocess(x, mean, std, out_dtype=TDT[dtype])
+    assert ops.LAUNCHES["preprocess"] == 1
+    torch.cuda.synchronize()
+    want = ref.preprocess_ref(x, mean, std, TDT[dtype])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    atol = {"fp32": 5e-7, "bf16": 1e-2}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["direct_hbm", "direct_dma", "host_staged"])
+def test_disaggregated_engine_on_card_matches_cpu(cuda_device, mode):
+    """A reduced llama3 served disaggregated on the card, ring path and
+    paged path with prefix reuse, against the same engine on the CPU on
+    the same weights (fp32): the same greedy tokens and every counter, the
+    handoff's included; the card's launches follow the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.transfer import TransferMode
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serving import DisaggregatedEngine, Request
+
+    cfg = get_config("llama3-8b").reduced()
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    rng = np.random.default_rng(0)
+    fams = [rng.integers(0, cfg.vocab_size, 48, dtype=np.int32)
+            for _ in range(2)]
+    prompts = [np.concatenate([f, rng.integers(0, cfg.vocab_size, n,
+                                               dtype=np.int32)])
+               for n in (5, 17, 30) for f in fams]
+
+    def serve(model, p, device, **kw):
+        eng = DisaggregatedEngine(model, p, transfer_mode=TransferMode(mode),
+                                  max_batch=2, max_seq=128, device=device,
+                                  **kw)
+        reqs = [Request(prompt_tokens=t, max_new_tokens=6) for t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    for kw in ({}, {"paged": True}):
+        ops.reset_launches()
+        got, eng = serve(gpu, params, cuda_device, **kw)
+        c = eng.counters()
+        L = cfg.n_layers
+        decode = "paged_decode_attention" if kw else "decode_attention"
+        want_launches = {
+            "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
+            "flash_attention": L * c["prefill_calls"], "decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+        want_launches[decode] = L * c["decode_steps"]
+        assert ops.LAUNCHES == want_launches
+        assert c["handoffs"] > 0
+        if kw:
+            assert c["prefix_hits"] > 0
+            assert c["handoff_wire_bytes"] == c["handoff_payload_bytes"]
+        want, ceng = serve(cpu, params_cpu, "cpu", **kw)
+        assert got == want
+        assert ceng.counters() == c
+        # measured on the card: each request's 'transfer' is a share of the
+        # hop wall the engine timed
+        assert sum(r.stage_s["transfer"] for r in eng.store.records) == (
+            pytest.approx(eng.handoff_wall_s))

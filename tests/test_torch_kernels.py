@@ -138,9 +138,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                                torch.full((4,), 7, dtype=torch.int32))
     bc = torch.randn(4, 32, 1, 8)
     ops.ssd_scan(x, torch.rand(4, 32, 2), -torch.ones(2), bc, bc, chunk=16)
+    ops.preprocess(torch.zeros((4, 3), dtype=torch.uint8), torch.zeros(3),
+                   torch.ones(3))
     assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
-                            "paged_decode_attention": 0, "ssd_scan": 0}
+                            "paged_decode_attention": 0, "ssd_scan": 0,
+                            "preprocess": 0}
 
 
 def test_plain_versions_mask_past_real_lengths():
