@@ -29,7 +29,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}  # nvcc's stderr per built source (ptxas -v)
+# nvcc's stderr (ptxas -v) per source, from the build that made its library
+# (kept beside it as ``.log``, so a library built earlier still reports it)
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -56,6 +58,9 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     out = _lib_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        if log.exists():
+            build_log[name] = log.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -74,6 +79,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{stdout}\n{stderr}")
+    out.with_suffix(".log").write_text(stderr)
     os.replace(tmp, out)
 
 

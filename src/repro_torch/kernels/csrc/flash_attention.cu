@@ -16,28 +16,45 @@
 // to the suffix, the window on absolute positions, query i at prior_valid[b]
 // + i); the port's model calls this kernel on every prefill, so the kernel
 // carries it. The KV sweep first walks the prior tiles below prior_valid[b]
-// (from the window start, when there is a window), then the suffix tiles as
-// before; with no prior the sweep is the plain one, unchanged.
-//
-// Design. One CTA per (q-tile of BQ = 64 rows, q-head, batch row); 8 warps,
-// each owning 8 query rows. The CTA walks the KV tiles its rows can reach
-// (causal: up to the tile's last row; window: from its first row's window
-// start), staging each tile of 32 keys in shared memory as fp32 (16-byte
-// loads, one round trip per tile) and reusing it for all 64 rows. Inside a
-// warp, lane j scores key j against all 8 rows at once, so each K and V
-// element read from shared memory feeds 8 FMAs; a row's max and sum take
-// one warp reduction each, and P.V broadcasts p_j by shuffle while each lane
-// keeps HD/32 output dims of every row in registers. Inputs are read in the
-// model's [B, S, H, hd] layout through their strides, so no transpose or pad
-// copy is made; the ragged tail is masked in the kernel.
+// (from the window start, when there is a window), then the suffix tiles;
+// with no prior the sweep is the plain one.
 //
 // What bounds it on this card: causal prefill does about 2*B*H*S^2*hd FLOPs
 // against 2*B*S*(H+Hkv)*hd*sizeof(T) bytes, so at the main path's bf16
 // shapes (B=8, H=32, Hkv=8, hd=128) the bytes bound the 256-token bucket and
-// the bf16 tensor-core peak bounds the 1024-token one. This first kernel
-// does its products with fp32 FMAs on the CUDA cores and is far from either
-// bound; moving QK^T and PV onto wgmma with TMA-fed shared-memory tiles is
-// the later fix.
+// the bf16 tensor-core peak (989 TFLOP/s) the 1024-token one.
+//
+// bf16: both products on the tensor cores (flash_wgmma_kernel). It replaces
+// a CUDA-core body that widened K/V tiles to fp32 in shared memory and ran
+// both products as fp32 FMAs (about 16 TFLOP/s at the 1024 bucket). One CTA
+// is one warpgroup (128 threads) owning 64 query rows, the M of wgmma:
+//   * S = Q.K^T is wgmma.m64n64k16 over hd / 16 steps, Q and a 64-key K tile
+//     both read from shared memory, both K-major as the model stores them
+//     ([S, hd], hd contiguous), so nothing is transposed;
+//   * O += P.V takes P from registers: the S accumulator fragment, rounded
+//     to bf16 (as the Pallas kernel rounds P to the value dtype), is the
+//     A-operand fragment of the next wgmma (FA3's register reuse); the V
+//     tile is the MN-major B operand (the transpose bit of 16-bit wgmma);
+//   * tiles sit in shared memory in the 128-byte swizzle (64-byte at hd 32)
+//     that the wgmma descriptors name, one 64-element column block after
+//     another, filled by cp.async 16-byte copies that read the model's
+//     [B, S, H, hd] layout through its strides (no transpose or pad copy;
+//     rows past the tensor's end are zero-filled);
+//   * two K/V stages: tile i + 1 is in flight while tile i is computed;
+//   * masks cost only where they bite: a tile wholly inside the causal,
+//     window and pad region skips per-element masking; a boundary tile (and
+//     every tile with segment ids) masks the S fragment. Causal and window
+//     tiles that no row reaches are never visited;
+//   * under a causal mask the last q-tiles carry the most work, so they
+//     launch first: q-tiles are the slowest grid dimension, in reverse.
+// Shared memory: 5 tiles of 64 x hd bf16 (80 KiB at hd 128), 2 CTAs an SM.
+//
+// fp32: the CUDA-core body (flash_fwd_kernel). wgmma takes fp32 inputs only
+// as TF32, which keeps about three decimal digits; the fp32 path is held to
+// 2e-5 of the plain version, so it stays on fp32 FMAs: 8 warps of 8 query
+// rows, lane j scoring key j against all 8 rows from 32-key fp32 tiles.
+#include <cstdint>
+
 #include "attn_common.cuh"
 
 namespace {
@@ -164,6 +181,422 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 128;  // one warpgroup
+constexpr int WG_BQ = 64;        // query rows a CTA owns: wgmma's M
+constexpr int WG_BK = 64;        // keys a K/V tile holds
+constexpr int WG_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A [64 x HD] bf16 tile in shared memory: HD * 2 bytes a row, cut into column
+// blocks of RB bytes (128, or 64 at hd 32); block c holds every row's bytes
+// [c * RB, (c + 1) * RB), rows RB apart, under the RB-byte swizzle (the
+// 16-byte chunk index XORed with address bits 7.., as wgmma reads it).
+template <int HD>
+struct WgTile {
+  static constexpr int RB = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int BYTES = WG_BK * HD * 2;
+  static constexpr int CHUNKS = WG_BK * HD / 8;      // 16-byte chunks in a tile
+  static constexpr uint32_t SWZ = RB == 128 ? 0x70u : 0x30u;
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1ull : 2ull;  // SW128 / SW64
+  static constexpr int PVN = RB / 2;                // wgmma N of one P.V product
+  static constexpr int NPV = HD / PVN;              // P.V products per k-step
+  static_assert(HD * 2 % RB == 0, "whole column blocks");
+
+  // byte offset of 16-byte chunk ``ch`` of row ``r`` inside the tile
+  __device__ static __forceinline__ uint32_t offset(int r, int ch) {
+    const int cpr = RB / 16;  // chunks per row of a column block
+    const uint32_t off = (ch / cpr) * (WG_BK * RB) + r * RB + (ch % cpr) * 16;
+    return off ^ ((off >> 3) & SWZ);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; zeros when ``pred`` is false
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// make generic-proxy writes to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pin an accumulator's registers in place across the asynchronous wgmma, so
+// the compiler neither reads them before the wait nor moves them meanwhile
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode in bits 62-63. K-major
+// swizzled operands use only the stride offset (8 rows); an MN-major operand
+// of one column block reads 8-key groups at 8 * RB bytes, which both offsets
+// name here, so the descriptor holds whichever the hardware reads.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo,
+                                            uint64_t layout) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+constexpr size_t wg_smem_bytes() {
+  // Q, then per stage K and V; then the key segment ids of each stage; plus
+  // slack to align the tiles to the 1024-byte swizzle period
+  return (size_t)(1 + 2 * WG_STAGES) * WgTile<HD>::BYTES + sizeof(int) * WG_STAGES * WG_BK +
+         1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                   const int* __restrict__ q_seg, const int* __restrict__ k_seg,
+                   const __nv_bfloat16* __restrict__ pk, const __nv_bfloat16* __restrict__ pv,
+                   const int* __restrict__ prior_valid, int Sq, int Skv, int Pp, int H, int G,
+                   long long sqb, long long sqs, long long sqh, long long skb, long long sks,
+                   long long skh, long long svb, long long svs, long long svh, long long spkb,
+                   long long spks, long long spkh, long long spvb, long long spvs,
+                   long long spvh, int causal, int window, int sq_real, int skv_real,
+                   float scale) {
+  using Tl = WgTile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (sbase - raw);
+  const uint32_t sq_tile = sbase;  // K of stage s at sq_tile + (1 + 2s) * BYTES, V after it
+  int* kseg_s = reinterpret_cast<int*>(smem + (1 + 2 * WG_STAGES) * Tl::BYTES);
+
+  // q-tiles are the slowest grid dimension, the last (heaviest) first
+  const int nqt = (Sq + WG_BQ - 1) / WG_BQ;
+  const int hb = gridDim.x / nqt;  // H * B
+  const int qt = nqt - 1 - (int)blockIdx.x / hb;
+  const int rem = (int)blockIdx.x - (nqt - 1 - qt) * hb;
+  const int h = rem % H;
+  const int b = rem / H;
+  const int kvh = h / G;
+  const int q0 = qt * WG_BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row_a, row_a + 8
+  const int col0 = 2 * (lane & 3);                 // and columns 8 j + col0 (+1)
+  const bool segmented = q_seg != nullptr;
+
+  // the Q tile; 16-byte copies when its rows allow them
+  const __nv_bfloat16* qbase = q + b * sqb + h * sqh;
+  const bool q_vec = ((reinterpret_cast<uintptr_t>(qbase) | (uintptr_t)(sqs * 2)) & 15) == 0;
+  for (int e = tid; e < Tl::CHUNKS; e += WG_THREADS) {
+    const int r = e / (HD / 8);
+    const int ch = e - r * (HD / 8);
+    const int qi = q0 + r;
+    const __nv_bfloat16* src = qbase + (long long)min(qi, Sq - 1) * sqs + ch * 8;
+    if (q_vec) {
+      cp_async16(sq_tile + Tl::offset(r, ch), src, qi < Sq);
+    } else {
+      uint16_t w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        w[u] = qi < Sq ? reinterpret_cast<const uint16_t*>(src)[u] : (uint16_t)0;
+      *reinterpret_cast<uint4*>(smem + Tl::offset(r, ch)) =
+          make_uint4(w[0] | (w[1] << 16), w[2] | (w[3] << 16), w[4] | (w[5] << 16),
+                     w[6] | (w[7] << 16));
+    }
+  }
+
+  // the tiles to sweep: the cached prefix first (keys below pvalid, from the
+  // window start), then the suffix tiles any row of this q-tile can reach
+  const int pvalid = prior_valid != nullptr ? max(0, min(prior_valid[b], Pp)) : 0;
+  int p_begin = window > 0 ? max(0, pvalid + q0 - window + 1) : 0;
+  p_begin = (p_begin / WG_BK) * WG_BK;
+  const int n_prior = pvalid > p_begin ? (pvalid - p_begin + WG_BK - 1) / WG_BK : 0;
+  int kv_end = skv_real;
+  if (causal) kv_end = min(kv_end, q0 + WG_BQ);
+  int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  kv_begin = (kv_begin / WG_BK) * WG_BK;
+  const int n_tiles = n_prior + (kv_end > kv_begin ? (kv_end - kv_begin + WG_BK - 1) / WG_BK : 0);
+
+  const __nv_bfloat16* kb = k + b * skb + kvh * skh;
+  const __nv_bfloat16* vb = v + b * svb + kvh * svh;
+  const __nv_bfloat16* pkb = pk + b * spkb + kvh * spkh;
+  const __nv_bfloat16* pvb = pv + b * spvb + kvh * spvh;
+
+  auto issue = [&](int i, int stage) {
+    const bool prior = i < n_prior;
+    const int t0 = prior ? p_begin + i * WG_BK : kv_begin + (i - n_prior) * WG_BK;
+    const int n = prior ? pvalid : Skv;
+    const __nv_bfloat16* kt = prior ? pkb : kb;
+    const __nv_bfloat16* vt = prior ? pvb : vb;
+    const long long ks = prior ? spks : sks;
+    const long long vs = prior ? spvs : svs;
+    const uint32_t kd = sq_tile + (1 + 2 * stage) * Tl::BYTES;
+    const uint32_t vd = kd + Tl::BYTES;
+#pragma unroll
+    for (int u = 0; u < Tl::CHUNKS / WG_THREADS; ++u) {
+      const int e = tid + u * WG_THREADS;
+      const int r = e / (HD / 8);
+      const int ch = e - r * (HD / 8);
+      const int row = t0 + r;
+      const bool ok = row < n;
+      const long long rr = ok ? row : 0;
+      cp_async16(kd + Tl::offset(r, ch), kt + rr * ks + ch * 8, ok);
+      cp_async16(vd + Tl::offset(r, ch), vt + rr * vs + ch * 8, ok);
+    }
+    if (segmented && !prior && tid < WG_BK)
+      kseg_s[stage * WG_BK + tid] = t0 + tid < Skv ? k_seg[(long long)b * Skv + t0 + tid] : -3;
+  };
+
+  int qseg[2] = {-2, -2};
+  if (segmented) {
+    if (row_a < Sq) qseg[0] = q_seg[(long long)b * Sq + row_a];
+    if (row_a + 8 < Sq) qseg[1] = q_seg[(long long)b * Sq + row_a + 8];
+  }
+
+  float oacc[Tl::NPV][Tl::PVN / 2];
+#pragma unroll
+  for (int n = 0; n < Tl::NPV; ++n)
+#pragma unroll
+    for (int i = 0; i < Tl::PVN / 2; ++i) oacc[n][i] = 0.f;
+  float m_run[2] = {NEG_INF_F, NEG_INF_F};  // running max, log2 domain
+  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
+  const float scale_log2 = scale * LOG2E;
+
+  if (n_tiles > 0) issue(0, 0);
+  cp_async_commit();  // with the Q tile
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < n_tiles) issue(i + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait1();  // tile i (and Q) landed, tile i + 1 in flight
+    fence_async_shared();
+    __syncthreads();
+
+    const uint32_t kd = sq_tile + (1 + 2 * stage) * Tl::BYTES;
+    const uint32_t vd = kd + Tl::BYTES;
+    // S = Q . K^T over hd / 16 steps of 32 bytes along a row
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk * 32 / Tl::RB) * (WG_BK * Tl::RB) + (kk * 32) % Tl::RB;
+      wgmma_ss_n64(s, wg_desc(sq_tile + off, 16, 8 * Tl::RB, Tl::LAYOUT),
+                   wg_desc(kd + off, 16, 8 * Tl::RB, Tl::LAYOUT), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // scores in the log2 domain; masked entries -> NEG_INF_F where the tile
+    // is not wholly inside the visible region
+    const bool prior = i < n_prior;
+    const int t0 = prior ? p_begin + i * WG_BK : kv_begin + (i - n_prior) * WG_BK;
+    bool full;
+    if (prior)
+      full = t0 + WG_BK <= pvalid && (window <= 0 || t0 > pvalid + q0 + WG_BQ - 1 - window);
+    else
+      full = !segmented && t0 + WG_BK <= skv_real && (!causal || t0 + WG_BK - 1 <= q0) &&
+             (window <= 0 || t0 > q0 + WG_BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] *= scale_log2;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int r = (j >> 1) & 1;  // fragment element j: row row_a + 8 r
+        const int qpos = row_a + 8 * r;
+        const int kcol = 8 * (j >> 2) + col0 + (j & 1);
+        const int kpos = t0 + kcol;
+        bool ok;
+        if (prior) {
+          ok = kpos < pvalid && (window <= 0 || kpos > pvalid + qpos - window);
+        } else {
+          ok = kpos < skv_real && (!causal || qpos >= kpos) &&
+               (window <= 0 || kpos > qpos - window) &&
+               (!segmented || qseg[r] == kseg_s[stage * WG_BK + kcol]);
+        }
+        if (!ok) s[j] = NEG_INF_F;
+      }
+    }
+
+    // online softmax of the two rows; a row's 64 scores lie on 4 lanes
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF_F;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s[(j >> 1) * 4 + 2 * r + (j & 1)]);
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      corr[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      // with no visible key yet, masked scores must still give 0
+      const float m_use = m_new == NEG_INF_F ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int idx = (j >> 1) * 4 + 2 * r + (j & 1);
+        s[idx] = exp2f(s[idx] - m_use);
+        sum += s[idx];
+      }
+      l_run[r] = l_run[r] * corr[r] + sum;
+    }
+#pragma unroll
+    for (int n = 0; n < Tl::NPV; ++n)
+#pragma unroll
+      for (int i2 = 0; i2 < Tl::PVN / 2; ++i2) oacc[n][i2] *= corr[(i2 >> 1) & 1];
+
+    // O += P . V: P's bf16 A fragments straight from the S fragment
+#pragma unroll
+    for (int n = 0; n < Tl::NPV; ++n) fence_regs(oacc[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        __nv_bfloat162 p2 = __floats2bfloat162_rn(s[8 * kk + 2 * u], s[8 * kk + 2 * u + 1]);
+        a[u] = *reinterpret_cast<uint32_t*>(&p2);
+      }
+#pragma unroll
+      for (int n = 0; n < Tl::NPV; ++n) {
+        const uint64_t dv = wg_desc(vd + n * (WG_BK * Tl::RB) + kk * 16 * Tl::RB, 8 * Tl::RB,
+                                    8 * Tl::RB, Tl::LAYOUT);
+        if constexpr (Tl::PVN == 64)
+          wgmma_rs_n64(oacc[n], a, dv);
+        else
+          wgmma_rs_n32(oacc[n], a, dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int n = 0; n < Tl::NPV; ++n) fence_regs(oacc[n]);
+    __syncthreads();  // this stage is free for tile i + 2
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // the row sums over the 4 lanes of a row, then the normalised rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(FULL_MASK, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(FULL_MASK, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row_a + 8 * r;
+    if (qpos >= Sq) continue;
+    // rows at or past sq_real see no key: zeros, as a fully masked row
+    const bool live = qpos < sq_real;
+    const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    __nv_bfloat16* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
+#pragma unroll
+    for (int n = 0; n < Tl::NPV; ++n)
+#pragma unroll
+      for (int j = 0; j < Tl::PVN / 8; ++j) {
+        const __nv_bfloat162 w =
+            live ? __floats2bfloat162_rn(oacc[n][4 * j + 2 * r] * inv,
+                                         oacc[n][4 * j + 2 * r + 1] * inv)
+                 : __floats2bfloat162_rn(0.f, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * Tl::PVN + 8 * j + col0) = w;
+      }
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, const void* q_seg,
+                 const void* k_seg, const void* pk, const void* pv, const void* prior_valid,
+                 int B, int Sq, int Skv, int Pp, int H, int Hkv, long long sqb, long long sqs,
+                 long long sqh, long long skb, long long sks, long long skh, long long svb,
+                 long long svs, long long svh, long long spkb, long long spks, long long spkh,
+                 long long spvb, long long spvs, long long spvh, int causal, int window,
+                 int sq_real, int skv_real, float scale, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<HD>();
+  auto kernel = flash_wgmma_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  const int nqt = (Sq + WG_BQ - 1) / WG_BQ;
+  kernel<<<nqt * H * B, WG_THREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<bf*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
+      static_cast<const bf*>(pk), static_cast<const bf*>(pv),
+      static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
+      skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
+      skv_real, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_seg,
            const void* k_seg, const void* pk, const void* pv, const void* prior_valid, int B,
@@ -208,7 +641,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    DISPATCH_HD(hd, HD, return launch<__nv_bfloat16, HD>(
+    DISPATCH_HD(hd, HD, return launch_wgmma<HD>(
                             q, k, v, o, q_seg, k_seg, pk, pv, prior_valid, B, Sq, Skv, Pp, H,
                             Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
                             spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))

@@ -1,8 +1,10 @@
 """Port kernels and model on a CUDA card: each hand-written Hopper kernel
 against its plain PyTorch version (the paged decode kernel also against the
-ring kernel on the same K/V), the serving engine's launch counts on its
-ring, paged and exact-shape (Mamba-2) paths, and the disaggregated engine
-under each mechanism against the same engine on the CPU.
+ring kernel run unsplit on the same K/V; the bf16 flash kernel and the split
+ring decode kernel at their tile and split edges), the serving engine's
+launch counts on its ring, paged and exact-shape (Mamba-2) paths, and the
+disaggregated engine under each mechanism against the same engine on the
+CPU.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -17,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as _dec  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOLS = {"fp32": 2e-5, "bf16": 2e-2}
@@ -153,8 +156,10 @@ def test_paged_decode_kernel_matches_plain_and_ring(cuda_device, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
                                rtol=1e-2)
     assert (got[0] == 0).all()
-    # same keys, same order, same arithmetic as the ring kernel: bitwise
-    ring = ops.decode_attention(q, kd, vd, lens_d)
+    # same keys, same order, same arithmetic as the ring kernel unsplit (one
+    # CTA a row): bitwise
+    ring = _dec.launch(q, kd, vd, lens_d, scale=hd ** -0.5, w_real=W,
+                       _splits=1)
     assert torch.equal(got, ring)
 
 
@@ -186,6 +191,119 @@ def test_flash_kernel_with_prior_matches_plain(cuda_device, dtype, window, H,
     plain = ops.flash_attention(q, k, v, causal=True, window=window,
                                 sq_real=61)
     assert torch.equal(got[2], plain[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal,H,Hkv,hd", [
+    (1, 1, True, 4, 4, 128),  # one row of one 64-row q-tile
+    (63, 63, True, 8, 2, 128),  # one short of a q-tile
+    (65, 65, True, 8, 2, 64),  # one past it
+    (200, 200, True, 12, 1, 32),  # G = 12, ragged last tile
+    (63, 300, False, 4, 1, 128),  # Sq < Skv, non-causal, G = 4
+    (65, 129, False, 12, 1, 64),
+    (130, 1000, False, 8, 8, 32),  # G = 1
+])
+def test_flash_bf16_tile_edges(cuda_device, Sq, Skv, causal, H, Hkv, hd):
+    """The tensor-core path (bf16) at the edges of its 64-row q-tiles and
+    64-key K/V tiles, at every head dim and group it takes."""
+    B = 2
+    q = _cuda_pair((B, Sq, H, hd), "bf16", cuda_device, 0)
+    k = _cuda_pair((B, Skv, Hkv, hd), "bf16", cuda_device, 1)
+    v = _cuda_pair((B, Skv, Hkv, hd), "bf16", cuda_device, 2)
+    kw = dict(causal=causal, skv_real=max(1, Skv - 3),
+              sq_real=max(1, Sq - 2))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=TOLS["bf16"], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_bf16_window_and_segments(cuda_device, hd):
+    """A sliding window with packed segments whose cuts fall inside tiles:
+    every tile takes the masked path."""
+    B, S, H, Hkv = 2, 300, 8, 2
+    q = _cuda_pair((B, S, H, hd), "bf16", cuda_device, 3)
+    k = _cuda_pair((B, S, Hkv, hd), "bf16", cuda_device, 4)
+    v = _cuda_pair((B, S, Hkv, hd), "bf16", cuda_device, 5)
+    seg = torch.full((B, S), -1, dtype=torch.int32)
+    seg[0, :70], seg[0, 70:201], seg[0, 201:290] = 0, 1, 2
+    seg[1, :129], seg[1, 129:300] = 0, 1
+    seg = seg.to(cuda_device)
+    kw = dict(causal=True, window=90, segment_ids=seg)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=TOLS["bf16"], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,hd", [(0, 128), (70, 128), (0, 64), (50, 32)])
+def test_flash_bf16_prior_valid_edges(cuda_device, window, hd):
+    """A prior of 130 keys (two whole 64-key tiles and a ragged one) with
+    prior_valid 0, partial (on and off a tile edge) and full; a row with no
+    valid prior is the plain prefill, bitwise."""
+    B, S, Pp, H, Hkv = 4, 65, 130, 8, 2
+    q = _cuda_pair((B, S, H, hd), "bf16", cuda_device, 6)
+    k = _cuda_pair((B, S, Hkv, hd), "bf16", cuda_device, 7)
+    v = _cuda_pair((B, S, Hkv, hd), "bf16", cuda_device, 8)
+    pk = _cuda_pair((B, Pp, Hkv, hd), "bf16", cuda_device, 9)
+    pv = _cuda_pair((B, Pp, Hkv, hd), "bf16", cuda_device, 10)
+    valid = torch.tensor([0, 64, 77, Pp], dtype=torch.int32,
+                         device=cuda_device)
+    kw = dict(causal=True, window=window, prior_k=pk, prior_v=pv,
+              prior_valid=valid)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=TOLS["bf16"], rtol=1e-2)
+    plain = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(got[0], plain[0])
+
+
+def _decode_lens(kind, W):
+    if kind == "edges":  # on and around tile and split boundaries
+        return [0, 1, 31, 32, 33, W // 8, W // 8 + 1, W]
+    return [0, 0, 0, W, 0, 0, 0, 0]  # one long row among empty ones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["edges", "one_long"])
+@pytest.mark.parametrize("W,H,Hkv,hd", [
+    (2048, 32, 8, 128),  # llama3-8b: G = 4
+    (1000, 32, 2, 64),  # G = 16 (MAX_GROUP)
+    (520, 8, 8, 32),  # G = 1
+])
+def test_decode_split_edges_match_plain(cuda_device, dtype, kind, W, H, Hkv,
+                                        hd):
+    """The split kernel with the launcher's split count (one launch), then
+    with each forced count, against the plain version."""
+    B = 8
+    q = _cuda_pair((B, 1, H, hd), dtype, cuda_device, 0)
+    k = _cuda_pair((B, W, Hkv, hd), dtype, cuda_device, 1)
+    v = _cuda_pair((B, W, Hkv, hd), dtype, cuda_device, 2)
+    lens = torch.tensor(_decode_lens(kind, W), dtype=torch.int32,
+                        device=cuda_device)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, lens)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+    for splits in (1, 2, 4, 8):
+        got = _dec.launch(q, k, v, lens, scale=hd ** -0.5, w_real=W,
+                          _splits=splits)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+        assert (got[lens == 0] == 0).all()
 
 
 def _ssd_case(S, dtype, dev, seed, nh=24, hd=64, ds=128):
@@ -323,6 +441,10 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
     assert got == want
     assert ceng.counters() == c
+    # at max_seq 128 the launcher runs the ring kernel one CTA a row, the
+    # paged kernel's key order and arithmetic, so the tokens agree exactly
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert _dec.num_splits(128, 2 * cfg.n_kv_heads, n_sm) == 1
     ring, _ = serve(gpu, params, cuda_device)
     paged, _ = serve(gpu, params, cuda_device, paged=True, prefix_reuse=False)
     assert paged == ring

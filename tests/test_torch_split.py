@@ -1,0 +1,167 @@
+"""The ring decode kernel's split-KV plan and merge, on the CPU: the
+launcher's split count; the per-CTA key ranges that the kernel
+(csrc/decode_attention.cu) cuts each row into, stated here as
+``split_ranges``; and the max/sum merge of per-split partial softmax states
+over those ranges, held against the JAX package's ``decode_attention_update``
+on the same seeded numpy inputs. The card tests in test_torch_cuda.py hold
+the kernel itself at lengths on split and tile boundaries.
+
+Tolerances follow tests/test_kernels.py: fp32 atol 2e-5, bf16 atol 2e-2,
+rtol 1e-2 (JAX rounds P to the value dtype before P.V; the partials here
+keep it in fp32)."""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+TOLS = {"fp32": 2e-5, "bf16": 2e-2}
+JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def split_ranges(length, *, w_real, W, splits):
+    """The keys [start, end) that each of a row's ``splits`` CTAs reads in
+    the kernel: whole tiles of TILE_K, ceil(tiles / splits) to a CTA, in
+    order, the last ones empty when the row is short."""
+    T = dec.TILE_K
+    valid = max(0, min(length, w_real, W))
+    per = -(-(-(-valid // T)) // splits)  # ceil(ceil(valid / T) / splits)
+    return [(min(r * per * T, valid), min((r + 1) * per * T, valid))
+            for r in range(splits)]
+
+
+def merge_partials(m, l, acc):
+    """The cluster's merge of per-split partial softmax states: m, l
+    [S, ...] (max score and sum of exp(score - m)), acc [S, ..., hd] (the
+    unnormalised sum of exp(score - m) v) -> sum_s acc_s e^(m_s - M) /
+    max(sum_s l_s e^(m_s - M), 1e-30) with M = max_s m_s. A split with no
+    key has m = -1e30, l = 0, acc = 0; a row with none returns zeros."""
+    M = m.amax(dim=0)
+    w = torch.exp(m - M)
+    L = (l * w).sum(dim=0)
+    O = (acc * w[..., None]).sum(dim=0)
+    return O / L.clamp_min(1e-30)[..., None]
+
+
+# --------------------------------------------------------------------------- #
+# the split plan
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("W,rows,n_sm,want", [
+    (2048, 64, 132, 8),  # phase 2 / the main path: 512 CTAs
+    (2048, 128, 132, 4),  # 512 CTAs already at 4
+    (2048, 1024, 132, 1),  # enough rows to fill the card unsplit
+    (300, 64, 132, 2),  # W caps it: one 128-key chunk a CTA at least
+    (128, 8, 132, 1),
+    (64, 8, 132, 1),
+    (100_000, 1, 132, dec.MAX_SPLITS),
+])
+def test_num_splits(W, rows, n_sm, want):
+    s = dec.num_splits(W, rows, n_sm)
+    assert s == want
+    assert s & (s - 1) == 0 and 1 <= s <= dec.MAX_SPLITS
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("W,w_real", [(2048, 2048), (300, 300), (520, 500)])
+def test_split_ranges_cover_the_valid_keys_exactly(splits, W, w_real):
+    """Contiguous, in order, tile-aligned starts, at most ceil(tiles /
+    splits) tiles each, empty ranges only at the end, together exactly
+    [0, min(length, w_real, W))."""
+    T = dec.TILE_K
+    for length in sorted({0, 1, T - 1, T, T + 1, W // 8, W // 8 + 1,
+                          w_real - 1, w_real, W, W + 7}):
+        rs = split_ranges(length, w_real=w_real, W=W, splits=splits)
+        valid = max(0, min(length, w_real, W))
+        assert len(rs) == splits
+        assert rs[0][0] == 0 and rs[-1][1] == valid
+        per = -(-(-(-valid // T)) // splits)  # ceil(ceil(valid / T) / splits)
+        seen_empty = False
+        for (a, b), (c, _) in zip(rs, rs[1:] + [(valid, valid)]):
+            assert a <= b and b == c
+            if a == b:
+                seen_empty = True
+            else:
+                assert not seen_empty, rs  # empties only trail
+                assert a % T == 0 and (b - a) <= per * T
+        assert sum(b - a for a, b in rs) == valid
+
+
+def test_split_ranges_short_row_uses_the_first_ctas():
+    rs = split_ranges(33, w_real=2048, W=2048, splits=8)
+    assert rs == [(0, 32), (32, 33)] + [(33, 33)] * 6
+    assert split_ranges(0, w_real=2048, W=2048, splits=4) == [(0, 0)] * 4
+
+
+# --------------------------------------------------------------------------- #
+# the merge of per-split partials vs JAX's decode_attention_update
+# --------------------------------------------------------------------------- #
+def _partial(q, k, v, start, end, scale):
+    """The plain partial state of one split over keys [start, end): m, l
+    [B, H] and the unnormalised acc [B, H, hd], in fp32 (m = -1e30, l = 0,
+    acc = 0 when the range is empty)."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, Hkv, H // Hkv, hd)
+    ks, vs = k[:, start:end].float(), v[:, start:end].float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, ks) * scale
+    if end <= start:
+        return (torch.full((B, H), ref.NEG_INF), torch.zeros((B, H)),
+                torch.zeros((B, H, hd)))
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgk,bkhd->bhgd", e, vs)
+    return m.reshape(B, H), e.sum(dim=-1).reshape(B, H), acc.reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_merge_matches_jax_decode_update(dtype, splits):
+    """Rows of length 0 (the new token alone), on and off tile edges, and
+    one near the full ring: the new K/V is written at slot lengths % W and
+    the row attends to lengths + 1 slots. Each split's partial comes from
+    the plain rule on its key range; merge_partials combines them."""
+    rng = np.random.default_rng(splits)
+    B, W, H, Hkv, hd = 6, 256, 8, 2, 32
+    lens = np.array([0, 31, 32, 64, 150, 254], np.int32)
+    arrs = [rng.normal(size=s).astype(np.float32) for s in (
+        (B, 1, H, hd), (B, 1, Hkv, hd), (B, 1, Hkv, hd),
+        (B, W, Hkv, hd), (B, W, Hkv, hd))]
+    qj, knj, vnj, kcj, vcj = (jnp.asarray(a, JDT[dtype]) for a in arrs)
+    valid = lens + 1
+    want, _, _ = jattn.decode_attention_update(
+        qj, knj, vnj, kcj, vcj, jnp.asarray(lens),
+        valid_len=jnp.asarray(valid))
+
+    q, kn, vn, kc, vc = (torch.from_numpy(a).to(TDT[dtype]) for a in arrs)
+    rows = torch.arange(B)
+    kc[rows, torch.from_numpy(lens).long()] = kn[:, 0]
+    vc[rows, torch.from_numpy(lens).long()] = vn[:, 0]
+    scale = 1.0 / math.sqrt(hd)
+    # per row, per split: the kernel's ranges; rows differ, so each row's
+    # partials are taken alone and stacked over the splits
+    out = torch.empty((B, H, hd))
+    for b in range(B):
+        parts = [_partial(q[b:b + 1], kc[b:b + 1], vc[b:b + 1], a, e, scale)
+                 for a, e in split_ranges(int(valid[b]), w_real=W, W=W,
+                                              splits=splits)]
+        m, l, acc = (torch.stack(t) for t in zip(*parts))
+        out[b] = merge_partials(m, l, acc)[0]
+    np.testing.assert_allclose(
+        out.reshape(B, 1, H, hd).to(TDT[dtype]).float().numpy(),
+        np.asarray(want.astype(jnp.float32)), atol=TOLS[dtype], rtol=1e-2)
+
+
+def test_merge_partials_empty_row_is_zero():
+    m = torch.full((4, 2, 3), ref.NEG_INF)
+    out = merge_partials(m, torch.zeros((4, 2, 3)),
+                             torch.zeros((4, 2, 3, 8)))
+    assert torch.equal(out, torch.zeros((2, 3, 8)))
