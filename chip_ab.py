@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Readings for a same-call A/B of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_ab.py SRC LABEL
+
+takes the measurements below on the ``repro_torch`` package under SRC (a
+``src`` directory: this checkout's, or another tree's unpacked with
+``git archive``), through entry points every tree of the port has, prints
+them as one JSON line and writes ``chiprun_out/ab_<LABEL>.json``. An A/B
+runs it on the parent, the change, the change and the parent, in one call
+to one card, and compares each reading only within that call:
+
+- rmsnorm bf16 at ``chip_smoke.RMSNORM_SHAPES`` (llama3-8b and
+  mamba2-130m widths): CUDA-event ms, device time alone (torch.profiler)
+  and ``F.rms_norm``'s both beside; at the 8-row decode shapes also the
+  host microseconds a call (there the kernel's device time is far under
+  the host's, so 10,000 calls without a sync time the host, not a full
+  launch queue);
+- paged decode bf16 at ``chip_smoke.py`` phase 2's shape, and the ring
+  kernel on the same K/V laid out densely: events and device time alone;
+- phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
+  32-layer llama3-8b): TTFT and TPOT p50;
+- phase 6 (c)'s paged decode step (the shared-prefix traffic, paged with
+  prefix reuse), profiled as ``chip_smoke.py`` profiles it.
+
+It reuses ``chip_smoke.py``'s helpers and fails, printing no result, on a
+machine without a CUDA device.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs
+
+# the paged kernel's name: ``PagedRows`` since both decode kernels share
+# one template, ``paged_decode`` in trees before that
+PAGED_KEYS = ("PagedRows", "paged_decode")
+
+
+def main():
+    if len(sys.argv) != 3:
+        print("usage: python3 chip_ab.py SRC LABEL", flush=True)
+        sys.exit(2)
+    src, label = Path(sys.argv[1]).resolve(), sys.argv[2]
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device; chip_ab.py runs on an NVIDIA card",
+              flush=True)
+        sys.exit(2)
+    sys.path.insert(0, str(src))
+    import repro_torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.serving import Request, ServingEngine
+
+    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise AssertionError(f"{src}: imported {repro_torch.__file__}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    out = {"label": label, "src": str(src),
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True).stdout.strip().splitlines()[0]}
+    for N, D in cs.RMSNORM_SHAPES:
+        x = cs.rand(torch, (N, D), "bf16", dev, 0)
+        w = cs.rand(torch, (D,), "bf16", dev, 1)
+        kernel = lambda: ops.rmsnorm(x, w)  # noqa: E731
+        lib = lambda: F.rms_norm(x, (D,), w, 1e-5)  # noqa: E731
+        rec = {"ms": cs.time_ms(torch, kernel),
+               "device_ms": cs.device_ms(torch, kernel, "rmsnorm"),
+               "library_ms": cs.time_ms(torch, lib),
+               "library_device_ms": cs.device_ms(torch, lib, "")}
+        if N == 8:
+            rec["host_us"] = cs.host_us(torch, kernel)
+        out[f"rmsnorm_{N}x{D}"] = rec
+    q, kb, vb, pt, lens, kd, vd = cs.paged_inputs(torch, "bf16", dev)
+    paged = lambda: ops.paged_decode_attention(q, kb, vb, pt, lens)  # noqa: E731
+    ring = lambda: ops.decode_attention(q, kd, vd, lens)  # noqa: E731
+    out["paged"] = {"ms": cs.time_ms(torch, paged),
+                    "device_ms": cs.device_ms(torch, paged, PAGED_KEYS),
+                    "ring_ms": cs.time_ms(torch, ring),
+                    "ring_device_ms": cs.device_ms(torch, ring, "decode_split")}
+    del q, kb, vb, pt, lens, kd, vd
+    print(f"   kernels: {json.dumps(out)}", flush=True)
+
+    served, engine = cs.main_path(torch, ops)
+    out["phase4"] = {"ttft_ms_p50": served["ttft_ms"]["p50"],
+                     "tpot_ms_p50": served["tpot_ms"]["p50"]}
+    model, params = engine.model, engine.params
+    del engine
+    torch.cuda.empty_cache()
+    prompts, _, primes = cs.paged_traffic(model.cfg)
+    new = cs.PAGED_TRAFFIC["max_new"]
+    eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                        device=model.device, paged=True)
+    for wave in (primes, prompts):
+        for t in wave:
+            eng.submit(Request(prompt_tokens=t.copy(), max_new_tokens=new))
+        eng.run_until_drained()
+    cs.clear_index(eng)
+    prof = cs.paged_step_profile(torch, eng, prompts, new, key=PAGED_KEYS)
+    out["phase6c_step"] = {k: prof.get(k) for k in (
+        "host_wall_ms_per_step", "device_busy_ms_per_step",
+        "device_idle_share", "kernel_ms_per_step")}
+    line = json.dumps(out)
+    (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)
+    print(line)
+
+
+if __name__ == "__main__":
+    main()

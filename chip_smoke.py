@@ -16,18 +16,20 @@ result line:
    shapes, in bf16 and fp32, with its time beside its bound, the plain
    version's time and one PyTorch library call's time where one computes
    the same function (a yardstick only), its achieved TFLOP/s and GB/s and
-   its share of the bound; the paged kernel also against the ring kernel
-   run unsplit (one CTA a row) on the same K/V laid out densely (bitwise
-   equal); for the two kernels redesigned for Hopper (flash prefill on
-   wgmma, ring decode split over a thread-block cluster) the grid, block,
-   shared memory and registers as launched, the cluster shape, ptxas's
-   registers and spills, and the HGMMA instructions in the flash
-   library's SASS where cuobjdump exists; the SSD
+   its share of the bound; rmsnorm at llama3-8b's and mamba2-130m's widths,
+   and what each step of its launch path costs the host; the paged kernel
+   also against the ring kernel on the same K/V laid out densely, bitwise,
+   at the launchers' split count and at one CTA a row, with its split plan
+   and launch; the device time alone (torch.profiler) of rmsnorm, flash,
+   ring and paged decode and preprocess beside the CUDA-event time; for
+   the kernels redesigned for Hopper the grid, block, shared memory and
+   registers as launched, the cluster shape, ptxas's registers and spills
+   (none allowed in rmsnorm or either decode kernel), and the HGMMA instructions
+   in the flash library's SASS where cuobjdump exists; the SSD
    scan at 1024, 1000 and 77 positions; and the preprocess kernel on its
    path, the entry point ``ops.preprocess`` (4 batches of 8 camera frames,
    the paper's input), then against its plain version there and at
-   tests/test_kernels.py's shapes, with its device time alone from
-   torch.profiler beside the CUDA-event time (its launch is host-bound);
+   tests/test_kernels.py's shapes;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -55,14 +57,14 @@ result line:
    workload (2 Zipf-weighted 1024-token system prompts, 64-token suffixes,
    32 new tokens; one priming request per prefix, then 24 requests at once)
    three times: (a) the ring pool, (b) paged without and (c) paged with
-   prefix reuse. (b)'s greedy tokens must equal (a)'s up to the first that
-   parts, and there the two tokens must be a near tie (their logits, from
-   an exact prefill of the context, within LOGIT_LIMIT of the largest:
-   (a)'s decode kernel splits a row's keys over a cluster of CTAs, (b)'s
-   sums them in one); (c)'s prefix counters must be exactly 24 hits of
-   1024 tokens, every launch count must follow
-   the path's structure, and clearing the index must leave no block live;
-   it prints TTFT/TPOT p50 per run and where (c)'s tokens part from (b)'s;
+   prefix reuse. (b)'s greedy tokens must equal (a)'s: both decode kernels
+   are one split-KV template with one split plan, so the same keys go
+   through the same arithmetic; (c)'s prefix counters must be exactly 24
+   hits of 1024 tokens, every launch count must follow the path's
+   structure, and clearing the index must leave no block live; it prints
+   TTFT/TPOT p50 per run and where (c)'s tokens part from (b)'s, then
+   profiles (c)'s decode step on one more wave of live rows as phase 5
+   does the ring step;
 7. the SSM path: ``repro_torch.launch.serve`` on the 24-layer mamba2-130m,
    ServingEngine(max_batch=8, max_seq=2048), 12 requests of 64-2048 prompt
    tokens and 32 new tokens, one exact-shape prefill per request, with the
@@ -106,8 +108,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 FMA
 TOLS = {"bf16": 2e-2, "fp32": 2e-5}
 RTOL = 1e-2
-# card vs CPU logits (phase 3): max|diff| over the largest logit; phase 6
-# holds a parting of (b)'s tokens from (a)'s to the same distance
+# card vs CPU logits (phase 3): max|diff| over the largest logit
 LOGIT_LIMIT = 2e-2
 N_LAYERS = 32
 # phase 2's paged case: max_seq 2048 in pages of 16, ragged lengths of two
@@ -150,6 +151,10 @@ RING_WIRE = {"direct_hbm": 1_509_949_648, "direct_dma": 1_509_949_648,
 # phase 8 (c): one mamba2-130m request's conv + state rows, plus 16 bytes of
 # int32 metadata
 MAMBA_REQUEST_WIRE = 19_132_432
+# phase 2's rmsnorm shapes: llama3-8b decode and a 1024-token prefill
+# bucket (d_model 4096); mamba2-130m decode at d_model 768 and d_inner 1536,
+# and its gate norm over a 2048-token prefill
+RMSNORM_SHAPES = ((8, 4096), (8192, 4096), (8, 768), (8, 1536), (2048, 1536))
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -204,6 +209,8 @@ def main():
           f"orders); bounds from the H100 SXM peaks {PEAK_BYTES_S:.3g} B/s, "
           f"{PEAK_FLOPS['bf16']:.3g} bf16 / {PEAK_FLOPS['fp32']:.3g} fp32 FLOP/s")
     results["kernels"] = check_kernels(torch, ops, dev)
+    print("   rmsnorm's launch path, host time a call at [8, 4096] bf16:")
+    results["kernels"]["launch_path"] = launch_path_cost(torch, ops, dev)
     results["kernels"]["design"] = design_report(torch, build, ops, dev)
     done(t0)
 
@@ -289,6 +296,12 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def matches(key, name):
+    """Whether a kernel's name holds ``key`` (a string, or any of a tuple of
+    them)."""
+    return any(k in name for k in ((key,) if isinstance(key, str) else key))
+
+
 def device_ms(torch, fn, key, reps=20):
     """Device time per call of the kernels whose name holds ``key``, from
     torch.profiler over ``reps`` calls: the kernel alone, without the host
@@ -307,7 +320,7 @@ def device_ms(torch, fn, key, reps=20):
              or getattr(e, "self_cuda_time_total", 0.0)
              for e in prof.key_averages()
              if getattr(e, "device_type", None) == DeviceType.CUDA
-             and key in e.key)
+             and matches(key, e.key))
     return us / reps / 1e3 if us else None
 
 
@@ -406,28 +419,31 @@ def ptxas_stats(log):
     return stats
 
 
-def launch_info(torch, fn, key):
+def launch_info(torch, fn, key, tries=3):
     """The launch of the kernel whose name holds ``key`` as the profiler
     saw it: grid, block, shared memory, registers per thread (CUPTI's
-    record, from a chrome trace of three calls). Empty when it is
-    missing."""
+    record, from a chrome trace of three calls; a trace can lack a kernel
+    that ran, so up to ``tries`` traces are taken). Empty when every trace
+    lacks it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):  # a trace of a single call can lack its kernel
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text()).get("traceEvents", [])
-    for e in events:
-        if e.get("cat") == "kernel" and key in e.get("name", ""):
-            args = e.get("args", {})
-            return {k: args[k] for k in ("grid", "block", "shared memory",
-                                         "registers per thread") if k in args}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text()).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel" and key in e.get("name", ""):
+                args = e.get("args", {})
+                return {k: args[k] for k in ("grid", "block", "shared memory",
+                                             "registers per thread")
+                        if k in args}
     return {}
 
 
@@ -452,9 +468,11 @@ def design_report(torch, build, ops, dev):
     warpgroup a 64-row q-tile, wgmma) and ring decode at B=8, W=2048 (a
     cluster of CTAs a row). Grid, block, shared memory and registers as
     launched; registers and spills from ptxas; the cluster from the
-    launcher's split plan; HGMMA in the flash library's SASS. Fails when
-    the profiler records no decode launch, when the decode kernel runs one
-    CTA a row there, or when cuobjdump finds no HGMMA."""
+    launcher's split plan; HGMMA in the flash library's SASS; registers and
+    spills of every instantiation of rmsnorm and the two decode kernels.
+    Fails when the profiler records no decode launch, when the decode
+    kernel runs one CTA a row there, when one of those instantiations
+    spills or takes stack, or when cuobjdump finds no HGMMA."""
     from repro_torch.kernels import decode_attention as _dec
 
     B, H, Hkv, hd, S, W = 8, 32, 8, 128, 1024, 2048
@@ -489,6 +507,21 @@ def design_report(torch, build, ops, dev):
     if splits < 2 or grid[0] != splits * Hkv:
         raise AssertionError(f"decode kernel: {splits} CTA(s) a row, launch "
                              f"{out['decode_attention']['launch']}")
+    # every instantiation of the kernels this slice rebuilt: no spills, no
+    # stack (the paged kernel's fp32 staging spilled before)
+    for name in ("rmsnorm", "paged_decode_attention", "decode_attention"):
+        stats = ptxas_stats(build.build_log.get(name, ""))
+        if not stats:
+            raise AssertionError(f"{name}: no ptxas report in its build log")
+        regs = sorted(st.get("registers", 0) for st in stats.values())
+        spilled = {fn: st for fn, st in stats.items()
+                   if st.get("spill_stores") or st.get("spill_loads")
+                   or st.get("stack")}
+        print(f"   {name}: {len(stats)} instantiations, {regs[0]}-{regs[-1]} "
+              f"registers, {len(spilled)} with spills or stack")
+        out.setdefault("ptxas", {})[name] = stats
+        if spilled:
+            raise AssertionError(f"{name}: spills or stack in {spilled}")
     n = hgmma_count(build._lib_path("flash_attention"))
     print(f"   HGMMA instructions in the flash library's SASS: "
           f"{'cuobjdump not found' if n is None else n}")
@@ -496,6 +529,62 @@ def design_report(torch, build, ops, dev):
         raise AssertionError("flash kernel: no HGMMA in its SASS")
     out["flash_attention"]["hgmma_in_sass"] = n
     return out
+
+
+def host_us(torch, fn, n=10_000):
+    """Host microseconds a call of ``fn``: time.perf_counter over ``n``
+    calls, no synchronisation inside (launches queue on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_path_cost(torch, ops, dev):
+    """What each step of a call from ``ops.rmsnorm`` down to the ctypes
+    call costs the host, at llama3-8b's decode shape [8, 4096] in bf16
+    (host_us over 10,000 calls each; the kernel's device time is far under
+    the host's, so the launch queue never fills and the reading is the
+    host's)."""
+    from repro_torch.kernels import rmsnorm as _rn
+
+    x = rand(torch, (8, 4096), "bf16", dev, 0)
+    w = rand(torch, (4096,), "bf16", dev, 1)
+    o = torch.empty_like(x)
+    idx = x.get_device()
+    ops.rmsnorm(x, w)  # resolves the ctypes function
+    fn = _rn._FWD._fn
+    current_stream = torch._C._cuda_getCurrentRawStream
+    stream = current_stream(idx)
+    args = (x.data_ptr(), w.data_ptr(), o.data_ptr(), 8, 4096, 1e-5, 3)
+    steps = [
+        ("ops.rmsnorm, the whole call", lambda: ops.rmsnorm(x, w)),
+        ("ops._on_cuda(x, w)", lambda: ops._on_cuda(x, w)),
+        ("shape, dtype, contiguity and size checks",
+         lambda: (x.shape[-1:] != w.shape, x.dtype in ops.KERNEL_DTYPES,
+                  w.dtype in ops.KERNEL_DTYPES, w.is_contiguous(),
+                  x.is_contiguous(), x.numel())),
+        ("rmsnorm.launch: output to ctypes call", lambda: _rn.launch(x, w, 1e-5)),
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("3 x data_ptr(), get_device(), numel()",
+         lambda: (x.data_ptr(), w.data_ptr(), o.data_ptr(), x.get_device(),
+                  x.numel())),
+        ("build.CFunction: stream, ctypes call, error check",
+         lambda: _rn._FWD(idx, *args)),
+        ("the current stream (torch._C._cuda_getCurrentRawStream)",
+         lambda: current_stream(idx)),
+        ("the ctypes call alone (8 arguments, cudaLaunchKernel)",
+         lambda: fn(*args, stream)),
+    ]
+    table = []
+    for what, fn_ in steps:
+        table.append({"step": what, "host_us": host_us(torch, fn_)})
+        print(f"   {'':16s} {table[-1]['host_us']:7.2f} us  {what}")
+    return table
 
 
 # --------------------------------------------------------------------------- #
@@ -507,21 +596,25 @@ def check_kernels(torch, ops, dev):
     from repro_torch.kernels import ref
 
     cases = []
-    # rmsnorm: decode ([max_batch, d]) and a 1024-token prefill bucket
+    # rmsnorm: llama3-8b decode ([max_batch, d]) and a 1024-token prefill
+    # bucket; mamba2-130m decode at d_model and d_inner, and a 2048-token
+    # prefill's gate norm
     for dtype in ("bf16", "fp32"):
-        for N in (8, 8 * 1024):
-            D = 4096
+        for N, D in RMSNORM_SHAPES:
             x = rand(torch, (N, D), dtype, dev, 0)
             w = rand(torch, (D,), dtype, dev, 1)
             isz = x.element_size()
             lib = None
             if hasattr(F, "rms_norm"):
                 lib = library_ms(torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
-            cases.append(case_record(
+            rec = case_record(
                 torch, "rmsnorm", dtype, [N, D], ops.rmsnorm(x, w),
                 ref.rmsnorm_ref(x, w), time_ms(torch, lambda: ops.rmsnorm(x, w)),
                 time_ms(torch, lambda: ref.rmsnorm_ref(x, w)), lib,
-                (2 * N * D + D) * isz, 4 * N * D))
+                (2 * N * D + D) * isz, 4 * N * D)
+            alone(torch, rec, lambda: ops.rmsnorm(x, w), "rmsnorm",
+                  lambda: F.rms_norm(x, (D,), w, 1e-5))
+            cases.append(rec)
 
     # flash prefill: B=8, H=32, Hkv=8, hd=128; causal at S=256 and 1024,
     # plus window + packed segment ids at S=1024
@@ -620,7 +713,7 @@ def check_kernels(torch, ops, dev):
                          SSD_SHAPE["ds"]],
             "preprocess": list(PP_FRAMES)}
     meta = {
-        "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+        "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:23"),
         "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:103"),
@@ -713,49 +806,73 @@ def preprocess_cases(torch, ops, ref, dev):
                    "launches": launches}
 
 
+def paged_inputs(torch, dtype, dev):
+    """Phase 2's paged case (B 8, PAGED_PAGES pages of 16, H 32, Hkv 8, hd
+    128, PAGED_LENS): q, a shuffled block pool of the main path's size where
+    rows share two 1024-token prefixes (block 0 the zero sentinel), its page
+    table and lengths, and the same K/V laid out densely [B, n_pages * 16,
+    Hkv, hd] for the ring kernel."""
+    B, H, Hkv, hd, page = 8, 32, 8, 128, 16
+    n_pages = PAGED_PAGES
+    N = 1 + 2 * B * n_pages  # the main path's pool: sentinel + 2 per slot
+    shared = 1024 // page
+    g = torch.Generator(device="cpu").manual_seed(8)
+    ids = (torch.randperm(N - 1, generator=g) + 1).tolist()
+    prefix = [[ids.pop() for _ in range(shared)] for _ in range(2)]
+    pt = torch.zeros((B, n_pages), dtype=torch.int32)
+    for b, n in enumerate(PAGED_LENS):
+        row = prefix[b % 2] + [ids.pop() for _ in range(-(-n // page) - shared)]
+        pt[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    pt = pt.to(dev)
+    kb = rand(torch, (N, page, Hkv, hd), dtype, dev, 9)
+    vb = rand(torch, (N, page, Hkv, hd), dtype, dev, 10)
+    kb[0] = 0
+    vb[0] = 0
+    q = rand(torch, (B, 1, H, hd), dtype, dev, 11)
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    kd, vd = (blk[pt.long()].reshape(B, n_pages * page, Hkv, hd)
+              for blk in (kb, vb))
+    return q, kb, vb, pt, lens, kd, vd
+
+
 def paged_cases(torch, ops, ref, dev):
     """Phase 2's cases of the paged path: the paged decode kernel on a
     shuffled pool where rows share two 1024-token prefixes (held against
     its plain version and, bitwise, the ring kernel on the same K/V laid
-    out densely), and the flash kernel with a 1024-token prior (held
-    against its plain version; SDPA over the concatenated K/V with a
-    boolean mask as the yardstick)."""
+    out densely, at the launchers' split count and at one CTA a row; its
+    device time alone beside the ring kernel's, and its launch), and the
+    flash kernel with a 1024-token prior (held against its plain version;
+    SDPA over the concatenated K/V with a boolean mask as the
+    yardstick)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import paged_decode_attention as _pdec
 
     B, H, Hkv, hd, page = 8, 32, 8, 128, 16
     n_pages, lens_host = PAGED_PAGES, PAGED_LENS
-    N = 1 + 2 * B * n_pages  # the main path's pool: sentinel + 2 per slot
-    shared = 1024 // page
     cases = []
     for dtype in ("bf16", "fp32"):
-        g = torch.Generator(device="cpu").manual_seed(8)
-        ids = (torch.randperm(N - 1, generator=g) + 1).tolist()
-        prefix = [[ids.pop() for _ in range(shared)] for _ in range(2)]
-        pt = torch.zeros((B, n_pages), dtype=torch.int32)
-        for b, n in enumerate(lens_host):
-            row = prefix[b % 2] + [ids.pop() for _ in range(-(-n // page) - shared)]
-            pt[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
-        pt = pt.to(dev)
-        kb = rand(torch, (N, page, Hkv, hd), dtype, dev, 9)
-        vb = rand(torch, (N, page, Hkv, hd), dtype, dev, 10)
-        kb[0] = 0
-        vb[0] = 0
-        q = rand(torch, (B, 1, H, hd), dtype, dev, 11)
-        lens = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+        q, kb, vb, pt, lens, kd, vd = paged_inputs(torch, dtype, dev)
         got = ops.paged_decode_attention(q, kb, vb, pt, lens)
         want = ref.paged_decode_attention_ref(q, kb, vb, pt, lens)
-        kd, vd = (blk[pt.long()].reshape(B, n_pages * page, Hkv, hd)
-                  for blk in (kb, vb))
-        # the ring kernel unsplit (one CTA a row) runs the paged kernel's key
-        # order through its arithmetic
-        ring = _dec.launch(q, kd, vd, lens, scale=hd ** -0.5,
-                           w_real=n_pages * page, _splits=1)
-        if not torch.equal(got, ring):
-            raise AssertionError(
-                f"paged kernel {dtype}: differs from the ring kernel on the "
-                f"same K/V by {float((got.float() - ring.float()).abs().max()):.3e}")
+        # one template, one split plan: at the launchers' split count and at
+        # one CTA a row the two kernels run the same keys through the same
+        # arithmetic
+        W = n_pages * page
+        splits = _dec.splits_for(W, B * Hkv, dev.index or 0)
+        pairs = (("the launchers' split count", got,
+                  ops.decode_attention(q, kd, vd, lens)),
+                 ("one CTA a row",
+                  _pdec.launch(q, kb, vb, pt, lens, scale=hd ** -0.5, _splits=1),
+                  _dec.launch(q, kd, vd, lens, scale=hd ** -0.5, w_real=W,
+                              _splits=1)))
+        for what, paged, ring in pairs:
+            if not torch.equal(paged, ring):
+                raise AssertionError(
+                    f"paged kernel {dtype} at {what}: differs from the ring "
+                    f"kernel on the same K/V by "
+                    f"{float((paged.float() - ring.float()).abs().max()):.3e}")
         isz = q.element_size()
         # each input read once: the positions the rows need, shared prefix
         # blocks once (q, o and the page table besides)
@@ -768,16 +885,32 @@ def paged_cases(torch, ops, ref, dev):
             time_ms(torch, lambda: ops.paged_decode_attention(q, kb, vb, pt, lens)),
             time_ms(torch, lambda: ref.paged_decode_attention_ref(q, kb, vb, pt, lens)),
             None, nbytes, 4 * hd * H * sum(lens_host))
+        rec["splits"] = splits
         rec["ring_kernel_bitwise_equal"] = True
         rec["ring_ms_same_kv"] = time_ms(
             torch, lambda: ops.decode_attention(q, kd, vd, lens))
         rec["bytes_read_per_row"] = per_row
         rec["library"] = "none: no single PyTorch call computes paged attention"
-        print(f"   {'':16s} ring kernel unsplit on the same K/V: bitwise "
-              f"equal; the ring kernel as the ring path runs it (split): "
+        print(f"   {'':16s} {splits} CTAs a row; the ring kernel on the same "
+              f"K/V: bitwise equal at that split count and at 1, "
               f"{rec['ring_ms_same_kv']:.4f} ms; K/V bytes if every row read "
               f"its prefix: {per_row / 1e6:.1f} MB, unique: "
               f"{2 * uniq * Hkv * hd * isz / 1e6:.1f} MB")
+        alone(torch, rec, lambda: ops.paged_decode_attention(q, kb, vb, pt, lens),
+              "PagedRows")
+        rec["ring_device_ms_same_kv"] = device_ms(
+            torch, lambda: ops.decode_attention(q, kd, vd, lens), "RingRows")
+        print(f"   {'':16s} the ring kernel's device time on the same K/V: "
+              f"{rec['ring_device_ms_same_kv']} ms")
+        if dtype == "bf16":
+            rec["launch"] = launch_info(
+                torch, lambda: ops.paged_decode_attention(q, kb, vb, pt, lens),
+                "PagedRows")
+            grid = rec["launch"].get("grid")
+            print(f"   {'':16s} launch {rec['launch']}; cluster [{splits}, 1, 1]")
+            if grid != [splits * Hkv, B, 1]:
+                raise AssertionError(f"paged kernel: launch {rec['launch']}, "
+                                     f"not {splits} CTAs a row")
         cases.append(rec)
         del kb, vb, kd, vd
 
@@ -1130,30 +1263,20 @@ def main_path(torch, ops):
 # --------------------------------------------------------------------------- #
 # phase 5
 # --------------------------------------------------------------------------- #
-def decode_profile(torch, eng, steps=10):
-    """Whole-batch decode steps of the drained engine (its slots are frozen
-    lanes, which run the same batched compute as live ones)."""
+def profile_window(torch, run, key=None):
+    """One call of ``run`` (which returns the decode steps it covered)
+    under torch.profiler: host wall, device first-to-last span and device
+    busy time per step, all from that one profiled run, the device's idle
+    share, the kernels that take the most time and, with ``key``, the ms a
+    step of the kernels whose name holds it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pool = eng.pool
-
-    def run():
-        for _ in range(steps):
-            pool.fill_one(eng.params, limit=steps)
-            pool.pop_oldest()
-        torch.cuda.synchronize()
-
-    run()  # warm
-    t0 = time.perf_counter()
-    run()
-    bare_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        run()
+        steps = run()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    from torch.autograd import DeviceType
-
     # first to last device timestamp of the profiled run
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -1176,21 +1299,81 @@ def decode_profile(torch, eng, steps=10):
            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
            "device_idle_share_of_span": (1 - busy_ms / span_ms)
            if busy_ms and span_ms else None,
-           "unprofiled_host_wall_ms_per_step": bare_wall_ms,
            "top": [{"ms_per_step": ms, "name": name[:80], "calls_per_step": n}
                    for ms, name, n in kernels[:8]]}
+    if key is not None:
+        res["kernel"] = key
+        res["kernel_ms_per_step"] = sum(k[0] for k in kernels
+                                        if matches(key, k[1]))
     if busy_ms:
         print(f"   profiled run: host wall {wall_ms:.2f} ms/step, device "
               f"first-to-last {span_ms:.2f} ms/step, busy {busy_ms:.2f} ms/step "
               f"over {res['device_kernels_per_step']:.0f} kernels; idle share "
               f"{res['device_idle_share']:.2f} of the wall, "
-              f"{res['device_idle_share_of_span']:.2f} of the device span")
+              f"{res['device_idle_share_of_span']:.2f} of the device span"
+              + ("" if key is None else f"; the "
+                 f"{key if isinstance(key, str) else key[0]} kernel "
+                 f"{res['kernel_ms_per_step']:.3f} ms/step"))
     else:
         print(f"   profiled run: host wall {wall_ms:.2f} ms/step; the "
               "profiler reported no device time: busy and idle not measured")
-    print(f"   a separate unprofiled run: host wall {bare_wall_ms:.2f} ms/step")
+    return res
+
+
+def print_top(res):
     for k in res["top"]:
         print(f"   {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:<5g} {k['name']}")
+
+
+def decode_profile(torch, eng, steps=10):
+    """Whole-batch decode steps of the drained engine (its slots are frozen
+    lanes, which run the same batched compute as live ones)."""
+    pool = eng.pool
+
+    def run():
+        for _ in range(steps):
+            pool.fill_one(eng.params, limit=steps)
+            pool.pop_oldest()
+        torch.cuda.synchronize()
+        return steps
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    bare_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    res = profile_window(torch, run)
+    res["unprofiled_host_wall_ms_per_step"] = bare_wall_ms
+    print(f"   a separate unprofiled run: host wall {bare_wall_ms:.2f} ms/step")
+    print_top(res)
+    return res
+
+
+def paged_step_profile(torch, eng, prompts, new, steps=10, key="PagedRows"):
+    """Decode steps of a paged engine on live rows with their own page
+    tables: one wave of ``max_batch`` requests is submitted and stepped
+    until its prefill is done and 3 decode steps went out, then ``steps``
+    engine steps (dispatch and harvest) run under torch.profiler, with the
+    ms a step of the kernels whose name holds ``key`` (the paged kernel);
+    the wave is drained after."""
+    from repro_torch.serving import Request
+
+    for t in prompts[:eng.max_batch]:
+        eng.submit(Request(prompt_tokens=t.copy(), max_new_tokens=new))
+    d0 = eng.decode_steps
+    while eng.decode_steps < d0 + 3:
+        eng.step()
+    torch.cuda.synchronize()
+
+    def run():
+        s0 = eng.decode_steps
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        return eng.decode_steps - s0
+
+    res = profile_window(torch, run, key)
+    print_top(res)
+    eng.run_until_drained()
     return res
 
 
@@ -1253,19 +1436,13 @@ def prefill_profile(torch, eng, shape, key, label):
 # --------------------------------------------------------------------------- #
 # phase 6
 # --------------------------------------------------------------------------- #
-def paged_path(torch, ops, ring_engine):
-    """Serve one shared-prefix workload on phase 4's model and weights three
-    times: (a) the ring pool, (b) paged without, (c) paged with prefix
-    reuse. Submitting each wave at once keeps the admission groups, and so
-    every count, deterministic."""
+def paged_traffic(cfg):
+    """Phase 6's prompts (loadgen.shared_prefix_schedule over PAGED_TRAFFIC),
+    their distinct prefixes, and one priming prompt per prefix."""
     import numpy as np
 
-    from repro_torch.core.metrics import percentile
-    from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving.loadgen import shared_prefix_schedule
 
-    model, params = ring_engine.model, ring_engine.params
-    cfg = model.cfg
     sched = shared_prefix_schedule(cfg.vocab_size, rate_rps=1.0,
                                    **PAGED_TRAFFIC)
     prompts = [a.request.prompt_tokens for a in sched]
@@ -1279,6 +1456,33 @@ def paged_path(torch, ops, ring_engine):
                                               PAGED_TRAFFIC["suffix_len"],
                                               dtype=np.int32)])
               for x in prefixes]
+    return prompts, prefixes, primes
+
+
+def clear_index(eng):
+    """Drop the prefix index's hold on its blocks; returns the blocks live
+    after."""
+    alloc = eng.pool.allocator
+    for (p, d) in eng.prefix_index.clear():
+        alloc.deref([p])
+        alloc.deref([d])
+    return alloc.live_blocks
+
+
+def paged_path(torch, ops, ring_engine):
+    """Serve one shared-prefix workload on phase 4's model and weights three
+    times: (a) the ring pool, (b) paged without, (c) paged with prefix
+    reuse. Submitting each wave at once keeps the admission groups, and so
+    every count, deterministic."""
+    import numpy as np
+
+    from repro_torch.core.metrics import percentile
+    from repro_torch.serving import Request, ServingEngine
+
+    model, params = ring_engine.model, ring_engine.params
+    cfg = model.cfg
+    prompts, prefixes, primes = paged_traffic(cfg)
+    plen = PAGED_TRAFFIC["prefix_len"]
     n, new = len(prompts), PAGED_TRAFFIC["max_new"]
     print(f"   {n} requests over {len(prefixes)} prefixes "
           f"({[sum(np.array_equal(p[:plen], x) for p in prompts) for x in prefixes]}"
@@ -1345,16 +1549,16 @@ def paged_path(torch, ops, ring_engine):
             got_c = {k: delta[k] for k in want_c}
             if got_c != want_c:
                 raise AssertionError(f"(reuse) prefix counters {got_c} != {want_c}")
-            alloc = eng.pool.allocator
-            res["live_blocks_before_clear"] = alloc.live_blocks
-            for (p, d) in eng.prefix_index.clear():
-                alloc.deref([p])
-                alloc.deref([d])
-            if alloc.live_blocks != 0:
-                raise AssertionError(f"(reuse) {alloc.live_blocks} blocks live "
-                                     "after the index was cleared")
+            res["live_blocks_before_clear"] = eng.pool.allocator.live_blocks
+            live = clear_index(eng)
+            if live != 0:
+                raise AssertionError(f"(reuse) {live} blocks live after the "
+                                     "index was cleared")
             print(f"   (reuse) {res['live_blocks_before_clear']} blocks live "
                   "after the drain, all held by the index; 0 after clearing it")
+            print("   (reuse) a decode step of one more wave (8 requests, "
+                  "prefilled anew: the index is cleared):")
+            res["step_profile"] = paged_step_profile(torch, eng, prompts, new)
         runs[name] = res
         tokens[name] = [list(r.generated) for r in reqs]
         del eng
@@ -1372,27 +1576,15 @@ def paged_path(torch, ops, ring_engine):
                 ring_engine.device))
         return k, lg[0, :cfg.vocab_size].float()
 
-    # (a) splits each row's keys over a cluster of CTAs, (b) sums them in
-    # one CTA: the tokens must agree until the first that parts, and there
-    # the two tokens must be a near tie, their logits within LOGIT_LIMIT of
-    # the largest logit (phase 3's card-vs-CPU limit)
-    ring_parts = []
-    for i, (a, b) in enumerate(zip(tokens["ring"], tokens["paged"])):
-        k, lg = parting(i, a, b)
-        if k is None:
-            continue
-        gap = float((lg[a[k]] - lg[b[k]]).abs() / lg.abs().max())
-        ring_parts.append({"request": i, "token": k, "a_token": a[k],
-                           "b_token": b[k], "gap_over_max_logit": gap})
-        print(f"   (b) parts from (a) in request {i} at token {k}: {a[k]} vs "
-              f"{b[k]}, logit gap {gap:.3g} of the largest logit")
-        if gap > LOGIT_LIMIT:
-            raise AssertionError(
-                f"(b) paged parts from (a) ring in request {i} at token {k} "
-                f"with a logit gap of {gap:.3e} > {LOGIT_LIMIT} of the "
-                "largest logit: not a near tie")
-    print(f"   (b) paged vs (a) ring (split): {n - len(ring_parts)}/{n} "
-          f"requests equal in all {new} tokens, the rest equal up to a near tie")
+    # (a) and (b) run one split-KV template with the same split plan (the
+    # ring is max_seq slots, the page table max_seq / PAGE pages): the same
+    # keys through the same arithmetic, so every token must be equal
+    if tokens["paged"] != tokens["ring"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["paged"], tokens["ring"]))
+               if a != b]
+        raise AssertionError(f"(b) paged tokens differ from (a) ring tokens "
+                             f"in requests {bad}")
+    print(f"   (b) paged == (a) ring: all {n * new} tokens equal")
 
     # suffix prefill reassociates bf16 sums: where (c) parts from (b), (b)'s
     # top-2 logit gap at that position, from an exact prefill of the context
@@ -1415,7 +1607,7 @@ def paged_path(torch, ops, ring_engine):
           f"{runs['paged']['ttft_ms_p50']:.2f} ms")
     return ({"traffic": PAGED_TRAFFIC, "runs": runs,
              "reuse_tokens_equal_paged": agree, "tokens_total": n * new,
-             "paged_parts_from_ring": ring_parts, "reuse_parts": parts},
+             "reuse_parts": parts},
             {"primes": primes, "prompts": prompts, "new": new,
              "reuse_tokens": tokens["reuse"]})
 

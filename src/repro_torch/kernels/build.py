@@ -7,6 +7,11 @@ library's file name carries a hash of its sources, so an edited kernel is
 never served from a stale build. Builds land in ``build/repro_torch_kernels/``
 at the repository root (listed in ``.gitignore``) at first use;
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+
+Every launcher calls its C entry point through a :class:`CFunction`: the
+ctypes function and its ``argtypes`` are resolved once, the caller's
+current stream is appended as the last argument at each call (looked up
+from PyTorch, never cached), and a non-zero ``cudaError_t`` raises.
 """
 
 from __future__ import annotations
@@ -19,10 +24,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "ssd_scan")
+SOURCES = ("rmsnorm", "flash_attention", "decode_attention",
+           "paged_decode_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,3 +114,38 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+class CFunction:
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, whose last
+    parameter is the stream and whose result is a ``cudaError_t``.
+
+    ``fn(device_index, *args)`` launches on the current stream of that
+    device and raises on a non-zero result. The library is built and the
+    function resolved at the first call, so creating one needs no compiler."""
+
+    __slots__ = ("source", "symbol", "argtypes", "_fn", "_stream")
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source, self.symbol = source, symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]  # the stream
+        self._fn = None
+        self._stream = None
+
+    def _resolve(self):
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        # the raw ``cudaStream_t`` of PyTorch's current stream on a device:
+        # one C call, no Python ``Stream`` object (what PyTorch's own
+        # generated launchers call)
+        self._stream = torch._C._cuda_getCurrentRawStream
+        return fn
+
+    def __call__(self, device_index: int, *args) -> None:
+        fn = self._fn or self._resolve()
+        err = fn(*args, self._stream(device_index))
+        if err:
+            raise RuntimeError(f"{self.symbol} kernel launch failed: "
+                               f"cudaError {err}")

@@ -1,8 +1,8 @@
-// Shared pieces of the port's attention kernels (prefill flash, ring decode
-// and paged decode; the SSD scan takes its conversions and 16-byte vector
-// unpacking): 16-byte vector tile loads, warp reductions, the fp32
-// online-softmax update of R query rows against one shared-memory tile of
-// TILE_K keys, and the max/sum merge of per-warp partial states.
+// Shared pieces of the port's attention kernels (prefill flash and the split
+// decode kernel of decode_split.cuh; the SSD scan and rmsnorm take its
+// conversions and 16-byte vector unpacking): 16-byte vector tile loads, warp
+// reductions, and the fp32 online-softmax update of R query rows against one
+// shared-memory tile of TILE_K keys.
 //
 // Layout of a tile in shared memory, both as fp32:
 //   K: [TILE_K][HD + 1]  -- lane j reads row j; the +1 pad puts the 32 lanes'
@@ -119,55 +119,6 @@ __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* kbas
   }
 }
 
-// The warp-wide twin of load_kv_tile for rows that are not evenly spaced
-// (paged KV): lane j holds the element offsets of tile row j in K and V
-// (negative: the row is not read and becomes zeros), and each load takes its
-// row's offsets from that lane by shuffle. The shared-memory layout, and so
-// everything computed from the tile, is load_kv_tile's with NT = 32.
-template <typename T, int HD>
-__device__ __forceinline__ void load_kv_tile_rows(float* ks, float* vs, const T* kbase,
-                                                  const T* vbase, long long koff,
-                                                  long long voff, int lane) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int ROW_VECS = HD / VN;
-  constexpr int NVEC = TILE_K * ROW_VECS;
-  constexpr int PER = NVEC / 32;         // vectors per lane per tensor
-  constexpr int CH = PER < 8 ? PER : 8;  // loads in flight per tensor
-  static_assert(NVEC % 32 == 0 && PER % CH == 0, "tile vectors must split evenly");
-#pragma unroll
-  for (int c0 = 0; c0 < PER; c0 += CH) {
-    uint4 kr[CH], vr[CH];
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int e = lane + (c0 + i) * 32;
-      const int j = e / ROW_VECS;
-      const int col = (e - j * ROW_VECS) * VN;
-      const long long ko = __shfl_sync(FULL_MASK, koff, j);
-      const long long vo = __shfl_sync(FULL_MASK, voff, j);
-      if (ko >= 0) {
-        kr[i] = *reinterpret_cast<const uint4*>(kbase + ko + col);
-        vr[i] = *reinterpret_cast<const uint4*>(vbase + vo + col);
-      } else {
-        kr[i] = make_uint4(0u, 0u, 0u, 0u);
-        vr[i] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int e = lane + (c0 + i) * 32;
-      const int j = e / ROW_VECS;
-      const int col = (e - j * ROW_VECS) * VN;
-      float f[VN];
-      Vec<T>::unpack(kr[i], f);
-#pragma unroll
-      for (int u = 0; u < VN; ++u) ks[j * (HD + 1) + col + u] = f[u];
-      Vec<T>::unpack(vr[i], f);
-#pragma unroll
-      for (int u = 0; u < VN; ++u) vs[j * HD + col + u] = f[u];
-    }
-  }
-}
-
 // Running softmax statistics of R query rows; lane l holds output dims
 // l + 32 * i of each row's unnormalised accumulator.
 template <int HD, int R>
@@ -241,46 +192,6 @@ __device__ __forceinline__ void rows_update(Rows<HD, R>& st, const float* qs,
 #pragma unroll
       for (int i = 0; i < HD / 32; ++i) st.acc[r][i] = fmaf(pj, v[i], st.acc[r][i]);
     }
-  }
-}
-
-// Merge NW warps' partial states of G rows (G <= GMAX) and write the rows:
-// out = sum_w acc_w e^(m_w - M) / max(sum_w l_w e^(m_w - M), 1e-30), row g
-// to ``orow + g * HD``. ``m_all``/``l_all`` hold NW * GMAX floats and
-// ``acc_all`` NW * GMAX * HD, all in shared memory. Called by the whole CTA
-// of NW * 32 threads.
-template <typename T, int HD, int GMAX, int NW>
-__device__ __forceinline__ void merge_warps_store(const Rows<HD, GMAX>& st, float* m_all,
-                                                  float* l_all, float* acc_all, T* orow,
-                                                  int G, int tid) {
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int r = 0; r < GMAX; ++r) {
-    if (r >= G) break;
-    if (lane == 0) {
-      m_all[warp * GMAX + r] = st.m[r];
-      l_all[warp * GMAX + r] = st.l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < HD / 32; ++i)
-      acc_all[(warp * GMAX + r) * HD + lane + 32 * i] = st.acc[r][i];
-  }
-  __syncthreads();
-  for (int e = tid; e < G * HD; e += NW * 32) {
-    const int g = e / HD;
-    const int d = e - g * HD;
-    float M = NEG_INF_F;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, m_all[w * GMAX + g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(m_all[w * GMAX + g] - M);
-      L += l_all[w * GMAX + g] * c;
-      O += acc_all[(w * GMAX + g) * HD + d] * c;
-    }
-    orow[g * HD + d] = from_f32<T>(O / fmaxf(L, 1e-30f));
   }
 }
 

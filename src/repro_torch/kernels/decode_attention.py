@@ -2,22 +2,28 @@
 (``csrc/decode_attention.cu``, CUDA C++ for sm_90a, bound through ctypes).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py::
-decode_attention_bhgd``. The source file states the design and what bounds
-it on the card; :func:`repro_torch.kernels.ops.decode_attention` is the
-public entry point that checks arguments, counts launches and picks this
+decode_attention_bhgd``. The kernel is ``csrc/decode_split.cuh``'s split-KV
+template, shared with the paged kernel, which states the design and what
+bounds it on the card; :func:`repro_torch.kernels.ops.decode_attention` is
+the public entry point that checks arguments, counts launches and picks this
 launcher for CUDA tensors.
 
 The launcher owns the split count: :func:`num_splits` picks how many CTAs
-(one thread-block cluster) share a row's keys, from W and the card's SM
-count; the kernel cuts each row's valid keys into that many shares of
-whole tiles. No caller sees a split; ``launch(..., _splits=1)`` runs one
-CTA a row, the paged kernel's key order and arithmetic, for a bitwise
-comparison with it.
+(one thread-block cluster) share a row's keys, from the row length and the
+card's SM count, and :func:`splits_for` caches that plan per shape and
+device, so a call does no planning. The paged launcher takes the same plan
+for the same row length, so on the same K/V values the two kernels give the
+same bits. No caller sees a split; ``launch(..., _splits=n)`` forces n CTAs
+a row (1: one CTA a row) for the kernel-level tests and comparisons.
+
+Grid: (splits * Hkv, B, ceil(G / 16)), clusters of (splits, 1, 1): a KV
+head with more than 16 query heads runs its heads 16 at a time over grid z.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,11 +32,12 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _P] + [_I] * 5 + [_L] * 8 + [_I, ctypes.c_float,
-                                                         _I, _I, _P]
+_FWD = build.CFunction("decode_attention", "decode_attention_fwd",
+                       [_P] * 5 + [_I] * 5 + [_L] * 8
+                       + [_I, ctypes.c_float, _I, _I])
 
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16  # query heads per KV head one CTA holds
+GROUP_HEADS = 16  # query heads one CTA holds; more run over grid z
 TILE_K = 32  # keys a warp scores at a time
 WARPS = 4  # warps a CTA
 MAX_SPLITS = 8  # CTAs a row: Hopper's portable cluster size
@@ -47,44 +54,25 @@ def num_splits(W: int, rows: int, n_sm: int) -> int:
     return s
 
 
-_n_sm: dict[int, int] = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sm[idx]
-
-
-def _fn():
-    lib = build.load("decode_attention")
-    fn = lib.decode_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=None)
+def splits_for(W: int, rows: int, device_index: int) -> int:
+    """num_splits for the card ``device_index``, asked once per shape."""
+    n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return num_splits(W, rows, n_sm)
 
 
 def launch(q, k, v, lengths, *, scale: float, w_real: int, _splits=None):
     """q: [B,1,H,hd], k/v: [B,W,Hkv,hd], lengths: int32 [B] contiguous, all
     on one CUDA device (checked by the caller). Returns a new [B,1,H,hd].
-    ``_splits`` forces the CTAs a row (1: the unsplit key order, which the
-    paged kernel shares); by default :func:`num_splits` picks it."""
+    ``_splits`` forces the CTAs a row; by default :func:`splits_for` picks
+    it."""
     B, _, H, hd = q.shape
-    W, Hkv = k.shape[1], k.shape[2]
-    splits = _splits or num_splits(W, B * Hkv, _sm_count(q.device))
+    _, W, Hkv, _ = k.shape
+    dev = q.get_device()
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lengths.data_ptr(),
-        B, W, H, Hkv, hd,
-        q.stride(0), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(w_real), float(scale), int(q.dtype == torch.bfloat16), splits,
-        stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    _FWD(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+         lengths.data_ptr(), B, W, H, Hkv, hd, sq[0], sq[2],
+         sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], w_real, scale,
+         q.dtype is torch.bfloat16, _splits or splits_for(W, B * Hkv, dev))
     return o

@@ -20,19 +20,11 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 15 + [_I] * 4 + [
-    ctypes.c_float, _I, _P]
+_FWD = build.CFunction("flash_attention", "flash_attention_fwd",
+                       [_P] * 9 + [_I] * 7 + [_L] * 15 + [_I] * 4
+                       + [ctypes.c_float, _I])
 
 HEAD_DIMS = (32, 64, 128)
-
-
-def _fn():
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def launch(q, k, v, *, causal: bool, window: int, scale: float,
@@ -50,8 +42,8 @@ def launch(q, k, v, *, causal: bool, window: int, scale: float,
         prior_k, prior_v, pv_ptr, Pp = k, v, None, 0
     else:
         pv_ptr, Pp = prior_valid.data_ptr(), prior_k.shape[1]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn()(
+    _FWD(
+        q.get_device(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), seg_ptr, seg_ptr,
         prior_k.data_ptr(), prior_v.data_ptr(), pv_ptr,
         B, Sq, Skv, Pp, H, Hkv, hd,
@@ -61,8 +53,6 @@ def launch(q, k, v, *, causal: bool, window: int, scale: float,
         prior_k.stride(0), prior_k.stride(1), prior_k.stride(2),
         prior_v.stride(0), prior_v.stride(1), prior_v.stride(2),
         int(causal), int(window), int(sq_real), int(skv_real), float(scale),
-        int(q.dtype == torch.bfloat16), stream,
+        int(q.dtype == torch.bfloat16),
     )
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     return o

@@ -42,12 +42,22 @@ def reset_launches() -> None:
 
 def _on_cuda(*tensors) -> bool:
     """True when every tensor is on one CUDA device, False when every one
-    is on the CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
+    is on the CPU; anything else raises. Attribute reads only: it runs on
+    every launch."""
+    first = tensors[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != dev:
+                break
+        else:
+            return True
+    elif first.is_cpu:
+        for t in tensors:
+            if not t.is_cpu:
+                break
+        else:
+            return False
     raise ValueError(f"tensors must all be on one CUDA device or all on the "
                      f"CPU: {[str(t.device) for t in tensors]}")
 
@@ -101,7 +111,8 @@ def preprocess(x_u8, mean, std, *, out_dtype=torch.bfloat16):
 
 
 def rmsnorm(x, w, *, eps: float = 1e-5):
-    """x: [..., D]; w: [D] -> x's dtype and shape."""
+    """x: [..., D]; w: [D] -> x's dtype and shape. On the card x and w are
+    each fp32 or bf16; an empty x returns an empty tensor, no launch."""
     if x.shape[-1:] != w.shape:
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if not _on_cuda(x, w):
@@ -111,10 +122,11 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
         raise TypeError(f"rmsnorm: w must be contiguous fp32/bf16: {w.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"rmsnorm kernel needs a contiguous x: {x.stride()}")
-    x2 = x.reshape(-1, x.shape[-1])
-    out = _rn.launch(x2, w, eps)
+    if not x.numel():
+        return torch.empty_like(x)
+    out = _rn.launch(x, w, eps)
     LAUNCHES["rmsnorm"] += 1
-    return out.reshape(x.shape)
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -205,10 +217,9 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
     _check_kernel_dtype("decode_attention", q, k, v)
     _check_last_dim_contiguous("decode_attention", q, k, v)
     _check_rows_aligned("decode_attention", k, v)
-    if hd not in _dec.HEAD_DIMS or H // Hkv > _dec.MAX_GROUP:
+    if hd not in _dec.HEAD_DIMS:
         raise ValueError(f"decode_attention kernel: head_dim {hd} not in "
-                         f"{_dec.HEAD_DIMS} or group {H // Hkv} > "
-                         f"{_dec.MAX_GROUP}")
+                         f"{_dec.HEAD_DIMS}")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError(f"decode_attention kernel: lengths must be contiguous "
                         f"int32: {lengths.dtype}")
@@ -243,10 +254,14 @@ def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
     _check_kernel_dtype("paged_decode_attention", q, k_blocks, v_blocks)
     _check_last_dim_contiguous("paged_decode_attention", q, k_blocks, v_blocks)
     _check_rows_aligned("paged_decode_attention", k_blocks, v_blocks)
-    if hd not in _pdec.HEAD_DIMS or H // Hkv > _pdec.MAX_GROUP:
+    if hd not in _pdec.HEAD_DIMS:
         raise ValueError(f"paged_decode_attention kernel: head_dim {hd} not in "
-                         f"{_pdec.HEAD_DIMS} or group {H // Hkv} > "
-                         f"{_pdec.MAX_GROUP}")
+                         f"{_pdec.HEAD_DIMS}")
+    page = k_blocks.shape[1]
+    if any(t.stride(0) != page * t.stride(1) for t in (k_blocks, v_blocks)):
+        raise ValueError(f"paged_decode_attention kernel needs evenly spaced "
+                         f"block rows (a block's stride page times a row's): "
+                         f"{k_blocks.stride()}, {v_blocks.stride()}")
     for name, t in (("page_table", page_table), ("lengths", lengths)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"paged_decode_attention kernel: {name} must be "

@@ -1,67 +1,39 @@
-"""Fused RMSNorm, hand-written in Triton for Hopper.
+"""Launcher of the hand-written RMSNorm kernel (``csrc/rmsnorm.cu``, CUDA
+C++ for sm_90a, bound through ctypes).
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm.py::rmsnorm_2d``
-(body ``_rmsnorm_kernel``) and computes the same function per row of
-``[N, D]``: the fp32 mean of squares, ``x * rsqrt(var + eps)`` cast to x's
-dtype, then ``* w`` (that cast order is the JAX model's bf16 rounding), the
-result in x's dtype.
+Replaces the Pallas TPU kernel ``src/repro/kernels/rmsnorm.py::rmsnorm_2d``.
+The source file states the design and what bounds it on the card;
+:func:`repro_torch.kernels.ops.rmsnorm` is the public entry point that
+checks arguments, counts launches and picks this launcher for CUDA tensors.
 
-Why Triton: the kernel is one row-wise fp32 reduction and one elementwise
-pass over a row (D = 4096 on llama3-8b) that fits one program's block, the
-normalisation case Triton's block model handles without hand-written
-shared-memory reductions, and it adds nothing to the ``nvcc`` build.
-
-What bounds it on this card: it reads x and w once and writes y once, with
-about 4 operations per element, so it is bound by memory bandwidth. Its
-design: one program per row, the whole row in registers (one read, one
-write, no second pass over device memory). At decode (N = max_batch rows)
-only 8 programs run, so a call is dominated by launch latency; fusing the
-norm into the neighbouring matmul's prologue is the later fix.
-
-``triton`` is imported inside :func:`launch`, so this module imports on a
-machine without it.
+At decode (8 rows) the kernel's device time is a few microseconds, so the
+call's cost is the host's: this launcher allocates the output, reads three
+pointers and hands eight arguments to a ctypes function resolved once
+(:class:`repro_torch.kernels.build.CFunction`), with no reshape and no
+per-call lookup.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-_kernel = None
+from repro_torch.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_FWD = build.CFunction("rmsnorm", "rmsnorm_fwd",
+                       [_P, _P, _P, _I, _I, ctypes.c_float, _I])
 
 
-def _build():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_kernel(x_ptr, w_ptr, o_ptr, D, stride_x, stride_o, eps,
-                       BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < D
-        x = tl.load(x_ptr + row * stride_x + cols, mask=mask, other=0.0)
-        x32 = x.to(tl.float32)
-        var = tl.sum(x32 * x32, axis=0) / D
-        y = (x32 * tl.rsqrt(var + eps)).to(x.dtype)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0)
-        out = y.to(tl.float32) * w.to(tl.float32)
-        tl.store(o_ptr + row * stride_o + cols, out.to(x.dtype), mask=mask)
-
-    return rmsnorm_kernel
-
-
-def launch(x2, w, eps: float):
-    """x2: [N, D] with contiguous rows, w: [D] contiguous, on one CUDA
-    device (checked by the caller). Returns a new [N, D] tensor."""
-    import triton
-
-    global _kernel
-    if _kernel is None:
-        _kernel = _build()
-    N, D = x2.shape
-    o = torch.empty_like(x2)
-    block = triton.next_power_of_2(D)
-    num_warps = min(16, max(1, block // 256))
-    _kernel[(N,)](x2, w, o, D, x2.stride(0), o.stride(0), float(eps),
-                  BLOCK=block, num_warps=num_warps)
+def launch(x, w, eps: float):
+    """x: [..., D] contiguous and not empty, w: [D] contiguous, each fp32 or
+    bf16, on one CUDA device (checked by the caller). Returns a new tensor
+    of x's shape and dtype."""
+    o = torch.empty_like(x)
+    D = w.shape[0]
+    _FWD(x.get_device(), x.data_ptr(), w.data_ptr(), o.data_ptr(),
+         x.numel() // D, D, eps,
+         (x.dtype is torch.bfloat16) | (w.dtype is torch.bfloat16) << 1)
     return o

@@ -19,21 +19,13 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 10 + [_I, _P]
+_FWD = build.CFunction("ssd_scan", "ssd_scan_fwd",
+                       [_P] * 7 + [_I] * 6 + [_L] * 10 + [_I])
 
 STATE_DIMS = (128,)  # d_state the kernel is built for
 TILE = 64  # the chunk length must be a multiple of it ...
 MAX_CHUNK = 256  # ... and at most this
 COLS = 16  # head-dim columns of the state per CTA (P in the source)
-
-
-def _fn():
-    lib = build.load("ssd_scan")
-    fn = lib.ssd_scan_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def launch(x, dt, A, B, C, *, chunk: int):
@@ -44,14 +36,11 @@ def launch(x, dt, A, B, C, *, chunk: int):
     ds = B.shape[-1]
     y = torch.empty((b, S, nh, hd), dtype=x.dtype, device=x.device)
     state = torch.empty((b, nh, hd, ds), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+    _FWD(
+        x.get_device(), x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), state.data_ptr(), b, S, nh, hd, ds, int(chunk),
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
         dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        int(x.dtype == torch.bfloat16), stream,
+        int(x.dtype == torch.bfloat16),
     )
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     return y, state

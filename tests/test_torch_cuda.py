@@ -1,7 +1,9 @@
 """Port kernels and model on a CUDA card: each hand-written Hopper kernel
-against its plain PyTorch version (the paged decode kernel also against the
-ring kernel run unsplit on the same K/V; the bf16 flash kernel and the split
-ring decode kernel at their tile and split edges), the serving engine's
+against its plain PyTorch version (the paged decode kernel also, bitwise,
+against the ring kernel on the same K/V at each split count; rmsnorm at
+the models' widths and every x/w dtype pair; both decode kernels at more
+than 16 query heads a KV head; the bf16 flash kernel and the split decode
+kernels at their tile, page and split edges), the serving engine's
 launch counts on its ring, paged and exact-shape (Mamba-2) paths, and the
 disaggregated engine under each mechanism against the same engine on the
 CPU.
@@ -21,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as _dec  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as _pdec  # noqa: E402
 
 TOLS = {"fp32": 2e-5, "bf16": 2e-2}
 SSD_TOLS = {"fp32": 3e-5, "bf16": 5e-2}
@@ -54,6 +57,66 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype):
     assert ops.LAUNCHES["rmsnorm"] == 1
     torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
                                atol=TOLS[dtype], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    ("bf16", "bf16"), ("bf16", "fp32"), ("fp32", "bf16"), ("fp32", "fp32")])
+@pytest.mark.parametrize("D", [128, 768, 1001, 1536, 4096])
+@pytest.mark.parametrize("N", [1, 8, 257, 8192])
+def test_rmsnorm_kernel_shapes_and_dtypes(cuda_device, N, D, x_dtype,
+                                          w_dtype):
+    """The CUDA C++ kernel at decode and prefill row counts, at the widths
+    the models use (D = 1001 is not a whole number of 16-byte vectors: the
+    one-element accesses run), x and w each fp32 or bf16; one launch a
+    call. Tolerances are x's dtype's."""
+    x = _cuda_pair((N, D), x_dtype, cuda_device, N + D)
+    w = _cuda_pair((D,), w_dtype, cuda_device, 1)
+    ops.reset_launches()
+    got = ops.rmsnorm(x, w)
+    assert ops.LAUNCHES["rmsnorm"] == 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
+                               atol=TOLS[x_dtype], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("N,D", [(1, 5120), (300, 5120), (3, 12288),
+                                 (300, 9001)])
+def test_rmsnorm_kernel_long_rows(cuda_device, N, D, dtype):
+    """Rows longer than a CTA holds in registers (more than 1024 vectors,
+    or 4096 elements one at a time): the rest of the row is read again for
+    the output."""
+    x = _cuda_pair((N, D), dtype, cuda_device, D)
+    w = _cuda_pair((D,), dtype, cuda_device, 2)
+    torch.testing.assert_close(ops.rmsnorm(x, w).float(),
+                               ref.rmsnorm_ref(x, w).float(),
+                               atol=TOLS[dtype], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_rmsnorm_kernel_unaligned_and_empty(cuda_device, dtype):
+    """An x or a w that starts off a 16-byte boundary (one-element
+    accesses), at 17 rows and at 8, a 3-d x, and an empty x (no launch)."""
+    buf = _cuda_pair((17 * 4096 + 1,), dtype, cuda_device, 3)
+    x = buf[1:].view(17, 4096)
+    assert x.data_ptr() % 16
+    w = _cuda_pair((4096,), dtype, cuda_device, 4)
+    wbuf = _cuda_pair((769,), dtype, cuda_device, 7)
+    w_off = wbuf[1:]
+    assert w_off.data_ptr() % 16
+    x8 = _cuda_pair((8, 768), dtype, cuda_device, 8)
+    x3 = _cuda_pair((2, 5, 768), dtype, cuda_device, 5)
+    w3 = _cuda_pair((768,), dtype, cuda_device, 6)
+    ops.reset_launches()
+    for xx, ww in ((x, w), (x3, w3), (x8, w_off), (x3, w_off)):
+        torch.testing.assert_close(ops.rmsnorm(xx, ww).float(),
+                                   ref.rmsnorm_ref(xx, ww).float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+    empty = ops.rmsnorm(x[:0], w)
+    assert empty.shape == (0, 4096) and ops.LAUNCHES["rmsnorm"] == 4
 
 
 @pytest.mark.cuda
@@ -136,7 +199,11 @@ def _paged_case(B, n_pages, H, Hkv, hd, lens, dtype, dev, seed):
             cast(dense[0]), cast(dense[1]))
 
 
+PAGED_EDGE_LENS = (0, 1, 15, 16, 17, 31, 32, 33)  # page and tile edges
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("n_pages,H,Hkv,hd", [
     (128, 32, 8, 128),  # llama3-8b at max_seq 2048: G = 4
@@ -144,11 +211,16 @@ def _paged_case(B, n_pages, H, Hkv, hd, lens, dtype, dev, seed):
     (20, 24, 2, 32),  # G = 12
 ])
 def test_paged_decode_kernel_matches_plain_and_ring(cuda_device, dtype,
-                                                    n_pages, H, Hkv, hd):
+                                                    n_pages, H, Hkv, hd,
+                                                    splits):
+    """Through ops at the launchers' split count, then at each forced one:
+    the paged kernel against its plain version, and bitwise against the
+    ring kernel on the same K/V laid out densely (one template, one split
+    plan, the same keys in the same order)."""
     W = n_pages * 16
-    lens = [0, 1, 17, 33, W // 3, W // 2 + 5, W - 1, W]
-    q, kb, vb, pt, lens_d, kd, vd = _paged_case(8, n_pages, H, Hkv, hd, lens,
-                                                dtype, cuda_device, 0)
+    lens = [*PAGED_EDGE_LENS, W // 3, W // 2 + 5, W - 1, W]
+    q, kb, vb, pt, lens_d, kd, vd = _paged_case(len(lens), n_pages, H, Hkv,
+                                                hd, lens, dtype, cuda_device, 0)
     ops.reset_launches()
     got = ops.paged_decode_attention(q, kb, vb, pt, lens_d)
     assert ops.LAUNCHES["paged_decode_attention"] == 1
@@ -156,11 +228,49 @@ def test_paged_decode_kernel_matches_plain_and_ring(cuda_device, dtype,
     torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
                                rtol=1e-2)
     assert (got[0] == 0).all()
-    # same keys, same order, same arithmetic as the ring kernel unsplit (one
-    # CTA a row): bitwise
+    assert torch.equal(got, ops.decode_attention(q, kd, vd, lens_d))
+    got = _pdec.launch(q, kb, vb, pt, lens_d, scale=hd ** -0.5,
+                       _splits=splits)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
     ring = _dec.launch(q, kd, vd, lens_d, scale=hd ** -0.5, w_real=W,
-                       _splits=1)
+                       _splits=splits)
     assert torch.equal(got, ring)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 8])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("H,Hkv", [
+    (48, 1),  # granite-34b: G = 48, three full groups of 16
+    (40, 2),  # G = 20: a group of 16 and one of 4
+])
+def test_decode_kernels_any_group_size(cuda_device, dtype, H, Hkv, splits):
+    """More than 16 query heads a KV head, at hd 128: the ring and paged
+    kernels against their plain versions, at the launchers' split count
+    (None) and forced ones, and the paged kernel bitwise the ring one."""
+    n_pages, hd = 64, 128
+    W = n_pages * 16
+    lens = [*PAGED_EDGE_LENS, W // 2 + 5, W]
+    q, kb, vb, pt, lens_d, kd, vd = _paged_case(len(lens), n_pages, H, Hkv,
+                                                hd, lens, dtype, cuda_device, 1)
+    want = ref.paged_decode_attention_ref(q, kb, vb, pt, lens_d)
+    if splits is None:
+        ops.reset_launches()
+        ring = ops.decode_attention(q, kd, vd, lens_d)
+        paged = ops.paged_decode_attention(q, kb, vb, pt, lens_d)
+        assert ops.LAUNCHES["decode_attention"] == 1
+        assert ops.LAUNCHES["paged_decode_attention"] == 1
+    else:
+        ring = _dec.launch(q, kd, vd, lens_d, scale=hd ** -0.5, w_real=W,
+                           _splits=splits)
+        paged = _pdec.launch(q, kb, vb, pt, lens_d, scale=hd ** -0.5,
+                             _splits=splits)
+    for got in (ring, paged):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+        assert (got[0] == 0).all()
+    assert torch.equal(paged, ring)
 
 
 @pytest.mark.cuda
@@ -279,7 +389,7 @@ def _decode_lens(kind, W):
 @pytest.mark.parametrize("kind", ["edges", "one_long"])
 @pytest.mark.parametrize("W,H,Hkv,hd", [
     (2048, 32, 8, 128),  # llama3-8b: G = 4
-    (1000, 32, 2, 64),  # G = 16 (MAX_GROUP)
+    (1000, 32, 2, 64),  # G = 16: one full head group
     (520, 8, 8, 32),  # G = 1
 ])
 def test_decode_split_edges_match_plain(cuda_device, dtype, kind, W, H, Hkv,
@@ -441,10 +551,8 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
     assert got == want
     assert ceng.counters() == c
-    # at max_seq 128 the launcher runs the ring kernel one CTA a row, the
-    # paged kernel's key order and arithmetic, so the tokens agree exactly
-    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert _dec.num_splits(128, 2 * cfg.n_kv_heads, n_sm) == 1
+    # one split-KV template and one split plan for both pools: the same
+    # keys through the same arithmetic, so the tokens agree exactly
     ring, _ = serve(gpu, params, cuda_device)
     paged, _ = serve(gpu, params, cuda_device, paged=True, prefix_reuse=False)
     assert paged == ring

@@ -65,6 +65,26 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
             assert node.module.split(".")[0] not in ("jax", "repro")
 
 
+def test_chip_ab_imports_nothing_of_jax_or_repro_and_needs_a_card():
+    tree = ast.parse((ROOT / "chip_ab.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            assert all(a.name.split(".")[0] not in ("jax", "repro")
+                       for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            assert node.module.split(".")[0] not in ("jax", "repro")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the A/B would run")
+    proc = subprocess.run(
+        [sys.executable, "chip_ab.py", "src", "cpu"], capture_output=True,
+        text=True, timeout=120, cwd=ROOT,
+        env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0, proc.stdout + proc.stderr
+    assert "no CUDA device" in proc.stdout
+    assert "{" not in proc.stdout
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")

@@ -41,7 +41,13 @@ def close(got, want_jax, dtype):
 # plain versions vs the JAX kernels (interpret mode)
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("N,D", [(16, 128), (257, 384)])
+@pytest.mark.parametrize("N,D", [
+    (16, 128),  # qwen3's qk-norm width
+    (257, 384),
+    (8, 768),  # mamba2-130m d_model
+    (33, 1536),  # mamba2-130m d_inner (the gate norm)
+    (5, 100),  # not a whole number of 16-byte vectors
+])
 def test_rmsnorm_plain_matches_jax_kernel(dtype, N, D):
     rng = np.random.default_rng(0)
     xj, xt = pair(rng, (N, D), dtype)
@@ -144,6 +150,51 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
                             "preprocess": 0}
+
+
+def test_rmsnorm_on_cpu_tensors_imports_no_triton_and_loads_no_library():
+    """The CPU path is the plain version alone: no ``triton`` import is
+    attempted, no kernel library is built or loaded, no launch counted."""
+    code = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "triton":
+            raise AssertionError("triton import attempted")
+sys.meta_path.insert(0, Block())
+import torch
+from repro_torch.kernels import build, ops, rmsnorm
+def no_build(*a, **k):
+    raise AssertionError("a kernel library was built or loaded")
+build.load = build._start = no_build
+ops.reset_launches()
+x = torch.randn(3, 5, 64, dtype=torch.bfloat16)
+y = ops.rmsnorm(x, torch.ones(64))
+assert y.shape == x.shape and y.dtype == x.dtype
+assert ops.LAUNCHES["rmsnorm"] == 0 and not build._loaded
+assert rmsnorm._FWD._fn is None
+assert not any(m.split(".")[0] == "triton" for m in sys.modules)
+print("ok")
+"""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+def test_mixed_devices_raise():
+    x = torch.randn(2, 16)
+    with pytest.raises(ValueError):
+        ops.rmsnorm(x, torch.ones(16, device="meta"))
+    with pytest.raises(ValueError):
+        ops.rmsnorm(x.to("meta"), torch.ones(16, device="meta"))
 
 
 def test_plain_versions_mask_past_real_lengths():

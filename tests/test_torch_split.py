@@ -165,3 +165,91 @@ def test_merge_partials_empty_row_is_zero():
     out = merge_partials(m, torch.zeros((4, 2, 3)),
                              torch.zeros((4, 2, 3, 8)))
     assert torch.equal(out, torch.zeros((2, 3, 8)))
+
+
+# --------------------------------------------------------------------------- #
+# the two launchers' plans: one split count for the same row length
+# --------------------------------------------------------------------------- #
+class _Recorder:
+    """Stands in for a launcher's C entry point: keeps its arguments."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, device_index, *args):
+        self.args = args
+
+
+@pytest.fixture
+def card_of(monkeypatch):
+    """The launchers' view of a card with ``n_sm`` SMs, their C calls
+    recorded instead of made."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import paged_decode_attention as pdec
+
+    def make(n_sm):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda i: SimpleNamespace(multi_processor_count=n_sm))
+        dec.splits_for.cache_clear()
+        ring, paged = _Recorder(), _Recorder()
+        monkeypatch.setattr(dec, "_FWD", ring)
+        monkeypatch.setattr(pdec, "_FWD", paged)
+        return ring, paged
+
+    yield make
+    dec.splits_for.cache_clear()
+
+
+@pytest.mark.parametrize("B,n_pages,H,Hkv,n_sm", [
+    (8, 128, 32, 8, 132),  # phase 6: 8 splits, 512 CTAs
+    (2, 8, 8, 2, 132),  # max_seq 128: one CTA a row
+    (8, 128, 48, 1, 132),  # granite-34b's G = 48: 3 head groups a row
+    (32, 64, 32, 8, 132),  # enough rows to fill the card unsplit
+    (4, 20, 24, 2, 16),  # a small card
+])
+def test_paged_launcher_takes_the_ring_launchers_split_count(
+        card_of, B, n_pages, H, Hkv, n_sm):
+    """The paged launcher's split count is num_splits(n_pages * page,
+    B * Hkv, n_sm), the ring launcher's for a ring of W = n_pages * page
+    slots, so the two kernels sum each row's keys in one order."""
+    from repro_torch.kernels import paged_decode_attention as pdec
+
+    ring, paged = card_of(n_sm)
+    page, hd = 16, 32
+    W = n_pages * page
+    q = torch.zeros((B, 1, H, hd))
+    lens = torch.zeros((B,), dtype=torch.int32)
+    dec.launch(q, torch.zeros((B, W, Hkv, hd)), torch.zeros((B, W, Hkv, hd)),
+               lens, scale=1.0, w_real=W)
+    pdec.launch(q, torch.zeros((3, page, Hkv, hd)),
+                torch.zeros((3, page, Hkv, hd)),
+                torch.zeros((B, n_pages), dtype=torch.int32), lens, scale=1.0)
+    want = dec.num_splits(W, B * Hkv, n_sm)
+    assert ring.args[-1] == paged.args[-1] == want
+    # B, W, H, Hkv, hd as the ring entry point takes them; B, n_pages,
+    # page, H, Hkv, hd as the paged one does
+    assert ring.args[5:10] == (B, W, H, Hkv, hd)
+    assert paged.args[6:12] == (B, n_pages, page, H, Hkv, hd)
+    # a forced count reaches both kernels as given
+    dec.launch(q, torch.zeros((B, W, Hkv, hd)), torch.zeros((B, W, Hkv, hd)),
+               lens, scale=1.0, w_real=W, _splits=2)
+    pdec.launch(q, torch.zeros((3, page, Hkv, hd)),
+                torch.zeros((3, page, Hkv, hd)),
+                torch.zeros((B, n_pages), dtype=torch.int32), lens, scale=1.0,
+                _splits=2)
+    assert ring.args[-1] == paged.args[-1] == 2
+
+
+def test_split_plan_is_asked_once_per_shape(card_of):
+    """splits_for caches the plan: a call asks the card nothing."""
+    asked = []
+    ring, _ = card_of(132)
+    real = torch.cuda.get_device_properties
+    torch.cuda.get_device_properties = lambda i: asked.append(i) or real(i)
+    try:
+        for _ in range(3):
+            assert dec.splits_for(2048, 64, 0) == 8
+    finally:
+        torch.cuda.get_device_properties = real
+    assert asked == [0]
