@@ -18,10 +18,18 @@ to one card, and compares each reading only within that call:
   launch queue);
 - paged decode bf16 at ``chip_smoke.py`` phase 2's shape, and the ring
   kernel on the same K/V laid out densely: events and device time alone;
+- the SSD scan bf16 at phase 2's shape (mamba2-130m's widths, b=1) and
+  1024 and 2048 positions: events and device time alone, all its
+  launches;
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
 - phase 6 (c)'s paged decode step (the shared-prefix traffic, paged with
-  prefix reuse), profiled as ``chip_smoke.py`` profiles it.
+  prefix reuse), profiled as ``chip_smoke.py`` profiles it;
+- phase 7 (``repro_torch.launch.serve`` on the 24-layer mamba2-130m):
+  TTFT and TPOT p50, and the 2048-token exact prefill's device busy time
+  and the SSD kernels' share of it.
+
+A reading whose entry point a tree lacks prints as absent (null).
 
 It reuses ``chip_smoke.py``'s helpers and fails, printing no result, on a
 machine without a CUDA device.
@@ -37,6 +45,22 @@ import chip_smoke as cs
 # the paged kernel's name: ``PagedRows`` since both decode kernels share
 # one template, ``paged_decode`` in trees before that
 PAGED_KEYS = ("PagedRows", "paged_decode")
+
+
+def phase7(torch, ops):
+    """Phase 7's TTFT and TPOT p50 and its profiled 2048-token prefill;
+    None where the tree lacks the SSM path."""
+    try:
+        served, _ = cs.ssm_path(torch, ops)
+    except (ImportError, AttributeError) as e:
+        print(f"   phase 7 absent in this tree: {type(e).__name__}: {e}")
+        return None
+    pf = served["prefill_2048"]
+    return {"ttft_ms_p50": served["ttft_ms"]["p50"],
+            "tpot_ms_p50": served["tpot_ms"]["p50"],
+            "prefill_2048_device_busy_ms": pf["device_busy_ms"],
+            "prefill_2048_ssd_ms": pf["kernel_ms"],
+            "prefill_2048_ssd_share": pf["kernel_share_of_device_time"]}
 
 
 def main():
@@ -87,6 +111,13 @@ def main():
                     "ring_ms": cs.time_ms(torch, ring),
                     "ring_device_ms": cs.device_ms(torch, ring, "decode_split")}
     del q, kb, vb, pt, lens, kd, vd
+    for S in (1024, 2048):
+        x, dt, A, B, C = cs.ssd_inputs(torch, "bf16", S, dev)
+        ssd = lambda: ops.ssd_scan(x, dt, A, B, C,  # noqa: E731
+                                   chunk=cs.SSD_SHAPE["chunk"])
+        out[f"ssd_{S}"] = {"ms": cs.time_ms(torch, ssd),
+                           "device_ms": cs.device_ms(torch, ssd, "ssd_scan")}
+    del x, dt, A, B, C
     print(f"   kernels: {json.dumps(out)}", flush=True)
 
     served, engine = cs.main_path(torch, ops)
@@ -108,6 +139,9 @@ def main():
     out["phase6c_step"] = {k: prof.get(k) for k in (
         "host_wall_ms_per_step", "device_busy_ms_per_step",
         "device_idle_share", "kernel_ms_per_step")}
+    del eng, model, params
+    torch.cuda.empty_cache()
+    out["phase7"] = phase7(torch, ops)
     line = json.dumps(out)
     (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
     (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)

@@ -21,12 +21,15 @@ result line:
    also against the ring kernel on the same K/V laid out densely, bitwise,
    at the launchers' split count and at one CTA a row, with its split plan
    and launch; the device time alone (torch.profiler) of rmsnorm, flash,
-   ring and paged decode and preprocess beside the CUDA-event time; for
-   the kernels redesigned for Hopper the grid, block, shared memory and
-   registers as launched, the cluster shape, ptxas's registers and spills
-   (none allowed in rmsnorm or either decode kernel), and the HGMMA instructions
-   in the flash library's SASS where cuobjdump exists; the SSD
-   scan at 1024, 1000 and 77 positions; and the preprocess kernel on its
+   ring and paged decode, the SSD scan and preprocess beside the CUDA-event
+   time; for the kernels redesigned for Hopper the grid, block, shared
+   memory and registers as launched, the cluster shape, ptxas's registers
+   and spills (none allowed in rmsnorm, either decode kernel or the SSD
+   scan), and the HGMMA instructions in the flash and SSD libraries' SASS
+   where cuobjdump exists (none found fails); the SSD scan at 1024, 2048,
+   1000 and 77 positions, the device time of each of its three bf16
+   launches and of the whole scan at each heads-a-CTA choice at 1024 and
+   2048 positions; and the preprocess kernel on its
    path, the entry point ``ops.preprocess`` (4 batches of 8 camera frames,
    the paper's input), then against its plain version there and at
    tests/test_kernels.py's shapes;
@@ -124,7 +127,8 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--max-batch", "8", "--max-seq", "2048",
 # the SSD scan at mamba2-130m's widths (b=1: the exact path prefills one
 # request per call); its tolerances are tests/test_kernels.py's
 SSD_SHAPE = dict(nh=24, hd=64, ds=128, chunk=256)
-SSD_LENS = (1024, 1000, 77)  # 4 chunks, a ragged tail, less than one chunk
+# 4 chunks of 256, phase 7's longest prompt, a ragged tail, less than one
+SSD_LENS = (1024, 2048, 1000, 77)
 SSD_TOLS = {"bf16": 5e-2, "fp32": 3e-5}
 SSD_RTOL = 2e-2
 SSM_LAYERS = 24
@@ -463,16 +467,17 @@ def hgmma_count(lib_path):
 
 
 def design_report(torch, build, ops, dev):
-    """Phase 2's account of the two kernels redesigned for Hopper at the
-    main path's bf16 shapes: flash prefill at [8, 1024, 32, 8, 128] (one
-    warpgroup a 64-row q-tile, wgmma) and ring decode at B=8, W=2048 (a
-    cluster of CTAs a row). Grid, block, shared memory and registers as
-    launched; registers and spills from ptxas; the cluster from the
-    launcher's split plan; HGMMA in the flash library's SASS; registers and
-    spills of every instantiation of rmsnorm and the two decode kernels.
-    Fails when the profiler records no decode launch, when the decode
-    kernel runs one CTA a row there, when one of those instantiations
-    spills or takes stack, or when cuobjdump finds no HGMMA."""
+    """Phase 2's account of the kernels redesigned for Hopper at the main
+    paths' bf16 shapes: flash prefill at [8, 1024, 32, 8, 128] (one
+    warpgroup a 64-row q-tile, wgmma), ring decode at B=8, W=2048 (a
+    cluster of CTAs a row) and the SSD scan (``ssd_design``). Grid, block,
+    shared memory and registers as launched; registers and spills from
+    ptxas; the cluster from the launcher's split plan; HGMMA in the flash
+    and SSD libraries' SASS; registers and spills of every instantiation
+    of rmsnorm, the two decode kernels and the SSD scan. Fails when the
+    profiler records no decode launch, when the decode kernel runs one CTA
+    a row there, when one of those instantiations spills or takes stack,
+    or when cuobjdump finds no HGMMA."""
     from repro_torch.kernels import decode_attention as _dec
 
     B, H, Hkv, hd, S, W = 8, 32, 8, 128, 1024, 2048
@@ -507,9 +512,11 @@ def design_report(torch, build, ops, dev):
     if splits < 2 or grid[0] != splits * Hkv:
         raise AssertionError(f"decode kernel: {splits} CTA(s) a row, launch "
                              f"{out['decode_attention']['launch']}")
-    # every instantiation of the kernels this slice rebuilt: no spills, no
+    out["ssd_scan"] = ssd_design(torch, ops, dev)
+    # every instantiation of the kernels rebuilt for Hopper: no spills, no
     # stack (the paged kernel's fp32 staging spilled before)
-    for name in ("rmsnorm", "paged_decode_attention", "decode_attention"):
+    for name in ("rmsnorm", "paged_decode_attention", "decode_attention",
+                 "ssd_scan"):
         stats = ptxas_stats(build.build_log.get(name, ""))
         if not stats:
             raise AssertionError(f"{name}: no ptxas report in its build log")
@@ -522,12 +529,53 @@ def design_report(torch, build, ops, dev):
         out.setdefault("ptxas", {})[name] = stats
         if spilled:
             raise AssertionError(f"{name}: spills or stack in {spilled}")
-    n = hgmma_count(build._lib_path("flash_attention"))
-    print(f"   HGMMA instructions in the flash library's SASS: "
-          f"{'cuobjdump not found' if n is None else n}")
-    if n == 0:
-        raise AssertionError("flash kernel: no HGMMA in its SASS")
-    out["flash_attention"]["hgmma_in_sass"] = n
+    for name in ("flash_attention", "ssd_scan"):
+        n = hgmma_count(build._lib_path(name))
+        print(f"   HGMMA instructions in the {name} library's SASS: "
+              f"{'cuobjdump not found' if n is None else n}")
+        if n == 0:
+            raise AssertionError(f"{name}: no HGMMA in its SASS")
+        out[name]["hgmma_in_sass"] = n
+    return out
+
+
+def ssd_design(torch, ops, dev):
+    """The bf16 SSD scan's three launches at b=1 and 1024 and 2048
+    positions: each launch's grid, block, shared memory and registers as
+    the profiler saw it and its device time alone; and the device time of
+    the whole scan at each heads-a-CTA choice of HEAD_GROUPS, beside the
+    launcher's pick (the readings its rule rests on). Fails when a launch
+    is missing from the trace or the grid does not run one CTA column per
+    chunk of 64 positions."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    nh, chunk = SSD_SHAPE["nh"], SSD_SHAPE["chunk"]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for S in (1024, 2048):
+        x, dt, A, B, C = ssd_inputs(torch, "bf16", S, dev)
+        nc = -(-S // _ssd.CHUNK)
+        pick = _ssd.heads_per_cta(nc, nh, n_sm)
+        rec = {"heads_per_cta": pick, "launches": {}, "device_ms": {}}
+        for key in ("ssd_scan_states", "ssd_scan_pass", "ssd_scan_out"):
+            def fn():
+                return ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            rec["launches"][key] = launch_info(torch, fn, key)
+            rec["device_ms"][key] = device_ms(torch, fn, key)
+        rec["heads_sweep_device_ms"] = {
+            g: device_ms(torch, lambda g=g: _ssd.launch(x, dt, A, B, C, chunk=chunk,
+                                                         _heads=g), "ssd_scan")
+            for g in _ssd.HEAD_GROUPS}
+        print(f"   ssd_scan bf16 S={S}: {pick} heads a CTA; launches "
+              f"{rec['launches']}; device ms {rec['device_ms']}; whole scan "
+              f"by heads a CTA {rec['heads_sweep_device_ms']}")
+        for key in ("ssd_scan_states", "ssd_scan_out"):
+            grid = rec["launches"][key].get("grid")
+            if grid is None or grid[0] != nc or grid[1] != -(-nh // pick):
+                raise AssertionError(f"ssd_scan bf16 S={S}: {key} launch "
+                                     f"{rec['launches'][key]}, expected a grid "
+                                     f"of [{nc}, {-(-nh // pick)}, 1]")
+        out[S] = rec
     return out
 
 
@@ -946,26 +994,36 @@ def paged_cases(torch, ops, ref, dev):
     return cases
 
 
+def ssd_inputs(torch, dtype, S, dev):
+    """x, dt, A, B, C at SSD_SHAPE's widths and b=1: x, B and C strided
+    views of one conv-output row [1, S, nh hd + 2 ds], dt and A fp32."""
+    nh, hd, ds = (SSD_SHAPE[k] for k in ("nh", "hd", "ds"))
+    xBC = rand(torch, (1, S, nh * hd + 2 * ds), dtype, dev, 20)
+    x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
+    B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
+    C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
+    g = torch.Generator(device=dev).manual_seed(21)
+    dt = torch.randn((1, S, nh), generator=g, device=dev).abs() * 0.1 + 0.01
+    A = -torch.randn((nh,), generator=g, device=dev).abs() - 0.1
+    return x, dt, A, B, C
+
+
 def ssd_cases(torch, ops, ref, dev):
     """Phase 2's SSD-scan cases at mamba2-130m's widths and b=1, with x, B
     and C read as the model reads them (strided views of one conv-output
     row) and dt, A in fp32; y and the final state are each held against
-    the plain version. The kernel computes in fp32 throughout, as the TPU
-    kernel does, while on bf16 inputs the plain version rounds its C.B^T
-    scores to bf16 as the JAX model's ssd_chunked does: the oracle is the
-    plain version run in fp32 on the same input values, and the gap to the
-    bf16 plain version is reported beside it."""
+    the plain version. On bf16 inputs the kernels carry their fp32
+    operands as bf16 hi/lo pairs and round y once, while the plain version
+    rounds its C.B^T and then its scores to bf16 as the JAX model's
+    ssd_chunked does: the oracle is the plain version run in fp32 on the
+    same input values, and the gap to the bf16 plain version is reported
+    beside it. Each case also records the scan's device time alone (all
+    its launches)."""
     nh, hd, ds, chunk = (SSD_SHAPE[k] for k in ("nh", "hd", "ds", "chunk"))
     cases = []
     for dtype in ("bf16", "fp32"):
         for S in SSD_LENS:
-            xBC = rand(torch, (1, S, nh * hd + 2 * ds), dtype, dev, 20)
-            x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
-            B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
-            C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
-            g = torch.Generator(device=dev).manual_seed(21)
-            dt = torch.randn((1, S, nh), generator=g, device=dev).abs() * 0.1 + 0.01
-            A = -torch.randn((nh,), generator=g, device=dev).abs() - 0.1
+            x, dt, A, B, C = ssd_inputs(torch, dtype, S, dev)
             y, st = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
             want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(),
                                                C.float(), chunk)
@@ -994,6 +1052,8 @@ def ssd_cases(torch, ops, ref, dev):
                 time_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C, chunk),
                         reps=5, warmup=1),
                 None, nbytes, flops, SSD_TOLS, SSD_RTOL)
+            alone(torch, rec, lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk),
+                  "ssd_scan")
             rec["state_max_abs_err"] = err_st
             rec["max_abs_diff_vs_plain_in_dtype"] = gap_plain
             rec["library"] = "none: no single PyTorch call computes the SSD scan"
@@ -1155,13 +1215,14 @@ def layer_gaps(torch, dev, cfg, params, params_cpu, toks):
 
 def same_weights_ssm(torch, ops, dev):
     """Phase 3b: mamba2-130m at full width and depth, one exact prefill of
-    601 tokens (two full chunks and a ragged one on the card) and 4 decode
-    steps, the card through the SSD and rmsnorm kernels, the CPU through
-    the plain versions, on the same random weights from seed 0. The fp32
-    run is held to 0.02 of the largest logit. In bf16 the random 24-layer
-    stack amplifies the different roundings of the two sides (the kernel's
-    fp32 scores against the plain version's bf16 ones, cuBLAS against CPU
-    products) from layer to layer, so the card and the CPU are each held
+    601 tokens (three chunks of 256, the last ragged, in the fp32 kernel;
+    ten of 64 in the bf16 launches) and 4 decode steps, the card through
+    the SSD and rmsnorm kernels, the CPU through the plain versions, on the
+    same random weights from seed 0. The fp32 run is held to 0.02 of the
+    largest logit. In bf16 the random 24-layer stack amplifies the
+    different roundings of the two sides (the kernels' bf16 hi/lo operands
+    against the plain version's bf16 scores, cuBLAS against CPU products)
+    from layer to layer, so the card and the CPU are each held
     against a witness: the CPU model in fp32 on the same bf16 weights, fed
     the same tokens. The card's bf16 logits must sit within SSM_BF16_LIMIT
     of it; the CPU's distance in bf16 is printed beside as the rounding

@@ -277,8 +277,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     x: [b,S,nh,hd]; dt: [b,S,nh] (post-softplus); A: [nh] (negative); B, C:
     [b,S,1,ds] (one group) -> (y [b,S,nh,hd] in x's dtype, final_state
     [b,nh,hd,ds] fp32). The plain version chunks by ``min(chunk, S)`` as the
-    JAX model does; the kernel keeps ``chunk`` and masks the ragged tail
-    (the result does not depend on the chunk length, up to rounding).
+    JAX model does; the fp32 kernel keeps ``chunk``, the bf16 kernels their
+    own chunk of 64 positions, and both mask the ragged tail (the result
+    does not depend on the chunk length, up to rounding).
     """
     b, S, nh, hd = x.shape
     if (dt.shape != (b, S, nh) or A.shape != (nh,) or B.ndim != 4
@@ -295,11 +296,17 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
             or not A.is_contiguous():
         raise TypeError(f"ssd_scan kernel: dt and A must be fp32 (A "
                         f"contiguous): {dt.dtype}, {A.dtype}")
-    if B.shape[-1] not in _ssd.STATE_DIMS or hd % _ssd.COLS \
-            or chunk % _ssd.TILE or not 0 < chunk <= _ssd.MAX_CHUNK:
+    if B.shape[-1] not in _ssd.STATE_DIMS:
         raise ValueError(f"ssd_scan kernel: d_state {B.shape[-1]} not in "
-                         f"{_ssd.STATE_DIMS}, head_dim {hd} not a multiple of "
-                         f"{_ssd.COLS}, or chunk {chunk} not a multiple of "
+                         f"{_ssd.STATE_DIMS}")
+    if x.dtype == torch.bfloat16:
+        if hd not in _ssd.BF16_HEAD_DIMS:
+            raise ValueError(f"ssd_scan bf16 kernel: head_dim {hd} not in "
+                             f"{_ssd.BF16_HEAD_DIMS}")
+    elif hd % _ssd.COLS or chunk % _ssd.TILE \
+            or not 0 < chunk <= _ssd.MAX_CHUNK:
+        raise ValueError(f"ssd_scan fp32 kernel: head_dim {hd} not a multiple "
+                         f"of {_ssd.COLS}, or chunk {chunk} not a multiple of "
                          f"{_ssd.TILE} up to {_ssd.MAX_CHUNK}")
     y, state = _ssd.launch(x, dt, A, B, C, chunk=chunk)
     LAUNCHES["ssd_scan"] += 1

@@ -3,7 +3,8 @@ against its plain PyTorch version (the paged decode kernel also, bitwise,
 against the ring kernel on the same K/V at each split count; rmsnorm at
 the models' widths and every x/w dtype pair; both decode kernels at more
 than 16 query heads a KV head; the bf16 flash kernel and the split decode
-kernels at their tile, page and split edges), the serving engine's
+kernels at their tile, page and split edges; the SSD scan at its chunk
+edges, under strong decay and at its largest grid), the serving engine's
 launch counts on its ring, paged and exact-shape (Mamba-2) paths, and the
 disaggregated engine under each mechanism against the same engine on the
 CPU.
@@ -416,41 +417,107 @@ def test_decode_split_edges_match_plain(cuda_device, dtype, kind, W, H, Hkv,
         assert (got[lens == 0] == 0).all()
 
 
-def _ssd_case(S, dtype, dev, seed, nh=24, hd=64, ds=128):
+def _ssd_case(S, dtype, dev, seed, nh=24, hd=64, ds=128, b=1, strong=False):
     """tests/test_kernels.py's SSD inputs at mamba2-130m's widths, with x,
     B and C read as the model reads them: strided views of one conv-output
-    row [1, S, nh * hd + 2 ds]."""
+    row [b, S, nh * hd + 2 ds]. With ``strong`` decay A is uniform in
+    -[4, 16) (the span of Mamba-2's A init): dt |A| up to about 5."""
     g = torch.Generator().manual_seed(seed)
-    xBC = torch.randn((1, S, nh * hd + 2 * ds), generator=g)
-    dt = torch.randn((1, S, nh), generator=g).abs() * 0.1 + 0.01
+    xBC = torch.randn((b, S, nh * hd + 2 * ds), generator=g)
+    dt = torch.randn((b, S, nh), generator=g).abs() * 0.1 + 0.01
     A = -torch.randn((nh,), generator=g).abs() - 0.1
+    if strong:
+        A = -torch.rand((nh,), generator=g) * 12.0 - 4.0
     xBC = xBC.to(device=dev, dtype=TDT[dtype])
-    x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
-    B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
-    C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
+    x = xBC[..., :nh * hd].reshape(b, S, nh, hd)
+    B = xBC[..., nh * hd:nh * hd + ds].reshape(b, S, 1, ds)
+    C = xBC[..., nh * hd + ds:].reshape(b, S, 1, ds)
     return x, dt.to(dev), A.to(dev), B, C
+
+
+def _ssd_hold(x, dt, A, B, C, dtype, chunk=256):
+    """One ops.ssd_scan launch held to the plain version run in fp32 on the
+    same input values, y and the final state, at SSD_TOLS and rtol 2e-2."""
+    ops.reset_launches()
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    torch.cuda.synchronize()
+    want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(), C.float(),
+                                       chunk)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == want_st.shape
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               atol=SSD_TOLS[dtype], rtol=2e-2)
+    torch.testing.assert_close(st, want_st, atol=SSD_TOLS[dtype], rtol=2e-2)
+    return y, st
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("S", [77, 1000, 1024])  # < 1 chunk, ragged, 4 chunks
 def test_ssd_kernel_matches_plain(cuda_device, dtype, S):
-    """The kernel computes in fp32 throughout, as the TPU kernel does; on
-    bf16 inputs the plain version rounds its C.B^T scores to bf16, as the
+    """The kernels round differently from the plain version: on bf16 inputs
+    the tensor-core path rounds its chunk-state operand, its decayed scores
+    (dt folded in) and y, and carries the state as a bf16 hi/lo pair, while
+    the plain version rounds its C.B^T and then its decayed scores, as the
     JAX model's ssd_chunked does. So the oracle is the plain version run in
     fp32 on the same input values (test_kernels.py likewise holds the
     Pallas kernel against an fp32 oracle)."""
     x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, S)
-    ops.reset_launches()
-    y, st = ops.ssd_scan(x, dt, A, B, C, chunk=256)
-    assert ops.LAUNCHES["ssd_scan"] == 1
-    torch.cuda.synchronize()
-    want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(), C.float(),
-                                       256)
-    assert y.dtype == x.dtype and st.dtype == torch.float32
-    torch.testing.assert_close(y.float(), want_y.float(),
-                               atol=SSD_TOLS[dtype], rtol=2e-2)
-    torch.testing.assert_close(st, want_st, atol=SSD_TOLS[dtype], rtol=2e-2)
+    _ssd_hold(x, dt, A, B, C, dtype)
+
+
+SSD_EDGE_LENS = [1, 63, 64, 65, 255, 256, 257, 1000, 1024, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("S", SSD_EDGE_LENS)
+def test_ssd_kernel_at_chunk_edges(cuda_device, S, b, chunk, dtype):
+    """Every tile and chunk edge of both kernels (the bf16 path's 64-position
+    chunks, the fp32 kernel's 64-row tiles and its chunk of 64 or 256), one
+    and three batch rows, through the model's strided views."""
+    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, 10 * S + b, b=b)
+    _ssd_hold(x, dt, A, B, C, dtype, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("S", [65, 1000, 2048])
+def test_ssd_kernel_under_strong_decay(cuda_device, S, dtype):
+    """dt |A| up to about 5: exp(cums) underflows within a chunk, the decay
+    of the carried state reaches 0, and the scores' decay spans many
+    orders of magnitude."""
+    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, S + 5, b=2, strong=True)
+    assert float((dt * A.abs()).max()) > 3.0
+    _ssd_hold(x, dt, A, B, C, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_at_its_largest_grid(cuda_device):
+    """b=8, S=2048 in bf16: 256 chunks of 64, the bf16 launches' largest
+    scratch (400 MB) and grid on the serving paths (max_batch 8, max_seq
+    2048). The fp32 kernel has no scratch; its grid is one CTA per 16
+    head-dim columns whatever S."""
+    x, dt, A, B, C = _ssd_case(2048, "bf16", cuda_device, 8, b=8)
+    _ssd_hold(x, dt, A, B, C, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [63, 1000, 2048])
+def test_ssd_bf16_heads_per_cta_agree_bitwise(cuda_device, S):
+    """The bf16 launches give the same bits whatever the heads a CTA takes:
+    a head's arithmetic does not depend on its group, and C.B^T is the same
+    product in every CTA of a chunk."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    x, dt, A, B, C = _ssd_case(S, "bf16", cuda_device, S)
+    y1, st1 = _ssd.launch(x, dt, A, B, C, chunk=256, _heads=1)
+    for g in _ssd.HEAD_GROUPS[1:]:
+        y, st = _ssd.launch(x, dt, A, B, C, chunk=256, _heads=g)
+        assert torch.equal(y, y1) and torch.equal(st, st1), g
 
 
 @pytest.mark.cuda
