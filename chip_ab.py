@@ -19,8 +19,12 @@ to one card, and compares each reading only within that call:
 - paged decode bf16 at ``chip_smoke.py`` phase 2's shape, and the ring
   kernel on the same K/V laid out densely: events and device time alone;
 - the SSD scan bf16 at phase 2's shape (mamba2-130m's widths, b=1) and
-  1024 and 2048 positions: events and device time alone, all its
-  launches;
+  1024 and 2048 positions, and fp32 at 1024: events and device time
+  alone, all its launches;
+- flash bf16 at llama3-8b's heads: the [8, 1024] bucket, and phase 2's
+  packed [1, 8192] row (phase 4's first admission) called with its
+  segment ids alone (a tree whose kernel skips no tile by segment sweeps
+  every key tile up to the diagonal): events and device time alone;
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
 - phase 6 (c)'s paged decode step (the shared-prefix traffic, paged with
@@ -61,6 +65,25 @@ def phase7(torch, ops):
             "prefill_2048_device_busy_ms": pf["device_busy_ms"],
             "prefill_2048_ssd_ms": pf["kernel_ms"],
             "prefill_2048_ssd_share": pf["kernel_share_of_device_time"]}
+
+
+def flash(torch, ops, dev):
+    """Flash bf16 at the [8, 1024] bucket and on phase 2's packed [1, 8192]
+    row: events and device time alone."""
+    H, Hkv, hd = 32, 8, 128
+    out = {}
+    for name, B, S, seg in (
+            ("flash_8x1024", 8, 1024, None),
+            ("flash_packed_1x8192", 1, cs.PACKED_T,
+             cs.packed_row(torch, cs.MAIN_LENS[:8], cs.PACKED_T, dev))):
+        q = cs.rand(torch, (B, S, H, hd), "bf16", dev, 12)
+        k = cs.rand(torch, (B, S, Hkv, hd), "bf16", dev, 13)
+        v = cs.rand(torch, (B, S, Hkv, hd), "bf16", dev, 14)
+        fn = lambda: ops.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                         segment_ids=seg)
+        out[name] = {"ms": cs.time_ms(torch, fn, reps=10),
+                     "device_ms": cs.device_ms(torch, fn, "flash")}
+    return out
 
 
 def main():
@@ -117,7 +140,13 @@ def main():
                                    chunk=cs.SSD_SHAPE["chunk"])
         out[f"ssd_{S}"] = {"ms": cs.time_ms(torch, ssd),
                            "device_ms": cs.device_ms(torch, ssd, "ssd_scan")}
+    x, dt, A, B, C = cs.ssd_inputs(torch, "fp32", 1024, dev)
+    ssd = lambda: ops.ssd_scan(x, dt, A, B, C,  # noqa: E731
+                               chunk=cs.SSD_SHAPE["chunk"])
+    out["ssd_fp32_1024"] = {"ms": cs.time_ms(torch, ssd),
+                            "device_ms": cs.device_ms(torch, ssd, "ssd_scan")}
     del x, dt, A, B, C
+    out.update(flash(torch, ops, dev))
     print(f"   kernels: {json.dumps(out)}", flush=True)
 
     served, engine = cs.main_path(torch, ops)

@@ -32,7 +32,11 @@ result line:
    2048 positions; and the preprocess kernel on its
    path, the entry point ``ops.preprocess`` (4 batches of 8 camera frames,
    the paper's input), then against its plain version there and at
-   tests/test_kernels.py's shapes;
+   tests/test_kernels.py's shapes; flash on a packed [1, 8192] row (phase
+   4's first admission: 8 segments and a pad run), its bound counting the
+   segments' causal pairs, SDPA with a block-diagonal causal mask beside
+   it, and its device time against the [8, 1024] bucketed case's; rmsnorm
+   at qwen3-32b's qk-norm width (128) for [524288, 128] and [512, 128];
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -44,10 +48,23 @@ result line:
    in bf16 (where the random 24-layer stack amplifies the two sides'
    different roundings) the card and the CPU are each held against the
    CPU model in fp32 on the same weights, the card within SSM_BF16_LIMIT;
+   3c. the same for starcoder2-3b, qwen3-32b (qk-norm) and granite-34b
+   (MQA) at published widths cut to 2 layers, and llama3-8b cut to 2
+   layers with a 256-token sliding window, prompts longer than the window
+   and decode steps that wrap its 256-slot ring;
 4. the main path: ``repro_torch.launch.serve`` on the full 32-layer
    llama3-8b, ServingEngine(max_batch=8, max_seq=2048), 12 ragged requests
    (64-1024 prompt tokens, 32 new tokens each), with the kernels' launch
    counts held against the path's structure;
+   4 (b). phase 4's 12 requests on its model and weights, all submitted at
+   once, served bucketed, packed (``packed=True``), chunked
+   (``prefill_chunk=256``) and both (a warm pass, then a measured pass in
+   reverse order): launch counts (flash 32 per prefill call, packed or a
+   chunk; rmsnorm 65 per forward), tokens equal to the bucketed run's or
+   parted only where the top-2 gap is under 0.02 of the largest logit,
+   padded token-rows (bucketed exactly 26,624, packed under it), TTFT
+   p50/p99, TPOT p50 and 'preprocess'; then one packed prefill of the
+   first admission under torch.profiler (busy time, flash's share);
 5. where a decode step's time goes: 10 whole-batch steps of the drained
    engine under torch.profiler -- host wall, device first-to-last span and
    device busy time per step, all from that one profiled run, the device's
@@ -86,7 +103,12 @@ result line:
    bytes equal to the admission plan's; (c) 4 mamba2-130m requests under
    DIRECT_HBM: the fused engine's tokens, 19,132,432 wire bytes each. It
    prints each mechanism's hop wall, wire GB/s, the PAPER_A2 model for the
-   same bytes, TTFT p50 and the 'transfer' and 'preprocess' means.
+   same bytes, TTFT p50 and the 'transfer' and 'preprocess' means;
+9. the dense family served packed and chunked: starcoder2-3b (30 of 30
+   layers), qwen3-32b (16 of 64) and granite-34b (8 of 88) at published
+   widths, random bf16 weights, each served with phase 4's traffic the
+   four ways of phase 4 (b), with the same gates (qwen3's rmsnorm 4L + 1
+   a forward), then freed before the next.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -158,7 +180,23 @@ MAMBA_REQUEST_WIRE = 19_132_432
 # phase 2's rmsnorm shapes: llama3-8b decode and a 1024-token prefill
 # bucket (d_model 4096); mamba2-130m decode at d_model 768 and d_inner 1536,
 # and its gate norm over a 2048-token prefill
-RMSNORM_SHAPES = ((8, 4096), (8192, 4096), (8, 768), (8, 1536), (2048, 1536))
+# and qwen3-32b's qk-norm at head_dim 128: the queries of an 8 x 1024 prefill
+# bucket ([8 * 1024 * 64 heads, 128]) and of a decode step ([8 * 64, 128])
+RMSNORM_SHAPES = ((8, 4096), (8192, 4096), (8, 768), (8, 1536), (2048, 1536),
+                  (524288, 128), (512, 128))
+# phase 4's prompt lengths (ClosedLoopClient i = 0..11, 64-1024 tokens);
+# its first admission is the first 8 (6,043 tokens), packed into 8192 slots
+# with a pad run of 2,149 after them (phase 2's packed flash row)
+MAIN_LENS = [881, 518, 868, 843, 762, 708, 491, 972, 755, 469, 810, 192]
+PACKED_T = 8192
+# phase 4 (b): the prefill knobs served on phase 4's traffic and weights
+PREFILL_WAYS = {"bucketed": {}, "packed": dict(packed=True),
+                "chunked": dict(prefill_chunk=256),
+                "packed_chunked": dict(packed=True, prefill_chunk=256)}
+BUCKETED_PADDED = 26_624  # phase 4's padded token-rows, bucketed
+# phase 9: the rest of the dense family at published widths, depth cut so
+# the weights stay under about 20 GB (bf16) and the smoke in its time
+DENSE_FAMILY = (("starcoder2-3b", 30), ("qwen3-32b", 16), ("granite-34b", 8))
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -227,6 +265,11 @@ def main():
     results["same_weights_ssm"] = same_weights_ssm(torch, ops, dev)
     done(t0)
 
+    t0 = phase("phase 3c: same weights on card and CPU (the dense family, "
+               "a sliding window)")
+    results["same_weights_family"] = same_weights_family(torch, dev)
+    done(t0)
+
     # ------------------------------------------------------------------ #
     t0 = phase("phase 4: main path, repro_torch.launch.serve on llama3-8b")
     results["main_path"], engine = main_path(torch, ops)
@@ -236,6 +279,11 @@ def main():
     results["decode_profile"] = decode_profile(torch, engine)
     results["prefill_profile"] = prefill_profile(torch, engine, (8, 1024),
                                                  "flash", "flash")
+    done(t0)
+
+    t0 = phase("phase 4 (b): phase 4's traffic bucketed, packed, chunked "
+               "and both")
+    results["prefill_ways"] = prefill_ways(torch, ops, engine)
     done(t0)
 
     t0 = phase("phase 6: paged KV pool + prefix reuse on llama3-8b")
@@ -253,6 +301,11 @@ def main():
     results["disagg"] = disagg_path(torch, ops, llama, shared, ssm_engine)
     done(t0)
     del llama, ssm_engine
+    torch.cuda.empty_cache()
+
+    t0 = phase("phase 9: the dense family served packed and chunked")
+    results["dense_family"] = dense_family_path(torch, ops, dev)
+    done(t0)
 
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
@@ -493,7 +546,7 @@ def design_report(torch, build, ops, dev):
         dev).multi_processor_count)
     out = {}
     for name, key, kernel, fn, cluster in (
-            ("flash_attention", "flash_wgmma", "flash_wgmma_kernelILi128E",
+            ("flash_attention", "flash_wgmma", "flash_wgmma_kernelILi128ELb0E",
              lambda: ops.flash_attention(q, k, v), None),
             ("decode_attention", "decode_split",
              "decode_split_kernelI13__nv_bfloat16Li128ELi4E",
@@ -715,6 +768,7 @@ def check_kernels(torch, ops, dev):
                       qt, kt, vt, is_causal=True, enable_gqa=True))
             cases.append(rec)
             del got, want
+    cases.append(packed_flash_case(torch, ops, ref, dev, cases))
 
     # ring decode: B=8, W=2048, ragged lengths including an empty slot
     W = 2048
@@ -789,6 +843,123 @@ def check_kernels(torch, ops, dev):
                         **({"device_ms": c["device_ms"]} if "device_ms" in c
                            else {})})
     return {"cases": cases, "summary": summary, "preprocess_path": pp_path}
+
+
+def main_prompts(vocab):
+    """Phase 4's 12 prompts (the launcher's closed-loop clients 0..11, 64 to
+    1024 tokens), drawn as the clients draw them."""
+    from repro_torch.serving.client import ClosedLoopClient
+
+    prompts = [ClosedLoopClient(i, vocab, prompt_len=(64, 1024))
+               .make_request().prompt_tokens for i in range(12)]
+    if [len(p) for p in prompts] != MAIN_LENS:
+        raise AssertionError(f"phase 4's prompt lengths moved: "
+                             f"{[len(p) for p in prompts]}")
+    return prompts
+
+
+def packed_row(torch, lens, T, dev):
+    """Segment ids [1, T] of prompts of ``lens`` packed back to back, -1 on
+    the pad run after them."""
+    seg = torch.full((1, T), -1, dtype=torch.int32)
+    off = 0
+    for j, n in enumerate(lens):
+        seg[0, off:off + n] = j
+        off += n
+    return seg.to(dev)
+
+
+def packed_flash_case(torch, ops, ref, dev, cases):
+    """Flash on a packed row, bf16: phase 4's first admission (8 prompts,
+    6,043 tokens) in one [1, 8192] row, llama3-8b's heads, against its
+    plain version at TOLS. The bound counts the segments' own causal work
+    (sum of s (s + 1) / 2 pairs a head; the pad run's pairs, which the
+    kernel and the plain version also compute, are reported apart). The
+    yardstick is SDPA with a boolean block-diagonal causal mask. Printed
+    beside the [8, 1024] bucketed case of the same run, device time
+    alone."""
+    import torch.nn.functional as F
+
+    H, Hkv, hd, T = 32, 8, 128, PACKED_T
+    lens = MAIN_LENS[:8]
+    q = rand(torch, (1, T, H, hd), "bf16", dev, 12)
+    k = rand(torch, (1, T, Hkv, hd), "bf16", dev, 13)
+    v = rand(torch, (1, T, Hkv, hd), "bf16", dev, 14)
+    seg = packed_row(torch, lens, T, dev)
+    starts = ops.segment_run_starts(seg)
+    kw = dict(causal=True, segment_ids=seg)
+    got = ops.flash_attention(q, k, v, segment_starts=starts, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    pad = T - sum(lens)
+    nbytes = 2 * (T * H * hd + T * Hkv * hd) * 2 + 2 * T * 4
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(T, device=dev)
+    block = (seg[0][:, None] == seg[0][None, :]) & (i[:, None] >= i[None, :])
+
+    def lib_fn():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=block,
+                                              enable_gqa=True)
+
+    rec = case_record(
+        torch, "flash_attention", "bf16",
+        [1, T, H, Hkv, hd, "window=0", f"packed={lens}"], got, want,
+        time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, segment_starts=starts, **kw), reps=10),
+        time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                reps=3, warmup=1),
+        library_ms(torch, lib_fn, reps=5), nbytes, 4 * hd * H * pairs)
+    alone(torch, rec, lambda: ops.flash_attention(
+        q, k, v, segment_starts=starts, **kw), "flash", lib_fn)
+    bucket = next(c for c in cases if c["name"] == "flash_attention"
+                  and c["dtype"] == "bf16" and c["shape"][:2] == [8, 1024]
+                  and c["shape"][-1] == "segments=False")
+    rec.update(segment_pairs_a_head=pairs, pad_tokens=pad,
+               pad_pairs_a_head=pad * (pad + 1) // 2,
+               bucketed_8x1024_pairs_a_head=8 * 1024 * 1025 // 2,
+               bucketed_8x1024_device_ms=bucket.get("device_ms"),
+               bucketed_8x1024_ms=bucket["ms"])
+    if rec["device_ms"] and bucket.get("device_ms"):
+        rec["device_ratio_to_bucketed"] = rec["device_ms"] / bucket["device_ms"]
+    rec["tiles_a_head"] = flash_tiles(seg[0].tolist(), starts[0].tolist())
+    rec["bucketed_8x1024_tiles_a_head"] = {"swept": 8 * 16 * 17 // 2,
+                                           "masked": 8 * 16}
+    print(f"   64 x 64 tiles a head, by the kernel's sweep rule: packed "
+          f"{rec['tiles_a_head']}; bucketed [8, 1024] "
+          f"{rec['bucketed_8x1024_tiles_a_head']}")
+    print(f"   packed [1, {T}]: {pairs} segment pairs a head + {pad} pad "
+          f"tokens ({rec['pad_pairs_a_head']} pairs); bucketed [8, 1024]: "
+          f"{rec['bucketed_8x1024_pairs_a_head']} pairs. Device time "
+          f"{rec['device_ms']} ms against the bucketed case's "
+          f"{bucket.get('device_ms')} ms: ratio "
+          f"{rec.get('device_ratio_to_bucketed')}")
+    del got, want, block, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_tiles(seg, starts, tile=64):
+    """The bf16 flash kernel's 64 x 64 tiles a head on one causal packed
+    row, by its sweep rule: each q-tile from the tile holding its first
+    row's run start to its diagonal. ``swept`` all of them, ``pad`` those
+    of q-tiles in the pad run, ``masked`` those that take the masked route
+    (not wholly below the diagonal with rows and keys in one run), and
+    ``unskipped`` what a sweep from key 0 would visit."""
+    T = len(seg)
+    out = {"swept": 0, "pad": 0, "masked": 0, "unskipped": 0}
+    for q0 in range(0, T, tile):
+        run0 = starts[q0]
+        one_run = run0 == starts[min(q0 + tile, T) - 1]
+        n = 0
+        for t0 in range(run0 // tile * tile, q0 + tile, tile):
+            n += 1
+            full = t0 + tile <= T and t0 + tile - 1 <= q0 and one_run \
+                and t0 >= run0
+            out["masked"] += not full
+        out["swept"] += n
+        out["pad"] += n if seg[q0] == -1 else 0
+        out["unskipped"] += q0 // tile + 1
+    return out
 
 
 def preprocess_cases(torch, ops, ref, dev):
@@ -1059,8 +1230,39 @@ def ssd_cases(torch, ops, ref, dev):
             rec["library"] = "none: no single PyTorch call computes the SSD scan"
             print(f"   {'':16s} state err {err_st:.2e}; vs the plain "
                   f"version in {dtype} {gap_plain:.2e}")
+            if dtype == "fp32" and S == max(SSD_LENS):
+                rec["vs_float64"] = ssd_float64_gap(torch, x, dt, A, B, C, y,
+                                                    want_y)
             cases.append(rec)
     return cases
+
+
+def ssd_float64_gap(torch, x, dt, A, B, C, y, plain_y, h=0):
+    """The fp32 kernel's and the fp32 plain version's largest distance from
+    the SSD recurrence run position by position in float64 (h_t = exp(dt_t
+    A) h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t), on head ``h``: which side
+    of a kernel-vs-plain gap is off. The kernel must sit within the fp32
+    SSD tolerance of it."""
+    xd, dtd, Bd, Cd = (t[0].double() for t in (x, dt, B, C))
+    a = float(A[h])
+    state = torch.zeros((x.shape[3], B.shape[3]), dtype=torch.float64,
+                        device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        state = (state * torch.exp(dtd[t, h] * a)
+                 + dtd[t, h] * xd[t, h][:, None] * Bd[t, 0][None, :])
+        ys.append(state @ Cd[t, 0])
+    y64 = torch.stack(ys)
+    res = {"head": h, "kernel": float((y[0, :, h].double() - y64).abs().max()),
+           "plain": float((plain_y[0, :, h].double() - y64).abs().max()),
+           "max_abs_y": float(y64.abs().max())}
+    print(f"   {'':16s} vs a float64 recurrence (head {h}, |y| up to "
+          f"{res['max_abs_y']:.3g}): kernel {res['kernel']:.3e}, plain "
+          f"{res['plain']:.3e}")
+    if res["kernel"] > SSD_TOLS["fp32"]:
+        raise AssertionError(f"fp32 SSD kernel {res['kernel']:.3e} from the "
+                             f"float64 recurrence > {SSD_TOLS['fp32']}")
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -1211,6 +1413,79 @@ def layer_gaps(torch, dev, cfg, params, params_cpu, toks):
                           / y_c.float().abs().max()))
         x = y_c
     return gaps
+
+
+def ring_from_prefill(torch, caches, lens, W):
+    """A sliding-window ring of W slots from a prefill cache tree: row b's
+    last W tokens (of lens[b]) at slots t % W, as decode left them."""
+    from repro_torch.models.schema import tree_map
+
+    def ring(leaf):
+        out = torch.zeros((leaf.shape[0], W) + tuple(leaf.shape[2:]),
+                          dtype=leaf.dtype, device=leaf.device)
+        for b, n in enumerate(lens):
+            t = torch.arange(max(0, n - W), n, device=leaf.device)
+            out[b, t % W] = leaf[b, t]
+        return out
+
+    return tree_map(ring, caches)
+
+
+def card_vs_cpu(torch, dev, cfg, lens, L, K=4, W=2048):
+    """One phase 3 row: a ragged bucketed prefill of ``lens`` (bucket L),
+    then K decode steps on a ring of W slots, on the card (kernels) and the
+    CPU (plain versions), same bf16 weights, held to LOGIT_LIMIT. With a
+    sliding window the ring is the window, written from the prefill cache
+    as decode would have left it, and decode wraps it."""
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import grow_cache
+    from repro_torch.models.schema import tree_map
+
+    gpu = Model(cfg, device=dev)
+    params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.zeros((len(lens), L), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=g)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    lg_g, c_g, n_g = gpu.prefill_bucketed(params, toks.to(dev), lens_t.to(dev))
+    lg_c, c_c, n_c = cpu.prefill_bucketed(params_cpu, toks, lens_t)
+    if cfg.sliding_window:
+        c_g, c_c = (ring_from_prefill(torch, c, lens, W) for c in (c_g, c_c))
+    else:
+        c_g, c_c = grow_cache(c_g, W), grow_cache(c_c, W)
+    res = walk_logits(torch, dev, gpu, params, cpu, params_cpu,
+                      (lg_g, c_g, n_g), (lg_c, c_c, n_c), K)
+    res.update(layers=cfg.n_layers, prompt_lens=lens, ring_slots=W,
+               sliding_window=cfg.sliding_window)
+    del gpu, params, params_cpu, c_g, c_c
+    torch.cuda.empty_cache()
+    return res
+
+
+def same_weights_family(torch, dev):
+    """Phase 3 (c): starcoder2-3b (kv 2), qwen3-32b (qk-norm) and
+    granite-34b (MQA, 48 query heads a KV head) at published widths cut to
+    2 layers, on a 2048-slot ring; and llama3-8b cut to 2 layers with a
+    256-token sliding window, prompts of 300 and 401 tokens (longer than
+    the window) and decode steps that wrap the 256-slot ring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    rows = {}
+    for name in ("starcoder2-3b", "qwen3-32b", "granite-34b"):
+        print(f"   {name}, 2 layers:")
+        cfg = dataclasses.replace(get_config(name), n_layers=2)
+        rows[name] = card_vs_cpu(torch, dev, cfg, [9, 150, 33], 256)
+    print("   llama3-8b, 2 layers, sliding window 256:")
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              sliding_window=256)
+    rows["llama3-8b-window-256"] = card_vs_cpu(torch, dev, cfg, [300, 401],
+                                               512, W=256)
+    return rows
 
 
 def same_weights_ssm(torch, ops, dev):
@@ -1440,26 +1715,33 @@ def paged_step_profile(torch, eng, prompts, new, steps=10, key="PagedRows"):
 
 def prefill_profile(torch, eng, shape, key, label):
     """One profiled ``model.prefill`` of random tokens of ``shape`` on the
-    engine's model and weights: host wall unprofiled and profiled, device
-    busy time, and the share of it taken by the kernels whose name holds
-    ``key``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    engine's model and weights: see :func:`profile_call`."""
     model, params = eng.model, eng.params
     toks = torch.randint(0, model.cfg.vocab_size, shape,
                          generator=torch.Generator().manual_seed(3),
                          dtype=torch.int32).to(eng.device)
-    model.prefill(params, toks)
+    return profile_call(torch, lambda: model.prefill(params, toks), key,
+                        label, " x ".join(map(str, shape)) + "-token prefill",
+                        list(shape))
+
+
+def profile_call(torch, fn, key, label, what, shape):
+    """``fn`` once unprofiled after a warm call, then once under
+    torch.profiler: host wall both times, device busy time, and the share
+    of it taken by the kernels whose name holds ``key``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.prefill(params, toks)
+    fn()
     torch.cuda.synchronize()
     bare_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, toks)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -1473,14 +1755,13 @@ def prefill_profile(torch, eng, shape, key, label):
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     mine = sum(k[0] for k in kernels if key in k[1])
-    res = {"shape": list(shape), "unprofiled_host_wall_ms": bare_ms,
+    res = {"shape": shape, "unprofiled_host_wall_ms": bare_ms,
            "profiled_host_wall_ms": wall_ms, "device_busy_ms": busy,
            "kernel": key, "kernel_ms": mine,
            "kernel_share_of_device_time": mine / busy if busy else None,
            "device_kernels": sum(k[2] for k in kernels),
            "top": [{"ms": ms, "name": name[:80], "calls": n}
                    for ms, name, n in kernels[:8]]}
-    what = " x ".join(map(str, shape)) + "-token prefill"
     if busy:
         print(f"   {what}: host wall {bare_ms:.2f} ms unprofiled, "
               f"{wall_ms:.2f} ms profiled; device busy {busy:.2f} ms over "
@@ -1492,6 +1773,189 @@ def prefill_profile(torch, eng, shape, key, label):
     for k in res["top"]:
         print(f"   {k['ms']:8.3f} ms  x{k['calls']:<5g} {k['name']}")
     return res
+
+
+# --------------------------------------------------------------------------- #
+# phases 4 (b) and 9: packed and chunked prefill
+# --------------------------------------------------------------------------- #
+def serve_ways(torch, ops, model, params, prompts, *, warm):
+    """Serve ``prompts`` (32 new tokens each, all submitted at once) on
+    ServingEngine(max_batch=8, max_seq=2048) once per PREFILL_WAYS entry,
+    after one warm pass over all of them when ``warm`` (the measured pass
+    then runs in reverse order, so a drift of the host's speed falls on
+    both ends). Each run: launch counts held to the path's structure (flash
+    once a layer per prefill call, packed or a chunk alike), tokens held to
+    the bucketed run's or parted only at a near tie, the counters, TTFT
+    p50/p99, TPOT p50 and the 'preprocess' mean."""
+    from repro_torch.core.metrics import slo_summary
+    from repro_torch.serving import ServingEngine
+
+    cfg = model.cfg
+    ways = list(PREFILL_WAYS)
+    order = ways + ways[::-1] if warm else ways
+    res, tokens = {}, {}
+    for i, way in enumerate(order):
+        eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                            device=model.device, **PREFILL_WAYS[way])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        reqs, out = serve_all(eng, prompts, 32)
+        launches = dict(ops.LAUNCHES)
+        c = eng.counters()
+        want = structure(c, cfg.n_layers, qk_norm=cfg.qk_norm)
+        if launches != want:
+            raise AssertionError(f"{way}: launch counts {launches} != path "
+                                 f"structure {want}")
+        if (way != "bucketed") != (eng.packed or eng._chunk_enabled):
+            raise AssertionError(f"{way}: the engine's knobs did not take")
+        tokens[way] = [r.generated for r in reqs]
+        if warm and i < len(ways):
+            continue
+        slo = slo_summary(out)
+        res[way] = {
+            "counters": c, "launches": launches,
+            "flash_per_prefill_call": launches["flash_attention"]
+            / c["prefill_calls"],
+            "ttft_ms": {p: slo["ttft_s"][p] * 1e3 for p in ("p50", "p99")},
+            "tpot_ms_p50": slo["tpot_s"]["p50"] * 1e3,
+            "preprocess_ms": eng.store.stage_means()["preprocess"] * 1e3}
+        print(f"   {way:15s} prefill calls {c['prefill_calls']:3d}, padded "
+              f"token-rows {c['prefill_padded_tokens']:6d} for "
+              f"{c['prefill_tokens_total']} prompt tokens, decode steps "
+              f"{c['decode_steps']}; TTFT p50/p99 "
+              f"{res[way]['ttft_ms']['p50']:.2f} / "
+              f"{res[way]['ttft_ms']['p99']:.2f} ms, TPOT p50 "
+              f"{res[way]['tpot_ms_p50']:.2f} ms, 'preprocess' "
+              f"{res[way]['preprocess_ms']:.2f} ms", flush=True)
+        del eng
+    for way in ways[1:]:
+        res[way]["parted"] = parted(torch, model, params, prompts,
+                                    tokens["bucketed"], tokens[way], way)
+    return res
+
+
+def parted(torch, model, params, prompts, want, got, way):
+    """Where ``got`` parts from the bucketed run's ``want``: per parted
+    request the first parting step and the top-2 logit gap there (an exact
+    prefill of the prompt and the tokens before it), which must be under
+    LOGIT_LIMIT of the largest logit: a near tie, not a fault."""
+    import numpy as np
+
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = np.concatenate([prompts[i], np.asarray(b[:k], np.int32)])
+        logits, _, _ = model.prefill(
+            params, torch.from_numpy(ctx)[None].to(model.device))
+        lg = logits[0, :model.cfg.vocab_size].float()
+        top = lg.topk(2).values
+        gap = float((top[0] - top[1]) / lg.abs().max())
+        out.append({"request": i, "step": k, "top2_gap_rel": gap})
+        print(f"   {way}: request {i} parts at step {k}, top-2 gap "
+              f"{gap:.3e} of the largest logit")
+        if gap >= LOGIT_LIMIT:
+            raise AssertionError(f"{way}: request {i} parts from the bucketed "
+                                 f"run at step {k} at a top-2 gap of {gap:.3e}"
+                                 f" >= {LOGIT_LIMIT} of the largest logit")
+    if not out:
+        print(f"   {way}: tokens == the bucketed run's")
+    return out
+
+
+def packed_prefill_profile(torch, model, params, prompts):
+    """One packed prefill of phase 4's first admission (8 prompts, 6,043
+    tokens in an 8192-slot row) under torch.profiler, as the engine calls
+    it: busy time and flash's share, padded rows against true rows."""
+    import numpy as np
+
+    lens = [len(p) for p in prompts[:8]]
+    toks = np.zeros((1, PACKED_T), np.int32)
+    pos = np.zeros((1, PACKED_T), np.int32)
+    seg = np.full((1, PACKED_T), -1, np.int32)
+    last = np.zeros((8,), np.int32)
+    off = 0
+    for j, p in enumerate(prompts[:8]):
+        toks[0, off:off + len(p)] = p
+        pos[0, off:off + len(p)] = np.arange(len(p))
+        seg[0, off:off + len(p)] = j
+        last[j] = off + len(p) - 1
+        off += len(p)
+    dev = model.device
+    args = [torch.from_numpy(a).to(dev) for a in (toks, pos, seg, last)]
+    res = profile_call(torch, lambda: model.prefill_packed(params, *args),
+                       "flash", "flash", f"packed [1, {PACKED_T}] prefill",
+                       [1, PACKED_T])
+    res.update(padded_rows=PACKED_T, true_rows=sum(lens))
+    print(f"   padded rows {PACKED_T} for {sum(lens)} true rows (the bucketed "
+          f"admission of the same prompts: 8 x 1024 = 8192 rows, of which "
+          f"{sum(lens)} true)")
+    return res
+
+
+def prefill_ways(torch, ops, engine):
+    """Phase 4 (b): phase 4's 12 requests on its 32-layer llama3-8b and
+    weights, served bucketed, packed, chunked (C = 256) and both; packed's
+    padded token-rows must be under the bucketed BUCKETED_PADDED. Then one
+    packed prefill under the profiler."""
+    model, params = engine.model, engine.params
+    prompts = main_prompts(model.cfg.vocab_size)
+    res = serve_ways(torch, ops, model, params, prompts, warm=True)
+    padded = {w: r["counters"]["prefill_padded_tokens"] for w, r in res.items()}
+    if padded["bucketed"] != BUCKETED_PADDED:
+        raise AssertionError(f"bucketed padded token-rows {padded['bucketed']}"
+                             f" != phase 4's {BUCKETED_PADDED}")
+    if not padded["packed"] < BUCKETED_PADDED:
+        raise AssertionError(f"packed padded token-rows {padded['packed']} "
+                             f"not under {BUCKETED_PADDED}")
+    res["packed_prefill_profile"] = packed_prefill_profile(torch, model,
+                                                           params, prompts)
+    return res
+
+
+def dense_family_path(torch, ops, dev):
+    """Phase 9: starcoder2-3b, qwen3-32b and granite-34b at published widths
+    (depths DENSE_FAMILY), random bf16 weights from seed 0, each served
+    with phase 4's traffic shape the four ways of phase 4 (b), then freed
+    before the next. qwen3's launches include its qk-norm (rmsnorm 4L + 1
+    a forward)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    rows = {}
+    for name, layers in DENSE_FAMILY:
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+        layer_gb = sum(t.numel() * t.element_size()
+                       for t in leaves(params["decoder"])) / 1e9 / layers
+        full = get_config(name).n_layers
+        full_gb = gb + (full - layers) * layer_gb
+        print(f"   {name}: {layers} of {full} layers, {gb:.2f} GB of bf16 "
+              f"weights ({layer_gb:.3f} a layer; {full_gb:.2f} at full "
+              f"depth)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        rows[name] = serve_ways(torch, ops, model, params,
+                                main_prompts(cfg.vocab_size), warm=False)
+        rows[name].update(layers=layers, weights_gb=gb, layer_gb=layer_gb,
+                          full_depth_weights_gb=full_gb,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del model, params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def leaves(tree):
+    """The tensors of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
 
 
 # --------------------------------------------------------------------------- #
@@ -1780,12 +2244,16 @@ def serve_all(eng, prompts, new):
     return reqs, [out[r.request_id] for r in reqs]
 
 
-def structure(c, layers, decode="decode_attention", ssm=False):
+def structure(c, layers, decode="decode_attention", ssm=False,
+              qk_norm=False):
     """Launch counts a served run must show: rmsnorm 2 per layer + 1 per
-    forward, flash (or the SSD scan) once per layer per prefill call, the
-    decode kernel once per layer per step."""
-    want = {"rmsnorm": (2 * layers + 1) * (c["prefill_calls"]
-                                           + c["decode_steps"]),
+    forward (4 per layer + 1 with qk-norm: the queries' and the keys'),
+    flash (or the SSD scan) once per layer per prefill call, whether
+    bucketed, packed or a chunk, the decode kernel once per layer per
+    step."""
+    per_layer = 4 if qk_norm else 2
+    want = {"rmsnorm": (per_layer * layers + 1) * (c["prefill_calls"]
+                                                   + c["decode_steps"]),
             "flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
     if ssm:
@@ -1812,8 +2280,7 @@ def disagg_path(torch, ops, llama, shared, ssm_engine):
 
     model, params = llama
     dev = model.device
-    prompts = [ClosedLoopClient(i, model.cfg.vocab_size, prompt_len=(64, 1024))
-               .make_request().prompt_tokens for i in range(12)]
+    prompts = main_prompts(model.cfg.vocab_size)
     template = meta_cache(torch, model, 8, 2048)
     names = ("fused",) + DISAGG_MODES
     engines, extents = {}, {}

@@ -42,17 +42,29 @@
 //     rows past the tensor's end are zero-filled);
 //   * two K/V stages: tile i + 1 is in flight while tile i is computed;
 //   * masks cost only where they bite: a tile wholly inside the causal,
-//     window and pad region skips per-element masking; a boundary tile (and
-//     every tile with segment ids) masks the S fragment. Causal and window
-//     tiles that no row reaches are never visited;
+//     window and pad region (and, with segment ids, with its keys and the
+//     q-tile's rows all in one segment) skips per-element masking; a
+//     boundary tile masks the S fragment. Causal, window and segment tiles
+//     that no row reaches are never visited (below);
 //   * under a causal mask the last q-tiles carry the most work, so they
 //     launch first: q-tiles are the slowest grid dimension, in reverse.
 // Shared memory: 5 tiles of 64 x hd bf16 (80 KiB at hd 128), 2 CTAs an SM.
+//
+// Packed prefill (segment ids): each segment id forms one contiguous run of a
+// row, and the pad run (id -1) closes it, so no row of a q-tile sees a key
+// before the run start of the tile's first row. The caller passes every
+// row's run start (seg_start, int32 [B, S], built once per forward); both
+// bodies start the key sweep at the tile holding seg_start[q0]. A packed
+// row of T tokens then pays about the segments' own causal work (sum s^2 / 2
+// pairs a head, plus up to a tile a segment) instead of T^2 / 2. A tile in
+// the pad run starts at the pad run's start: pads attend to pads, as in the
+// plain version.
 //
 // fp32: the CUDA-core body (flash_fwd_kernel). wgmma takes fp32 inputs only
 // as TF32, which keeps about three decimal digits; the fp32 path is held to
 // 2e-5 of the plain version, so it stays on fp32 FMAs: 8 warps of 8 query
 // rows, lane j scoring key j against all 8 rows from 32-key fp32 tiles.
+#include <climits>
 #include <cstdint>
 
 #include "attn_common.cuh"
@@ -74,7 +86,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(FLASH_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, const int* __restrict__ q_seg,
-                 const int* __restrict__ k_seg, const T* __restrict__ pk,
+                 const int* __restrict__ k_seg, const int* __restrict__ seg_start,
+                 const T* __restrict__ pk,
                  const T* __restrict__ pv, const int* __restrict__ prior_valid, int Sq,
                  int Skv, int Pp, int H, int G, long long sqb, long long sqs, long long sqh,
                  long long skb, long long sks, long long skh, long long svb, long long svs,
@@ -145,6 +158,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   if (causal) kv_end = min(kv_end, q0 + BQ);
   int kv_begin = 0;
   if (window > 0) kv_begin = max(0, q0 - window + 1);
+  if (seg_start != nullptr) kv_begin = max(kv_begin, seg_start[(long long)b * Sq + q0]);
   kv_begin = (kv_begin / TILE_K) * TILE_K;
 
   const T* kbase = k + b * skb + kvh * skh;
@@ -222,12 +236,15 @@ constexpr size_t wg_smem_bytes() {
          1024;
 }
 
-template <int HD>
+// SEG: the row carries segment ids (q_seg / k_seg non-null); its own
+// instantiation, so unpacked prefill compiles no segment code at all
+template <int HD, bool SEG>
 __global__ void __launch_bounds__(WG_THREADS, 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                    const int* __restrict__ q_seg, const int* __restrict__ k_seg,
-                   const __nv_bfloat16* __restrict__ pk, const __nv_bfloat16* __restrict__ pv,
+                   const int* __restrict__ seg_start, const __nv_bfloat16* __restrict__ pk,
+                   const __nv_bfloat16* __restrict__ pv,
                    const int* __restrict__ prior_valid, int Sq, int Skv, int Pp, int H, int G,
                    long long sqb, long long sqs, long long sqh, long long skb, long long sks,
                    long long skh, long long svb, long long svs, long long svh, long long spkb,
@@ -256,7 +273,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int lane = tid & 31;
   const int row_a = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row_a, row_a + 8
   const int col0 = 2 * (lane & 3);                 // and columns 8 j + col0 (+1)
-  const bool segmented = q_seg != nullptr;
+  constexpr bool segmented = SEG;
 
   // the Q tile; 16-byte copies when its rows allow them
   const __nv_bfloat16* qbase = q + b * sqb + h * sqh;
@@ -288,6 +305,18 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   int kv_end = skv_real;
   if (causal) kv_end = min(kv_end, q0 + WG_BQ);
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // packed rows: no key before the run start of the tile's first row. Key
+  // tiles from full_from on may skip the mask as far as segments go: all of
+  // them without segment ids; with them, when the tile's first and last
+  // rows share a run (so every row of it is in that run, and under a causal
+  // mask every key from its start up to the rows), those from the run start
+  int full_from = segmented ? INT_MAX : 0;
+  if (segmented && seg_start != nullptr) {
+    const long long rb = (long long)b * Sq;
+    const int run0 = seg_start[rb + q0];
+    kv_begin = max(kv_begin, run0);
+    if (causal && run0 == seg_start[rb + min(q0 + WG_BQ, Sq) - 1]) full_from = run0;
+  }
   kv_begin = (kv_begin / WG_BK) * WG_BK;
   const int n_tiles = n_prior + (kv_end > kv_begin ? (kv_end - kv_begin + WG_BK - 1) / WG_BK : 0);
 
@@ -372,7 +401,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     if (prior)
       full = t0 + WG_BK <= pvalid && (window <= 0 || t0 > pvalid + q0 + WG_BQ - 1 - window);
     else
-      full = !segmented && t0 + WG_BK <= skv_real && (!causal || t0 + WG_BK - 1 <= q0) &&
+      full = t0 >= full_from && t0 + WG_BK <= skv_real && (!causal || t0 + WG_BK - 1 <= q0) &&
              (window <= 0 || t0 > q0 + WG_BQ - 1 - window);
 #pragma unroll
     for (int j = 0; j < 32; ++j) s[j] *= scale_log2;
@@ -482,14 +511,15 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, const void* q_seg,
-                 const void* k_seg, const void* pk, const void* pv, const void* prior_valid,
-                 int B, int Sq, int Skv, int Pp, int H, int Hkv, long long sqb, long long sqs,
-                 long long sqh, long long skb, long long sks, long long skh, long long svb,
-                 long long svs, long long svh, long long spkb, long long spks, long long spkh,
-                 long long spvb, long long spvs, long long spvh, int causal, int window,
-                 int sq_real, int skv_real, float scale, cudaStream_t stream) {
+                 const void* k_seg, const void* seg_start, const void* pk, const void* pv,
+                 const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
+                 long long sqb, long long sqs, long long sqh, long long skb, long long sks,
+                 long long skh, long long svb, long long svs, long long svh, long long spkb,
+                 long long spks, long long spkh, long long spvb, long long spvs, long long spvh,
+                 int causal, int window, int sq_real, int skv_real, float scale,
+                 cudaStream_t stream) {
   constexpr size_t smem = wg_smem_bytes<HD>();
-  auto kernel = flash_wgmma_kernel<HD>;
+  auto kernel = q_seg != nullptr ? flash_wgmma_kernel<HD, true> : flash_wgmma_kernel<HD, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -498,7 +528,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
   kernel<<<nqt * H * B, WG_THREADS, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<bf*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
-      static_cast<const bf*>(pk), static_cast<const bf*>(pv),
+      static_cast<const int*>(seg_start), static_cast<const bf*>(pk), static_cast<const bf*>(pv),
       static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
       skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
       skv_real, scale);
@@ -507,12 +537,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_seg,
-           const void* k_seg, const void* pk, const void* pv, const void* prior_valid, int B,
-           int Sq, int Skv, int Pp, int H, int Hkv, long long sqb, long long sqs, long long sqh,
-           long long skb, long long sks, long long skh, long long svb, long long svs,
-           long long svh, long long spkb, long long spks, long long spkh, long long spvb,
-           long long spvs, long long spvh, int causal, int window, int sq_real, int skv_real,
-           float scale, cudaStream_t stream) {
+           const void* k_seg, const void* seg_start, const void* pk, const void* pv,
+           const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
+           long long sqb, long long sqs, long long sqh, long long skb, long long sks,
+           long long skh, long long svb, long long svs, long long svh, long long spkb,
+           long long spks, long long spkh, long long spvb, long long spvs, long long spvh,
+           int causal, int window, int sq_real, int skv_real, float scale, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   auto kernel = flash_fwd_kernel<T, HD>;
   cudaError_t err =
@@ -522,7 +552,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
   kernel<<<grid, FLASH_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
-      static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const int*>(seg_start), static_cast<const T*>(pk), static_cast<const T*>(pv),
       static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
       skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
       skv_real, scale);
@@ -534,11 +564,14 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
 // q: [B, Sq, H, hd], k/v: [B, Skv, Hkv, hd] and pk/pv: [B, Pp, Hkv, hd]
 // addressed through the given element strides (last dim contiguous);
 // o: contiguous [B, Sq, H, hd]. q_seg / k_seg: contiguous int32 [B, Sq] /
-// [B, Skv], or both null. prior_valid: contiguous int32 [B], or null with
+// [B, Skv], or both null; seg_start: contiguous int32 [B, Sq], each row's
+// run start (see above), or null (no tile skipped by segment, none taken
+// unmasked). prior_valid: contiguous int32 [B], or null with
 // no prior (pk / pv are then not read). Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const void* q_seg, const void* k_seg, const void* pk,
+                                   const void* q_seg, const void* k_seg,
+                                   const void* seg_start, const void* pk,
                                    const void* pv, const void* prior_valid, int B, int Sq,
                                    int Skv, int Pp, int H, int Hkv, int hd, long long sqb,
                                    long long sqs, long long sqh, long long skb, long long sks,
@@ -550,12 +583,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     DISPATCH_HD(hd, HD, return launch_wgmma<HD>(
-                            q, k, v, o, q_seg, k_seg, pk, pv, prior_valid, B, Sq, Skv, Pp, H,
+                            q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq,
+                            Skv, Pp, H,
                             Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
                             spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
   } else {
     DISPATCH_HD(hd, HD, return launch<float, HD>(
-                            q, k, v, o, q_seg, k_seg, pk, pv, prior_valid, B, Sq, Skv, Pp, H,
+                            q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq,
+                            Skv, Pp, H,
                             Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
                             spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
   }

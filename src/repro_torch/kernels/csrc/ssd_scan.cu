@@ -69,10 +69,19 @@
 // rows p of the state are independent, so the head dim splits across CTAs
 // (at P = 16 a head is 4 CTAs). Inside a chunk it sweeps row tiles of 64
 // positions and, for each, the column tiles j <= i, staging C and B tiles in
-// shared memory as fp32, transposed to [ds][64], every product an fp32 FMA;
-// the decay is exp(cums_i - cums_j) from differences (never a quotient of
-// exponentials, which overflows), taken only where j <= i. The chunk length
-// is the config's (a multiple of 64, at most 256).
+// shared memory as fp32, transposed to [ds][64]; the decay is exp(cums_i -
+// cums_j) from differences (never a quotient of exponentials, which
+// overflows), taken only where j <= i. The chunk length is the config's (a
+// multiple of 64, at most 256). The three sums -- a score C_i . B_j over
+// d_state, y_i over the state and up to a chunk of positions, the state's
+// update -- and the in-chunk prefix sums of dt A run in fp64 (the fp32
+// operands multiply exactly there), each rounded to fp32 once, the decay
+// exponents as fp32 differences of fp64 sums. All in fp32 (the fp32 sums'
+// rounding moves exp(cums_i - cums_j) by about 1e-5), the kernel sat up to
+// 4.0e-5 from a float64 recurrence at b=8, S=2048 (|y| up to 21), one
+// element 3.5e-5 from the plain version, past the 3e-5 tolerance; now 2.2e-6
+// (NVIDIA H100 80GB HBM3, 700 W). fp64 runs at half the fp32 rate on this
+// card; the fp32 path serves only fp32 models.
 #include "attn_common.cuh"    // to_f32 / from_f32 and 16-byte vector unpacking
 #include "wgmma_common.cuh"   // cp.async, wgmma and their descriptors
 
@@ -88,8 +97,10 @@ constexpr int MAX_CHUNK = 256; // one scan element per thread
 constexpr int P = 16;          // head-dim columns of the state per CTA
 
 constexpr size_t smem_floats(int chunk) {
-  return (size_t)P * STP + 2 * (size_t)DS * TP + (size_t)TILE * SP + (size_t)chunk * P +
-         3 * (size_t)chunk + NT / 32;
+  // the fp64 prefix sums and scan carries first (two floats each), then
+  // the fp32 arrays
+  return 2 * ((size_t)chunk + NT / 32) + (size_t)P * STP + 2 * (size_t)DS * TP +
+         (size_t)TILE * SP + (size_t)chunk * P + 2 * (size_t)chunk;
 }
 
 // Stage ``n`` rows (from ``row0``, ``stride`` elements apart) of a [*, DS]
@@ -137,15 +148,15 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   static_assert(RA % 4 == 0 && SK % 4 == 0 && NT % DS == 0, "tile shapes");
 
   extern __shared__ __align__(16) float smem[];
-  float* st = smem;                 // [P][STP] the state slice
+  double* cums = reinterpret_cast<double*>(smem);  // [chunk] in-chunk prefix sum of dt * A
+  double* red = cums + chunk;                       // [NT / 32] scan carries
+  float* st = reinterpret_cast<float*>(red + NT / 32);  // [P][STP] the state slice
   float* cT = st + P * STP;         // [DS][TP] C tile, transposed
   float* bT = cT + DS * TP;         // [DS][TP] B tile, transposed
   float* sc = bT + DS * TP;         // [TILE][SP] decayed scores
   float* xa = sc + TILE * SP;       // [chunk][P] dt * x
-  float* cums = xa + chunk * P;     // [chunk] in-chunk prefix sum of dt * A
-  float* wend = cums + chunk;       // [chunk] exp(cums_last - cums_j)
+  float* wend = xa + chunk * P;     // [chunk] exp(cums_last - cums_j)
   float* dts = wend + chunk;        // [chunk] dt, zero past the sequence
-  float* red = dts + chunk;         // [NT / 32] scan carries
 
   const int p0 = blockIdx.x * P;
   const int h = blockIdx.y;
@@ -187,10 +198,10 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     // in-chunk inclusive prefix sum of dt * A: warp scans, then the carries
     const float d = tid < Lc ? dtb[(long long)(c0 + tid) * sds] : 0.f;
     if (tid < chunk) dts[tid] = d;
-    float v = d * a;
+    double v = (double)d * a;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float n = __shfl_up_sync(FULL_MASK, v, o);
+      const double n = __shfl_up_sync(FULL_MASK, v, o);
       if (lane >= o) v += n;
     }
     if (lane == 31) red[warp] = v;
@@ -209,10 +220,10 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
     if (warp == 0) {
-      float w = lane < NT / 32 ? red[lane] : 0.f;
+      double w = lane < NT / 32 ? red[lane] : 0.0;
 #pragma unroll
       for (int o = 1; o < NT / 32; o <<= 1) {
-        const float n = __shfl_up_sync(FULL_MASK, w, o);
+        const double n = __shfl_up_sync(FULL_MASK, w, o);
         if (lane >= o) w += n;
       }
       if (lane < NT / 32) red[lane] = w;
@@ -221,9 +232,10 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     if (warp > 0) v += red[warp - 1];
     if (tid < chunk) cums[tid] = v;
     __syncthreads();
-    const float clast = cums[Lc - 1];
-    for (int j = tid; j < chunk; j += NT) wend[j] = j < Lc ? expf(clast - cums[j]) : 0.f;
-    const float chunk_decay = expf(clast);
+    const double clast = cums[Lc - 1];
+    for (int j = tid; j < chunk; j += NT)
+      wend[j] = j < Lc ? expf((float)(clast - cums[j])) : 0.f;
+    const float chunk_decay = expf((float)clast);
 
     const int nti = (Lc + TILE - 1) / TILE;
     for (int ti = 0; ti < nti; ++ti) {
@@ -233,11 +245,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       __syncthreads();
 
       // inter-chunk term: exp(cums_i) C_i . state[p, :]
-      float acc[RA];
+      double acc[RA];
 #pragma unroll
-      for (int k = 0; k < RA; ++k) acc[k] = 0.f;
+      for (int k = 0; k < RA; ++k) acc[k] = 0.0;
       for (int s = 0; s < DS; ++s) {
-        const float stv = st[yp * STP + s];
+        const double stv = st[yp * STP + s];
 #pragma unroll
         for (int k = 0; k < RA; k += 4) {
           const float4 c4 = *reinterpret_cast<const float4*>(cT + s * TP + yr + k);
@@ -248,13 +260,13 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         }
       }
 #pragma unroll
-      for (int k = 0; k < RA; ++k) acc[k] *= expf(cums[i0 + yr + k]);
+      for (int k = 0; k < RA; ++k) acc[k] *= expf((float)cums[i0 + yr + k]);
 
       // the last row tile also carries the state to the chunk's end
-      float sacc[SK];
+      double sacc[SK];
       if (last) {
 #pragma unroll
-        for (int k = 0; k < SK; ++k) sacc[k] = st[(sp + k) * STP + ss] * chunk_decay;
+        for (int k = 0; k < SK; ++k) sacc[k] = (double)st[(sp + k) * STP + ss] * chunk_decay;
       }
 
       for (int tj = 0; tj <= ti; ++tj) {
@@ -264,15 +276,15 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         __syncthreads();
 
         // scores: a 4x4 block of C_i . B_j, decayed and masked to j <= i
-        float sblk[4][4];
+        double sblk[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) sblk[r][c] = 0.f;
+          for (int c = 0; c < 4; ++c) sblk[r][c] = 0.0;
         for (int s = 0; s < DS; ++s) {
           const float4 cv = *reinterpret_cast<const float4*>(cT + s * TP + 4 * ty);
           const float4 bv = *reinterpret_cast<const float4*>(bT + s * TP + 4 * tx);
-          const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+          const double cr[4] = {cv.x, cv.y, cv.z, cv.w};
           const float bc[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
           for (int r = 0; r < 4; ++r)
@@ -282,12 +294,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 4 * ty + r;
-          const float ci = cums[i0 + i];
+          const double ci = cums[i0 + i];
           float out[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int j = 4 * tx + c;
-            out[c] = j0 + j <= i0 + i ? sblk[r][c] * expf(ci - cums[j0 + j]) : 0.f;
+            out[c] = j0 + j <= i0 + i
+                         ? (float)(sblk[r][c] * expf((float)(ci - cums[j0 + j])))
+                         : 0.f;
           }
           *reinterpret_cast<float4*>(sc + i * SP + 4 * tx) =
               make_float4(out[0], out[1], out[2], out[3]);
@@ -296,13 +310,16 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
         // intra-chunk term: scores times dt * x
         for (int j = 0; j < TILE; j += 4) {
-          float xv[4];
+          double xv[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) xv[q] = xa[(j0 + j + q) * P + yp];
 #pragma unroll
           for (int k = 0; k < RA; ++k) {
             const float4 s4 = *reinterpret_cast<const float4*>(sc + (yr + k) * SP + j);
-            acc[k] += s4.x * xv[0] + s4.y * xv[1] + s4.z * xv[2] + s4.w * xv[3];
+            acc[k] += s4.x * xv[0];
+            acc[k] += s4.y * xv[1];
+            acc[k] += s4.z * xv[2];
+            acc[k] += s4.w * xv[3];
           }
         }
 
@@ -311,7 +328,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           for (int j = 0; j < TILE; j += 4) {
             const float4 b4 = *reinterpret_cast<const float4*>(bT + ss * TP + j);
             const float4 w4 = *reinterpret_cast<const float4*>(wend + j0 + j);
-            const float bw[4] = {b4.x * w4.x, b4.y * w4.y, b4.z * w4.z, b4.w * w4.w};
+            const double bw[4] = {(double)b4.x * w4.x, (double)b4.y * w4.y,
+                                  (double)b4.z * w4.z, (double)b4.w * w4.w};
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const float* xrow = xa + (j0 + j + q) * P + sp;
@@ -331,13 +349,13 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int k = 0; k < RA; ++k) {
         const int i = i0 + yr + k;
-        if (i < Lc) yb[(long long)(c0 + i) * nh * hd + yp] = from_f32<T>(acc[k]);
+        if (i < Lc) yb[(long long)(c0 + i) * nh * hd + yp] = from_f32<T>((float)acc[k]);
       }
       if (last) {
         // every thread read the old state (inter term) before the column
         // sweep's first barrier; each writes only its own elements
 #pragma unroll
-        for (int k = 0; k < SK; ++k) st[(sp + k) * STP + ss] = sacc[k];
+        for (int k = 0; k < SK; ++k) st[(sp + k) * STP + ss] = (float)sacc[k];
       }
     }
   }

@@ -21,23 +21,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _FWD = build.CFunction("flash_attention", "flash_attention_fwd",
-                       [_P] * 9 + [_I] * 7 + [_L] * 15 + [_I] * 4
+                       [_P] * 10 + [_I] * 7 + [_L] * 15 + [_I] * 4
                        + [ctypes.c_float, _I])
 
 HEAD_DIMS = (32, 64, 128)
 
 
 def launch(q, k, v, *, causal: bool, window: int, scale: float,
-           segment_ids, sq_real: int, skv_real: int, prior_k=None,
-           prior_v=None, prior_valid=None):
+           segment_ids, sq_real: int, skv_real: int, segment_starts=None,
+           prior_k=None, prior_v=None, prior_valid=None):
     """q: [B,Sq,H,hd], k/v: [B,Skv,Hkv,hd] (and prior_k/prior_v
-    [B,Pp,Hkv,hd], prior_valid int32 [B]) on one CUDA device, last dim
-    contiguous (checked by the caller). Returns a new [B,Sq,H,hd] tensor."""
+    [B,Pp,Hkv,hd], prior_valid int32 [B]; segment_starts int32 [B,Sq]
+    beside segment_ids) on one CUDA device, last dim contiguous (checked by
+    the caller). Returns a new [B,Sq,H,hd] tensor."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
     seg_ptr = None if seg is None else seg.data_ptr()
+    start_ptr = None if segment_starts is None else segment_starts.data_ptr()
     if prior_k is None:  # no prior: the kernel reads none of it
         prior_k, prior_v, pv_ptr, Pp = k, v, None, 0
     else:
@@ -45,7 +47,7 @@ def launch(q, k, v, *, causal: bool, window: int, scale: float,
     _FWD(
         q.get_device(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), seg_ptr, seg_ptr,
-        prior_k.data_ptr(), prior_v.data_ptr(), pv_ptr,
+        start_ptr, prior_k.data_ptr(), prior_v.data_ptr(), pv_ptr,
         B, Sq, Skv, Pp, H, Hkv, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),

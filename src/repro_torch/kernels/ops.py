@@ -129,15 +129,33 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
     return out
 
 
+def segment_run_starts(segment_ids):
+    """[B, S] int segment ids -> int32 [B, S]: the index where each
+    position's run of equal ids begins (a few device ops, no host sync).
+    The flash kernel starts a q-tile's key sweep at its first row's run
+    start; a packed forward builds this once for all its layers."""
+    B, S = segment_ids.shape
+    pos = torch.arange(S, device=segment_ids.device).expand(B, S)
+    new = torch.ones((B, S), dtype=torch.bool, device=segment_ids.device)
+    new[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    return torch.cummax(torch.where(new, pos, 0), dim=1).values.to(torch.int32)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: Optional[float] = None, segment_ids=None,
-                    sq_real: Optional[int] = None,
+                    segment_starts=None, sq_real: Optional[int] = None,
                     skv_real: Optional[int] = None, prior_k=None,
                     prior_v=None, prior_valid=None):
     """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
 
     ``segment_ids``: optional [B, S] int packed-prefill ids (Sq == Skv,
-    pads -1) forbidding cross-segment attention. ``sq_real``/``skv_real``
+    pads -1) forbidding cross-segment attention. Each id must form one
+    contiguous run of its row, the pad run last (how a packed row is
+    written): the kernel skips the key tiles before a q-tile's first run
+    and does not check this (a check would sync the device); the plain
+    version masks by id equality alone. ``segment_starts``: optional int32
+    [B, S] :func:`segment_run_starts` of the ids, built here when absent
+    (the plain version does not read it). ``sq_real``/``skv_real``
     mask query rows / keys at or past them (default: the full lengths).
     ``prior_k``/``prior_v`` [B,Pp,Hkv,hd] with ``prior_valid`` [B] int32:
     a cached prefix the queries attend to first (suffix prefill; query i of
@@ -155,6 +173,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or tuple(segment_ids.shape) != (B, Sq)):
         raise ValueError(f"flash_attention: segment_ids must be [B, S] with "
                          f"Sq == Skv: {tuple(segment_ids.shape)}")
+    if segment_starts is not None and (
+            segment_ids is None or segment_starts.shape != segment_ids.shape):
+        raise ValueError("flash_attention: segment_starts goes with "
+                         "segment_ids, in its shape")
     prior = (prior_k, prior_v, prior_valid)
     if any(t is not None for t in prior):
         if any(t is None for t in prior) or segment_ids is not None:
@@ -188,9 +210,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or not prior_valid.is_contiguous()):
         raise TypeError(f"flash_attention kernel: prior_valid must be "
                         f"contiguous int32: {prior_valid.dtype}")
+    if segment_ids is not None:
+        if segment_starts is None:
+            segment_starts = segment_run_starts(segment_ids)
+        elif (segment_starts.dtype != torch.int32
+              or not segment_starts.is_contiguous()
+              or not _on_cuda(q, segment_starts)):
+            raise TypeError(f"flash_attention kernel: segment_starts must be "
+                            f"contiguous int32 on q's device: "
+                            f"{segment_starts.dtype}")
     out = _fa.launch(q, k, v, causal=causal, window=window, scale=scale,
                      segment_ids=segment_ids, sq_real=sq_real,
-                     skv_real=skv_real, prior_k=prior_k, prior_v=prior_v,
+                     skv_real=skv_real, segment_starts=segment_starts,
+                     prior_k=prior_k, prior_v=prior_v,
                      prior_valid=prior_valid)
     LAUNCHES["flash_attention"] += 1
     return out

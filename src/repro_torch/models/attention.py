@@ -48,13 +48,18 @@ def project_qkv(p, cfg, x, positions):
 
 
 def prefill_attention(q, k, v, *, window: int = 0, prior=None,
-                      prior_valid=None):
+                      prior_valid=None, segment_ids=None, segment_starts=None):
     """Causal self-attention over a (right-padded) prompt batch: trailing
     pad is invisible to real positions under the causal mask. ``prior``
     ({"k","v"} [B,Pp,Hkv,hd], RoPE'd at absolute positions) with
-    ``prior_valid`` [B] makes it suffix attention over a cached prefix."""
+    ``prior_valid`` [B] makes it suffix attention over a cached prefix;
+    ``segment_ids`` [B,S] (with their ``segment_starts``, see
+    :func:`ops.segment_run_starts`) a packed prefill, where a query sees
+    only keys of its own segment."""
     if prior is None:
-        return ops.flash_attention(q, k, v, causal=True, window=window)
+        return ops.flash_attention(q, k, v, causal=True, window=window,
+                                   segment_ids=segment_ids,
+                                   segment_starts=segment_starts)
     return ops.flash_attention(q, k, v, causal=True, window=window,
                                prior_k=prior["k"], prior_v=prior["v"],
                                prior_valid=prior_valid)

@@ -10,9 +10,9 @@ sliding-window cache exactly (W = window). SSM leaves have no sequence dim:
 they always move whole.
 
 Unlike the JAX package, whose arrays are immutable, :func:`ring_write`,
-:func:`scatter_pages` and :func:`paged_write` update the cache in place:
-the decode step then holds one cache buffer, as the JAX engine gets by
-donating it.
+:func:`scatter_pages`, :func:`paged_write` and :func:`splice_suffix` update
+the cache in place: the decode step (and a chunked admission) then holds
+one cache buffer, as the JAX engine gets by donating it.
 """
 
 from __future__ import annotations
@@ -131,6 +131,52 @@ def pad_cache_rows(caches, n_rows: int):
         return F.pad(leaf, (0, 0) * (leaf.ndim - 1) + (0, extra))
 
     return _map_keyed(pad, caches)
+
+
+def unpack_segments(caches, seg_starts, out_w: int):
+    """Un-pack a packed-prefill cache tree into per-segment rows.
+
+    ``caches`` come from :meth:`Model.prefill_packed`: every k/v leaf is
+    ``[1, T, Hkv, hd]`` with segment ``j``'s KV at packed slots
+    ``[seg_starts[j], seg_starts[j] + len_j)``. Each leaf becomes ``[N,
+    out_w, Hkv, hd]`` (N = len(seg_starts), an int tensor on the leaves'
+    device): row ``j`` reads ``out_w`` consecutive packed slots from its
+    start, clipped at T-1, so a short or dummy segment trails its
+    neighbours' KV, which decode masks by length as it masks bucketed
+    prefill's pad. Packed prefill is attention-only, so no SSM leaf
+    appears."""
+    T = _first_leaf(caches).shape[1]
+    win = (seg_starts.to(torch.int64)[:, None]
+           + torch.arange(out_w, device=seg_starts.device)[None, :])
+    win = win.clamp(max=T - 1)
+    return tree_map(lambda leaf: leaf[0][win], caches)
+
+
+def splice_suffix(prior, suffix, offset):
+    """Write a suffix cache tree into a same-layout prior at ring
+    ``offset``, in place; returns ``prior``.
+
+    prior/suffix k/v leaves: ``[B, W, Hkv, hd]`` / ``[B, C, Hkv, hd]`` with
+    C <= W; ``offset`` is a one-element int tensor on the leaves' device,
+    clamped into ``[0, W - C]`` as ``jax.lax.dynamic_update_slice`` clamps
+    it, so one code path serves every chunk of a chunked prefill with no
+    host sync."""
+    C = _first_leaf(suffix).shape[1]
+    W = _first_leaf(prior).shape[1]
+    start = offset.reshape(-1)[:1].to(torch.int64).clamp(0, W - C)
+    idx = start + torch.arange(C, device=start.device)
+
+    def put(p_leaf, s_leaf):
+        p_leaf.index_copy_(1, idx, s_leaf.to(p_leaf.dtype))
+
+    _zip_leaves(put, prior, suffix)
+    return prior
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
 
 
 def request_cache_nbytes(caches, true_len: int, *, itemsize=None) -> int:

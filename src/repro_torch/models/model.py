@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import schema as sch
 from repro_torch.models.layers import (
@@ -137,6 +138,19 @@ class Model:
         hold ONLY the suffix KV. Attention-only stacks; raises ValueError
         for others.
         """
+        return self._suffix(params, tokens, lengths, cached_lens,
+                            prior_blocks=blocks, prior_pt=prior_pt)
+
+    def prefill_suffix_dense(self, params, tokens, lengths, cached_lens,
+                             prior):
+        """:meth:`prefill_suffix` over a dense prior: ``prior`` is a cache
+        tree ({"k","v"} [B, Pp, Hkv, hd] a layer, RoPE'd at absolute
+        positions) of which row b uses its first ``cached_lens[b]`` slots
+        (the JAX package's ``prefill_suffix``). One chunk of a chunked
+        prefill runs through it against the request's fixed-width prior."""
+        return self._suffix(params, tokens, lengths, cached_lens, prior=prior)
+
+    def _suffix(self, params, tokens, lengths, cached_lens, **prior):
         self._require_attention_only("prefill_suffix")
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
         S = x.shape[1]
@@ -144,7 +158,7 @@ class Model:
             S, device=x.device)[None, :]
         x, caches = stack_apply_full(
             params["decoder"], self.cfg, x, pos, groups=self.groups,
-            prior_blocks=blocks, prior_pt=prior_pt, prior_valid=cached_lens)
+            prior_valid=cached_lens, **prior)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -152,6 +166,33 @@ class Model:
                          self.cfg.vocab_size)
         total = (cached_lens + lengths).to(torch.int32)
         return logits[:, 0], caches, total
+
+    def prefill_packed(self, params, tokens, positions, segment_ids,
+                       last_idx):
+        """Token-packed prefill: several prompts back to back in ONE row.
+
+        tokens [1, T] hold the segments (pad token 0 after the last);
+        ``positions`` [1, T] restart at 0 in each segment, so RoPE matches
+        an unpacked prefill; ``segment_ids`` [1, T] int32 give each token's
+        segment (-1 on pads), each segment one contiguous run; ``last_idx``
+        [N] is the packed index of each segment's last token (dummy
+        segments may point anywhere: the caller drops their logits).
+        Attention is segment-masked, so each segment's hidden states and
+        its KV run in the packed caches are what a lone prefill of that
+        prompt gives, up to summation order. The run starts the flash
+        kernel skips by are built once here for every layer. Returns
+        (last_logits [N, V], packed caches with [1, T, Hkv, hd] k/v
+        leaves). Attention-only stacks; raises ValueError for others."""
+        self._require_attention_only("prefill_packed")
+        x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        x, caches = stack_apply_full(
+            params["decoder"], self.cfg, x, positions, groups=self.groups,
+            segment_ids=segment_ids,
+            segment_starts=ops.segment_run_starts(segment_ids))
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        x_last = x[0, last_idx.to(torch.int64)][None]  # [1, N, d]
+        logits = lm_head(params["embed"], x_last, self.cfg.vocab_size)
+        return logits[0], caches
 
     def decode_step(self, params, caches, tokens, lengths):
         """tokens [B,1], lengths [B] int32 -> (logits [B,V], caches,

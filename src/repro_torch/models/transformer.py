@@ -122,27 +122,30 @@ def _ffn_block(lp, cfg, x):
     return x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
 
 
-def apply_layer_full(lp, cfg, sig, x, positions, *, prior_blocks=None,
-                     prior_pt=None, prior_valid=None):
+def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
+                     prior_blocks=None, prior_pt=None, prior_valid=None,
+                     segment_ids=None, segment_starts=None):
     """x: [B,S,d] -> (x, cache): {"k","v"} [B,S,Hkv,hd] for an attention
     layer, {"conv","state"} for an SSM layer (prefilled from a zero state).
 
-    With ``prior_blocks`` (this layer's block pool), ``prior_pt`` [B, Pn]
-    and ``prior_valid`` [B] it is a suffix prefill: the layer's prior KV is
-    gathered from the pool here, right before its flash launch, and only
-    ``Pn`` pages wide (attention layers only)."""
+    With ``prior_valid`` [B] it is a suffix prefill over this layer's prior
+    KV: ``prior`` ({"k","v"} [B,Pp,Hkv,hd], dense), or ``prior_blocks``
+    (this layer's block pool) with ``prior_pt`` [B, Pn], gathered here,
+    right before the flash launch, ``Pn`` pages wide. ``segment_ids``
+    [B,S] with ``segment_starts`` make it a packed prefill (attention
+    layers only, both)."""
     B, S, _ = x.shape
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
         o, cache = mamba_forward(lp["ssm"], cfg, h)
         return _ffn_block(lp, cfg, x + o), cache
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
-    prior = None
     if prior_blocks is not None:
         prior = {n: kvc.gather_leaf(prior_blocks[n], prior_pt)
                  for n in ("k", "v")}
     o = prefill_attention(q, k, v, window=cfg.sliding_window, prior=prior,
-                          prior_valid=prior_valid)
+                          prior_valid=prior_valid, segment_ids=segment_ids,
+                          segment_starts=segment_starts)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
     return _ffn_block(lp, cfg, x), {"k": k, "v": v}
 
@@ -181,20 +184,26 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
     return _ffn_block(lp, cfg, x)
 
 
-def stack_apply_full(params, cfg, x, positions, *, groups, prior_blocks=None,
-                     prior_pt=None, prior_valid=None):
+def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
+                     prior_blocks=None, prior_pt=None, prior_valid=None,
+                     segment_ids=None, segment_starts=None):
     """Prefill pass over every layer. Returns (x, caches) with caches in
-    the parameter tree's layout. ``prior_blocks`` (a block pool tree),
-    ``prior_pt`` and ``prior_valid`` make it a suffix prefill (see
-    :func:`apply_layer_full`)."""
+    the parameter tree's layout. ``prior`` (a dense cache tree) or
+    ``prior_blocks`` (a block pool tree) with ``prior_pt``, and
+    ``prior_valid``, make it a suffix prefill; ``segment_ids`` with
+    ``segment_starts`` a packed one (see :func:`apply_layer_full`)."""
     caches = {f"g{gi}": [{} for _ in range(g.count)]
               for gi, g in enumerate(groups)}
     for gname, i, lname, sig in _layers(groups):
+        lprior = None if prior is None else prior[gname][i][lname]
         lblocks = (None if prior_blocks is None
                    else prior_blocks[gname][i][lname])
         x, cache = apply_layer_full(params[gname][i][lname], cfg, sig, x,
-                                    positions, prior_blocks=lblocks,
-                                    prior_pt=prior_pt, prior_valid=prior_valid)
+                                    positions, prior=lprior,
+                                    prior_blocks=lblocks, prior_pt=prior_pt,
+                                    prior_valid=prior_valid,
+                                    segment_ids=segment_ids,
+                                    segment_starts=segment_starts)
         caches[gname][i][lname] = cache
     return x, caches
 

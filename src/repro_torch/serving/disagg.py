@@ -22,7 +22,10 @@ the longest row's length, both rounded up to powers of two (the prefix
 floored at ``HANDOFF_BLOCK``), plus the rows' slot metadata as int32
 tensors. The paged path moves the bucket-width SUFFIX cache: reused prefix
 KV lives in a prefill-side block store and in decode-pool blocks, so it
-crosses the hop once, when first computed. Three byte counters reconcile:
+crosses the hop once, when first computed. A packed admission hops as a
+bucketed one does (its unpacked artifact has the same shape); a chunked
+admission computes every chunk against its prior on the prefill side and
+hops once, with its final chunk. Three byte counters reconcile:
 ``handoff_wire_bytes`` is ``payload_wire_bytes`` of what moved,
 ``handoff_request_bytes`` the per-request true prefixes (lower by the
 rounding only), and on the paged path ``handoff_payload_bytes``, computed

@@ -33,6 +33,18 @@ TransportProfile, composed into one per-request record (paper Table I).
   (each layer gathers its prior right before its flash launch), and decode
   writes and reads the pool through the page table with the paged kernel --
   nothing is gathered on the decode path.
+* **Token-packed prefill** (``packed=True``) -- an admission's prompts
+  are written back to back into ONE ``[1, T]`` row (T the next power of two
+  of their true tokens) with per-token segment ids, so prefill pays for the
+  tokens it has, not ``max_batch`` rows of the bucket. Flash masks by
+  segment and skips the key tiles before a q-tile's segments; the packed
+  cache unpacks per segment into the same artifact a bucketed admission
+  gives. Off (silently) on stacks with SSM layers; turns prefix reuse off.
+* **Chunked prefill** (``prefill_chunk=C``) -- a prompt longer than C
+  admits as a sequence of C-token suffix prefills against a fixed-width
+  dense prior (the remainder chunk first), one chunk per engine iteration
+  after the decode dispatch, so a long admission never stalls live decodes
+  for its whole prefill. Ring pool only.
 
 The KV pool is updated in place (the JAX engine donates it); the small
 per-slot state tensors are replaced on every update, and each in-flight
@@ -129,6 +141,17 @@ class PrefillArtifact:
     # already lives in shared blocks and never rides the artifact
     dest_blocks: Optional[np.ndarray] = None  # [npad, bucket / PAGE] int32
     cached_lens: Optional[np.ndarray] = None  # [npad] int32 reused prefix
+
+
+@dataclasses.dataclass
+class _ChunkJob:
+    """One in-progress chunked admission: its reserved slot, its
+    fixed-width prior cache tree and the prompt tokens prefilled so far."""
+
+    req: Request
+    slot: int
+    prior: object  # [1, max_seq, Hkv, hd] cache tree, written in place
+    done: int = 0  # prompt tokens already prefilled and spliced
 
 
 @dataclasses.dataclass
@@ -347,8 +370,12 @@ class DecodePool:
 class ServingEngine:
     """Continuous-batching serving engine over a slot-based KV pool: the
     ring pool, or with ``paged=True`` the paged block pool, with radix
-    prefix reuse unless ``prefix_reuse=False``. A stack with SSM layers
-    prefills each request at its exact length and cannot be paged.
+    prefix reuse unless ``prefix_reuse=False`` (or ``packed``).
+    ``packed=True`` prefills each admission as one token-packed row;
+    ``prefill_chunk=C`` (ring pool only) prefills prompts longer than C
+    in C-token chunks between decode steps. A stack with SSM layers
+    prefills each request at its exact length, cannot be paged, and runs
+    neither packed nor chunked.
 
     :meth:`submit` queues a request, :meth:`step` runs one iteration (admit
     -> dispatch -> harvest) and returns finished
@@ -376,6 +403,8 @@ class ServingEngine:
         sample_seed: int = 0,
         paged: bool = False,
         prefix_reuse: bool = True,
+        packed: bool = False,
+        prefill_chunk: int = 0,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -413,7 +442,28 @@ class ServingEngine:
         # paged pool + shared-prefix reuse (the ring pool is the A/B
         # baseline): reused prompt tokens are counted apart from the rest
         self.paged = bool(paged)
-        self.prefix_reuse = self.paged and bool(prefix_reuse)
+        # token-packed prefill: the bucketing gate (attention-only), and
+        # off silently otherwise, so callers may set it on any stack
+        self.packed = bool(packed) and not self.exact_prefill
+        # chunked prefill: long prompts prefill C tokens an iteration
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0: {prefill_chunk}")
+        if self.prefill_chunk:
+            if self.paged:
+                raise ValueError(
+                    "chunked prefill rides the ring pool (its fixed-width "
+                    "prior splices densely); use paged=False with "
+                    "prefill_chunk")
+            if self.prefill_chunk > max_seq:
+                raise ValueError(f"prefill_chunk {prefill_chunk} exceeds "
+                                 f"max_seq {max_seq}")
+        self._chunk_enabled = self.prefill_chunk > 0 and not self.exact_prefill
+        self._chunk_jobs: deque[_ChunkJob] = deque()
+        self._chunk_slots: set[int] = set()  # slots reserved by chunk jobs
+        # a packed admission's pages interleave its segments and never
+        # align with the prefix index: reuse is off under packing
+        self.prefix_reuse = self.paged and bool(prefix_reuse) and not self.packed
         self.prefix_index = (RadixPrefixIndex(PAGE) if self.prefix_reuse
                              else None)
         self.prefix_hits = 0
@@ -500,11 +550,25 @@ class ServingEngine:
     def _bucket(self, s: int) -> int:
         return min(max(_next_pow2(s), MIN_BUCKET), self.max_seq)
 
+    def _free_slots(self) -> list[int]:
+        """Admittable slots: the pool's free ones less those a chunked
+        admission has reserved (its request lands in the pool's slots only
+        at its final chunk)."""
+        free = self.pool.free_slots()
+        if self._chunk_slots:
+            free = [s for s in free if s not in self._chunk_slots]
+        return free
+
+    def packed_cap(self) -> int:
+        """Widest packed row this engine can dispatch: every slot admitted
+        at once at a full max_seq prompt, rounded to a power of two."""
+        return _next_pow2(self.max_batch * self.max_seq)
+
     # ------------------------------------------------------------------ #
     # Admission
     # ------------------------------------------------------------------ #
     def _admit(self):
-        free = self.pool.free_slots()
+        free = self._free_slots()
         if not self.queue or not free:
             return
         order = sorted(
@@ -522,9 +586,21 @@ class ServingEngine:
             for req in picked:
                 self._prefill_exact(req, next(free_it))
             return
+        packables: list[Request] = []
         buckets: dict[int, list[Request]] = {}
         for req in picked:
-            buckets.setdefault(self._bucket(len(req.prompt_tokens)), []).append(req)
+            if (self._chunk_enabled
+                    and len(req.prompt_tokens) > self.prefill_chunk):
+                # long prompts admit chunk by chunk, one chunk an engine
+                # iteration, between decode dispatches
+                self._chunk_admit(req, next(free_it))
+            elif self.packed:
+                packables.append(req)
+            else:
+                buckets.setdefault(self._bucket(len(req.prompt_tokens)),
+                                   []).append(req)
+        if packables:
+            self._prefill_packed(packables, [next(free_it) for _ in packables])
         for L, reqs in buckets.items():
             self._prefill_bucket(L, reqs, [next(free_it) for _ in reqs])
 
@@ -564,6 +640,142 @@ class ServingEngine:
         self._splice_and_place(logits, cache1, lens_d, slot_idx, maxn, reqs,
                                slots, t0, prefix_len=int(lens.max()))
 
+    def _prefill_packed(self, reqs: list, slots: list, jobs: list = None):
+        """One token-packed prefill for every admitted prompt.
+
+        The prompts go back to back into one ``[1, T]`` row, T the next
+        power of two of their true tokens (at least ``MIN_BUCKET``, at most
+        :meth:`packed_cap`), with segment ids (-1 on the pad tail) and
+        positions that restart in each segment. The host builds the arrays
+        with numpy and copies each to the device once. The packed cache
+        unpacks per segment into ``[max_batch, bucket]`` rows, the bucket
+        of the longest prompt: the artifact a bucketed admission of the
+        same rows gives (the JAX engine unpacks to max_seq, or on the paged
+        path to min(T, max_seq); the port's splice and handoff take the
+        bucket width, and nothing past a row's length is read before
+        decode writes it). ``jobs`` are the paged admission's planned rows,
+        whose prompt counters :meth:`_admit_paged` has charged."""
+        npad = self.max_batch
+        total = sum(len(r.prompt_tokens) for r in reqs)
+        T = min(max(_next_pow2(total), MIN_BUCKET), self.packed_cap())
+        toks = np.zeros((1, T), np.int32)
+        pos = np.zeros((1, T), np.int32)
+        seg = np.full((1, T), -1, np.int32)  # -1 = pad: matches no segment
+        seg_starts = np.zeros((npad,), np.int32)
+        last_idx = np.zeros((npad,), np.int32)
+        lens = np.zeros((npad,), np.int32)
+        maxn = np.zeros((npad,), np.int32)
+        slot_idx = np.full((npad,), npad, np.int32)  # dummy rows
+        off = 0
+        for j, (req, slot) in enumerate(zip(reqs, slots)):
+            n = len(req.prompt_tokens)
+            toks[0, off:off + n] = req.prompt_tokens
+            pos[0, off:off + n] = np.arange(n)
+            seg[0, off:off + n] = j
+            seg_starts[j] = off
+            last_idx[j] = off + n - 1
+            lens[j] = n
+            maxn[j] = req.max_new_tokens
+            slot_idx[j] = slot
+            off += n
+        # dummy rows keep seg_starts/last_idx 0: their unpacked rows and
+        # logits are garbage that the splice drops with their slot index
+        if jobs is None:
+            self.prefill_tokens_total += total
+            self.prefill_tokens_uncached += total
+        self.prefill_padded_tokens += T
+        self.prefill_calls += 1
+        out_w = self._bucket(int(lens.max()))
+        t0 = time.perf_counter()
+        dev = self.device
+        logits, packed = self.model.prefill_packed(
+            self.params, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(seg).to(dev),
+            torch.from_numpy(last_idx).to(dev))
+        caches = kvc.unpack_segments(
+            packed, torch.from_numpy(seg_starts).to(dev), out_w)
+        paged = {}
+        if self.paged:
+            dest = np.zeros((npad, out_w // PAGE), np.int32)  # 0 => drop
+            for j, job in enumerate(jobs):
+                row = job.pt_row[: out_w // PAGE]
+                dest[j, : len(row)] = row
+            paged = dict(dest_blocks=dest,
+                         cached_lens=np.zeros((npad,), np.int32))
+        self._splice_and_place(
+            logits, caches, torch.from_numpy(lens).to(dev), slot_idx, maxn,
+            reqs, slots, t0, prefix_len=int(lens.max()), **paged)
+
+    # ------------------------------------------------------------------ #
+    # Chunked prefill: fixed-width chunks interleaved with decode steps
+    # ------------------------------------------------------------------ #
+    def _chunk_admit(self, req: Request, slot: int):
+        """Reserve ``slot`` and queue the request as a chunk job with a
+        fresh fixed-width dense prior; its prompt prefills
+        ``prefill_chunk`` tokens an engine iteration in :meth:`_chunk_step`
+        until the final chunk splices it in. The prior lives on the
+        prefill stage's device (one card holds both stages of the
+        disaggregated tier too, so only the final artifact hops)."""
+        self._chunk_slots.add(slot)
+        self._chunk_jobs.append(
+            _ChunkJob(req, slot, self.model.init_cache(1, self.max_seq)))
+        P = len(req.prompt_tokens)
+        self.prefill_tokens_total += P
+        self.prefill_tokens_uncached += P
+
+    def _chunk_step(self):
+        """Run ONE chunk of the oldest chunk job (once an engine iteration,
+        after the decode dispatch, so live slots' steps are queued on the
+        stream ahead of it).
+
+        The REMAINDER chunk runs first (sizes r, C, ..., C with r = ((P -
+        1) % C) + 1): every later chunk is exactly C wide, so the final
+        chunk's logits are at a fixed index and no splice overruns the
+        prior (done + C <= P <= max_seq). The first chunk's pad rows write
+        KV past r that the next chunk's splice overwrites; ``prior_valid``
+        masks it meanwhile. Each chunk is one prefill call of C token-rows.
+        """
+        if not self._chunk_jobs:
+            return
+        job = self._chunk_jobs[0]
+        C = self.prefill_chunk
+        P = len(job.req.prompt_tokens)
+        t0 = time.perf_counter()
+        rec = self._records[job.req.request_id]
+        if job.done == 0:  # the pre-admission wait ends at the first chunk
+            rec.add("queue", max(t0 - rec.t_issue, 0.0))
+        n = ((P - 1) % C) + 1 if job.done == 0 else C
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :n] = job.req.prompt_tokens[job.done:job.done + n]
+        dev = self.device
+        cached = torch.tensor([job.done], dtype=torch.int32, device=dev)
+        logits, suffix, _ = self.model.prefill_suffix_dense(
+            self.params, torch.from_numpy(toks).to(dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), cached,
+            job.prior)
+        kvc.splice_suffix(job.prior, suffix, cached)
+        job.done += n
+        self.prefill_padded_tokens += C
+        self.prefill_calls += 1
+        if job.done < P:
+            # deliberate fence: the chunk's 'preprocess' includes its
+            # device completion and the host runs at most a chunk ahead
+            self.pool.sample(logits, self.prefill_rng).cpu()
+            rec.add("preprocess", max(time.perf_counter() - t0, 0.0))
+            return
+        # the final chunk: its prior, cut to the prompt's bucket, is the
+        # artifact's one row (the splice and the handoff read rows up to
+        # n_rows, so the JAX engine's pad of the cache rows to max_batch
+        # is not needed), spliced as any admission is
+        self._chunk_jobs.popleft()
+        self._chunk_slots.discard(job.slot)
+        caches = kvc.slice_cache(job.prior, 1, self._bucket(P))
+        self._splice_and_place(
+            logits, caches, torch.tensor([P], dtype=torch.int32, device=dev),
+            np.asarray([job.slot], np.int32),
+            np.asarray([job.req.max_new_tokens], np.int32), [job.req],
+            [job.slot], t0, prefix_len=P, queued=False)
+
     def _prefill_exact(self, req: Request, slot: int):
         """Exact-shape prefill of one request at its true length S, then its
         sample, splice and record (the JAX engine's ``_prefill_exact``)."""
@@ -583,11 +795,14 @@ class ServingEngine:
 
     def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
                           reqs: list, slots: list, t0: float, *,
-                          prefix_len: int, before_place=None, **paged):
+                          prefix_len: int, before_place=None, queued=True,
+                          **paged):
         """Sample each row's first token, hand the artifact across
         :meth:`_handoff`, splice it into the pool, and hand its requests
         their first token and slot. ``paged`` carries the paged
-        artifact's ``dest_blocks`` and ``cached_lens``.
+        artifact's ``dest_blocks`` and ``cached_lens``; ``queued=False``
+        leaves 'queue' alone (a chunked admission charged it at its first
+        chunk).
         ``before_place`` runs after the splice and before any request is
         placed (the paged path indexes its prompts there: a request its
         prefill token already finishes releases its slot in
@@ -608,8 +823,8 @@ class ServingEngine:
             before_place()
         for j, (req, slot) in enumerate(zip(reqs, slots)):
             rec = self._records[req.request_id]
-            # pre-admission wait: submit -> this admission picking it
-            rec.add("queue", max(t0 - rec.t_issue, 0.0))
+            if queued:  # pre-admission wait: submit -> this admission
+                rec.add("queue", max(t0 - rec.t_issue, 0.0))
             rec.add("preprocess", dt / len(reqs))  # prefill = "preprocessing"
             req.generated.append(int(toks_host[j]))
             req.t_first_token = now
@@ -656,6 +871,12 @@ class ServingEngine:
             self.prefill_tokens_total += P
             self.prefill_tokens_uncached += P - cached
             jobs.append(_PagedJob(req, slot, cached, p_ids, pt_row))
+        if self.packed:
+            # reuse is off under packing (cached == 0 for every job): one
+            # packed call replaces the bucket groups
+            self._prefill_packed([job.req for job in jobs],
+                                 [job.slot for job in jobs], jobs=jobs)
+            return
         groups: dict[tuple, list[_PagedJob]] = {}
         for job in jobs:
             L = self._bucket(len(job.req.prompt_tokens) - job.cached)
@@ -908,9 +1129,13 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def step(self) -> list[Response]:
         """One continuous-batching iteration: admit, top up the in-flight
-        window, harvest the OLDEST dispatched step."""
+        window, run one chunk of a chunked admission, harvest the OLDEST
+        dispatched step."""
         self._admit()
         self._dispatch()
+        # one chunk AFTER the decode top-up: live slots' steps are already
+        # on the stream, so the chunk interleaves instead of blocking them
+        self._chunk_step()
         done = self._harvest()
         if self._prefill_finished:  # budget met by the prefill token itself
             done = self._prefill_finished + done
@@ -919,8 +1144,10 @@ class ServingEngine:
 
     @property
     def idle(self) -> bool:
-        """No queued requests, no occupied slots, no in-flight steps."""
-        return not self.queue and self.pool.all_free and not self.pool.window
+        """No queued requests, no occupied slots, no in-flight steps, no
+        chunked admission under way."""
+        return (not self.queue and self.pool.all_free and not self.pool.window
+                and not self._chunk_jobs)
 
     def run_until_drained(self, max_steps: int = 10_000) -> list[Response]:
         out = []

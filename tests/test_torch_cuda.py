@@ -7,7 +7,9 @@ kernels at their tile, page and split edges; the SSD scan at its chunk
 edges, under strong decay and at its largest grid), the serving engine's
 launch counts on its ring, paged and exact-shape (Mamba-2) paths, and the
 disaggregated engine under each mechanism against the same engine on the
-CPU.
+CPU; packed prefill rows (tile-edge runs, pad-only tiles, one whole-row
+segment, 40 sub-tile segments, windows, MQA) and the chunk path's dense
+prior; the packed + chunked engine against the CPU engine.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -353,6 +355,119 @@ def test_flash_bf16_window_and_segments(cuda_device, hd):
                                atol=TOLS["bf16"], rtol=1e-2)
 
 
+def _packed_seg(layout, T):
+    """Segment ids [T] of a packed row: contiguous runs of the given
+    lengths, then a pad run (-1) to T."""
+    seg = torch.full((T,), -1, dtype=torch.int32)
+    off = 0
+    for j, n in enumerate(layout):
+        seg[off:off + n] = j
+        off += n
+    assert off <= T
+    return seg
+
+
+_rng40 = np.random.default_rng(40)
+PACKED_LAYOUTS = {
+    # runs starting on, one before and one after the 64-row tile edges 64
+    # and 128, then a long run across two edges and a pad tail
+    "tile_edges": (300, 0, [63, 1, 1, 62, 1, 1, 62, 69],
+                   [64, 1, 62, 2, 64, 70]),
+    # a pad run from 100 covers the q-tiles [128, 192) and [192, 256)
+    "pad_tiles": (256, 0, [40, 60], [100]),
+    # one segment over the whole row: every off-diagonal tile unmasked
+    "one_segment": (300, 0, [300], [299]),
+    # 40 segments shorter than a tile
+    "forty_short": (512, 0, [int(n) for n in _rng40.integers(1, 12, 40)],
+                    [int(n) for n in _rng40.integers(1, 12, 40)]),
+    # segments under a sliding window, cut inside tiles
+    "window": (300, 90, [70, 131, 89], [129, 171]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(PACKED_LAYOUTS))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_packed_segments_match_plain(cuda_device, dtype, hd, layout):
+    """Packed rows (two per launch, laid out differently): the key sweep
+    starts at the tile of each q-tile's first run start, and a tile whose
+    keys and rows lie in one run takes the unmasked route; both held to the
+    plain version, which masks by id alone. Passing the run starts built
+    once (as the model does) gives the wrapper's own result bitwise."""
+    T, window, row0, row1 = PACKED_LAYOUTS[layout]
+    B, H, Hkv = 2, 8, 2
+    q = _cuda_pair((B, T, H, hd), dtype, cuda_device, 20)
+    k = _cuda_pair((B, T, Hkv, hd), dtype, cuda_device, 21)
+    v = _cuda_pair((B, T, Hkv, hd), dtype, cuda_device, 22)
+    seg = torch.stack([_packed_seg(row0, T), _packed_seg(row1, T)]).to(
+        cuda_device)
+    kw = dict(causal=True, window=window, segment_ids=seg)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=TOLS[dtype], rtol=1e-2)
+    starts = ops.segment_run_starts(seg)
+    assert torch.equal(got, ops.flash_attention(q, k, v, segment_starts=starts,
+                                                **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_packed_mqa(cuda_device, dtype):
+    """granite-34b's heads (48 query heads on one KV head, hd 128) on a
+    packed row with a pad tail."""
+    T, H, Hkv, hd = 200, 48, 1, 128
+    q = _cuda_pair((1, T, H, hd), dtype, cuda_device, 23)
+    k = _cuda_pair((1, T, Hkv, hd), dtype, cuda_device, 24)
+    v = _cuda_pair((1, T, Hkv, hd), dtype, cuda_device, 25)
+    seg = _packed_seg([65, 30, 64], T)[None].to(cuda_device)
+    kw = dict(causal=True, segment_ids=seg)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, **kw).float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=TOLS[dtype], rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_chunk_dense_prior(cuda_device, dtype, hd, window):
+    """The chunk path: one [1, C] chunk (C = 64) against the request's
+    dense max_seq-wide prior (256 slots), prior_valid 0, C - 1, C and
+    max_seq - C; the slots past prior_valid hold stale KV the mask must
+    hide."""
+    C, Pp, H, Hkv = 64, 256, 8, 2
+    q = _cuda_pair((1, C, H, hd), dtype, cuda_device, 26)
+    k = _cuda_pair((1, C, Hkv, hd), dtype, cuda_device, 27)
+    v = _cuda_pair((1, C, Hkv, hd), dtype, cuda_device, 28)
+    pk = _cuda_pair((1, Pp, Hkv, hd), dtype, cuda_device, 29)
+    pv = _cuda_pair((1, Pp, Hkv, hd), dtype, cuda_device, 30)
+    for valid in (0, C - 1, C, Pp - C):
+        kw = dict(causal=True, window=window, prior_k=pk, prior_v=pv,
+                  prior_valid=torch.tensor([valid], dtype=torch.int32,
+                                           device=cuda_device))
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, sq_real=C - 3, **kw).float(),
+            ref.flash_attention_ref(q, k, v, sq_real=C - 3, **kw).float(),
+            atol=TOLS[dtype], rtol=1e-2, msg=lambda m: f"valid {valid}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("N", [512, 524288])
+def test_rmsnorm_kernel_qk_norm_widths(cuda_device, N, dtype):
+    """qwen3's qk-norm at head_dim 128: a decode step's queries (8 rows x
+    64 heads) and an 8 x 1024 prefill bucket's (524288 rows)."""
+    x = _cuda_pair((N, 128), dtype, cuda_device, N)
+    w = _cuda_pair((128,), dtype, cuda_device, 3)
+    torch.testing.assert_close(ops.rmsnorm(x, w).float(),
+                               ref.rmsnorm_ref(x, w).float(),
+                               atol=TOLS[dtype], rtol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window,hd", [(0, 128), (70, 128), (0, 64), (50, 32)])
 def test_flash_bf16_prior_valid_edges(cuda_device, window, hd):
@@ -496,13 +611,14 @@ def test_ssd_kernel_under_strong_decay(cuda_device, S, dtype):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_at_its_largest_grid(cuda_device):
-    """b=8, S=2048 in bf16: 256 chunks of 64, the bf16 launches' largest
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_ssd_kernel_at_its_largest_grid(cuda_device, dtype):
+    """b=8, S=2048: in bf16 256 chunks of 64, the bf16 launches' largest
     scratch (400 MB) and grid on the serving paths (max_batch 8, max_seq
-    2048). The fp32 kernel has no scratch; its grid is one CTA per 16
-    head-dim columns whatever S."""
-    x, dt, A, B, C = _ssd_case(2048, "bf16", cuda_device, 8, b=8)
-    _ssd_hold(x, dt, A, B, C, "bf16")
+    2048); in fp32 (one CTA per 16 head-dim columns whatever S) the
+    longest chain of chunk states a row carries."""
+    x, dt, A, B, C = _ssd_case(2048, dtype, cuda_device, 8, b=8)
+    _ssd_hold(x, dt, A, B, C, dtype)
 
 
 @pytest.mark.cuda
@@ -667,6 +783,57 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-32b", "granite-34b"])
+def test_packed_chunked_engine_on_card_matches_cpu(cuda_device, name):
+    """Packed + chunked prefill (C = 32) on the card, reduced configurations
+    in fp32: each kernel launched as the path's structure says (flash once
+    a layer per prefill call, packed or a chunk alike; qwen3's qk-norm adds
+    two rmsnorm launches a layer), and the CPU engine's greedy tokens on the
+    same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(name).reduced()
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for s in (5, 17, 33, 50, 70, 9)]
+
+    def serve(model, p, device):
+        eng = ServingEngine(model, p, max_batch=4, max_seq=128, packed=True,
+                            prefill_chunk=32, device=device)
+        reqs = [Request(prompt_tokens=t, max_new_tokens=6) for t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    ops.reset_launches()
+    got, eng = serve(gpu, params, cuda_device)
+    c = eng.counters()
+    L = cfg.n_layers
+    per_layer = 4 if cfg.qk_norm else 2
+    assert ops.LAUNCHES == {
+        "rmsnorm": (per_layer * L + 1) * (c["prefill_calls"]
+                                          + c["decode_steps"]),
+        "flash_attention": L * c["prefill_calls"],
+        "decode_attention": L * c["decode_steps"],
+        "paged_decode_attention": 0,
+        "ssd_scan": 0,
+        "preprocess": 0,
+    }
+    assert eng.logits_all_finite()
+    want, cpu_eng = serve(cpu, params_cpu, "cpu")
+    assert got == want
+    assert c == cpu_eng.counters()
 
 
 @pytest.mark.cuda
