@@ -27,6 +27,11 @@ to one card, and compares each reading only within that call:
   every key tile up to the diagonal): events and device time alone;
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
+- phase 5's decode step on that engine (10 whole-batch steps of the
+  drained engine, as the tree dispatches them: eager before the decode
+  step became one CUDA graph, replays of the graph after): host wall,
+  device busy time and idle share a step from torch.profiler, and the
+  unprofiled host wall a step;
 - phase 6 (c)'s paged decode step (the shared-prefix traffic, paged with
   prefix reuse), profiled as ``chip_smoke.py`` profiles it;
 - phase 7 (``repro_torch.launch.serve`` on the 24-layer mamba2-130m):
@@ -152,6 +157,11 @@ def main():
     served, engine = cs.main_path(torch, ops)
     out["phase4"] = {"ttft_ms_p50": served["ttft_ms"]["p50"],
                      "tpot_ms_p50": served["tpot_ms"]["p50"]}
+    step = cs.decode_profile(torch, engine)
+    out["phase5_step"] = {k: step.get(k) for k in (
+        "host_wall_ms_per_step", "unprofiled_host_wall_ms_per_step",
+        "device_busy_ms_per_step", "device_idle_share",
+        "device_kernels_per_step")}
     model, params = engine.model, engine.params
     del engine
     torch.cuda.empty_cache()
@@ -164,7 +174,7 @@ def main():
             eng.submit(Request(prompt_tokens=t.copy(), max_new_tokens=new))
         eng.run_until_drained()
     cs.clear_index(eng)
-    prof = cs.paged_step_profile(torch, eng, prompts, new, key=PAGED_KEYS)
+    prof = cs.live_step_profile(torch, eng, prompts, new, key=PAGED_KEYS)
     out["phase6c_step"] = {k: prof.get(k) for k in (
         "host_wall_ms_per_step", "device_busy_ms_per_step",
         "device_idle_share", "kernel_ms_per_step")}

@@ -66,12 +66,13 @@ result line:
    p50/p99, TPOT p50 and 'preprocess'; then one packed prefill of the
    first admission under torch.profiler (busy time, flash's share);
 5. where a decode step's time goes: 10 whole-batch steps of the drained
-   engine under torch.profiler -- host wall, device first-to-last span and
+   engine under torch.profiler, as replays of its captured decode graph
+   and again as the eager step -- host wall, device first-to-last span and
    device busy time per step, all from that one profiled run, the device's
    idle share and the kernels that take the most time; and, from a separate
-   unprofiled run of the same steps, the host wall per step alone; then
-   the flash kernel's share of the device time of one profiled prefill of
-   the 8 x 1024 bucket;
+   unprofiled run of the same steps, the host wall and the stream's
+   CUDA-event time per step; then the flash kernel's share of the device
+   time of one profiled prefill of the 8 x 1024 bucket;
 6. the paged path on the same 32-layer llama3-8b and weights:
    ServingEngine(max_batch=8, max_seq=2048) serves one shared-prefix
    workload (2 Zipf-weighted 1024-token system prompts, 64-token suffixes,
@@ -108,7 +109,20 @@ result line:
    layers), qwen3-32b (16 of 64) and granite-34b (8 of 88) at published
    widths, random bf16 weights, each served with phase 4's traffic the
    four ways of phase 4 (b), with the same gates (qwen3's rmsnorm 4L + 1
-   a forward), then freed before the next.
+   a forward), then freed before the next;
+10. the decode step as one CUDA graph (run after phase 8, on its models):
+   every engine warmed (``warmup=True``); (a) phase 4's 12 requests served
+   with the eager step (``_graph=False``), the graph, and the legacy loop
+   (``legacy=True``), holding graph tokens to eager tokens exactly and
+   legacy's to them up to top-2 gaps under 0.02 of the largest logit, the
+   launch counts to the path (the graph's counted through its replays, one
+   replay a decode dispatch), and printing TPOT p50/p99, TTFT p50, a live
+   step's host wall and device busy time, and peak device memory each way;
+   (b) phase 6's traffic paged with prefix reuse, graph and eager tokens
+   equal to each other and to phase 6 (c)'s; (c) phase 7's traffic on
+   mamba2-130m, graph == eager; (d) 8 requests sampled at temperature 0.8,
+   top_k 50, graph == eager. Phases 4 and 6-9 serve through the graph
+   too, their launch-count gates unchanged.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -276,7 +290,11 @@ def main():
     done(t0)
 
     t0 = phase("phase 5: where a decode step's time goes (torch.profiler)")
+    print("   replays of the captured decode graph:")
     results["decode_profile"] = decode_profile(torch, engine)
+    print("   the same steps eager (the graph set aside):")
+    results["decode_profile_eager"] = decode_profile(torch, engine,
+                                                     graph=False)
     results["prefill_profile"] = prefill_profile(torch, engine, (8, 1024),
                                                  "flash", "flash")
     done(t0)
@@ -299,6 +317,10 @@ def main():
 
     t0 = phase("phase 8: the disaggregated prefill->decode tier")
     results["disagg"] = disagg_path(torch, ops, llama, shared, ssm_engine)
+    done(t0)
+
+    t0 = phase("phase 10: the decode step as one CUDA graph")
+    results["graph"] = graph_path(torch, ops, llama, shared, ssm_engine)
     done(t0)
     del llama, ssm_engine
     torch.cuda.empty_cache()
@@ -1661,36 +1683,63 @@ def print_top(res):
         print(f"   {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:<5g} {k['name']}")
 
 
-def decode_profile(torch, eng, steps=10):
+def decode_profile(torch, eng, steps=10, graph=True):
     """Whole-batch decode steps of the drained engine (its slots are frozen
-    lanes, which run the same batched compute as live ones)."""
+    lanes, which run the same batched compute as live ones): replays of
+    the pool's captured graph, or with ``graph=False`` the eager step (the
+    pool's graph set aside for the run). The unprofiled run also reads the
+    stream's CUDA-event time from the first step's start to the last
+    one's end, and the host microseconds a dispatch takes (``fill_one``:
+    the replay, or the eager step's launches, and the step's host copy)."""
     pool = eng.pool
+    use_graph = getattr(pool, "use_graph", False)  # absent before graphs
+    if not graph:
+        pool.use_graph = False
+    dispatch_s = []
 
     def run():
         for _ in range(steps):
+            t = time.perf_counter()
             pool.fill_one(eng.params, limit=steps)
+            dispatch_s.append(time.perf_counter() - t)
             pool.pop_oldest()
         torch.cuda.synchronize()
         return steps
 
-    run()  # warm
-    t0 = time.perf_counter()
-    run()
-    bare_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    res = profile_window(torch, run)
-    res["unprofiled_host_wall_ms_per_step"] = bare_wall_ms
-    print(f"   a separate unprofiled run: host wall {bare_wall_ms:.2f} ms/step")
+    try:
+        run()  # warm
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        bare_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        events_ms = start.elapsed_time(end) / steps
+        dispatch_us = statistics.median(dispatch_s[steps:]) * 1e6
+        res = profile_window(torch, run)
+    finally:
+        if not graph:
+            pool.use_graph = use_graph
+    res.update(graph=graph, unprofiled_host_wall_ms_per_step=bare_wall_ms,
+               unprofiled_events_ms_per_step=events_ms,
+               unprofiled_dispatch_us_median=dispatch_us)
+    print(f"   a separate unprofiled run: host wall {bare_wall_ms:.2f} ms/step,"
+          f" stream (CUDA events) {events_ms:.2f} ms/step; a dispatch "
+          f"(fill_one) {dispatch_us:.1f} us of host time, median")
     print_top(res)
     return res
 
 
-def paged_step_profile(torch, eng, prompts, new, steps=10, key="PagedRows"):
-    """Decode steps of a paged engine on live rows with their own page
-    tables: one wave of ``max_batch`` requests is submitted and stepped
-    until its prefill is done and 3 decode steps went out, then ``steps``
-    engine steps (dispatch and harvest) run under torch.profiler, with the
-    ms a step of the kernels whose name holds ``key`` (the paged kernel);
-    the wave is drained after."""
+def live_step_profile(torch, eng, prompts, new, steps=10, key="PagedRows"):
+    """Decode steps of an engine on live rows (a paged engine's with their
+    own page tables): one wave of ``max_batch`` requests is submitted and
+    stepped until its prefill is done and 3 decode steps went out, then
+    ``steps`` engine steps (dispatch and harvest; under ``legacy`` the
+    seed's synchronous step) run under torch.profiler, with the ms a step
+    of the kernels whose name holds ``key`` (the paged kernel); the wave is
+    drained after."""
     from repro_torch.serving import Request
 
     for t in prompts[:eng.max_batch]:
@@ -1834,8 +1883,9 @@ def serve_ways(torch, ops, model, params, prompts, *, warm):
     return res
 
 
-def parted(torch, model, params, prompts, want, got, way):
-    """Where ``got`` parts from the bucketed run's ``want``: per parted
+def parted(torch, model, params, prompts, want, got, way,
+           ref="the bucketed run"):
+    """Where ``got`` parts from ``ref``'s tokens ``want``: per parted
     request the first parting step and the top-2 logit gap there (an exact
     prefill of the prompt and the tokens before it), which must be under
     LOGIT_LIMIT of the largest logit: a near tie, not a fault."""
@@ -1856,11 +1906,11 @@ def parted(torch, model, params, prompts, want, got, way):
         print(f"   {way}: request {i} parts at step {k}, top-2 gap "
               f"{gap:.3e} of the largest logit")
         if gap >= LOGIT_LIMIT:
-            raise AssertionError(f"{way}: request {i} parts from the bucketed "
-                                 f"run at step {k} at a top-2 gap of {gap:.3e}"
-                                 f" >= {LOGIT_LIMIT} of the largest logit")
+            raise AssertionError(f"{way}: request {i} parts from {ref} at "
+                                 f"step {k} at a top-2 gap of {gap:.3e} >= "
+                                 f"{LOGIT_LIMIT} of the largest logit")
     if not out:
-        print(f"   {way}: tokens == the bucketed run's")
+        print(f"   {way}: tokens == {ref}'s")
     return out
 
 
@@ -2083,7 +2133,7 @@ def paged_path(torch, ops, ring_engine):
                   "after the drain, all held by the index; 0 after clearing it")
             print("   (reuse) a decode step of one more wave (8 requests, "
                   "prefilled anew: the index is cleared):")
-            res["step_profile"] = paged_step_profile(torch, eng, prompts, new)
+            res["step_profile"] = live_step_profile(torch, eng, prompts, new)
         runs[name] = res
         tokens[name] = [list(r.generated) for r in reqs]
         del eng
@@ -2469,6 +2519,177 @@ def disagg_path(torch, ops, llama, shared, ssm_engine):
           f"hop {eng.handoff_wall_s * 1e3:.3f} ms in all, "
           f"{out['mamba2']['wire_gb_s']:.2f} GB/s", flush=True)
     del eng
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 10
+# --------------------------------------------------------------------------- #
+def served_way(torch, ops, model, params, prompts, new, *, want, waves=1,
+               profile=None, **kw):
+    """Build a warmed ServingEngine(max_batch=8, max_seq=2048, ``kw``) on
+    ``model``, serve ``prompts`` (all submitted at once; with ``waves=2``
+    the first ``len(prompts) // 2`` first, to prime a prefix index) and
+    hold the last wave's kernel launches to ``want(counters delta)``.
+    With ``profile`` (a wave of prompts) it then profiles engine steps on
+    live rows (:func:`live_step_profile`). Returns (tokens, record,
+    engine)."""
+    import gc
+
+    from repro_torch.core.metrics import slo_summary
+    from repro_torch.serving import ServingEngine
+
+    gc.collect()  # an earlier engine's cycles would count in this peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                        device=model.device, warmup=True, **kw)
+    if waves == 2:
+        serve_all(eng, prompts[0], new)
+        prompts = prompts[1]
+    c0 = eng.counters()
+    replays0 = eng.pool.graph_replays
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    reqs, rsps = serve_all(eng, prompts, new)
+    torch.cuda.synchronize()
+    launches, c = dict(ops.LAUNCHES), eng.counters()
+    delta = {k: c[k] - c0[k] for k in c}
+    if launches != want(delta):
+        raise AssertionError(f"launches {launches} != path structure "
+                             f"{want(delta)}")
+    replays = eng.pool.graph_replays - replays0
+    graph = eng.pool.use_graph and not eng.legacy
+    if replays != (delta["decode_steps"] if graph else 0) or (
+            graph != (eng.pool._graph is not None)):
+        raise AssertionError(f"{replays} graph replays for "
+                             f"{delta['decode_steps']} decode dispatches "
+                             f"(graph {graph})")
+    slo = slo_summary(rsps)
+    rec = {"warm_s": eng.warm_s, "measured": delta, "launches": launches,
+           "graph_replays": replays,
+           "ttft_ms_p50": slo["ttft_s"]["p50"] * 1e3,
+           "tpot_ms": {p: slo["tpot_s"][p] * 1e3 for p in ("p50", "p99")},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile is not None:
+        rec["step_profile"] = live_step_profile(torch, eng, profile, new,
+                                                key=None)
+    return [list(r.generated) for r in reqs], rec, eng
+
+
+def graph_line(name, rec):
+    prof = rec.get("step_profile", {})
+    busy = prof.get("device_busy_ms_per_step")
+    print(f"   ({name}) warm {rec['warm_s']:.2f} s; TPOT p50 "
+          f"{rec['tpot_ms']['p50']:.2f} ms, p99 {rec['tpot_ms']['p99']:.2f} "
+          f"ms; TTFT p50 {rec['ttft_ms_p50']:.2f} ms; "
+          + (f"a live step: host wall {prof['host_wall_ms_per_step']:.2f} "
+             f"ms, device busy " + ("not measured" if not busy else
+                                    f"{busy:.2f} ms") + "; "
+             if prof else "")
+          + f"{rec['graph_replays']} replays for "
+          f"{rec['measured']['decode_steps']} decode steps; peak device "
+          f"memory {rec['peak_mem_gb']:.2f} GB", flush=True)
+
+
+def graph_path(torch, ops, llama, shared, ssm_engine):
+    """Phase 10: the decode step as one CUDA graph against the eager step
+    (``_graph=False``), every engine warmed (``warmup=True``): (a) phase
+    4's traffic eager, graph and under the legacy loop; graph tokens ==
+    eager tokens, legacy's parted from them only at a top-2 gap under
+    LOGIT_LIMIT; launch counts equal to the path's structure (the graph's
+    counted through its replays, one replay a decode dispatch); TPOT
+    p50/p99, TTFT p50, a live step's host wall and device busy time, and
+    peak device memory each way; (b) phase 6 (c)'s paged traffic with
+    prefix reuse, graph against eager and against phase 6 (c)'s tokens;
+    (c) phase 7's mamba2-130m traffic, graph against eager; (d) sampling at
+    temperature 0.8, top_k 50, graph against eager."""
+    from repro_torch.serving.client import ClosedLoopClient
+
+    model, params = llama
+    prompts = main_prompts(model.cfg.vocab_size)
+    out = {"main": {}}
+    tokens = {}
+    L = N_LAYERS
+
+    def legacy_want(d):
+        n = len(prompts)  # one exact prefill a request, no prefill call counted
+        return {"rmsnorm": (2 * L + 1) * (n + d["decode_steps"]),
+                "flash_attention": L * n,
+                "decode_attention": L * d["decode_steps"],
+                "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+
+    for way, kw in (("eager", dict(_graph=False)), ("graph", {}),
+                    ("legacy", dict(legacy=True))):
+        want = legacy_want if way == "legacy" else (
+            lambda d: structure(d, L))
+        tokens[way], rec, eng = served_way(
+            torch, ops, model, params, prompts, 32, want=want,
+            profile=prompts[:8], **kw)
+        del eng
+        out["main"][way] = rec
+        graph_line(way, rec)
+    if tokens["graph"] != tokens["eager"]:
+        bad = [i for i, (a, b) in enumerate(zip(tokens["graph"],
+                                                tokens["eager"])) if a != b]
+        raise AssertionError(f"(a) graph tokens differ from eager tokens in "
+                             f"requests {bad}")
+    print(f"   (a) graph == eager on all {12 * 32} tokens")
+    out["main"]["legacy"]["parted"] = parted(
+        torch, model, params, prompts, tokens["graph"], tokens["legacy"],
+        "legacy", ref="the fast path")
+
+    # (b) phase 6 (c)'s traffic, paged with reuse
+    tokens = {}
+    for way, kw in (("eager", dict(_graph=False)), ("graph", {})):
+        tokens[way], rec, eng = served_way(
+            torch, ops, model, params, (shared["primes"], shared["prompts"]),
+            shared["new"], waves=2, paged=True,
+            want=lambda d: structure(d, L, "paged_decode_attention"),
+            profile=shared["prompts"][:8], **kw)
+        if rec["measured"]["prefix_hits"] != len(shared["prompts"]):
+            raise AssertionError(f"(b) {rec['measured']['prefix_hits']} hits")
+        del eng
+        out.setdefault("paged", {})[way] = rec
+        graph_line(f"paged {way}", rec)
+    if not tokens["graph"] == tokens["eager"] == shared["reuse_tokens"]:
+        raise AssertionError("(b) paged tokens: graph, eager and phase 6 (c) "
+                             "differ")
+    print(f"   (b) paged graph == eager == phase 6 (c) on all "
+          f"{len(shared['prompts']) * shared['new']} tokens")
+
+    # (c) phase 7's mamba2-130m traffic
+    m_model, m_params = ssm_engine.model, ssm_engine.params
+    m_prompts = [ClosedLoopClient(i, m_model.cfg.vocab_size,
+                                  prompt_len=(64, 2048))
+                 .make_request().prompt_tokens for i in range(12)]
+    tokens = {}
+    for way, kw in (("eager", dict(_graph=False)), ("graph", {})):
+        tokens[way], rec, eng = served_way(
+            torch, ops, m_model, m_params, m_prompts, 32,
+            want=lambda d: structure(d, SSM_LAYERS, ssm=True),
+            profile=m_prompts[:8], **kw)
+        del eng
+        out.setdefault("ssm", {})[way] = rec
+        graph_line(f"mamba2 {way}", rec)
+    if tokens["graph"] != tokens["eager"]:
+        raise AssertionError("(c) mamba2-130m graph tokens differ from eager")
+    print(f"   (c) mamba2-130m graph == eager on all {12 * 32} tokens")
+
+    # (d) sampling
+    tokens = {}
+    for way, kw in (("eager", dict(_graph=False)), ("graph", {})):
+        tokens[way], rec, eng = served_way(
+            torch, ops, model, params, prompts[:8], 32, temperature=0.8,
+            top_k=50, sample_seed=1, want=lambda d: structure(d, L), **kw)
+        del eng
+        out.setdefault("sampled", {})[way] = rec
+    if tokens["graph"] != tokens["eager"]:
+        raise AssertionError("(d) sampled graph tokens differ from eager")
+    print(f"   (d) temperature 0.8, top_k 50: graph == eager on all "
+          f"{8 * 32} tokens ({len({t for r in tokens['graph'] for t in r})} "
+          "distinct)")
+    torch.cuda.empty_cache()
     return out
 
 

@@ -9,6 +9,12 @@ Each op dispatches on the device of the tensors it is given:
 Each op checks device, dtype, shape and contiguity before launching, and
 counts its kernel launches in :data:`LAUNCHES` (plain-version calls are not
 counted), so a run can show which kernels its main path went through.
+
+The counts are of kernels launched on the card, by an op or a replay. A
+CUDA graph capture runs the ops' Python but launches no kernel, and a
+replay launches the captured kernels with no Python at all: the decode
+pool that captures a step takes the capture's counts back out and adds
+them once per replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,14 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (kernel name -> launches) to
+    :data:`LAUNCHES`: a replayed graph's kernels, or with ``times=-1`` a
+    capture's, which launched none."""
+    for name, n in counts.items():
+        LAUNCHES[name] += times * n
 
 
 def _on_cuda(*tensors) -> bool:

@@ -75,10 +75,20 @@ _META_BYTES_PAGED = 20
 class DisaggregatedEngine(ServingEngine):
     """ServingEngine whose prefill output crosses the prefill->decode hop
     under ``transfer_mode`` before it reaches the decode slot pool. Every
-    other argument is the fused engine's."""
+    other argument is the fused engine's.
+
+    ``warmup=True`` runs the fused engine's :meth:`~ServingEngine.warm`
+    once the tier is built (its prefix store included). The JAX tier also
+    pre-traces its grid of handoff extents; eager PyTorch compiles nothing
+    per extent, so there is no such grid here: the hop's buffers grow at
+    the first handoffs, and that allocation is kept out of 'preprocess'."""
 
     def __init__(self, model, params, *,
-                 transfer_mode: TransferMode = TransferMode.DIRECT_HBM, **kw):
+                 transfer_mode: TransferMode = TransferMode.DIRECT_HBM,
+                 warmup: bool = False, **kw):
+        if kw.get("legacy"):
+            raise ValueError("the disaggregated tier requires the fast path "
+                             "(legacy=True is the fused engine's baseline)")
         super().__init__(model, params, **kw)
         self.transfer_mode = transfer_mode
         self.hop = MODE_TRANSPORT[transfer_mode]
@@ -109,6 +119,8 @@ class DisaggregatedEngine(ServingEngine):
                 model.cache_specs(self.max_batch, self.max_seq),
                 self._store_pool.num_blocks, PAGE, dtype=model.dtype,
                 device=self.device)
+        if warmup:
+            self.warm_s = self.warm()
 
     # ------------------------------------------------------------------ #
     def _measured(self) -> bool:

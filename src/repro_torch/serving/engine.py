@@ -45,11 +45,24 @@ TransportProfile, composed into one per-request record (paper Table I).
   dense prior (the remainder chunk first), one chunk per engine iteration
   after the decode dispatch, so a long admission never stalls live decodes
   for its whole prefill. Ring pool only.
+* **The decode step as one CUDA graph** -- the counterpart of the JAX
+  engine's jitted step: on CUDA each pool (ring, paged or SSM) runs its
+  first decode dispatch eagerly, then captures the step (model step,
+  sampling, stop flags, length update) into one ``torch.cuda.CUDAGraph``
+  that every later dispatch replays. ``warmup=True`` (:meth:`ServingEngine.
+  warm`) runs every serving shape once and captures the graph at
+  construction. A capture or replay that fails raises; nothing falls back
+  to the eager step. On the CPU the step runs eagerly.
+* **Legacy loop** (``legacy=True``) -- the seed's synchronous loop, the
+  A/B baseline: exact-length prefill per request, a blocking host argmax
+  every token, one step in flight.
 
-The KV pool is updated in place (the JAX engine donates it); the small
-per-slot state tensors are replaced on every update, and each in-flight
-step copies its tokens and done flags out when it is dispatched, so a
-harvest never reads a later step's values.
+Every device state tensor of the pool -- the KV pool (the JAX engine
+donates it), the page table and the small per-slot state -- is allocated
+once and updated in place from then on, since a captured graph reads and
+writes fixed addresses. Each in-flight step copies its tokens and done
+flags out when it is dispatched, so a harvest never reads a later step's
+values.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.profiler import ProfileStore, RequestRecord
 from repro_torch.core.transport import PAPER_A2, Transport
+from repro_torch.kernels import ops
 from repro_torch.models import Model
 from repro_torch.models import kvcache as kvc
 from repro_torch.serving.prefix import RadixPrefixIndex
@@ -81,8 +95,9 @@ def _next_pow2(n: int) -> int:
 
 class _HostCopy:
     """A step's tokens+done on their way to the host: on CUDA, a
-    non-blocking copy into pinned buffers behind a recorded event; on the
-    CPU, the tensors themselves."""
+    non-blocking copy into pinned buffers of its own behind a recorded
+    event; on the CPU, copies taken now (the pool updates its state in
+    place, so the next step would overwrite the tensors themselves)."""
 
     def __init__(self, tokens, done):
         if tokens.device.type == "cuda":
@@ -95,7 +110,8 @@ class _HostCopy:
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.tokens, self.done, self.event = tokens, done, None
+            self.tokens, self.done = tokens.clone(), done.clone()
+            self.event = None
 
     def wait(self):
         """Block until the copy landed; returns (tokens, done) as numpy."""
@@ -169,12 +185,20 @@ class DecodePool:
     """Decode-side slot pool: slot occupancy, the ring KV pool (or, paged,
     the block pool, its allocator and the per-slot page tables), the
     per-slot device decode state (tokens/lengths/gen/done/maxn), the
-    decode step and the in-flight window."""
+    decode step and the in-flight window.
+
+    Every state tensor is allocated once and only ever updated in place,
+    so the decode step can be one captured CUDA graph: with ``graph`` (the
+    default) a pool on CUDA runs its first dispatch eagerly, captures the
+    step right after, and replays the capture at every later dispatch.
+    :meth:`reset_state` re-zeros the state after a warm-up, in place, so
+    the capture stays valid."""
 
     def __init__(self, model: Model, *, max_batch: int, max_seq: int,
                  eos_token: Optional[int], inflight: int,
                  temperature: float = 0.0, top_k: int = 0,
-                 sample_seed: int = 0, paged: bool = False):
+                 sample_seed: int = 0, paged: bool = False,
+                 graph: bool = True):
         self.paged = bool(paged)
         if self.paged:
             if max_seq % PAGE:
@@ -200,10 +224,19 @@ class DecodePool:
         self.top_k = int(top_k)
         self.sample_seed = int(sample_seed)
         self.window: deque[_InFlight] = deque()
+        # the captured step: the graph, the params it was captured with,
+        # and the kernel launches one replay makes (ops.LAUNCHES counts
+        # them at each replay)
+        self.use_graph = bool(graph) and self.device.type == "cuda"
+        self._graph = None
+        self._graph_params = None
+        self._graph_launches: dict = {}
+        self.graph_replays = 0  # decode dispatches that replayed the graph
         self._init_state()
 
     def _init_state(self):
-        """Build the device-side slot state: empty pool, all slots done."""
+        """Build the device-side slot state once: empty pool, all slots
+        done."""
         dev, B = self.device, self.max_batch
         if self.paged:
             self.caches = None
@@ -226,6 +259,29 @@ class DecodePool:
         # AND of isfinite over every logit row this pool and its engine saw
         self.logits_finite = torch.ones((), dtype=torch.bool, device=dev)
         self.rng = torch.Generator(device=dev).manual_seed(2 * self.sample_seed)
+
+    def reset_state(self):
+        """Re-zero the slot state after a warm-up (the JAX engine's
+        ``reset_state``): a pristine pool, every tensor zeroed in place --
+        never reallocated, since a captured step reads and writes these
+        addresses -- the allocator reset and the sampling stream re-seeded.
+        Refuses an occupied pool."""
+        if not self.all_free:
+            raise RuntimeError("reset_state on an occupied pool")
+        self.window.clear()
+        kv = self.blocks if self.paged else self.caches
+        kvc.tree_map(lambda leaf: leaf.zero_(), kv)
+        for t in (self.lengths, self.tokens, self.gen, self.maxn):
+            t.zero_()
+        self.done.fill_(True)
+        self.logits_finite.fill_(True)
+        if self.paged:
+            self.pt_host[:] = 0
+            self.page_table.zero_()
+            self._pt_dirty = False
+            self._slot_blocks = [[] for _ in range(self.max_batch)]
+            self.allocator.reset()
+        self.rng.manual_seed(2 * self.sample_seed)
 
     # ------------------------------------------------------------------ #
     def note_logits(self, logits):
@@ -253,10 +309,10 @@ class DecodePool:
         Frozen (done/empty) slots keep their token and length, so their
         ring slot stays put; their lane still flows through the batched
         compute (its output discarded), which keeps token streams step for
-        step the JAX engine's."""
+        step the JAX engine's. Every state update is in place: this body
+        is what the pool's CUDA graph captures."""
         active = ~self.done
         if self.paged:
-            self._sync_pt()
             logits, lengths2 = self.model.decode_step_paged(
                 params, self.blocks, self.page_table, self.tokens,
                 self.lengths)
@@ -266,11 +322,64 @@ class DecodePool:
         self.note_logits(logits)
         next_tok = self.sample(logits, self.rng)
         next_tok = torch.where(active, next_tok, self.tokens[:, 0])
-        self.gen = self.gen + active.to(torch.int32)
-        self.done = (self.done | (self.gen >= self.maxn)
-                     | (active & (next_tok == self.eos)))
-        self.lengths = torch.where(active, lengths2, self.lengths)
-        self.tokens = next_tok[:, None]
+        self.gen.add_(active.to(torch.int32))
+        self.done |= (self.gen >= self.maxn) | (active & (next_tok == self.eos))
+        self.lengths.copy_(torch.where(active, lengths2, self.lengths))
+        self.tokens.copy_(next_tok[:, None])
+
+    def _capture(self, params):
+        """The pool's first decode dispatch on CUDA: one real eager step,
+        then the capture of the same step into a CUDA graph.
+
+        The eager step runs every one-time host call before the capture
+        (kernel builds, ``cudaFuncSetAttribute``, cached SM counts and
+        split plans, cuBLAS's workspace for the capture stream, the
+        caching allocator's first blocks); the capture launches nothing
+        and changes no state, so it is taken back out of ``ops.LAUNCHES``.
+        The sampling generator is registered with the graph, so each replay
+        advances its Philox offset as an eager call would. The capture
+        keeps the caching allocator's blocks (``torch.cuda.graph`` would
+        empty the cache first, and every later prefill would allocate its
+        blocks with ``cudaMalloc`` anew). Failure raises: there is no eager
+        fallback."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature > 0.0:
+            graph.register_generator_state(self.rng)
+        with torch.cuda.stream(side):
+            self._step(params)
+            side.synchronize()
+            before = dict(ops.LAUNCHES)
+            graph.capture_begin()
+            try:
+                self._step(params)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        ops.add_launches(launches, -1)
+        self._graph, self._graph_params = graph, params
+        self._graph_launches = launches
+
+    def _decode(self, params):
+        """One decode dispatch: a replay of the captured step (captured at
+        the first dispatch), or the eager step on the CPU and with
+        ``graph=False``."""
+        if self.paged:
+            self._sync_pt()
+        if not self.use_graph:
+            self._step(params)
+        elif self._graph is None:
+            self._capture(params)
+        else:
+            if params is not self._graph_params:
+                raise ValueError("the decode graph was captured with other "
+                                 "params")
+            self._graph.replay()
+            ops.add_launches(self._graph_launches)
+            self.graph_replays += 1
 
     # ------------------------------------------------------------------ #
     def free_slots(self) -> list[int]:
@@ -311,13 +420,13 @@ class DecodePool:
                                 # conv/state in every decode step since
                                 pool[idx] = src
         col = torch.zeros_like(idx)
-        self.lengths = self.lengths.index_put((idx,), art.lengths[:n])
-        self.tokens = self.tokens.index_put((idx, col), art.next_tokens[:n])
-        self.gen = self.gen.index_put((idx,), torch.ones_like(art.lengths[:n]))
+        self.lengths.index_put_((idx,), art.lengths[:n])
+        self.tokens.index_put_((idx, col), art.next_tokens[:n])
+        self.gen.index_put_((idx,), torch.ones_like(art.lengths[:n]))
         # the prefill token may already exhaust the budget (max_new=1):
         # such slots start done so decode never advances them
-        self.done = self.done.index_put((idx,), art.max_new[:n] <= 1)
-        self.maxn = self.maxn.index_put((idx,), art.max_new[:n])
+        self.done.index_put_((idx,), art.max_new[:n] <= 1)
+        self.maxn.index_put_((idx,), art.max_new[:n])
 
     # ------------------------------------------------------------------ #
     # paged page-table plumbing (host-authored, device-consumed)
@@ -344,13 +453,17 @@ class DecodePool:
         self._pt_dirty = True
 
     def _sync_pt(self):
-        """Push the host page table to the device when it changed, as a
-        fresh tensor copied synchronously from the host array: a later host
-        edit never races the transfer, and steps already in flight keep
-        the table they were dispatched with (the stream runs work in
-        dispatch order)."""
+        """Push the host page table into the one device ``page_table`` when
+        it changed: a copy on the stream from a pinned host copy of
+        ``pt_host`` taken now, so a later host edit never races the
+        asynchronous transfer; steps already in flight keep the table
+        they were dispatched with (the copy is stream-ordered after
+        them)."""
         if self._pt_dirty:
-            self.page_table = torch.tensor(self.pt_host, device=self.device)
+            staged = torch.from_numpy(self.pt_host.copy())
+            if self.page_table.is_cuda:
+                staged = staged.pin_memory()
+            self.page_table.copy_(staged, non_blocking=True)
             self._pt_dirty = False
 
     def fill_one(self, params, limit: int) -> bool:
@@ -358,7 +471,7 @@ class DecodePool:
         (``limit`` caps it below ``inflight``)."""
         if len(self.window) >= min(self.inflight, limit):
             return False
-        self._step(params)
+        self._decode(params)
         self.window.append(_InFlight(tuple(self.slots),
                                      _HostCopy(self.tokens, self.done)))
         return True
@@ -384,6 +497,15 @@ class ServingEngine:
     in-flight window are empty. Per-request stage accounting accumulates in
     ``self.store``.
 
+    ``warmup=True`` runs :meth:`warm` at construction, so no timed stage
+    pays a one-time cost (its wall is ``warm_s``). ``legacy=True`` serves
+    through the seed's synchronous loop instead (exact-length prefill per
+    request, a blocking host argmax every token, one step in flight; no
+    bucketing, packing, chunking, paging or sampling), the baseline of the
+    fast path's A/B. ``_graph=False`` keeps the fast path's decode step
+    eager on CUDA: for comparisons only, like the decode launchers'
+    ``_splits``.
+
     ``device`` defaults to CUDA and must be the model's device; with no
     CUDA device the constructor raises unless ``device="cpu"`` is given.
     """
@@ -405,7 +527,10 @@ class ServingEngine:
         prefix_reuse: bool = True,
         packed: bool = False,
         prefill_chunk: int = 0,
+        legacy: bool = False,
+        warmup: bool = False,
         device="cuda",
+        _graph: bool = True,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -421,10 +546,14 @@ class ServingEngine:
         # bucketed (right-padded) prefill is sound only for attention-only
         # stacks; the others take the exact-shape path, one request per call
         self.exact_prefill = not model.attention_only
-        if paged and self.exact_prefill:
+        self.legacy = bool(legacy)
+        if self.legacy and temperature > 0.0:
+            raise ValueError("device-side sampling requires the fast path "
+                             "(the legacy loop argmaxes on the host)")
+        if paged and (self.exact_prefill or self.legacy):
             raise ValueError(
-                "paged KV pool requires the bucketed path (attention-only "
-                f"stack); {model.cfg.name} has SSM layers")
+                "paged KV pool requires the bucketed fast path (an "
+                f"attention-only stack, legacy=False): {model.cfg.name}")
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -432,7 +561,7 @@ class ServingEngine:
         self.transport = transport
         self.profile = PAPER_A2
         self.eos = eos_token
-        self.inflight = max(1, inflight)
+        self.inflight = 1 if self.legacy else max(1, inflight)
         self.prefill_tokens_total = 0
         self.prefill_tokens_uncached = 0
         # padded token-rows dispatched to prefill (npad * bucket per call):
@@ -444,7 +573,7 @@ class ServingEngine:
         self.paged = bool(paged)
         # token-packed prefill: the bucketing gate (attention-only), and
         # off silently otherwise, so callers may set it on any stack
-        self.packed = bool(packed) and not self.exact_prefill
+        self.packed = bool(packed) and not (self.exact_prefill or self.legacy)
         # chunked prefill: long prompts prefill C tokens an iteration
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0:
@@ -458,7 +587,8 @@ class ServingEngine:
             if self.prefill_chunk > max_seq:
                 raise ValueError(f"prefill_chunk {prefill_chunk} exceeds "
                                  f"max_seq {max_seq}")
-        self._chunk_enabled = self.prefill_chunk > 0 and not self.exact_prefill
+        self._chunk_enabled = self.prefill_chunk > 0 and not (
+            self.exact_prefill or self.legacy)
         self._chunk_jobs: deque[_ChunkJob] = deque()
         self._chunk_slots: set[int] = set()  # slots reserved by chunk jobs
         # a packed admission's pages interleave its segments and never
@@ -473,7 +603,7 @@ class ServingEngine:
         self.pool = DecodePool(
             model, max_batch=max_batch, max_seq=max_seq, eos_token=eos_token,
             inflight=self.inflight, temperature=temperature, top_k=top_k,
-            sample_seed=sample_seed, paged=self.paged,
+            sample_seed=sample_seed, paged=self.paged, graph=_graph,
         )
         # the prefill's first-token draws: a stream of their own
         self.prefill_rng = torch.Generator(device=self.device).manual_seed(
@@ -484,6 +614,9 @@ class ServingEngine:
         self._t_mark = time.perf_counter()
         self.decode_steps = 0  # whole-batch decode dispatches
         self.useful_steps = 0  # harvested steps that advanced a live request
+        self.warm_s = 0.0  # construction-time warm wall, outside all stages
+        if warmup:
+            self.warm_s = self.warm()
 
     # ------------------------------------------------------------------ #
     def counters(self) -> dict:
@@ -563,6 +696,83 @@ class ServingEngine:
         """Widest packed row this engine can dispatch: every slot admitted
         at once at a full max_seq prompt, rounded to a power of two."""
         return _next_pow2(self.max_batch * self.max_seq)
+
+    # ------------------------------------------------------------------ #
+    # Construction-time warm-up
+    # ------------------------------------------------------------------ #
+    def bucket_grid(self) -> list:
+        """Every pow2 prefill bucket this engine can admit into:
+        ``MIN_BUCKET, 2 * MIN_BUCKET, ..., max_seq`` (clamped)."""
+        return self._pow2_grid(self.max_seq)
+
+    def packed_grid(self) -> list:
+        """Every pow2 packed width a packed admission can dispatch:
+        ``MIN_BUCKET .. packed_cap()``."""
+        return self._pow2_grid(self.packed_cap())
+
+    @staticmethod
+    def _pow2_grid(cap: int) -> list:
+        out, n = [], min(MIN_BUCKET, cap)
+        while True:
+            out.append(n)
+            if n >= cap:
+                return out
+            n = min(2 * n, cap)
+
+    def warm(self) -> float:
+        """Run every shape the serving path can hit once for real, so no
+        timed stage pays a one-time cost: kernel builds, cuBLAS's
+        heuristics, the caching allocator's first blocks, the decode
+        step's capture. Returns the wall seconds, charged to no request.
+
+        It runs one prefill per pow2 bucket (per packed width when
+        ``packed``), the suffix prefill per bucket when prefix reuse is on,
+        the chunk shape when chunking, and the first decode dispatch (on
+        CUDA: one eager step and the graph capture), then re-zeros the pool
+        with :meth:`DecodePool.reset_state`. Nothing here is counted, and
+        the prefill's sampling stream is not drawn from. The JAX engine
+        also compiles its splice on an all-dummy artifact; the port's
+        splice drops dummy rows on the host, so such a splice launches
+        nothing and there is nothing of it to warm. The exact-shape path
+        (SSM stacks) prefills per ragged prompt length and is warmed no
+        further than its decode step; under ``legacy=True`` this is a
+        no-op that returns 0.0, as in the JAX engine."""
+        if self.legacy:
+            return 0.0
+        t0 = time.perf_counter()
+        npad, dev = self.max_batch, self.device
+
+        def zeros(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+
+        if not self.exact_prefill:
+            if self.packed:
+                for T in self.packed_grid():
+                    _, packed = self.model.prefill_packed(
+                        self.params, zeros(1, T), zeros(1, T),
+                        zeros(1, T, fill=-1), zeros(npad))
+                    kvc.unpack_segments(packed, zeros(npad),
+                                        self._bucket(T))
+            else:
+                for L in self.bucket_grid():
+                    self.model.prefill_bucketed(self.params, zeros(npad, L),
+                                                zeros(npad, fill=1))
+                    if self.prefix_reuse:
+                        self.model.prefill_suffix(
+                            self.params, zeros(npad, L), zeros(npad, fill=1),
+                            zeros(npad), zeros(npad, self.pool.pages_per_seq),
+                            self._prior_blocks())
+        if self._chunk_enabled:
+            C = self.prefill_chunk
+            prior = self.model.init_cache(1, self.max_seq)
+            _, suffix, _ = self.model.prefill_suffix_dense(
+                self.params, zeros(1, C), zeros(1, fill=1), zeros(1), prior)
+            kvc.splice_suffix(prior, suffix, zeros(1))
+        self.pool.fill_one(self.params, limit=1)  # on CUDA: the capture
+        self.pool.reset_state()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
 
     # ------------------------------------------------------------------ #
     # Admission
@@ -1130,7 +1340,10 @@ class ServingEngine:
     def step(self) -> list[Response]:
         """One continuous-batching iteration: admit, top up the in-flight
         window, run one chunk of a chunked admission, harvest the OLDEST
-        dispatched step."""
+        dispatched step (under ``legacy=True``, the seed's synchronous
+        iteration instead)."""
+        if self.legacy:
+            return self._step_legacy()
         self._admit()
         self._dispatch()
         # one chunk AFTER the decode top-up: live slots' steps are already
@@ -1156,3 +1369,76 @@ class ServingEngine:
             if self.idle:
                 break
         return out
+
+    # ------------------------------------------------------------------ #
+    # Legacy synchronous loop (the seed's): the fast path's A/B baseline
+    # ------------------------------------------------------------------ #
+    def _prefill_one(self, slot: int, req: Request):
+        """Exact-length prefill of one request, a blocking host argmax of
+        its first token, and its splice into ``slot``. The prefill wall is
+        charged to 'preprocess', the wait before it to 'queue'. Like the
+        JAX loop it counts no prefill call and leaves the budget check to
+        the decode step."""
+        t0 = time.perf_counter()
+        toks = torch.tensor(np.asarray(req.prompt_tokens, np.int32))[None]
+        logits, caches, lengths = self.model.prefill(self.params,
+                                                     toks.to(self.device))
+        next_tok = int(torch.argmax(logits[0]))  # blocks on the prefill
+        dt = time.perf_counter() - t0
+        rec = self._records[req.request_id]
+        rec.add("queue", max(t0 - rec.t_issue, 0.0))  # submit -> admission
+        rec.add("preprocess", dt)
+        one = torch.tensor([next_tok], dtype=torch.int32, device=self.device)
+        maxn = torch.tensor([req.max_new_tokens], dtype=torch.int32,
+                            device=self.device)
+        self.pool.splice(PrefillArtifact(
+            caches, np.asarray([slot], np.int32), lengths, one, maxn, [req],
+            [slot], n_rows=1, prefix_len=len(req.prompt_tokens)))
+        req.generated.append(next_tok)
+        self.pool.slots[slot] = req
+        req.t_first_token = time.perf_counter()
+
+    def _admit_legacy(self):
+        """Admit the highest-priority queued request (the first of equals)
+        into the first free slot, one at a time."""
+        while self.queue and self._free_slots():
+            best = max(range(len(self.queue)),
+                       key=lambda i: self.queue[i].priority)
+            req = self.queue[best]
+            del self.queue[best]
+            self._prefill_one(self._free_slots()[0], req)
+
+    def _step_legacy(self) -> list[Response]:
+        """The seed loop: admit, one eager whole-batch decode step (never
+        the graph), a blocking host argmax, per-slot bookkeeping. Every
+        lane advances, live or not, as in the seed. Its ``max_new_tokens
+        =1`` quirk is kept: such a request still takes one decode step and
+        returns 2 tokens, where the fast path finishes it at prefill."""
+        self._admit_legacy()
+        active = [i for i, s in enumerate(self.pool.slots) if s is not None]
+        if not active:
+            return []
+        pool = self.pool
+        t0 = time.perf_counter()
+        logits, _, lengths = self.model.decode_step(
+            self.params, pool.caches, pool.tokens, pool.lengths)
+        self.decode_steps += 1
+        self.useful_steps += 1  # the sync loop only steps live slots
+        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32).cpu()
+        dt = time.perf_counter() - t0
+        pool.note_logits(logits)
+        pool.lengths.copy_(lengths)
+        pool.tokens.copy_(next_tokens[:, None])
+        done: list[Response] = []
+        for i in active:
+            req = pool.slots[i]
+            rec = self._records[req.request_id]
+            rec.add("inference", dt / len(active))
+            tok = int(next_tokens[i])
+            req.generated.append(tok)
+            finished = len(req.generated) >= req.max_new_tokens or (
+                self.eos is not None and tok == self.eos)
+            if finished:
+                done.append(self._finish(req, rec))
+                pool.slots[i] = None
+        return done

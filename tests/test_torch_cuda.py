@@ -9,7 +9,11 @@ launch counts on its ring, paged and exact-shape (Mamba-2) paths, and the
 disaggregated engine under each mechanism against the same engine on the
 CPU; packed prefill rows (tile-edge runs, pad-only tiles, one whole-row
 segment, 40 sub-tile segments, windows, MQA) and the chunk path's dense
-prior; the packed + chunked engine against the CPU engine.
+prior; the packed + chunked engine against the CPU engine; the decode
+step as one CUDA graph against the eager step, bitwise over 40 steps
+(ring at one and at several splits, paged with page-table edits between
+replays, mamba2-130m, sampling at temperature 0.8), warm-up's capture, and
+a capture that fails raising.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -921,3 +925,222 @@ def test_disaggregated_engine_on_card_matches_cpu(cuda_device, mode):
         # hop wall the engine timed
         assert sum(r.stage_s["transfer"] for r in eng.store.records) == (
             pytest.approx(eng.handoff_wall_s))
+
+
+# --------------------------------------------------------------------------- #
+# the decode step as one CUDA graph: replays against the eager step
+# --------------------------------------------------------------------------- #
+def _graph_pair(cfg, dev, dtype, seed=0):
+    from repro_torch.models import Model
+
+    model = Model(cfg, dtype=dtype, device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(seed))
+
+
+def _pool_state(pool):
+    kv = pool.blocks if pool.paged else pool.caches
+    leaves = []
+    _tree_leaves(kv, leaves)
+    return [pool.tokens, pool.lengths, pool.done, pool.gen] + leaves
+
+
+def _tree_leaves(tree, out):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _tree_leaves(v, out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _tree_leaves(v, out)
+    else:
+        out.append(tree)
+
+
+def _lockstep(model, params, waves, new, steps=40, **kw):
+    """Serve ``waves`` of prompts (each wave submitted after the one before
+    has run 5 engine steps) on an eager engine (``_graph=False``) and a
+    graph engine in lockstep, and hold their whole pool state -- tokens,
+    lengths, done flags, counts and every KV (or conv/state) leaf --
+    bitwise equal after every engine step, until ``steps`` decode steps
+    went out. Returns the two engines and their requests' tokens."""
+    from repro_torch.serving import Request, ServingEngine
+
+    engines = [ServingEngine(model, params, device=model.device, _graph=g,
+                             **kw) for g in (False, True)]
+    reqs = [[], []]
+    it, i = 0, 0
+    while engines[1].decode_steps < steps:
+        if i < len(waves) and it % 5 == 0:
+            for eng, rs in zip(engines, reqs):
+                for t in waves[i]:
+                    rs.append(Request(prompt_tokens=t.copy(),
+                                      max_new_tokens=new))
+                    eng.submit(rs[-1])
+            i += 1
+        for eng in engines:
+            eng.step()
+        it += 1
+        for a, b in zip(*(_pool_state(e.pool) for e in engines)):
+            assert torch.equal(a, b), f"state parts at engine step {it}"
+        assert it < 10 * steps
+    for eng in engines:
+        eng.run_until_drained()
+    eager, graph = engines
+    assert eager.pool._graph is None and graph.pool._graph is not None
+    assert graph.pool.graph_replays == graph.decode_steps - 1
+    assert eager.counters() == graph.counters()
+    return engines, [[r.generated for r in rs] for rs in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, None])
+def test_graph_ring_step_equals_eager(cuda_device, monkeypatch, splits):
+    """The ring pool's replayed step equals the eager step bitwise over 40
+    steps, at one CTA a row and at the launcher's split over a cluster
+    (the captured cluster launch keeps its cluster); the launch counts
+    follow the path under replay."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    if splits is None:
+        assert _dec.splits_for(512, 4 * cfg.n_kv_heads,
+                               cuda_device.index or 0) > 1
+    else:
+        monkeypatch.setattr(_dec, "splits_for", lambda W, rows, dev: splits)
+    rng = np.random.default_rng(1)
+    waves = [[rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+              for s in (7, 40, 100)], [rng.integers(0, cfg.vocab_size, 60,
+                                                    dtype=np.int32)]]
+    ops.reset_launches()
+    (eager, graph), toks = _lockstep(model, params, waves, 45, max_batch=4,
+                                     max_seq=512)
+    assert toks[0] == toks[1]
+    L = cfg.n_layers
+    steps = eager.decode_steps + graph.decode_steps
+    calls = eager.counters()["prefill_calls"] * 2
+    assert ops.LAUNCHES == {
+        "rmsnorm": (2 * L + 1) * (calls + steps),
+        "flash_attention": L * calls, "decode_attention": L * steps,
+        "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+
+
+@pytest.mark.cuda
+def test_graph_paged_step_equals_eager(cuda_device):
+    """The paged pool's replayed step equals the eager step bitwise while
+    admissions and releases edit the page table between replays (prefix
+    reuse on: shared blocks in several rows)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(2)
+    fam = rng.integers(0, cfg.vocab_size, 48, dtype=np.int32)
+    waves = [[np.concatenate([fam, rng.integers(0, cfg.vocab_size, n,
+                                                dtype=np.int32)])
+              for n in ns] for ns in ((5, 30), (17,), (9, 40))]
+    (eager, graph), toks = _lockstep(model, params, waves, 20, max_batch=4,
+                                     max_seq=256, paged=True)
+    assert toks[0] == toks[1]
+    assert graph.counters()["prefix_hits"] > 0
+
+
+@pytest.mark.cuda
+def test_graph_ssm_step_equals_eager(cuda_device):
+    """mamba2-130m's decode step (the conv window and state written in
+    place) replayed equals the eager step bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config("mamba2-130m").reduced()
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, d_state=128, head_dim=64, chunk=64))
+    model, params = _graph_pair(cfg, cuda_device, torch.float32)
+    rng = np.random.default_rng(3)
+    waves = [[rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+              for s in (5, 70)], [rng.integers(0, cfg.vocab_size, 130,
+                                               dtype=np.int32)]]
+    ops.reset_launches()
+    (eager, graph), toks = _lockstep(model, params, waves, 45, max_batch=2,
+                                     max_seq=256)
+    assert toks[0] == toks[1]
+    L = cfg.n_layers
+    c = eager.counters()
+    assert ops.LAUNCHES["rmsnorm"] == 2 * (2 * L + 1) * (
+        c["prefill_calls"] + c["decode_steps"])
+
+
+@pytest.mark.cuda
+def test_graph_sampling_equals_eager(cuda_device):
+    """At temperature 0.8, top_k 50 and one seed, the replays draw what the
+    eager steps draw: the pool's generator is registered with the graph,
+    so each replay advances its Philox offset as an eager call does."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(4)
+    waves = [[rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+              for s in (9, 33, 64)]]
+    _, toks = _lockstep(model, params, waves, 45, max_batch=4, max_seq=256,
+                        temperature=0.8, top_k=50, sample_seed=5)
+    assert toks[0] == toks[1]
+    assert len({t for r in toks[1] for t in r}) > 10  # it did sample
+
+
+@pytest.mark.cuda
+def test_graph_warm_captures_at_construction(cuda_device):
+    """warmup=True captures the decode graph at construction and leaves a
+    pristine pool; the warmed engine's tokens are the cold engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for s in (5, 17, 33, 50)]
+    out = []
+    for warm in (True, False):
+        eng = ServingEngine(model, params, max_batch=2, max_seq=128,
+                            warmup=warm, device=cuda_device)
+        if warm:
+            assert eng.pool._graph is not None and eng.warm_s > 0
+            assert bool(eng.pool.done.all()) and not eng.pool.lengths.any()
+        reqs = [Request(prompt_tokens=t, max_new_tokens=8) for t in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert eng.pool.graph_replays == eng.decode_steps - (0 if warm else 1)
+        out.append([r.generated for r in reqs])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(cuda_device):
+    """A capture that fails raises out of the dispatch; the engine does not
+    go on with the eager step."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    eng = ServingEngine(model, params, max_batch=2, max_seq=128,
+                        device=cuda_device)
+    pool = eng.pool
+    sample = pool.sample
+
+    def failing(logits, rng):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("no capture today")
+        return sample(logits, rng)
+
+    pool.sample = failing
+    eng.submit(Request(prompt_tokens=np.arange(9, dtype=np.int32),
+                       max_new_tokens=8))
+    with pytest.raises(RuntimeError, match="no capture today"):
+        eng.run_until_drained()
+    assert pool._graph is None and not pool.window and eng.decode_steps == 0
+    with pytest.raises(RuntimeError, match="no capture today"):
+        eng.step()
+    assert pool._graph is None and eng.decode_steps == 0
