@@ -131,6 +131,7 @@ the plain version sum in different orders). The full results go to
 chiprun_out/chip_smoke.json.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -211,6 +212,10 @@ BUCKETED_PADDED = 26_624  # phase 4's padded token-rows, bucketed
 # phase 9: the rest of the dense family at published widths, depth cut so
 # the weights stay under about 20 GB (bf16) and the smoke in its time
 DENSE_FAMILY = (("starcoder2-3b", 30), ("qwen3-32b", 16), ("granite-34b", 8))
+# phase 11 (c)-(d): phase 4's prompt lengths arriving open-loop at 20
+# requests a second (loadgen.poisson_schedule), 32 new tokens each
+CLUSTER_TRAFFIC = dict(rate_rps=20.0, n_requests=12, prompt_lens=MAIN_LENS,
+                       max_new=32, seed=0)
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -322,11 +327,21 @@ def main():
     t0 = phase("phase 10: the decode step as one CUDA graph")
     results["graph"] = graph_path(torch, ops, llama, shared, ssm_engine)
     done(t0)
-    del llama, ssm_engine
+    del ssm_engine
     torch.cuda.empty_cache()
 
     t0 = phase("phase 9: the dense family served packed and chunked")
     results["dense_family"] = dense_family_path(torch, ops, dev)
+    done(t0)
+
+    t0 = phase("phase 11: tracing, the threaded pipeline, Gateway -> "
+               "ServingCluster, process replicas, prefix_cache routing")
+    results["cluster"], handoff = cluster_path(
+        torch, ops, llama, shared, results["graph"]["main_graph_tokens"])
+    del llama  # the process replicas build their own weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["cluster"]["process"] = process_path(torch, handoff)
     done(t0)
 
     # each kernel's launches come from the run of the path that carries it:
@@ -2635,6 +2650,7 @@ def graph_path(torch, ops, llama, shared, ssm_engine):
         raise AssertionError(f"(a) graph tokens differ from eager tokens in "
                              f"requests {bad}")
     print(f"   (a) graph == eager on all {12 * 32} tokens")
+    out["main_graph_tokens"] = tokens["graph"]  # phase 11 (b)'s reference
     out["main"]["legacy"]["parted"] = parted(
         torch, model, params, prompts, tokens["graph"], tokens["legacy"],
         "legacy", ref="the fast path")
@@ -2691,6 +2707,489 @@ def graph_path(torch, ops, llama, shared, ssm_engine):
           "distinct)")
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 11
+# --------------------------------------------------------------------------- #
+def cluster_schedule(vocab):
+    """Phase 11 (c)-(d)'s arrivals, drawn anew (a Request is served once)."""
+    from repro_torch.serving.loadgen import poisson_schedule
+
+    return poisson_schedule(vocab, **CLUSTER_TRAFFIC)
+
+
+def slo_ms(rsps):
+    from repro_torch.core.metrics import slo_summary
+
+    slo = slo_summary(rsps)
+    return {"ttft_ms_p50": slo["ttft_s"]["p50"] * 1e3,
+            "ttft_ms_p99": slo["ttft_s"]["p99"] * 1e3,
+            "tpot_ms_p50": slo["tpot_s"]["p50"] * 1e3,
+            "tpot_ms_p99": slo["tpot_s"]["p99"] * 1e3}
+
+
+def summed_counters(engines):
+    out = {}
+    for eng in engines:
+        for k, v in eng.counters().items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def traced_runs(torch, ops, eng, prompts):
+    """Phase 11 (a): phase 4's 12 requests on a warmed engine four times,
+    tracing off, on, on, off. Gates: equal tokens every run; for each
+    traced run an empty ``reconcile`` and ``tree_problems``, one submit,
+    queue, prefill.* and request span a request and at least one
+    decode.window; launches equal to the path's structure."""
+    from repro_torch.core import trace
+
+    runs, tokens = [], []
+    for i, on in enumerate((False, True, True, False)):
+        if on:
+            trace.enable_tracing(process="main")
+        c0 = eng.counters()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        reqs, rsps = serve_all(eng, prompts, 32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = eng.counters()
+        want = structure({k: c[k] - c0[k] for k in c}, N_LAYERS)
+        if dict(ops.LAUNCHES) != want:
+            raise AssertionError(f"(a) run {i}: launches {dict(ops.LAUNCHES)}"
+                                 f" != path structure {want}")
+        rec = {"tracing": on, "drain_wall_s": wall, **slo_ms(rsps)}
+        if on:
+            tr = trace.Trace.from_buffer()
+            trace.disable_tracing()
+            ids = {r.request_id for r in reqs}
+            records = [r for r in eng.store.records if r.request_id in ids]
+            problems = tr.reconcile(records) + tr.tree_problems()
+            if problems:
+                raise AssertionError(f"(a) run {i}: {problems[:5]}")
+            for r in reqs:
+                names = [x.name for x in tr.by_request()[r.request_id]]
+                got = {k: names.count(k) for k in ("submit", "queue",
+                                                   "request")}
+                got["prefill"] = sum(n.startswith("prefill.") for n in names)
+                if set(got.values()) != {1}:
+                    raise AssertionError(f"(a) request {r.request_id}'s "
+                                         f"spans {got}")
+            windows = sum(x.name == "decode.window" for x in tr.spans)
+            if windows < 1:
+                raise AssertionError("(a) no decode.window span")
+            rec.update(spans=len(tr), decode_windows=windows,
+                       trace_stats=trace.tracer().stats())
+            if i == 1:
+                out_dir = ROOT / "chiprun_out"
+                out_dir.mkdir(exist_ok=True)
+                tr.export_chrome(out_dir / "phase11_trace.json")
+                print("   stage summary of the first traced run (Chrome "
+                      "trace in chiprun_out/phase11_trace.json):")
+                for line in tr.stage_summary().splitlines():
+                    print(f"     {line}")
+        runs.append(rec)
+        tokens.append([list(r.generated) for r in reqs])
+        print(f"   (a) run {i} tracing {'on ' if on else 'off'}: drain "
+              f"{wall * 1e3:.2f} ms, TPOT p50 {rec['tpot_ms_p50']:.3f} ms, "
+              f"TTFT p50 {rec['ttft_ms_p50']:.2f} ms"
+              + (f", {rec['spans']} spans" if on else ""), flush=True)
+    if any(t != tokens[0] for t in tokens):
+        raise AssertionError("(a) tokens differ between the four runs")
+
+    def mean(key, on):
+        xs = [r[key] for r in runs if r["tracing"] == on]
+        return sum(xs) / len(xs)
+
+    overhead = {k: mean(k, True) / mean(k, False) - 1
+                for k in ("drain_wall_s", "tpot_ms_p50")}
+    print(f"   (a) tokens equal in all four runs; tracing on/off: drain wall "
+          f"{overhead['drain_wall_s'] * 100:+.2f}%, TPOT p50 "
+          f"{overhead['tpot_ms_p50'] * 100:+.2f}%")
+    return {"runs": runs, "overhead": overhead}
+
+
+def pipeline_live_step(torch, pipe, prompts, new, steps=10):
+    """Live decode steps under the pipeline: one wave of ``max_batch``
+    requests, 3 steps let out, then a window of ``steps`` finalized steps
+    (a ``record_function`` range on this thread). torch.profiler is
+    started and stopped only while the pipeline is idle -- starting or
+    stopping it while another thread runs torch ops can deadlock -- so it
+    covers the whole wave, and the window's device busy time is the CUDA
+    kernels' time clipped to the range. Host wall a step is the window
+    over its steps, the idle share 1 - busy / window."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    def wait_steps(n, deadline_s=60.0):
+        """Until ``n`` more steps were finalized; a pipeline thread's
+        failure re-raises here (``idle``), a stall past the deadline or a
+        wave that ends first fails."""
+        s0, t0 = pipe.steps, time.perf_counter()
+        while pipe.steps < s0 + n:
+            snap = pipe.load_snapshot()
+            if pipe.idle or not (snap["occupancy"] or snap["queue_depth"]):
+                raise AssertionError(f"(b) the wave ended before {n} more "
+                                     f"decode steps: {snap}")
+            if time.perf_counter() - t0 > deadline_s:
+                raise AssertionError(f"(b) the pipeline stalled: {snap}")
+            time.sleep(0.0002)
+        return pipe.steps - s0
+
+    if not pipe.idle:
+        raise AssertionError("(b) the profiler starts on an idle pipeline")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for t in prompts[:pipe.max_batch]:
+            pipe.submit(Request(prompt_tokens=t.copy(), max_new_tokens=new))
+        wait_steps(3)
+        with record_function("pipeline_window"):
+            t0 = time.perf_counter()
+            n = wait_steps(steps)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        pipe.run_until_drained(max_steps=10_000_000)  # idle again
+    win = next(e for e in prof.events() if e.name == "pipeline_window")
+    lo, hi = win.time_range.start, win.time_range.end
+    busy_us = sum(max(min(e.time_range.end, hi) - max(e.time_range.start, lo),
+                      0) for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA)
+    res = {"steps": n, "host_wall_ms_per_step": wall_ms / n,
+           "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
+           "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
+           if busy_us else None}
+    print(f"   profiled window: host wall {res['host_wall_ms_per_step']:.2f} "
+          f"ms/step over {n} finalized steps, "
+          + (f"busy {res['device_busy_ms_per_step']:.2f} ms/step, idle share "
+             f"{res['device_idle_share']:.3f}" if busy_us else
+             "the profiler reported no device time: busy not measured"))
+    return res
+
+
+def pipeline_run(torch, ops, eng, prompts, want_tokens):
+    """Phase 11 (b): EnginePipeline over the warmed engine of (a), phase
+    4's 12 requests submitted at once. Gates: tokens equal to phase 10
+    (a)'s graph tokens exactly, submitted == emitted == 12, every record
+    complete, one graph replay a decode dispatch."""
+    from repro_torch.serving import EnginePipeline, Request
+
+    c0, replays0 = eng.counters(), eng.pool.graph_replays
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with EnginePipeline(eng) as pipe:
+        reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=32)
+                for t in prompts]
+        for r in reqs:
+            pipe.submit(r)
+        rsps = pipe.run_until_drained(max_steps=10_000_000)
+        torch.cuda.synchronize()
+        c = eng.counters()
+        delta = {k: c[k] - c0[k] for k in c}
+        replays = eng.pool.graph_replays - replays0
+        launches = dict(ops.LAUNCHES)
+        conserved = (pipe.submitted, pipe.emitted)
+    if conserved != (12, 12) or len(rsps) != 12:
+        raise AssertionError(f"(b) submitted, emitted {conserved}, "
+                             f"{len(rsps)} responses")
+    got = [list(r.generated) for r in reqs]
+    if got != want_tokens:
+        bad = [i for i, (a, b) in enumerate(zip(got, want_tokens)) if a != b]
+        raise AssertionError(f"(b) pipeline tokens differ from phase 10 "
+                             f"(a)'s graph tokens in requests {bad}")
+    ids = {r.request_id for r in reqs}
+    for rec in (r for r in eng.store.records if r.request_id in ids):
+        if not (rec.t_done > rec.t_issue and {"queue", "preprocess",
+                                               "inference"} <= set(rec.stage_s)):
+            raise AssertionError(f"(b) record {rec.request_id} incomplete")
+    if replays != delta["decode_steps"]:
+        raise AssertionError(f"(b) {replays} replays for "
+                             f"{delta['decode_steps']} decode dispatches")
+    if launches != structure(delta, N_LAYERS):
+        raise AssertionError(f"(b) launches {launches} != "
+                             f"{structure(delta, N_LAYERS)}")
+    print("   (b) a live step of the step() loop:")
+    loop_step = live_step_profile(torch, eng, prompts, 32, key=None)
+    print("   (b) a live step of the pipeline (the same wave):")
+    with EnginePipeline(eng) as pipe:
+        pipe_step = pipeline_live_step(torch, pipe, prompts, 32)
+    res = {"counters": delta, "graph_replays": replays, "launches": launches,
+           **slo_ms(rsps), "live_step": pipe_step, "loop_live_step": loop_step}
+    print(f"   (b) tokens == phase 10 (a)'s on all 384; submitted == emitted "
+          f"== 12; {replays} replays for {delta['decode_steps']} dispatches; "
+          f"TPOT p50 {res['tpot_ms_p50']:.3f} ms, p99 "
+          f"{res['tpot_ms_p99']:.3f}, TTFT p50 {res['ttft_ms_p50']:.2f} ms; a "
+          f"live step: pipeline host wall "
+          f"{pipe_step['host_wall_ms_per_step']:.2f} ms, busy "
+          f"{pipe_step['device_busy_ms_per_step'] or float('nan'):.2f}; "
+          f"step() loop {loop_step['host_wall_ms_per_step']:.2f} ms, busy "
+          f"{loop_step['device_busy_ms_per_step'] or float('nan'):.2f}",
+          flush=True)
+    return res
+
+
+def hop_charges(gw, rec, tokens):
+    """The modelled stages ``gw`` (a Gateway over GDR engines) puts on a
+    record with its engine's: (request, response) seconds."""
+    from repro_torch.core.transport import Transport
+
+    prof = gw.profile
+    req = (prof.wire_time(Transport.GDR, rec.bytes_in)
+           + prof.wire_time(gw.first_hop, rec.bytes_in) + gw.overhead)
+    rsp = (prof.wire_time(Transport.GDR, rec.bytes_out)
+           + prof.wire_time(gw.first_hop, 4 * tokens) + gw.overhead)
+    return req, rsp
+
+
+def gateway_cluster(torch, ops, model, params, eng):
+    """Phase 11 (c): Gateway(TCP) -> ServingCluster of 2 in-process fused
+    replicas sharing the params (GDR, round_robin, warmed) on
+    CLUSTER_TRAFFIC, the sampler on. Gates: each request's tokens equal
+    the single engine ``eng``'s on the same prompts or part only at a
+    top-2 gap under LOGIT_LIMIT; routed counts sum to 12; every record's
+    request and response stages carry the modelled TCP hop; launches equal
+    the replicas' summed path structure."""
+    from repro_torch.core.transport import Transport
+    from repro_torch.serving import Gateway, ServingCluster, run_open_loop
+
+    vocab = model.cfg.vocab_size
+    prompts = [a.request.prompt_tokens for a in cluster_schedule(vocab)]
+    single, _ = serve_all(eng, prompts, 32)
+    want = [list(r.generated) for r in single]
+    cl = ServingCluster.build(model, params, n_replicas=2,
+                              policy="round_robin", warmup=True,
+                              device=model.device, max_batch=8, max_seq=2048)
+    engines = [rep.engine for rep in cl.replicas]
+    c0 = summed_counters(engines)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    sched = cluster_schedule(vocab)
+    cl.start_sampler(interval_s=0.002)
+    gw = Gateway(cl, first_hop=Transport.TCP)
+    t0 = time.perf_counter()
+    rsps = run_open_loop(gw, sched)
+    wall = time.perf_counter() - t0
+    cl.stop_sampler()
+    torch.cuda.synchronize()
+    c = summed_counters(engines)
+    delta = {k: c[k] - c0[k] for k in c}
+    launches = dict(ops.LAUNCHES)
+    if launches != structure(delta, N_LAYERS):
+        raise AssertionError(f"(c) launches {launches} != "
+                             f"{structure(delta, N_LAYERS)}")
+    routed = [rep.routed for rep in cl.replicas]
+    if sum(routed) != 12 or len(rsps) != 12:
+        raise AssertionError(f"(c) routed {routed}, {len(rsps)} responses")
+    by_id = {r.request_id: r.tokens for r in rsps}
+    for a in sched:
+        rec = cl._records[a.request.request_id]
+        req, rsp = hop_charges(gw, rec, len(by_id[a.request.request_id]))
+        if (abs(rec.stage_s["request"] - req) > 1e-9 * req
+                or abs(rec.stage_s["response"] - rsp) > 1e-9 * rsp):
+            raise AssertionError(f"(c) record {rec.request_id}: request "
+                                 f"{rec.stage_s['request']} / response "
+                                 f"{rec.stage_s['response']} s, the modelled "
+                                 f"TCP hop gives {req} / {rsp}")
+    got = [list(by_id[a.request.request_id]) for a in sched]
+    parts = parted(torch, model, params, prompts, want, got, "(c) cluster",
+                   ref="the single engine")
+    tel = cl.telemetry()
+    slo = tel["slo"]
+    print(f"   (c) {wall:.2f} s for 12 open-loop arrivals at "
+          f"{CLUSTER_TRAFFIC['rate_rps']:g}/s; routed {routed}; Jain "
+          f"busy {tel['balance_index_busy']}, routed "
+          f"{tel['balance_index_routed']}; TTFT p50/p99 "
+          f"{slo['ttft_s']['p50'] * 1e3:.2f} / {slo['ttft_s']['p99'] * 1e3:.2f}"
+          f" ms, TPOT p50/p99 {slo['tpot_s']['p50'] * 1e3:.3f} / "
+          f"{slo['tpot_s']['p99'] * 1e3:.3f} ms, E2E p50/p99 "
+          f"{slo['e2e_s']['p50'] * 1e3:.1f} / {slo['e2e_s']['p99'] * 1e3:.1f}"
+          f" ms, queue p50/p99 {slo['queue_s']['p50'] * 1e3:.2f} / "
+          f"{slo['queue_s']['p99'] * 1e3:.2f} ms", flush=True)
+    print(f"   (c) per replica {tel['per_replica']}")
+    for name, h in sorted(tel["obs"]["histograms"].items()):
+        print(f"   (c) sampler {name}: {h['count']} samples, mean "
+              f"{h['mean']:.2f}, p50 {h['p50']:.1f}, p95 {h['p95']:.1f}, "
+              f"max {h['max']:.0f}")
+    res = {"wall_s": wall, "routed": routed, "counters": delta,
+           "launches": launches, "parted": parts,
+           "telemetry": {k: tel[k] for k in (
+               "slo", "per_replica", "balance_index_busy",
+               "balance_index_routed", "obs", "parallelism")},
+           **slo_ms(rsps)}
+    cl.close()
+    return res, prompts, got
+
+
+def prefix_routing(torch, ops, model, params, shared):
+    """Phase 11 (e): phase 6's shared-prefix traffic on 2 in-process paged
+    replicas with prefix reuse under ``prefix_cache``: the priming wave,
+    then the 24 prompts. Gates: each system-prompt family lands wholly on
+    one replica; tokens equal phase 6 (c)'s or part only at a top-2 gap
+    under LOGIT_LIMIT; launches equal the paged path's structure (kernel
+    4 runs); zero live blocks on each replica once its index is
+    cleared."""
+    from repro_torch.serving import Request, ServingCluster
+
+    cl = ServingCluster.build(model, params, n_replicas=2,
+                              policy="prefix_cache", device=model.device,
+                              max_batch=8, max_seq=2048, paged=True)
+    engines = [rep.engine for rep in cl.replicas]
+    new = shared["new"]
+
+    def wave(prompts):
+        reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=new)
+                for t in prompts]
+        for r in reqs:
+            cl.submit(r)
+        if len(cl.run_until_drained(max_steps=1_000_000)) != len(reqs):
+            raise AssertionError("(e) a request did not return")
+        return reqs
+
+    wave(shared["primes"])
+    c0 = summed_counters(engines)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    reqs = wave(shared["prompts"])
+    torch.cuda.synchronize()
+    c = summed_counters(engines)
+    delta = {k: c[k] - c0[k] for k in c}
+    launches = dict(ops.LAUNCHES)
+    want = structure(delta, N_LAYERS, "paged_decode_attention")
+    if launches != want or launches["paged_decode_attention"] == 0:
+        raise AssertionError(f"(e) launches {launches} != {want}")
+    plen = PAGED_TRAFFIC["prefix_len"]
+    fams = {}
+    for r in reqs:
+        fams.setdefault(r.prompt_tokens[:plen].tobytes(), set()).add(
+            cl.replica_of(r.request_id))
+    if any(len(v) != 1 for v in fams.values()):
+        raise AssertionError(f"(e) a family spans replicas: "
+                             f"{[sorted(v) for v in fams.values()]}")
+    got = [list(r.generated) for r in reqs]
+    parts = parted(torch, model, params, shared["prompts"],
+                   shared["reuse_tokens"], got, "(e) prefix_cache",
+                   ref="phase 6 (c)")
+    live = [clear_index(eng) for eng in engines]
+    if any(live):
+        raise AssertionError(f"(e) {live} blocks live after clearing the "
+                             "indexes")
+    routed = [rep.routed for rep in cl.replicas]
+    print(f"   (e) families -> replicas "
+          f"{[sorted(v)[0] for v in fams.values()]}; routed {routed} "
+          f"(primes included); prefix hits {delta['prefix_hits']} of "
+          f"{len(reqs)}; paged decode launches "
+          f"{launches['paged_decode_attention']}; 0 live blocks after the "
+          "indexes are cleared", flush=True)
+    cl.close()
+    return {"routed": routed, "counters": delta, "launches": launches,
+            "parted": parts, "families": len(fams)}
+
+
+def cluster_path(torch, ops, llama, shared, graph_tokens):
+    """Phase 11 on phase 4's model and weights, in this process: (a)
+    tracing, (b) EnginePipeline, (c) Gateway(TCP) -> 2-replica cluster,
+    (e) prefix_cache routing. Returns the results and what the process
+    sub-phase (d) needs: the config, the weights' checksum, (c)'s prompts
+    and tokens."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.ipc import weight_checksum
+
+    model, params = llama
+    prompts = main_prompts(model.cfg.vocab_size)
+    eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                        device=model.device, warmup=True)
+    out = {}
+    out["tracing"] = traced_runs(torch, ops, eng, prompts)
+    out["pipeline"] = pipeline_run(torch, ops, eng, prompts, graph_tokens)
+    out["pipeline"]["step_loop"] = {
+        k: sum(r[k] for r in out["tracing"]["runs"] if not r["tracing"]) / 2
+        for k in ("tpot_ms_p50", "tpot_ms_p99", "ttft_ms_p50")}
+    out["gateway_cluster"], c_prompts, c_tokens = gateway_cluster(
+        torch, ops, model, params, eng)
+    del eng
+    out["prefix_cache"] = prefix_routing(torch, ops, model, params, shared)
+    handoff = {"cfg": model.cfg, "checksum": weight_checksum(params),
+               "prompts": c_prompts, "tokens": c_tokens,
+               "slo": {k: out["gateway_cluster"][k] for k in
+                       ("ttft_ms_p50", "tpot_ms_p50")}}
+    return out, handoff
+
+
+def process_path(torch, handoff):
+    """Phase 11 (d): CLUSTER_TRAFFIC through Gateway(TCP) -> 2 worker
+    processes on the card (round_robin, warmed, weights rebuilt from seed
+    0), with this process's models freed. Gates: each worker's weight
+    checksum equals phase 4's params'; tokens equal (c)'s or part only at
+    a top-2 gap under LOGIT_LIMIT; submitted == emitted and payload bytes
+    conserved per worker; no worker loaded JAX or ``repro``; close()
+    reaps both processes."""
+    from repro_torch.core.transport import Transport
+    from repro_torch.models import Model
+    from repro_torch.serving import Gateway, ServingCluster, run_open_loop
+
+    model = Model(handoff["cfg"], device="cuda")  # no params in this process
+    t0 = time.perf_counter()
+    with ServingCluster.build(model, None, n_replicas=2, backend="process",
+                              policy="round_robin", warmup=True,
+                              param_seed=0, max_batch=8,
+                              max_seq=2048) as pc:
+        build_s = time.perf_counter() - t0
+        infos = [rep.init_info for rep in pc.replicas]
+        if any(i["checksum"] != handoff["checksum"] for i in infos):
+            raise AssertionError(f"(d) worker weight checksums "
+                                 f"{[i['checksum'][:12] for i in infos]} != "
+                                 f"{handoff['checksum'][:12]}")
+        sched = cluster_schedule(model.cfg.vocab_size)
+        t1 = time.perf_counter()
+        rsps = run_open_loop(Gateway(pc, first_hop=Transport.TCP), sched)
+        wall = time.perf_counter() - t1
+        tel = pc.telemetry()
+        workers = [rep.client.telemetry() for rep in pc.replicas]
+        procs = [rep.client.proc for rep in pc.replicas]
+    if any(p.poll() is None for p in procs):
+        raise AssertionError("(d) close() left a worker running")
+    if len(rsps) != 12:
+        raise AssertionError(f"(d) {len(rsps)} responses")
+    for row in tel["ipc"]:
+        if (row["submitted"] != row["emitted"]
+                or row["request_payload_bytes"] != row["submitted_bytes"]):
+            raise AssertionError(f"(d) conservation {row}")
+    foreign = [w["foreign_modules"] for w in workers]
+    if any(foreign):
+        raise AssertionError(f"(d) a worker loaded {foreign}")
+    # the Request objects crossed to the workers: tokens come back in the
+    # responses
+    by_id = {r.request_id: r.tokens for r in rsps}
+    got = [list(by_id[a.request.request_id]) for a in sched]
+    parts = []
+    if got != handoff["tokens"]:  # rebuild the weights only to judge a part
+        params = model.init(torch.Generator(device=model.device)
+                            .manual_seed(0))
+        parts = parted(torch, model, params, handoff["prompts"],
+                       handoff["tokens"], got, "(d) process replicas",
+                       ref="(c)")
+        del params
+    peaks = [w["peak_mem_bytes"] / 1e9 for w in workers]
+    res = {"build_s": build_s, "wall_s": wall, "init": [
+        {k: i[k] for k in ("init_s", "warm_s", "device")} for i in infos],
+        "ipc": tel["ipc"], "worker_peak_mem_gb": peaks, "parted": parts,
+        "routed": [row["submitted"] for row in tel["ipc"]], **slo_ms(rsps)}
+    print(f"   (d) 2 workers built in {build_s:.2f} s (init "
+          f"{[round(i['init_s'], 2) for i in infos]} s, warm "
+          f"{[round(i['warm_s'], 2) for i in infos]} s); checksums == phase "
+          f"4's; {wall:.2f} s for 12 arrivals; tokens "
+          f"{'== (c)' if not parts else 'part at near ties'}; TTFT p50 "
+          f"{res['ttft_ms_p50']:.2f} ms against (c)'s "
+          f"{handoff['slo']['ttft_ms_p50']:.2f}, TPOT p50 "
+          f"{res['tpot_ms_p50']:.3f} against {handoff['slo']['tpot_ms_p50']:.3f}"
+          f"; workers' peak device memory "
+          f"{[round(x, 2) for x in peaks]} GB; no JAX in either; both "
+          "reaped", flush=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Aggregation helpers for the profiler (Table I metrics) and the serving
-SLO telemetry (TTFT/TPOT/E2E percentiles). A copy of the JAX package's
-``core/metrics.py``, cut to what the port's serving path uses."""
+SLO telemetry the cluster tier reports (TTFT/TPOT/E2E percentiles,
+per-replica balance). A copy of the JAX package's ``core/metrics.py``."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 
@@ -47,6 +48,57 @@ def summarize(xs) -> dict:
         "cov": cov(xs),
         "n": len(xs),
     }
+
+
+def jain_index(xs) -> float:
+    """Jain's fairness index (sum x)^2 / (n * sum x^2) over per-replica
+    load shares: 1.0 means perfectly balanced, 1/n means one replica took
+    everything. The cluster tier reports it over per-replica busy-slot
+    time and routed-request counts."""
+    xs = [float(x) for x in xs]
+    if not xs:
+        return 1.0
+    sq = sum(x * x for x in xs)
+    if sq == 0.0:
+        return 1.0  # nothing routed anywhere: vacuously balanced
+    tot = sum(xs)
+    return tot * tot / (len(xs) * sq)
+
+
+def merge_record_streams(streams, offsets=None) -> list:
+    """Merge per-process :class:`~repro_torch.core.profiler.RequestRecord`
+    streams into one timeline, tolerating clock skew.
+
+    Each replica process stamps ``t_issue``/``t_done`` with its own
+    ``time.perf_counter``, whose epoch differs between processes.
+    ``offsets[i]`` is stream i's estimated ``child_clock -
+    reference_clock`` skew (the socket handshake's
+    ``ipc.ReplicaClient.clock_offset``); subtracting it rebases every
+    absolute stamp onto the reference (parent) clock. Durations
+    (``stage_s``, ``cpu_s``, ``t_done - t_issue``) are differences of
+    same-clock stamps, so they pass through untouched.
+
+    Returns ONE list sorted by rebased ``t_done``, with rebased copies:
+    source records are never mutated. ``offsets=None`` means all streams
+    already share the reference clock.
+    """
+    streams = [list(s) for s in streams]
+    if offsets is None:
+        offsets = [0.0] * len(streams)
+    if len(offsets) != len(streams):
+        raise ValueError(
+            f"offsets length {len(offsets)} != streams length {len(streams)}"
+        )
+    merged = []
+    for recs, off in zip(streams, offsets):
+        for rec in recs:
+            merged.append(
+                rec if off == 0.0 else dataclasses.replace(
+                    rec, t_issue=rec.t_issue - off, t_done=rec.t_done - off
+                )
+            )
+    merged.sort(key=lambda r: r.t_done)
+    return merged
 
 
 def slo_summary(responses, *, warmup: int = 0) -> dict:

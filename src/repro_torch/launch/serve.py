@@ -7,8 +7,12 @@ weights drawn from seed 0:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --reduced --device cpu --clients 2 --requests 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --first-hop tcp
 
-A stack with SSM layers (mamba2-130m) is served through exact-shape
+``--first-hop tcp|rdma`` puts a :class:`~repro_torch.serving.Gateway` in
+front of the engine: the paper's proxied connection, a modelled first hop
+before the engine's own transport. A stack with SSM layers (mamba2-130m) is served through exact-shape
 prefill, one request per prefill call.
 """
 
@@ -23,7 +27,12 @@ from repro_torch.configs import get_config
 from repro_torch.core.metrics import slo_summary
 from repro_torch.core.transport import Transport
 from repro_torch.models import Model
-from repro_torch.serving import ClosedLoopClient, ServingEngine, run_closed_loop
+from repro_torch.serving import (
+    ClosedLoopClient,
+    Gateway,
+    ServingEngine,
+    run_closed_loop,
+)
 
 
 def _prompt_len(text: str):
@@ -44,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--transport", default="gdr",
                     choices=["local", "tcp", "rdma", "gdr"])
+    ap.add_argument("--first-hop", default="", choices=["", "tcp", "rdma"],
+                    help="proxied connection: a Gateway over this hop")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=_prompt_len, default=32,
@@ -56,8 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(args) -> dict:
-    """Build the model and engine, serve the closed-loop load, and return
-    the engine, the responses and the wall time of the drain."""
+    """Build the model and engine (behind a Gateway with
+    ``--first-hop``), serve the closed-loop load, and return the engine,
+    the responses and the wall time of the drain."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -71,13 +83,16 @@ def run(args) -> dict:
         max_seq=args.max_seq or longest + args.new_tokens + 8,
         transport=Transport(args.transport), device=args.device,
     )
+    front = engine
+    if args.first_hop:
+        front = Gateway(engine, first_hop=Transport(args.first_hop))
     clients = [
         ClosedLoopClient(i, cfg.vocab_size, prompt_len=args.prompt_len,
                          max_new_tokens=args.new_tokens)
         for i in range(args.clients)
     ]
     t0 = time.perf_counter()
-    run_closed_loop(engine, clients, requests_per_client=args.requests)
+    run_closed_loop(front, clients, requests_per_client=args.requests)
     wall = time.perf_counter() - t0
     responses = [r for c in clients for r in c.completed]
     return {"cfg": cfg, "model": model, "engine": engine,
@@ -92,7 +107,8 @@ def main(argv=None) -> dict:
     slo = slo_summary(responses)
     tokens = sum(len(r.tokens) for r in responses)
     print(f"{out['cfg'].name} ({out['cfg'].n_layers} layers) on "
-          f"{engine.device} via {args.transport}")
+          f"{engine.device} via {args.transport}"
+          + (f" (proxied {args.first_hop})" if args.first_hop else ""))
     print("  requests:", len(s.records), " tokens out:", tokens,
           " tokens/s: %.1f" % (tokens / wall))
     print("  ttft p50/p99: %.2f / %.2f ms   tpot p50/p99: %.2f / %.2f ms"

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.core import transfer as xfer
 from repro_torch.core.transfer import (
     MODE_TRANSPORT,
@@ -278,7 +279,8 @@ class DisaggregatedEngine(ServingEngine):
     # ------------------------------------------------------------------ #
     def _move(self, payload):
         """Run the mechanism on a packed payload: (the landed tree, the
-        measured wall, seconds spent growing buffers outside it)."""
+        start stamp and the measured wall of the hop, seconds spent growing
+        buffers outside it)."""
         t0 = time.perf_counter()
         self._bufs.fit(payload)
         alloc_s = time.perf_counter() - t0
@@ -289,15 +291,22 @@ class DisaggregatedEngine(ServingEngine):
         t0 = time.perf_counter()
         landed = xfer.move(payload, self._bufs)
         wall = time.perf_counter() - t0
-        return landed.unpack(), wall, alloc_s
+        return landed.unpack(), t0, wall, alloc_s
 
-    def _charge(self, art: PrefillArtifact, wire_now: int, wall: float,
-                req_bytes: list):
-        """Count one handoff and charge each riding request its share."""
+    def _charge(self, art: PrefillArtifact, wire_now: int, t0: float,
+                wall: float, req_bytes: list):
+        """Count one handoff, emit its ``transfer`` span, and charge each
+        riding request its share."""
         measured = self._measured()
         self.handoffs += 1
         self.handoff_wall_s += wall
         self.handoff_wire_bytes += wire_now
+        trace.tracer().emit(
+            "transfer", t0, t0 + wall, tag=self.trace_tag,
+            mechanism=self.transfer_mode.name, wire_bytes=wire_now,
+            requests=len(art.reqs),
+            charge="measured" if measured else "modeled",
+        )
         share = wall / max(len(art.reqs), 1)
         tot_bytes = max(sum(req_bytes), 1)
         for req, nbytes in zip(art.reqs, req_bytes):
@@ -345,7 +354,7 @@ class DisaggregatedEngine(ServingEngine):
         else:
             n, prefix = self._prefix_extent(art)
             payload = self._wire_payload(art, n, prefix)
-        landed, wall, alloc_s = self._move(payload)
+        landed, t0, wall, alloc_s = self._move(payload)
         wire_now = payload_wire_bytes(payload.tree, self.transfer_mode)
         lens = landed["meta"]["lengths"].cpu().numpy()
         if self.paged:
@@ -360,7 +369,7 @@ class DisaggregatedEngine(ServingEngine):
             req_bytes = [_META_BYTES + kvc.request_cache_nbytes(
                 art.caches, int(lens[j]), itemsize=self._wire_isz)
                 for j in range(len(art.reqs))]
-        self._charge(art, wire_now, wall, req_bytes)
+        self._charge(art, wire_now, t0, wall, req_bytes)
         return self._land(art, landed), wall + alloc_s
 
     def counters(self) -> dict:

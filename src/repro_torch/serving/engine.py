@@ -56,6 +56,15 @@ TransportProfile, composed into one per-request record (paper Table I).
 * **Legacy loop** (``legacy=True``) -- the seed's synchronous loop, the
   A/B baseline: exact-length prefill per request, a blocking host argmax
   every token, one step in flight.
+* **Spans and counters** -- with tracing on (``core/trace``) every path
+  emits the JAX engine's spans (``submit``, ``queue``, ``prefill.<path>``,
+  ``decode.window`` over 8 harvested steps, the ``request`` root) from the
+  host clock at dispatch and harvest; :meth:`ServingEngine.
+  metrics_snapshot` absorbs :meth:`ServingEngine.counters` into a
+  registry (``core/obs``).
+* **Threaded host pipeline** (:class:`EnginePipeline`) -- admission and
+  dispatch, the wait on each step's copy event, and bookkeeping on three
+  threads joined by bounded queues.
 
 Every device state tensor of the pool -- the KV pool (the JAX engine
 donates it), the page table and the small per-slot state -- is allocated
@@ -68,7 +77,10 @@ values.
 from __future__ import annotations
 
 import dataclasses
+import queue as queue_mod
+import threading
 import time
+import traceback
 from collections import deque
 from typing import Optional
 
@@ -76,6 +88,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import trace
+from repro_torch.core.obs import Registry
 from repro_torch.core.profiler import ProfileStore, RequestRecord
 from repro_torch.core.transport import PAPER_A2, Transport
 from repro_torch.kernels import ops
@@ -340,8 +354,16 @@ class DecodePool:
         advances its Philox offset as an eager call would. The capture
         keeps the caching allocator's blocks (``torch.cuda.graph`` would
         empty the cache first, and every later prefill would allocate its
-        blocks with ``cudaMalloc`` anew). Failure raises: there is no eager
-        fallback."""
+        blocks with ``cudaMalloc`` anew).
+
+        The capture runs in CUDA's thread-local capture mode: only the
+        capturing thread is barred from unsafe CUDA calls. Under
+        :class:`EnginePipeline` an unwarmed pool captures on the dispatch
+        thread while the harvest thread may sit in ``cudaEventSynchronize``
+        on an earlier step's copy; in the default global mode that call
+        would be refused (or would invalidate the capture). The capture
+        itself records only the side stream, which no other thread
+        touches. Failure raises: there is no eager fallback."""
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(cur)
@@ -352,7 +374,7 @@ class DecodePool:
             self._step(params)
             side.synchronize()
             before = dict(ops.LAUNCHES)
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self._step(params)
             finally:
@@ -498,7 +520,10 @@ class ServingEngine:
     ``self.store``.
 
     ``warmup=True`` runs :meth:`warm` at construction, so no timed stage
-    pays a one-time cost (its wall is ``warm_s``). ``legacy=True`` serves
+    pays a one-time cost (its wall is ``warm_s``). ``trace_tag`` names the
+    engine's lane of process-level spans (a cluster gives each replica its
+    own); ``debug_stamps=True`` checks each finished request's stamps are
+    in order. ``legacy=True`` serves
     through the seed's synchronous loop instead (exact-length prefill per
     request, a blocking host argmax every token, one step in flight; no
     bucketing, packing, chunking, paging or sampling), the baseline of the
@@ -529,6 +554,8 @@ class ServingEngine:
         prefill_chunk: int = 0,
         legacy: bool = False,
         warmup: bool = False,
+        debug_stamps: bool = False,
+        trace_tag: str = "engine",
         device="cuda",
         _graph: bool = True,
     ):
@@ -610,10 +637,28 @@ class ServingEngine:
             2 * int(sample_seed) + 1)
         self._records: dict[int, RequestRecord] = {}
         self._finished_ids: set[int] = set()
+        # steps popped from the window but not yet finalized: empty on the
+        # step() path; EnginePipeline parks its harvest and detokenize
+        # backlog here so the _finished_ids prune sees them
+        self._backlog_entries: deque = deque()
         self._prefill_finished: list[Response] = []
         self._t_mark = time.perf_counter()
         self.decode_steps = 0  # whole-batch decode dispatches
         self.useful_steps = 0  # harvested steps that advanced a live request
+        # tracing (core/trace): request-scoped queue and prefill spans, a
+        # root span per finished request, and decode spans WINDOWED over
+        # _TRACE_WINDOW_STEPS harvested steps. trace_tag names this
+        # engine's lane of process-level spans, so co-resident engines
+        # (in-process cluster replicas) keep separate timelines
+        self.trace_tag = trace_tag
+        self._win_t0: Optional[float] = None
+        self._win_end = 0.0
+        self._win_steps = 0
+        self._win_busy = 0
+        # check every finished request's t_arrival <= t_first_token <=
+        # t_done (a clock running backwards means a bad cross-process
+        # rebase)
+        self.debug_stamps = bool(debug_stamps)
         self.warm_s = 0.0  # construction-time warm wall, outside all stages
         if warmup:
             self.warm_s = self.warm()
@@ -632,6 +677,77 @@ class ServingEngine:
             "useful_steps": self.useful_steps,
             "requests_finished": len(self.store.records),
         }
+
+    def metrics_snapshot(self) -> dict:
+        """Counters and live-load gauges absorbed into a fresh
+        :class:`~repro_torch.core.obs.Registry` and snapshotted (what
+        ``ServingCluster.telemetry()`` embeds per replica)."""
+        reg = Registry()
+        reg.ingest_counters(self.counters(), prefix="engine.")
+        reg.gauge("engine.queue_depth").set(len(self.queue))
+        reg.gauge("engine.occupancy").set(
+            sum(1 for s in self.pool.slots if s is not None))
+        return reg.snapshot()
+
+    # ------------------------------------------------------------------ #
+    # Tracing emitters (core/trace): all no-ops unless tracing is on. On
+    # CUDA the decode step is a graph replay that runs no Python, so the
+    # spans come from the host clock at dispatch and harvest, never from
+    # inside the step.
+    # ------------------------------------------------------------------ #
+    _TRACE_WINDOW_STEPS = 8  # harvested decode steps per window span
+
+    def _trace_admission(self, path: str, reqs: list, t0: float, now: float,
+                         dt: float, n: int, **attrs):
+        """Per admitted request: the queue-wait span (submit -> admission
+        pick, exactly the charged 'queue' stage) and the prefill span over
+        the admission's dispatch -> completion interval (each request's
+        charge is its dt/n share, carried as an attr)."""
+        tr = trace.tracer()
+        if not tr.enabled:
+            return
+        for req in reqs:
+            rec = self._records[req.request_id]
+            tr.emit("queue", rec.t_issue, t0, request_id=req.request_id)
+            tr.emit(f"prefill.{path}", t0, now, request_id=req.request_id,
+                    share_s=dt / max(n, 1), n=n, **attrs)
+
+    def _trace_note_step(self, t_end: float, dt: float, busy: int):
+        """Fold one harvested decode step into the open decode window and
+        flush a ``decode.window`` span every ``_TRACE_WINDOW_STEPS`` steps.
+        Step intervals chain on the inference clock (``_t_mark``), so a
+        window's wall is the sum of the inference walls it covers."""
+        if not trace.tracer().enabled:
+            return
+        if self._win_t0 is None:
+            self._win_t0 = t_end - dt
+        self._win_end = t_end
+        self._win_steps += 1
+        self._win_busy += busy
+        if self._win_steps >= self._TRACE_WINDOW_STEPS:
+            self._trace_flush_window()
+
+    def _trace_flush_window(self):
+        """Emit and reset the open decode window (at the step threshold,
+        before every inference-clock reset -- admissions and idle restarts
+        -- and at drain end through :meth:`trace_flush`, so a window never
+        spans a gap)."""
+        if self._win_t0 is not None and self._win_steps:
+            # a fixed thread label: a flush can run on whichever pipeline
+            # thread resets the inference clock, but the windows chain one
+            # timeline per engine
+            trace.tracer().emit(
+                "decode.window", self._win_t0, self._win_end,
+                thread="decode-window", steps=self._win_steps,
+                busy_slot_steps=self._win_busy, tag=self.trace_tag,
+            )
+        self._win_t0 = None
+        self._win_steps = 0
+        self._win_busy = 0
+
+    def trace_flush(self):
+        """Flush any open windowed trace state (drain boundaries)."""
+        self._trace_flush_window()
 
     def logits_all_finite(self) -> bool:
         """Whether every logit row computed so far was finite (syncs)."""
@@ -679,6 +795,13 @@ class ServingEngine:
             rec.add("copy_in", self.profile.copy_time(rec.bytes_in))
         self._records[req.request_id] = rec
         self.queue.append(req)
+        # instant span marking arrival (the modelled ingress charges are
+        # attrs, not wall: they never happened on this clock)
+        trace.tracer().emit(
+            "submit", req.t_arrival, req.t_arrival,
+            request_id=req.request_id, bytes_in=rec.bytes_in,
+            charge="modeled",
+        )
 
     def _bucket(self, s: int) -> int:
         return min(max(_next_pow2(s), MIN_BUCKET), self.max_seq)
@@ -848,7 +971,8 @@ class ServingEngine:
             torch.from_numpy(lens).to(dev),
         )
         self._splice_and_place(logits, cache1, lens_d, slot_idx, maxn, reqs,
-                               slots, t0, prefix_len=int(lens.max()))
+                               slots, t0, prefix_len=int(lens.max()),
+                               trace_as=("bucket", dict(bucket=L)))
 
     def _prefill_packed(self, reqs: list, slots: list, jobs: list = None):
         """One token-packed prefill for every admitted prompt.
@@ -914,7 +1038,8 @@ class ServingEngine:
                          cached_lens=np.zeros((npad,), np.int32))
         self._splice_and_place(
             logits, caches, torch.from_numpy(lens).to(dev), slot_idx, maxn,
-            reqs, slots, t0, prefix_len=int(lens.max()), **paged)
+            reqs, slots, t0, prefix_len=int(lens.max()),
+            trace_as=("packed", dict(packed_width=T)), **paged)
 
     # ------------------------------------------------------------------ #
     # Chunked prefill: fixed-width chunks interleaved with decode steps
@@ -954,6 +1079,8 @@ class ServingEngine:
         rec = self._records[job.req.request_id]
         if job.done == 0:  # the pre-admission wait ends at the first chunk
             rec.add("queue", max(t0 - rec.t_issue, 0.0))
+            trace.tracer().emit("queue", rec.t_issue, t0,
+                                request_id=job.req.request_id)
         n = ((P - 1) % C) + 1 if job.done == 0 else C
         toks = np.zeros((1, C), np.int32)
         toks[0, :n] = job.req.prompt_tokens[job.done:job.done + n]
@@ -971,7 +1098,11 @@ class ServingEngine:
             # deliberate fence: the chunk's 'preprocess' includes its
             # device completion and the host runs at most a chunk ahead
             self.pool.sample(logits, self.prefill_rng).cpu()
-            rec.add("preprocess", max(time.perf_counter() - t0, 0.0))
+            t1 = time.perf_counter()
+            rec.add("preprocess", max(t1 - t0, 0.0))
+            trace.tracer().emit("prefill.chunk", t0, t1,
+                                request_id=job.req.request_id, chunk=C,
+                                done=job.done, prompt=P)
             return
         # the final chunk: its prior, cut to the prompt's bucket, is the
         # artifact's one row (the splice and the handoff read rows up to
@@ -984,7 +1115,9 @@ class ServingEngine:
             logits, caches, torch.tensor([P], dtype=torch.int32, device=dev),
             np.asarray([job.slot], np.int32),
             np.asarray([job.req.max_new_tokens], np.int32), [job.req],
-            [job.slot], t0, prefix_len=P, queued=False)
+            [job.slot], t0, prefix_len=P, queued=False,
+            trace_as=("chunk", dict(chunk=C, done=job.done, prompt=P,
+                                    final=True)))
 
     def _prefill_exact(self, req: Request, slot: int):
         """Exact-shape prefill of one request at its true length S, then its
@@ -1001,18 +1134,19 @@ class ServingEngine:
         self._splice_and_place(
             logits, caches, lengths, np.asarray([slot], np.int32),
             np.asarray([req.max_new_tokens], np.int32), [req], [slot], t0,
-            prefix_len=S)
+            prefix_len=S, trace_as=("exact", dict(prompt=S)))
 
     def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
                           reqs: list, slots: list, t0: float, *,
-                          prefix_len: int, before_place=None, queued=True,
-                          **paged):
+                          prefix_len: int, trace_as: tuple,
+                          before_place=None, queued=True, **paged):
         """Sample each row's first token, hand the artifact across
         :meth:`_handoff`, splice it into the pool, and hand its requests
         their first token and slot. ``paged`` carries the paged
         artifact's ``dest_blocks`` and ``cached_lens``; ``queued=False``
-        leaves 'queue' alone (a chunked admission charged it at its first
-        chunk).
+        leaves 'queue' alone (a chunked admission charged it, and emitted
+        its span, at its first chunk). ``trace_as`` is the admission's
+        ``(path, attrs)``: its spans are ``prefill.<path>``.
         ``before_place`` runs after the splice and before any request is
         placed (the paged path indexes its prompts there: a request its
         prefill token already finishes releases its slot in
@@ -1031,6 +1165,13 @@ class ServingEngine:
         dt = max(now - t0 - t_xfer, 0.0)
         if before_place is not None:
             before_place()
+        self._trace_flush_window()  # decode windows never span a prefill
+        path, attrs = trace_as
+        if queued:
+            self._trace_admission(path, reqs, t0, now, dt, len(reqs), **attrs)
+        else:
+            trace.tracer().emit(f"prefill.{path}", t0, now,
+                                request_id=reqs[0].request_id, **attrs)
         for j, (req, slot) in enumerate(zip(reqs, slots)):
             rec = self._records[req.request_id]
             if queued:  # pre-admission wait: submit -> this admission
@@ -1211,6 +1352,7 @@ class ServingEngine:
             logits, caches, total, slot_idx, maxn, reqs, slots, t0,
             prefix_len=int((cached_np + lens).max()), dest_blocks=dest,
             cached_lens=cached_np,
+            trace_as=("suffix" if has_prior else "paged", dict(bucket=L)),
             before_place=lambda: self._index_insert(jobs, store_ctx))
 
     def _place(self, req: Request, slot: int):
@@ -1237,12 +1379,17 @@ class ServingEngine:
         ]
         return max(out, default=0)
 
-    def _dispatch(self):
-        """Top up the in-flight window."""
+    def _dispatch(self, outstanding: int = 0):
+        """Top up the in-flight window. ``outstanding`` is the number of
+        steps popped from the window and not yet finalized (the threaded
+        pipeline's harvest and detokenize backlog): the inference clock
+        restarts only when the device is idle -- window empty AND nothing
+        in the backlog."""
         if self.pool.all_free:
             return
-        if not self.pool.window:
+        if not self.pool.window and outstanding == 0:
             # pipeline (re)start: don't charge idle time to "inference"
+            self._trace_flush_window()  # a window never spans an idle gap
             self._t_mark = time.perf_counter()
         limit = self._window_limit()
         while self.pool.fill_one(self.params, limit=limit):
@@ -1267,6 +1414,7 @@ class ServingEngine:
         ]
         if live:
             self.useful_steps += 1
+        self._trace_note_step(self._t_mark, dt, len(live))
         done: list[Response] = []
         for i, req in live:
             rec = self._records[req.request_id]
@@ -1288,9 +1436,13 @@ class ServingEngine:
                     # in dispatch order
                     self.pool.release_slot(i)
         if done and self._finished_ids:
-            # ids matter only while an in-flight snapshot references them
+            # ids matter only while an in-flight snapshot references them;
+            # the pipeline's popped-but-unfinalized steps
+            # (``_backlog_entries``) count as in flight, or a stale step
+            # could finish a pruned request a second time
             live_ids = {
-                r.request_id for ent in self.pool.window
+                r.request_id
+                for ent in (*self.pool.window, *self._backlog_entries)
                 for r in ent.slots if r is not None
             }
             self._finished_ids &= live_ids
@@ -1327,6 +1479,18 @@ class ServingEngine:
         adj = self._ttft_adjust(rec)
         rec.t_done = time.perf_counter() + ingress + egress + adj
         req.t_done = rec.t_done
+        if self.debug_stamps:
+            trace.validate_stamps(
+                req.t_arrival, req.t_first_token, req.t_done,
+                where=f"request {req.request_id} at finish",
+            )
+        # root span: the whole request interval (the modelled ingress and
+        # egress folded into t_done bound every charged stage)
+        trace.tracer().emit(
+            "request", rec.t_issue, rec.t_done, request_id=req.request_id,
+            tokens=len(req.generated), bytes_in=rec.bytes_in,
+            bytes_out=rec.bytes_out,
+        )
         self.store.add(rec)
         return Response(
             request_id=req.request_id,
@@ -1368,6 +1532,7 @@ class ServingEngine:
             out.extend(self.step())
             if self.idle:
                 break
+        self.trace_flush()
         return out
 
     # ------------------------------------------------------------------ #
@@ -1397,6 +1562,7 @@ class ServingEngine:
         req.generated.append(next_tok)
         self.pool.slots[slot] = req
         req.t_first_token = time.perf_counter()
+        self._trace_admission("legacy", [req], t0, req.t_first_token, dt, 1)
 
     def _admit_legacy(self):
         """Admit the highest-priority queued request (the first of equals)
@@ -1426,6 +1592,7 @@ class ServingEngine:
         self.useful_steps += 1  # the sync loop only steps live slots
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32).cpu()
         dt = time.perf_counter() - t0
+        self._trace_note_step(t0 + dt, dt, len(active))
         pool.note_logits(logits)
         pool.lengths.copy_(lengths)
         pool.tokens.copy_(next_tokens[:, None])
@@ -1442,3 +1609,298 @@ class ServingEngine:
                 done.append(self._finish(req, rec))
                 pool.slots[i] = None
         return done
+
+
+class EnginePipeline:
+    """Threaded host pipeline over a (fast-path) :class:`ServingEngine`
+    (the JAX engine's ``EnginePipeline``).
+
+    The single-threaded ``step()`` loop interleaves three host jobs --
+    admission and dispatch, the blocking wait for a step's tokens, and
+    per-token record bookkeeping -- on one thread, so the card waits
+    whenever the host is busy with bookkeeping. This class puts them on
+    three daemon threads joined by BOUNDED queues:
+
+      dispatch thread   : admits queued requests (prefill + splice), tops
+                          up the in-flight decode window (on CUDA a graph
+                          replay per step), runs one chunk of a chunked
+                          admission, then moves the oldest dispatched step
+                          onto the harvest queue. All device work is
+                          enqueued here, on this thread's current stream.
+      harvest thread    : ``entry.host.wait()``, the step's copy event --
+                          the only stage that blocks on the card.
+      detokenize thread : :meth:`ServingEngine._finalize_harvest` -- record
+                          bookkeeping, EOS/budget checks, slot release.
+
+    Each queue has one producer and one consumer and is FIFO, so steps are
+    finalized in dispatch order: records can neither reorder nor drop
+    (``submitted`` / ``emitted`` count the conservation invariant). When
+    detokenize falls behind, the harvest thread blocks on its bounded put
+    and dispatch blocks in turn: backpressure, never loss.
+
+    The facade stays ``step()``-compatible with a single engine
+    (``submit`` / ``step`` / ``queue`` / ``store`` / ``_records`` / ``idle``
+    / ``run_until_drained``), so the Gateway, the load generators and the
+    cluster's Router drive it unchanged; ``step()`` only collects finished
+    responses (``async_draining`` tells the open-loop driver it may sleep
+    instead of spin). Engine state is guarded by one ``RLock``, and nothing
+    blocks while holding it: the wait on the card and the queue hand-offs
+    run outside it. A thread's failure is captured and re-raised on the
+    caller's next ``submit`` / ``step`` / ``idle``.
+
+    On CUDA an unwarmed engine captures its decode graph on the dispatch
+    thread, under the lock, in CUDA's thread-local capture mode (see
+    :meth:`DecodePool._capture`), while the harvest thread may be waiting
+    on an earlier step's event. The ``_HostCopy`` event is recorded on the
+    dispatch thread's current stream, the stream the replay ran on, and
+    any thread may wait on it.
+    """
+
+    # _outputs, _outstanding, submitted, emitted, submitted_bytes, steps
+    # and busy_slot_steps are touched only under ``with self._lock``, and
+    # nothing blocks while the lock is held (a blocking put under the lock
+    # would park every thread that needs it)
+
+    def __init__(self, engine: ServingEngine, *, backlog: int = 2,
+                 poll_s: float = 0.0005):
+        if engine.legacy:
+            raise ValueError(
+                "EnginePipeline requires the fast path (the legacy loop "
+                "is synchronous by design)"
+            )
+        if backlog < 1:
+            raise ValueError(f"backlog must be >= 1: {backlog}")
+        self.engine = engine
+        self.poll_s = poll_s
+        self.async_draining = True  # step() collects results; threads drive
+        self._lock = threading.RLock()
+        self._harvest_q: queue_mod.Queue = queue_mod.Queue(maxsize=backlog)
+        self._detok_q: queue_mod.Queue = queue_mod.Queue(maxsize=backlog)
+        self._outputs: deque = deque()
+        self._outstanding = 0  # popped from the window, not yet finalized
+        self._stop = threading.Event()
+        self._exc: Optional[str] = None
+        # conservation and occupancy telemetry (the worker's load snapshot)
+        self.submitted = 0
+        self.emitted = 0
+        self.submitted_bytes = 0
+        self.steps = 0  # finalized decode steps (occupancy samples)
+        self.busy_slot_steps = 0
+        self._threads = [
+            threading.Thread(target=self._run_guarded, args=(fn,),
+                             name=f"engine-pipeline-{tag}", daemon=True)
+            for tag, fn in (("dispatch", self._dispatch_loop),
+                            ("harvest", self._harvest_loop),
+                            ("detokenize", self._detok_loop))
+        ]
+        for t in self._threads:
+            t.start()
+
+    # ------------------------------------------------------------------ #
+    # thread bodies
+    # ------------------------------------------------------------------ #
+    def _run_guarded(self, fn):
+        try:
+            if self.engine.device.type == "cuda":
+                # a new thread starts on device 0; run on the engine's
+                torch.cuda.set_device(self.engine.device)
+            fn()
+        except Exception:  # the thread's boundary: surfaced to the caller
+            self._exc = traceback.format_exc()
+            self._stop.set()
+
+    def _put(self, q, item) -> bool:
+        """Bounded put that stays responsive to shutdown."""
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def _get(self, q):
+        while not self._stop.is_set():
+            try:
+                return q.get(timeout=0.05)
+            except queue_mod.Empty:
+                continue
+        return None
+
+    def _dispatch_loop(self):
+        eng = self.engine
+        while not self._stop.is_set():
+            entry = None
+            t0 = time.perf_counter()
+            with self._lock:
+                eng._admit()
+                if eng._prefill_finished:  # budget met at prefill time
+                    done = list(eng._prefill_finished)
+                    eng._prefill_finished = []
+                    self._outputs.extend(done)
+                    self.emitted += len(done)
+                eng._dispatch(outstanding=self._outstanding)
+                eng._chunk_step()  # one chunk behind the decode top-up
+                if eng.pool.window:
+                    entry = eng.pool.pop_oldest()
+                    eng._backlog_entries.append(entry)
+                    self._outstanding += 1
+            if entry is not None:
+                trace.tracer().emit("pipeline.dispatch", t0,
+                                    time.perf_counter(), tag="pipeline")
+                # never under the lock: a full backlog must block dispatch
+                # without blocking the detokenize thread's finalize
+                self._put(self._harvest_q, entry)
+            else:
+                time.sleep(self.poll_s)
+
+    def _harvest_loop(self):
+        while not self._stop.is_set():
+            entry = self._get(self._harvest_q)
+            if entry is None:
+                continue
+            # the wait on the card, off every other thread's path (no
+            # lock: the step's host copy is its own)
+            t0 = time.perf_counter()
+            toks, _done = entry.host.wait()
+            t_h = time.perf_counter()
+            trace.tracer().emit("pipeline.harvest", t0, t_h, tag="pipeline")
+            self._put(self._detok_q, (entry, toks, t_h))
+
+    def _detok_loop(self):
+        eng = self.engine
+        while not self._stop.is_set():
+            item = self._get(self._detok_q)
+            if item is None:
+                continue
+            entry, toks, t_h = item
+            t0 = time.perf_counter()
+            with self._lock:
+                # FIFO edges: the entry finalized is the oldest backlog
+                # entry; drop it BEFORE finalize so the _finished_ids prune
+                # is tight
+                if eng._backlog_entries and eng._backlog_entries[0] is entry:
+                    eng._backlog_entries.popleft()
+                dt = max(t_h - eng._t_mark, 0.0)
+                eng._t_mark = t_h
+                done = eng._finalize_harvest(entry, toks, dt)
+                self.steps += 1
+                self.busy_slot_steps += sum(
+                    1 for r in entry.slots if r is not None)
+                self._outputs.extend(done)
+                self.emitted += len(done)
+                self._outstanding -= 1
+            trace.tracer().emit("pipeline.detokenize", t0,
+                                time.perf_counter(), tag="pipeline")
+
+    # ------------------------------------------------------------------ #
+    # step()-compatible facade
+    # ------------------------------------------------------------------ #
+    def _check(self):
+        if self._exc is not None:
+            raise RuntimeError(f"engine pipeline thread failed:\n{self._exc}")
+
+    def submit(self, req: Request, now: Optional[float] = None):
+        self._check()
+        with self._lock:
+            self.engine.submit(req, now)
+            self.submitted += 1
+            self.submitted_bytes += req.payload_bytes
+
+    def step(self) -> list[Response]:
+        """Collect finished responses (completion order). The pipeline
+        threads make the progress; this never blocks on the card."""
+        self._check()
+        with self._lock:
+            out = list(self._outputs)
+            self._outputs.clear()
+        return out
+
+    def _idle_locked(self) -> bool:
+        eng = self.engine
+        return (not eng.queue and eng.pool.all_free and not eng.pool.window
+                and not eng._chunk_jobs and self._outstanding == 0
+                and not self._outputs)
+
+    @property
+    def idle(self) -> bool:
+        self._check()
+        with self._lock:
+            return self._idle_locked()
+
+    def run_until_drained(self, max_steps: int = 10_000) -> list[Response]:
+        out = []
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if self.idle:
+                break
+            time.sleep(self.poll_s)
+        self.trace_flush()
+        return out
+
+    def trace_flush(self):
+        """Flush the engine's open decode-window span (drain boundary)."""
+        with self._lock:
+            self.engine._trace_flush_window()
+
+    def load_snapshot(self) -> dict:
+        """Router-visible load and conservation counters, read atomically
+        (what the worker returns on every RPC round trip)."""
+        with self._lock:
+            eng = self.engine
+            free = len(eng._free_slots())  # chunk-reserved slots are busy
+            queued = sum(r.max_new_tokens for r in eng.queue)
+            live = sum(r.max_new_tokens - len(r.generated)
+                       for r in eng.pool.slots if r is not None)
+            chunking = sum(j.req.max_new_tokens for j in eng._chunk_jobs)
+            return {
+                "queue_depth": len(eng.queue),
+                "occupancy": eng.max_batch - free,
+                "free_slots": free,
+                "outstanding_tokens": queued + live + chunking,
+                "steps": self.steps,
+                "busy_slot_steps": self.busy_slot_steps,
+                "submitted": self.submitted,
+                "emitted": self.emitted,
+                "submitted_bytes": self.submitted_bytes,
+                "idle": self._idle_locked(),
+            }
+
+    def metrics_snapshot(self) -> dict:
+        """The engine's registry snapshot, read atomically."""
+        with self._lock:
+            return self.engine.metrics_snapshot()
+
+    # passthroughs (Gateway, loadgen and the tests reach the engine surface)
+    @property
+    def queue(self):
+        return self.engine.queue
+
+    @property
+    def store(self):
+        return self.engine.store
+
+    @property
+    def _records(self):
+        return self.engine._records
+
+    @property
+    def max_batch(self):
+        return self.engine.max_batch
+
+    @property
+    def pool(self):
+        return self.engine.pool
+
+    def close(self, timeout: float = 5.0):
+        """Stop the pipeline threads (idempotent). In-flight steps are
+        abandoned: close after draining if the results matter."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=timeout)
+
+    def __enter__(self) -> "EnginePipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

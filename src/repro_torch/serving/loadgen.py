@@ -1,25 +1,33 @@
-"""Seeded traffic for the serving engine (a copy of the JAX package's
-``serving/loadgen.py``: the Poisson and shared-prefix arrival processes and
-the open-loop runner).
+"""Seeded traffic for the serving engines and the cluster tier (a copy of
+the JAX package's ``serving/loadgen.py``).
 
-Both schedules are deterministic in ``seed``: the same seed gives the same
+Every schedule is deterministic in ``seed``: the same seed gives the same
 arrival offsets and the same prompt token arrays as the JAX package's, so
-the two engines can be fed one workload.
+the two packages can be fed one workload.
 
 * **Open-loop Poisson** (:func:`poisson_schedule`) -- exponential
   interarrival gaps at ``rate_rps``; arrivals never wait for completions.
 * **Shared-prefix Poisson** (:func:`shared_prefix_schedule`) -- the same
   arrival process over Zipf-distributed shared system prompts, the
-  workload the paged engine's radix prefix reuse serves.
+  workload the paged engine's radix prefix reuse and the router's
+  ``prefix_cache`` policy serve.
+* **Trace replay** (:func:`trace_schedule` / :func:`load_trace` /
+  :func:`save_trace`) -- explicit per-request arrival offsets, prompt
+  lengths, budgets and priorities from a JSON-lines trace file or a list
+  of dicts.
+* **Closed-loop baseline** (:func:`run_closed_loop_baseline`) -- N
+  clients, each submitting its next request when the last completes
+  (``serving/client.py``), the paper's SS-III-B workload model.
 
 :func:`run_open_loop` submits each request when its offset comes due and
-steps the engine in between, so pre-admission backlog lands in each
-request's 'queue' stage.
+steps the engine (or cluster, or a Gateway over either) in between, so
+pre-admission backlog lands in each request's 'queue' stage.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -110,13 +118,51 @@ def shared_prefix_schedule(vocab: int, *, rate_rps: float, n_requests: int,
     return out
 
 
+def trace_schedule(entries, vocab: int, *, seed: int = 0) -> list:
+    """Arrival schedule from trace entries (dicts with ``t`` seconds,
+    ``prompt_len``, and optional ``max_new``/``client_id``/``priority``).
+    Prompt token contents are drawn from ``seed``; the entries give timing
+    and shape, so a saved trace replays identically."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for e in entries:
+        out.append(Arrival(
+            float(e["t"]),
+            _make_request(rng, vocab, e["prompt_len"], e.get("max_new", 8),
+                          e.get("client_id", 0), e.get("priority", 0)),
+        ))
+    if any(out[i].t > out[i + 1].t for i in range(len(out) - 1)):
+        raise ValueError("trace arrival times must be non-decreasing")
+    return out
+
+
+def load_trace(path: str) -> list:
+    """Read a JSON-lines trace file (one entry dict per line; blank lines
+    and ``#`` comment lines skipped)."""
+    entries = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                entries.append(json.loads(line))
+    return entries
+
+
+def save_trace(path: str, entries) -> None:
+    """Write trace entries as JSON lines (the :func:`load_trace` format)."""
+    with open(path, "w") as f:
+        for e in entries:
+            f.write(json.dumps(e) + "\n")
+
+
 def run_open_loop(engine, schedule: list, *, max_steps: int = 1_000_000,
                   poll_s: float = 0.002) -> list:
-    """Drive ``engine`` with wall-clock open-loop arrivals: each request is
-    submitted when its offset comes due, never gated on completions, and
-    the engine steps in between. Returns responses in completion order;
-    raises if the drain exceeds ``max_steps`` (a stuck engine, not a slow
-    one)."""
+    """Drive ``engine`` (a ServingEngine, DisaggregatedEngine,
+    EnginePipeline, ServingCluster, or a Gateway over any of them) with
+    wall-clock open-loop arrivals: each request is submitted when its
+    offset comes due, never gated on completions, and the engine steps in
+    between. Returns responses in completion order; raises if the drain
+    exceeds ``max_steps`` (a stuck engine, not a slow one)."""
     sched = sorted(schedule, key=lambda a: a.t)
     out = []
     i = 0
@@ -132,7 +178,19 @@ def run_open_loop(engine, schedule: list, *, max_steps: int = 1_000_000,
             # long gap still polls the clock)
             time.sleep(min(max(sched[i].t - now, 0.0), poll_s))
             continue
-        out.extend(engine.step())
+        got = engine.step()
+        out.extend(got)
+        if not got and getattr(engine, "async_draining", False):
+            # engines that drain on their own (the threaded pipeline,
+            # process replicas) make progress without stepping: spinning
+            # here would only charge polling to the driver's CPU. Sleep
+            # until the next arrival, capped at poll_s so completions are
+            # still collected promptly
+            now = time.perf_counter() - t0
+            wait = poll_s if i >= len(sched) else min(
+                max(sched[i].t - now, 0.0), poll_s)
+            if wait > 0.0:
+                time.sleep(wait)
         steps += 1
         if steps > max_steps:
             raise RuntimeError(
@@ -140,3 +198,22 @@ def run_open_loop(engine, schedule: list, *, max_steps: int = 1_000_000,
                 f"{len(out)}/{len(sched)} responses"
             )
     return out
+
+
+def run_closed_loop_baseline(engine, vocab: int, *, n_clients: int = 4,
+                             requests_per_client: int = 4,
+                             prompt_len: int = 32, max_new_tokens: int = 8,
+                             seed: int = 0) -> list:
+    """Closed-loop control: ``n_clients`` clients, each submitting its
+    next request only when the previous completes (``serving/client.py``).
+    Returns the flat completion list across clients. Concurrency is capped
+    at ``n_clients``, so the backlog an open loop measures cannot form."""
+    from repro_torch.serving.client import ClosedLoopClient, run_closed_loop
+
+    clients = [
+        ClosedLoopClient(i, vocab, prompt_len=prompt_len,
+                         max_new_tokens=max_new_tokens, seed=seed)
+        for i in range(n_clients)
+    ]
+    run_closed_loop(engine, clients, requests_per_client)
+    return [r for c in clients for r in c.completed]

@@ -13,7 +13,8 @@ prior; the packed + chunked engine against the CPU engine; the decode
 step as one CUDA graph against the eager step, bitwise over 40 steps
 (ring at one and at several splits, paged with page-table edits between
 replays, mamba2-130m, sampling at temperature 0.8), warm-up's capture, and
-a capture that fails raising.
+a capture that fails raising; an unwarmed EnginePipeline capturing on its
+dispatch thread, and a 2-replica in-process cluster's replayed graphs.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -1144,3 +1145,92 @@ def test_graph_capture_failure_raises(cuda_device):
     with pytest.raises(RuntimeError, match="no capture today"):
         eng.step()
     assert pool._graph is None and eng.decode_steps == 0
+
+
+# --------------------------------------------------------------------------- #
+# the threaded pipeline and the in-process cluster on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_pipeline_unwarmed_captures_on_dispatch_thread(cuda_device):
+    """An unwarmed EnginePipeline under traffic: its decode graph is
+    captured on the dispatch thread (thread-local capture mode) while the
+    harvest thread waits on earlier steps' events, every later dispatch
+    replays it, and the tokens equal the step() loop's bitwise."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EnginePipeline, Request, ServingEngine
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for s in (5, 17, 33, 50, 9, 64, 21, 40)]
+
+    def serve(front):
+        reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=12)
+                for t in prompts]
+        for r in reqs:
+            front.submit(r)
+        assert len(front.run_until_drained(max_steps=1_000_000)) == len(reqs)
+        return [r.generated for r in reqs]
+
+    want = serve(ServingEngine(model, params, max_batch=4, max_seq=128,
+                               device=cuda_device))
+    eng = ServingEngine(model, params, max_batch=4, max_seq=128,
+                        device=cuda_device)
+    captured_on = []
+    capture = eng.pool._capture
+
+    def spy(p):
+        captured_on.append(threading.current_thread().name)
+        return capture(p)
+
+    eng.pool._capture = spy
+    with EnginePipeline(eng) as pipe:
+        got = serve(pipe)
+        assert pipe.submitted == pipe.emitted == len(prompts)
+    assert captured_on == ["engine-pipeline-dispatch"]
+    assert eng.pool._graph is not None
+    assert eng.pool.graph_replays == eng.decode_steps - 1
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cluster_replicas_replay_their_own_graphs(cuda_device):
+    """A 2-replica in-process cluster on one card: the replicas share the
+    params, each captures and replays its own decode graph, and the tokens
+    equal independent engines' fed what each replica was routed."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingCluster, ServingEngine
+
+    cfg = get_config("llama3-8b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+               for s in (5, 17, 33, 50, 9, 64)]
+    kw = dict(max_batch=2, max_seq=128)
+    cl = ServingCluster.build(model, params, n_replicas=2,
+                              policy="round_robin", warmup=True,
+                              device=cuda_device, **kw)
+    reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=10)
+            for t in prompts]
+    for r in reqs:
+        cl.submit(r)
+    assert len(cl.run_until_drained(max_steps=100_000)) == len(reqs)
+    pools = [rep.engine.pool for rep in cl.replicas]
+    assert pools[0]._graph is not None and pools[1]._graph is not None
+    assert pools[0]._graph is not pools[1]._graph
+    for rep in cl.replicas:
+        assert rep.engine.params is params
+        assert rep.engine.pool.graph_replays == rep.engine.decode_steps > 0
+    for k in range(2):
+        mine = [t for i, t in enumerate(prompts) if i % 2 == k]
+        eng = ServingEngine(model, params, device=cuda_device, **kw)
+        solo = [Request(prompt_tokens=t.copy(), max_new_tokens=10)
+                for t in mine]
+        for r in solo:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert [r.generated for r in solo] == \
+            [r.generated for i, r in enumerate(reqs) if i % 2 == k]

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
 neither JAX nor the ``repro`` package, no source file of the port imports
-them, and its entry points refuse to fall back to the CPU on their own."""
+them, a replica worker process the cluster spawns loads neither, and its
+entry points refuse to fall back to the CPU on their own."""
 
 import ast
 import subprocess
@@ -116,3 +117,31 @@ def test_launcher_serves_on_cpu_when_asked(capsys):
     np.testing.assert_array_equal(
         sorted(r.request_id for r in out["responses"]),
         sorted(rec.request_id for rec in out["engine"].store.records))
+
+
+def test_spawned_worker_loads_no_jax_and_no_repro():
+    """A process replica (``python -m repro_torch.serving.worker``) built
+    and serving on the CPU reports no JAX or ``repro`` module in its
+    ``sys.modules``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request
+    from repro_torch.serving.ipc import ReplicaClient
+
+    cfg = dataclasses.replace(
+        get_config("llama3-8b").reduced(), d_model=64, n_heads=2,
+        n_kv_heads=2, d_ff=128, vocab_size=256, head_dim=32)
+    client = ReplicaClient(label="isolated", init_timeout_s=120.0)
+    try:
+        client.init({"cfg": cfg, "dtype": "float32", "param_seed": 0,
+                     "device": "cpu", "engine": "fused",
+                     "engine_kw": dict(max_batch=2, max_seq=32),
+                     "backlog": 2})
+        client.submit(Request(prompt_tokens=np.arange(6, dtype=np.int32),
+                              max_new_tokens=3))
+        assert len(client.drain(60.0)) == 1
+        assert client.telemetry()["foreign_modules"] == []
+    finally:
+        client.close()
+    assert client.proc.poll() is not None
