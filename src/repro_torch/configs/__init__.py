@@ -1,17 +1,21 @@
-"""Architecture registry of the port: the configurations it can serve so far."""
+"""Architecture registry of the port: the configurations it can serve so far,
+and the four input shapes."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs.granite_34b import CONFIG as GRANITE_34B
+from repro_torch.configs.grok1_314b import CONFIG as GROK1_314B
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
+from repro_torch.configs.pixtral_12b import CONFIG as PIXTRAL_12B
 from repro_torch.configs.qwen3_32b import CONFIG as QWEN3_32B
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 
 ARCHITECTURES: dict[str, ModelConfig] = {
     c.name: c for c in (LLAMA3_8B, STARCODER2_3B, QWEN3_32B, GRANITE_34B,
-                        MAMBA2_130M)}
+                        MAMBA2_130M, GROK1_314B, PIXTRAL_12B)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -29,5 +33,8 @@ __all__ = [
     "MoEConfig",
     "MLAConfig",
     "SSMConfig",
+    "InputShape",
+    "SHAPES",
     "get_config",
+    "get_shape",
 ]

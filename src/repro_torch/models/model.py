@@ -3,6 +3,12 @@
 Functional like the JAX package's ``Model``: parameters and caches are plain
 nested dicts/lists of tensors that the caller passes in. The model lives on
 one device, CUDA unless the caller asks for the CPU.
+
+A config with a ``frontend`` (pixtral-12b) takes feature payloads: the
+modality encoder is a stub, as in the JAX package, and the caller supplies
+its output, ``features`` [B, F, FRONTEND_DIM], which a linear projector
+(``frontend_proj``) maps into the residual stream ahead of the prompt's
+token embeddings.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ from repro_torch.models.transformer import (
     stack_schema,
 )
 
+FRONTEND_DIM = 1024  # stubbed ViT / speech-encoder feature width
+
 
 class Model:
-    """Decoder-only model: dense attention stacks and Mamba-2 (SSM) stacks.
+    """Decoder-only model: attention stacks (dense or MoE FFNs, with or
+    without a feature frontend) and Mamba-2 (SSM) stacks.
 
     ``device`` defaults to CUDA; with no CUDA device the constructor raises
     unless ``device="cpu"`` is given. Every tensor method expects its
@@ -66,11 +75,14 @@ class Model:
     # ------------------------------------------------------------------ #
     def schema(self) -> dict:
         cfg = self.cfg
-        return {
+        s = {
             "embed": embed_schema(pad_vocab(cfg.vocab_size), cfg.d_model),
             "final_norm": rmsnorm_schema(cfg.d_model),
             "decoder": stack_schema(cfg),
         }
+        if cfg.frontend:
+            s["frontend_proj"] = sch.ParamSpec((FRONTEND_DIM, cfg.d_model))
+        return s
 
     def init(self, generator: torch.Generator) -> dict:
         """Seeded weights drawn on the model's device from ``generator``
@@ -80,25 +92,42 @@ class Model:
     # ------------------------------------------------------------------ #
     # Forward passes
     # ------------------------------------------------------------------ #
-    def backbone(self, params, tokens):
-        """Embed + decoder stack + final norm over [B, S] tokens.
-        Returns (x [B,S,d], caches)."""
+    def _embed_inputs(self, params, tokens, features=None):
+        """Token embeddings [B, S, d], with ``features`` [B, F,
+        FRONTEND_DIM] (any float dtype) projected and prepended: cast to
+        the model's dtype BEFORE ``frontend_proj`` (the JAX model's
+        rounding order), giving [B, F + S, d]."""
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        if features is None:
+            return x
+        if not self.cfg.frontend:
+            raise ValueError(f"{self.cfg.name} has no frontend to take "
+                             "feature payloads")
+        proj = features.to(self.dtype) @ params["frontend_proj"]
+        return torch.cat([proj, x], dim=1).to(self.dtype)
+
+    def backbone(self, params, tokens, features=None):
+        """Embed (``features`` first, see :meth:`_embed_inputs`) + decoder
+        stack + final norm over [B, S] tokens. Returns (x [B,F+S,d], aux,
+        caches); aux is the MoE layers' summed load-balance loss."""
+        x = self._embed_inputs(params, tokens, features)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, caches = stack_apply_full(params["decoder"], self.cfg, x, pos,
-                                     groups=self.groups)
+        x, aux, caches = stack_apply_full(params["decoder"], self.cfg, x,
+                                          pos, groups=self.groups)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        return x, caches
+        return x, aux, caches
 
-    def forward(self, params, tokens):
-        """Full-sequence logits [B, S, vocab_padded] and caches."""
-        x, caches = self.backbone(params, tokens)
-        return lm_head(params["embed"], x, self.cfg.vocab_size), caches
+    def forward(self, params, tokens, features=None):
+        """Full-sequence logits [B, F+S, vocab_padded], the MoE aux loss and
+        the caches (the JAX model's ``forward``)."""
+        x, aux, caches = self.backbone(params, tokens, features)
+        return lm_head(params["embed"], x, self.cfg.vocab_size), aux, caches
 
-    def prefill(self, params, tokens):
-        """tokens [B, S] -> (last_logits [B,V], caches, lengths [B]); the LM
-        head runs on the last position only."""
-        x, caches = self.backbone(params, tokens)
+    def prefill(self, params, tokens, features=None):
+        """tokens [B, S] (after ``features`` [B, F, FRONTEND_DIM], if any)
+        -> (last_logits [B,V], caches, lengths [B] = F + S); the LM head
+        runs on the last position only."""
+        x, _, caches = self.backbone(params, tokens, features)
         B, S = x.shape[:2]
         logits = lm_head(params["embed"], x[:, -1:], self.cfg.vocab_size)
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -114,7 +143,7 @@ class Model:
         ValueError for others. Returns (last_logits [B,V], caches, lengths
         int32)."""
         self._require_attention_only("prefill_bucketed")
-        x, caches = self.backbone(params, tokens)
+        x, _, caches = self.backbone(params, tokens)
         S = x.shape[1]
         idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -156,7 +185,7 @@ class Model:
         S = x.shape[1]
         pos = cached_lens.to(torch.int64)[:, None] + torch.arange(
             S, device=x.device)[None, :]
-        x, caches = stack_apply_full(
+        x, _, caches = stack_apply_full(
             params["decoder"], self.cfg, x, pos, groups=self.groups,
             prior_valid=cached_lens, **prior)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
@@ -185,7 +214,7 @@ class Model:
         leaves). Attention-only stacks; raises ValueError for others."""
         self._require_attention_only("prefill_packed")
         x = embed_lookup(params["embed"], tokens).to(self.dtype)
-        x, caches = stack_apply_full(
+        x, _, caches = stack_apply_full(
             params["decoder"], self.cfg, x, positions, groups=self.groups,
             segment_ids=segment_ids,
             segment_starts=ops.segment_run_starts(segment_ids))

@@ -4,8 +4,10 @@ Layers are grouped as in the JAX package (``layer_groups``), so parameter
 and cache trees keep its ``g{i}.l{j}`` names; where JAX scans over a
 group's stacked layers, the port keeps one entry per layer in a list and
 runs a Python loop over it. The port serves attention and Mamba-2 (SSM)
-layers without MoE or MLA; other layer kinds raise and name the slice that
-brings them.
+layers, each with a dense or (attention stacks) an MoE FFN; MLA,
+encoder-decoder stacks and MoE in a hybrid stack raise and name the slice
+that brings them. Each full-sequence pass returns the MoE layers' summed
+load-balance loss beside its output, as the JAX stack does.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import ffn_apply, ffn_schema, rmsnorm, rmsnorm_schema
 from repro_torch.models.mamba import mamba_forward, mamba_schema
+from repro_torch.models.moe import moe_apply, moe_schema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,16 +62,14 @@ def check_supported(cfg):
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder stacks come with the "
                                   "architectures slice (seamless)")
-    if cfg.frontend:
-        raise NotImplementedError("vision/audio frontends come with the "
-                                  "architectures slice (pixtral, seamless)")
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention comes with the architectures "
                                   "slice (deepseek-v2)")
-    for _, is_moe in layer_signatures(cfg):
-        if is_moe:
-            raise NotImplementedError("MoE layers come with the architectures "
-                                      "slice (grok, deepseek)")
+    sigs = layer_signatures(cfg)
+    if (any(is_moe for _, is_moe in sigs)
+            and any(kind != "attn" for kind, _ in sigs)):
+        raise NotImplementedError("MoE layers in a hybrid (SSM) stack come "
+                                  "with the architectures slice (jamba)")
 
 
 # --------------------------------------------------------------------------- #
@@ -76,8 +77,9 @@ def check_supported(cfg):
 # --------------------------------------------------------------------------- #
 def layer_schema(cfg, sig) -> dict:
     """The JAX package's per-kind rule: ``ln1`` and the mixer (``attn`` or
-    ``ssm``), then ``ln2`` and ``ffn`` unless the family is ``ssm``."""
-    kind, _ = sig
+    ``ssm``), then ``ln2`` and ``moe`` (an MoE layer) or ``ffn`` unless the
+    family is ``ssm``."""
+    kind, is_moe = sig
     d = cfg.d_model
     s = {"ln1": rmsnorm_schema(d)}
     if kind == "attn":
@@ -86,7 +88,10 @@ def layer_schema(cfg, sig) -> dict:
         s["ssm"] = mamba_schema(cfg)
     if cfg.family != "ssm":
         s["ln2"] = rmsnorm_schema(d)
-        s["ffn"] = ffn_schema(d, cfg.d_ff)
+        if is_moe:
+            s["moe"] = moe_schema(cfg)
+        else:
+            s["ffn"] = ffn_schema(d, cfg.d_ff)
     return s
 
 
@@ -116,17 +121,28 @@ def _layers(groups):
 # Full-sequence (prefill) and one-token (decode) layer application
 # --------------------------------------------------------------------------- #
 def _ffn_block(lp, cfg, x):
-    """The residual FFN half of a layer (none in an ``ssm``-family stack)."""
+    """The residual FFN half of a layer (none in an ``ssm``-family stack):
+    every path (full, suffix, packed, decode, paged decode) reaches the FFN
+    here. Returns (x, aux): an MoE layer dispatches the [B*S, d] rows it is
+    given, pad rows included, and returns its load-balance loss; other
+    layers return None."""
     if cfg.family == "ssm":
-        return x
-    return x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        return x, None
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        B, S, d = h.shape
+        o, aux = moe_apply(lp["moe"], cfg, h.reshape(B * S, d))
+        return x + o.reshape(B, S, d), aux
+    return x + ffn_apply(lp["ffn"], h), None
 
 
 def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
                      prior_blocks=None, prior_pt=None, prior_valid=None,
                      segment_ids=None, segment_starts=None):
-    """x: [B,S,d] -> (x, cache): {"k","v"} [B,S,Hkv,hd] for an attention
-    layer, {"conv","state"} for an SSM layer (prefilled from a zero state).
+    """x: [B,S,d] -> (x, aux, cache): aux the MoE layer's load-balance
+    loss (None for a dense FFN), cache {"k","v"} [B,S,Hkv,hd] for an
+    attention layer, {"conv","state"} for an SSM layer (prefilled from a
+    zero state).
 
     With ``prior_valid`` [B] it is a suffix prefill over this layer's prior
     KV: ``prior`` ({"k","v"} [B,Pp,Hkv,hd], dense), or ``prior_blocks``
@@ -138,7 +154,7 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
         o, cache = mamba_forward(lp["ssm"], cfg, h)
-        return _ffn_block(lp, cfg, x + o), cache
+        return (*_ffn_block(lp, cfg, x + o), cache)
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     if prior_blocks is not None:
         prior = {n: kvc.gather_leaf(prior_blocks[n], prior_pt)
@@ -147,7 +163,7 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
                           prior_valid=prior_valid, segment_ids=segment_ids,
                           segment_starts=segment_starts)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
-    return _ffn_block(lp, cfg, x), {"k": k, "v": v}
+    return (*_ffn_block(lp, cfg, x), {"k": k, "v": v})
 
 
 def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
@@ -157,7 +173,7 @@ def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
         o, _ = mamba_forward(lp["ssm"], cfg, h, cache=lcache)
-        return _ffn_block(lp, cfg, x + o)
+        return _ffn_block(lp, cfg, x + o)[0]
     positions = lengths[:, None]  # [B,1]
     W = lcache["k"].shape[1]
     valid_len = torch.clamp(lengths + 1, max=W).to(torch.int32)
@@ -165,7 +181,7 @@ def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     o = decode_attention_update(q, k, v, lcache["k"], lcache["v"], lengths,
                                 valid_len=valid_len)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-    return _ffn_block(lp, cfg, x)
+    return _ffn_block(lp, cfg, x)[0]  # decode drops the aux, as JAX does
 
 
 def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
@@ -181,31 +197,33 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
     o = paged_decode_attention_update(q, k, v, lblocks, page_table, lengths,
                                       valid_len=valid_len)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-    return _ffn_block(lp, cfg, x)
+    return _ffn_block(lp, cfg, x)[0]
 
 
 def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
                      prior_blocks=None, prior_pt=None, prior_valid=None,
                      segment_ids=None, segment_starts=None):
-    """Prefill pass over every layer. Returns (x, caches) with caches in
-    the parameter tree's layout. ``prior`` (a dense cache tree) or
-    ``prior_blocks`` (a block pool tree) with ``prior_pt``, and
+    """Prefill pass over every layer. Returns (x, aux, caches): aux the
+    MoE layers' summed load-balance loss (an fp32 scalar, 0 without MoE),
+    caches in the parameter tree's layout. ``prior`` (a dense cache tree)
+    or ``prior_blocks`` (a block pool tree) with ``prior_pt``, and
     ``prior_valid``, make it a suffix prefill; ``segment_ids`` with
     ``segment_starts`` a packed one (see :func:`apply_layer_full`)."""
     caches = {f"g{gi}": [{} for _ in range(g.count)]
               for gi, g in enumerate(groups)}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gname, i, lname, sig in _layers(groups):
         lprior = None if prior is None else prior[gname][i][lname]
         lblocks = (None if prior_blocks is None
                    else prior_blocks[gname][i][lname])
-        x, cache = apply_layer_full(params[gname][i][lname], cfg, sig, x,
-                                    positions, prior=lprior,
-                                    prior_blocks=lblocks, prior_pt=prior_pt,
-                                    prior_valid=prior_valid,
-                                    segment_ids=segment_ids,
-                                    segment_starts=segment_starts)
+        x, aux, cache = apply_layer_full(
+            params[gname][i][lname], cfg, sig, x, positions, prior=lprior,
+            prior_blocks=lblocks, prior_pt=prior_pt, prior_valid=prior_valid,
+            segment_ids=segment_ids, segment_starts=segment_starts)
         caches[gname][i][lname] = cache
-    return x, caches
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total, caches
 
 
 def stack_apply_decode(params, cfg, x, caches, lengths, *, groups):

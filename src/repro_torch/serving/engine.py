@@ -15,7 +15,11 @@ TransportProfile, composed into one per-request record (paper Table I).
 * **Exact-shape prefill** -- a stack with SSM layers cannot be right-padded
   (pad tokens would flow into its conv window and recurrent state), so, as
   in the JAX engine, each admitted request of such a stack is prefilled on
-  its own at its true length. The architecture picks the path.
+  its own at its true length. A request carrying a feature payload
+  (``Request.features`` [1, F, FRONTEND_DIM], a frontend model such as
+  pixtral-12b) takes the same path on any engine but the paged one, which
+  refuses it: its F frames prepend to the prompt, so its cache holds F + S
+  positions, and that is the prefix a disaggregated handoff moves.
 * **Device-resident decode loop** -- sampling (greedy argmax, or
   temperature/top-k with a ``torch.Generator`` on the pool's device), EOS
   detection, per-slot done flags and length updates all run on the device.
@@ -764,8 +768,9 @@ class ServingEngine:
         Stamps the arrival clock (``now`` is accepted for API compatibility
         and not used) and charges the modelled INGRESS stages (request wire
         + copy engine, per the transport) to the request's record. Raises
-        if the prompt exceeds ``max_seq`` or, paged, if prompt + max_new
-        does.
+        ValueError if the prompt exceeds ``max_seq``, on a feature payload
+        for a model without a frontend or for the paged pool, or, paged, if
+        prompt + max_new exceeds ``max_seq``.
         """
         req.t_arrival = time.perf_counter()
         if len(req.prompt_tokens) > self.max_seq:
@@ -774,9 +779,13 @@ class ServingEngine:
                 f"{self.max_seq}"
             )
         if req.features is not None:
-            raise NotImplementedError(
-                "feature payloads come with the VLM/audio front-end slice "
-                "of the port")
+            if not self.model.cfg.frontend:
+                raise ValueError(f"{self.model.cfg.name} has no frontend to "
+                                 "take feature payloads")
+            if self.paged:
+                raise ValueError(
+                    "paged KV pool serves token prompts only (feature "
+                    "payloads take the exact-shape ring path)")
         if self.paged and len(req.prompt_tokens) + req.max_new_tokens > self.max_seq:
             # the ring pool wraps a long generation over its own oldest
             # positions; a paged row may SHARE its prefix blocks, so
@@ -922,7 +931,9 @@ class ServingEngine:
         packables: list[Request] = []
         buckets: dict[int, list[Request]] = {}
         for req in picked:
-            if (self._chunk_enabled
+            if req.features is not None:  # ragged feature payloads: exact
+                self._prefill_exact(req, next(free_it))
+            elif (self._chunk_enabled
                     and len(req.prompt_tokens) > self.prefill_chunk):
                 # long prompts admit chunk by chunk, one chunk an engine
                 # iteration, between decode dispatches
@@ -1120,21 +1131,43 @@ class ServingEngine:
                                     final=True)))
 
     def _prefill_exact(self, req: Request, slot: int):
-        """Exact-shape prefill of one request at its true length S, then its
-        sample, splice and record (the JAX engine's ``_prefill_exact``)."""
+        """Exact-shape prefill of one request at its true length, then its
+        sample, splice and record (the JAX engine's ``_prefill_exact``).
+
+        A feature payload's F frames prepend to the S prompt tokens, so the
+        cache's true length, and the prefix a handoff moves, is F + S
+        (known on the host: no device sync); the prefill counters count the
+        S prompt tokens only, as the JAX engine's do. The cache is grown to
+        the bucket of F + S, the width any admission's artifact has, so a
+        handoff slices its pow2 prefix as it does a bucketed one."""
         S = len(req.prompt_tokens)
         self.prefill_calls += 1
         self.prefill_tokens_total += S
         self.prefill_tokens_uncached += S
         self.prefill_padded_tokens += S
         t0 = time.perf_counter()
-        toks = torch.tensor(np.asarray(req.prompt_tokens, np.int32))[None]
-        logits, caches, lengths = self.model.prefill(self.params,
-                                                     toks.to(self.device))
+        toks, feats = self._exact_inputs(req)
+        logits, caches, lengths = self.model.prefill(self.params, toks, feats)
+        true_len = S + self._frames(req)
+        caches = kvc.grow_cache(caches, self._bucket(true_len))
         self._splice_and_place(
             logits, caches, lengths, np.asarray([slot], np.int32),
             np.asarray([req.max_new_tokens], np.int32), [req], [slot], t0,
-            prefix_len=S, trace_as=("exact", dict(prompt=S)))
+            prefix_len=true_len, trace_as=("exact", dict(prompt=S)))
+
+    def _exact_inputs(self, req: Request):
+        """A request's prompt [1, S] int32 and its features (or None) on the
+        engine's device."""
+        toks = torch.tensor(np.asarray(req.prompt_tokens, np.int32))[None]
+        feats = (None if req.features is None
+                 else torch.as_tensor(np.asarray(req.features)))
+        return (toks.to(self.device),
+                None if feats is None else feats.to(self.device))
+
+    @staticmethod
+    def _frames(req: Request) -> int:
+        """Feature frames a request prepends to its prompt (0 without)."""
+        return 0 if req.features is None else int(np.shape(req.features)[-2])
 
     def _splice_and_place(self, logits, caches, lengths, slot_idx, maxn,
                           reqs: list, slots: list, t0: float, *,
@@ -1545,9 +1578,8 @@ class ServingEngine:
         JAX loop it counts no prefill call and leaves the budget check to
         the decode step."""
         t0 = time.perf_counter()
-        toks = torch.tensor(np.asarray(req.prompt_tokens, np.int32))[None]
-        logits, caches, lengths = self.model.prefill(self.params,
-                                                     toks.to(self.device))
+        toks, feats = self._exact_inputs(req)
+        logits, caches, lengths = self.model.prefill(self.params, toks, feats)
         next_tok = int(torch.argmax(logits[0]))  # blocks on the prefill
         dt = time.perf_counter() - t0
         rec = self._records[req.request_id]
@@ -1558,7 +1590,8 @@ class ServingEngine:
                             device=self.device)
         self.pool.splice(PrefillArtifact(
             caches, np.asarray([slot], np.int32), lengths, one, maxn, [req],
-            [slot], n_rows=1, prefix_len=len(req.prompt_tokens)))
+            [slot], n_rows=1,
+            prefix_len=len(req.prompt_tokens) + self._frames(req)))
         req.generated.append(next_tok)
         self.pool.slots[slot] = req
         req.t_first_token = time.perf_counter()

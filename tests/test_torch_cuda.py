@@ -1234,3 +1234,160 @@ def test_cluster_replicas_replay_their_own_graphs(cuda_device):
         eng.run_until_drained()
         assert [r.generated for r in solo] == \
             [r.generated for i, r in enumerate(reqs) if i % 2 == k]
+
+
+# --------------------------------------------------------------------------- #
+# the MoE layer (grok-1-314b) and feature payloads (pixtral-12b) on the card
+# --------------------------------------------------------------------------- #
+def _moe_inputs(cfg, T, seed=0):
+    """One MoE layer's weights (the model's init) and [T, d] rows skewed
+    towards expert 0, so first choices overflow their capacity."""
+    from repro_torch.models import moe
+    from repro_torch.models.schema import init_params
+
+    g = torch.Generator().manual_seed(seed)
+    p = init_params(g, moe.moe_schema(cfg), torch.float32, "cpu")
+    x = torch.randn((T, cfg.d_model), generator=g)
+    r0 = p["router"][:, 0]
+    x += 8.0 * r0 / r0.norm()
+    return p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 200, 1024])
+def test_moe_layer_on_card_matches_cpu_fp32(cuda_device, T):
+    """``moe_apply`` on the card against its CPU run in fp32 with tokens
+    dropped: the same routing choices (flipped (token, slot) choices
+    counted and required to be none), the same drops, outputs within
+    1e-4 of the largest."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.schema import tree_map
+
+    cfg = get_config("grok-1-314b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           n_experts=8))
+    p, x = _moe_inputs(cfg, T)
+    pg = tree_map(lambda t: t.to(cuda_device), p)
+    out, aux = moe.moe_apply(p, cfg, x)
+    gout, gaux = moe.moe_apply(pg, cfg, x.to(cuda_device))
+    _, ids = moe.router_topk(x @ p["router"], 2)
+    _, gids = moe.router_topk(x.to(cuda_device) @ pg["router"], 2)
+    flips = int((gids.cpu() != ids).sum())
+    assert flips == 0, f"{flips} flipped (token, slot) choices"
+    C = moe.capacity(T, cfg.moe)
+    keep = moe.dispatch_plan(ids, 8, C)[1]
+    assert torch.equal(moe.dispatch_plan(gids, 8, C)[1].cpu(), keep)
+    if T > 8:
+        assert not bool(keep.all())
+    scale = float(out.abs().max())
+    torch.testing.assert_close(gout.cpu(), out, rtol=0, atol=1e-4 * scale)
+    assert abs(float(gaux) - float(aux)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_router_ties_on_card_match_cpu(cuda_device):
+    """Exact ties in bf16 router logits keep the lower expert first on the
+    card as on the CPU (a stable sort, as ``jax.lax.top_k``)."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn((4096, 8), generator=g).to(torch.bfloat16)
+    logits = (logits * 4).round() / 4  # coarse: many exact ties
+    w, ids = moe.router_topk(logits, 2)
+    gw, gids = moe.router_topk(logits.to(cuda_device), 2)
+    assert torch.equal(gids.cpu(), ids)
+    torch.testing.assert_close(gw.cpu(), w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_graph_moe_step_equals_eager(cuda_device):
+    """A reduced-width grok-1 pool (MoE in every layer, capacity from the
+    pool's max_batch rows) captures into one graph: the replayed step
+    equals the eager step bitwise over 20 replays, and the launch counts
+    follow the path."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("grok-1-314b").reduced()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(4)
+    waves = [[rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+              for s in (9, 40, 70)], [rng.integers(0, cfg.vocab_size, 33,
+                                                   dtype=np.int32)]]
+    ops.reset_launches()
+    (eager, graph), toks = _lockstep(model, params, waves, 30, steps=21,
+                                     max_batch=4, max_seq=256)
+    assert toks[0] == toks[1]
+    assert graph.pool.graph_replays >= 20
+    L = cfg.n_layers
+    steps = eager.decode_steps + graph.decode_steps
+    calls = eager.counters()["prefill_calls"] * 2
+    assert ops.LAUNCHES["flash_attention"] == L * calls
+    assert ops.LAUNCHES["decode_attention"] == L * steps
+    assert ops.LAUNCHES["rmsnorm"] == (2 * L + 1) * (calls + steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("F,S", [(12, 6), (256, 17), (512, 99),
+                                 (1024, 101)])
+def test_flash_kernel_at_feature_prefill_lengths(cuda_device, dtype, F, S):
+    """A feature request's exact prefill is one [1, F + S] row, F + S not a
+    multiple of the 64-row tile, at pixtral-12b's heads (32 of 128, 8 KV
+    heads)."""
+    L = F + S
+    q = _cuda_pair((1, L, 32, 128), dtype, cuda_device, 0)
+    k = _cuda_pair((1, L, 8, 128), dtype, cuda_device, 1)
+    v = _cuda_pair((1, L, 8, 128), dtype, cuda_device, 2)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == 1 and L % 64
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_feature_engine_on_card_matches_cpu(cuda_device):
+    """Reduced pixtral-12b on the card, feature and text requests mixed:
+    the CPU engine's greedy tokens on the same weights (fp32), one exact
+    prefill call a feature request, the launch counts of the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import FRONTEND_DIM, Model
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("pixtral-12b").reduced()
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    rng = np.random.default_rng(3)
+    items = [(rng.integers(0, cfg.vocab_size, s, dtype=np.int32),
+              rng.normal(size=(1, f, FRONTEND_DIM)).astype(np.float32)
+              if f else None) for s, f in ((6, 40), (30, 0), (11, 77))]
+
+    def serve(model, p, device):
+        eng = ServingEngine(model, p, max_batch=4, max_seq=128,
+                            device=device)
+        reqs = [Request(prompt_tokens=t, features=f, max_new_tokens=6)
+                for t, f in items]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [r.generated for r in reqs], eng
+
+    ops.reset_launches()
+    got, eng = serve(gpu, params, cuda_device)
+    c = eng.counters()
+    L = cfg.n_layers
+    assert c["prefill_calls"] == 3
+    assert c["prefill_padded_tokens"] == 6 + 11 + 4 * 32
+    assert ops.LAUNCHES["flash_attention"] == L * c["prefill_calls"]
+    assert ops.LAUNCHES["decode_attention"] == L * c["decode_steps"]
+    assert ops.LAUNCHES["rmsnorm"] == (2 * L + 1) * (c["prefill_calls"]
+                                                     + c["decode_steps"])
+    want, _ = serve(cpu, params_cpu, "cpu")
+    assert got == want

@@ -111,7 +111,7 @@ def test_prefill_decode_matches_forward(name):
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(
         rng.integers(0, tm.cfg.vocab_size, (B, S + K)).astype(np.int32))
-    full, _ = tm.forward(tp, toks)
+    full, _, _ = tm.forward(tp, toks)
     lg, caches, lengths = tm.prefill(tp, toks[:, :S])
     caches = grow_cache(caches, S + K)
     errs = [float((lg - full[:, S - 1]).abs().max())]
@@ -146,7 +146,7 @@ def test_ring_buffer_sliding_window_equivalence():
     B, S = 1, 24
     rng = np.random.default_rng(1)
     toks = rng.integers(0, tm.cfg.vocab_size, (B, S)).astype(np.int32)
-    full, _ = tm.forward(tp, torch.from_numpy(toks))
+    full, _, _ = tm.forward(tp, torch.from_numpy(toks))
     jfull, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     np.testing.assert_allclose(full.numpy(), np.asarray(jfull), atol=TOL,
                                rtol=TOL)

@@ -143,7 +143,7 @@ def test_prefill_decode_matches_forward(pair):
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(
         rng.integers(0, tm.cfg.vocab_size, (B, S + K)).astype(np.int32))
-    full, _ = tm.forward(tp, toks)
+    full, _, _ = tm.forward(tp, toks)
     lg, caches, lengths = tm.prefill(tp, toks[:, :S])
     caches = grow_cache(caches, S + K)
     errs = [float((lg - full[:, S - 1]).abs().max())]
@@ -176,8 +176,8 @@ def test_cpu_prefill_counts_no_kernel_launch(pair):
 
 
 @pytest.mark.parametrize("change", [
-    {"frontend": "vision"},
-    {"moe": "moe"},
+    {"encoder_layers": 2},
+    {"moe": "moe", "mla": "mla"},
     {"mla": "mla"},
 ])
 def test_unported_layer_kinds_raise(change):

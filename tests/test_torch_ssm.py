@@ -253,7 +253,7 @@ def test_prefill_decode_matches_forward(pair, S):
     _, _, tm, tp, _ = pair
     K = 4
     toks = torch.from_numpy(_tokens(tm.cfg, 2, S + K, seed=S))
-    full, _ = tm.forward(tp, toks)
+    full, _, _ = tm.forward(tp, toks)
     lg, caches, lengths = tm.prefill(tp, toks[:, :S])
     errs = [float((lg - full[:, S - 1]).abs().max())]
     for k in range(K):
@@ -345,8 +345,8 @@ def test_paged_and_feature_payloads_raise(pair):
                       device="cpu")
     eng = ServingEngine(tm, tp, max_batch=2, max_seq=64, device="cpu")
     req = Request(prompt_tokens=np.zeros(4, np.int32),
-                  features=np.zeros((2, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="VLM"):
+                  features=np.zeros((1, 8, 1024), np.float32))
+    with pytest.raises(ValueError, match="no frontend"):
         eng.submit(req)
 
 
