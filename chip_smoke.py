@@ -29,7 +29,11 @@ result line:
    where cuobjdump exists (none found fails); the SSD scan at 1024, 2048,
    1000 and 77 positions, the device time of each of its three bf16
    launches and of the whole scan at each heads-a-CTA choice at 1024 and
-   2048 positions; and the preprocess kernel on its
+   2048 positions; deepseek-v2-236b's attention at its published dims and
+   128 heads: flash over the [8, 1024] bucket at q/k 192, v 128 (SDPA
+   beside it), the absorbed-MLA decode kernel at max_batch 8 over 2,048
+   latent slots, ring and paged (pages of 16; paged == ring bitwise), SDPA
+   over the concatenated 576-wide keys beside it; and the preprocess kernel on its
    path, the entry point ``ops.preprocess`` (4 batches of 8 camera frames,
    the paper's input), then against its plain version there and at
    tests/test_kernels.py's shapes; flash on a packed [1, 8192] row (phase
@@ -141,7 +145,24 @@ result line:
    near tie, packed reported (its drops differ) and gated without drops;
    a graphed decode step's device time beside its byte bound, and the MoE
    layer's time split into router + plan, gather, expert products and
-   combine.
+   combine;
+13. MLA (run last, every earlier model freed): deepseek-v2-236b
+   (arXiv:2405.04434) at published widths, 3 of 60 layers (layer 0's dense
+   FFN, layers 1-2 MoE with 160 experts, top-6, 2 shared), phase 4's
+   traffic bucketed, eager, warmed, paged (without prefix reuse, as MLA
+   runs), legacy and with packed=True, prefill_chunk=256 (both reported
+   off), then the disaggregated tier under each mechanism: launch counts
+   (flash 3 a prefill call, the MLA decode kernel or its paged twin 3 a
+   step, rmsnorm 13 a forward), eager, warmed and packed/chunked tokens ==
+   bucketed, paged == bucketed or parted at a near tie, legacy against
+   bucketed reported in bf16 (its lone prefills drop other expert choices
+   and round differently) and gated in fp32 without drops on 2 layers, direct
+   mechanisms == bucketed, HOST_STAGED's first tokens, handoff extents and
+   wire bytes == worked out by hand at 1,152 bytes a token a layer; a
+   graphed step's device time, byte bound and the MLA kernel's share; the
+   handoff's bytes a token against llama3-8b's and GDR's TTFT saving; card
+   vs CPU in fp32 on the first 2 layers (router flips counted) and in bf16
+   on layer 0.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -259,6 +280,25 @@ PIX_WIRE = {"direct_hbm": 1_730_150_592, "direct_dma": 1_730_150_592,
             "host_staged": 865_075_488}
 # phase 12 (b): grok-1-314b's depth cut (about 21.3 GB of bf16 weights)
 GROK_LAYERS = 2
+# phase 2's MLA cases: deepseek-v2-236b's 128 heads at its published MLA
+# dims; decode at max_batch 8 over 2,048 slots, ragged, ring and in pages
+# of 16
+MLA_HEADS = 128
+MLA_LENS = [0, 1, 64, 300, 777, 1024, 1500, 2048]
+# phase 13: deepseek-v2-236b cut to 3 of 60 layers (layer 0 with the dense
+# FFN, layers 1-2 MoE): about 18.7 GB of bf16 weights
+MLA_LAYERS = 3
+# phase 13's handoffs have phase 8's extents (the same traffic, buckets and
+# pool: RING_EXTENTS); a token's latent cache is 512 + 64 bf16 values a
+# layer, 1,152 bytes (int8 under HOST_STAGED: 576): 11,520 slot-rows x 3
+# layers, 16 B of int32 metadata a row (13 rows), and under HOST_STAGED one
+# fp32 scale per ckv and krope leaf (6) a handoff (5)
+MLA_TOKEN_LAYER_BYTES = 1152
+MLA_WIRE = {"direct_hbm": 11_520 * 3 * 1152 + 13 * 16,
+            "direct_dma": 11_520 * 3 * 1152 + 13 * 16,
+            "host_staged": 11_520 * 3 * 576 + 13 * 16 + 5 * 6 * 4}
+# llama3-8b's GQA cache a token and layer: k and v, 8 heads x 128, bf16
+GQA_TOKEN_LAYER_BYTES = 4096
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -406,13 +446,30 @@ def main():
     results["moe"] = moe_path(torch, ops, dev)
     done(t0)
 
+    t0 = phase("phase 13: MLA (deepseek-v2-236b): the latent cache, flash "
+               "at 192/128, the MLA decode kernel, the latent handoff")
+    print(f"   device memory held before loading: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    results["mla"] = mla_path(torch, ops, dev)
+    print("   the legacy loop against the bucketed engine, 2 layers, fp32, "
+          "no drops:")
+    results["mla"]["legacy_fp32"] = mla_legacy_fp32(torch, ops, dev)
+    print("   card vs CPU, deepseek-v2-236b at full width, 2 layers, fp32:")
+    results["mla_same_weights"] = moe_card_vs_cpu(torch, dev,
+                                                  "deepseek-v2-236b", 2)
+    print("   card vs CPU, deepseek-v2-236b's layer 0 (MLA + dense FFN), "
+          "bf16:")
+    results["mla_same_weights_bf16"] = mla_card_vs_cpu_bf16(torch, dev)
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
     # the SSD scan, the ops.preprocess entry point (phase 2) for preprocess
     runs = {"paged_decode_attention": results["paged_path"]["runs"]["reuse"],
             "ssd_scan": results["ssm_path"],
-            "preprocess": results["kernels"]["preprocess_path"]}
+            "preprocess": results["kernels"]["preprocess_path"],
+            "mla_decode_attention": results["mla"]["bucketed"]}
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
@@ -426,6 +483,9 @@ def main():
         "pixtral": results["vlm"]["launches"],
         "grok": results["moe"]["launches"],
         "grok_paged": results["moe"]["launches_paged"]}
+    results["phase13_launches"] = {
+        "deepseek": results["mla"]["launches"],
+        "deepseek_paged": results["mla"]["launches_paged"]}
     results["wall_s"] = time.perf_counter() - T_START
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -687,6 +747,12 @@ def design_report(torch, build, ops, dev):
         out.setdefault("ptxas", {})[name] = stats
         if spilled:
             raise AssertionError(f"{name}: spills or stack in {spilled}")
+    # the MLA decode kernel (CUDA cores, fp32 accumulators): its
+    # instantiations' registers and spills, reported
+    stats = ptxas_stats(build.build_log.get("mla_decode_attention", ""))
+    out.setdefault("ptxas", {})["mla_decode_attention"] = stats
+    for fn, st in stats.items():
+        print(f"   mla_decode_attention {fn[:60]}: {st}")
     for name in ("flash_attention", "ssd_scan"):
         n = hgmma_count(build._lib_path(name))
         print(f"   HGMMA instructions in the {name} library's SASS: "
@@ -906,6 +972,7 @@ def check_kernels(torch, ops, dev):
         cases.append(rec)
 
     cases += paged_cases(torch, ops, ref, dev)
+    cases += mla_cases(torch, ops, ref, dev)
     cases += ssd_cases(torch, ops, ref, dev)
     pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
     cases += pp_cases
@@ -918,7 +985,8 @@ def check_kernels(torch, ops, dev):
             "paged_decode_attention": [B, PAGED_PAGES, H, Hkv, hd, PAGED_LENS],
             "ssd_scan": [1, 1024, SSD_SHAPE["nh"], SSD_SHAPE["hd"],
                          SSD_SHAPE["ds"]],
-            "preprocess": list(PP_FRAMES)}
+            "preprocess": list(PP_FRAMES),
+            "mla_decode_attention": [B, 2048, MLA_HEADS, 512, 64, MLA_LENS]}
     meta = {
         "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -933,6 +1001,10 @@ def check_kernels(torch, ops, dev):
                      "src/repro/kernels/ssd_scan.py:80"),
         "preprocess": ("triton", "src/repro_torch/kernels/preprocess.py",
                        "src/repro/kernels/preprocess.py:24"),
+        # no Pallas kernel: it replaces the JAX model's jnp ``attend``
+        "mla_decode_attention": (
+            "cuda", "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
+            "src/repro/models/mla.py:111"),
     }
     summary = []
     for name, shape in pick.items():
@@ -1267,6 +1339,124 @@ def paged_cases(torch, ops, ref, dev):
             time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw)),
             lib, nbytes, 4 * hd * pairs))
         del q, k, v, pk, pv, kt, vt, got, want
+    return cases
+
+
+def mla_cases(torch, ops, ref, dev):
+    """deepseek-v2-236b's attention kernels at its published dims, 128
+    heads, bf16 and fp32: flash over the [8, 1024] prefill bucket at q/k
+    192 (128 nope + 64 rope) and v 128, SDPA beside it; the absorbed-MLA
+    decode kernel at max_batch 8 over 2,048 latent slots with MLA_LENS,
+    ring and paged (pages of 16 in a shuffled pool; the paged output held
+    bitwise to the ring output at one split count), SDPA over the
+    concatenated 576-wide keys with a length mask beside the ring case."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mla_decode_attention as _mla
+
+    cases = []
+    B, S, H = 8, 1024, MLA_HEADS
+    scale = 192 ** -0.5
+    for dtype in ("bf16", "fp32"):
+        q = rand(torch, (B, S, H, 192), dtype, dev, 20)
+        k = rand(torch, (B, S, H, 192), dtype, dev, 21)
+        v = rand(torch, (B, S, H, 128), dtype, dev, 22)
+        kw = dict(causal=True, scale=scale)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        pairs = B * H * S * (S + 1) // 2
+        isz = q.element_size()
+        nbytes = B * S * H * (192 + 192 + 128 + 128) * isz
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=scale)
+        rec = case_record(
+            torch, "flash_attention", dtype, [B, S, H, H, "192/128"], got,
+            want, time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                          reps=10),
+            time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                    reps=3, warmup=1),
+            library_ms(torch, sdpa, reps=10), nbytes, 2 * (192 + 128) * pairs)
+        alone(torch, rec, lambda: ops.flash_attention(q, k, v, **kw), "flash",
+              sdpa if rec["library_ms"] is not None else None)
+        cases.append(rec)
+        del q, k, v, qt, kt, vt, got, want
+        torch.cuda.empty_cache()
+
+    W, page = 2048, 16
+    lens = torch.tensor(MLA_LENS, dtype=torch.int32, device=dev)
+    n_pos = sum(MLA_LENS)
+    n_pages = W // page
+    perm = torch.randperm(B * n_pages, generator=torch.Generator().manual_seed(
+        23)) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32).to(dev)
+    splits = _mla.splits_for(W, B * H // _mla.HEAD_BLOCK, dev.index or 0)
+    for dtype in ("bf16", "fp32"):
+        q_lat = rand(torch, (B, 1, H, 512), dtype, dev, 24)
+        q_rope = rand(torch, (B, 1, H, 64), dtype, dev, 25)
+        ckv = rand(torch, (B, W, 512), dtype, dev, 26)
+        krope = rand(torch, (B, W, 64), dtype, dev, 27)
+        isz = ckv.element_size()
+        nbytes = n_pos * 576 * isz + B * H * (576 + 512) * isz + B * 4
+        flops = 2 * (576 + 512) * H * n_pos
+
+        def ring():
+            return ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
+                                            scale=scale)
+
+        def plain():
+            return ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope,
+                                                lens, scale=scale)
+        got = ring()
+        if not (got[0] == 0).all():
+            raise AssertionError("MLA decode kernel: an empty slot must be "
+                                 "zeros")
+        qcat = torch.cat([q_lat, q_rope], -1).transpose(1, 2).contiguous()
+        kcat = torch.cat([ckv, krope], -1)[:, None]
+        vl = ckv[:, None]
+        amask = (torch.arange(W, device=dev)[None, :]
+                 < lens[:, None])[:, None, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qcat, kcat, vl, attn_mask=amask, scale=scale, enable_gqa=True)
+        rec = case_record(torch, "mla_decode_attention", dtype,
+                          [B, W, H, 512, 64, MLA_LENS], got, plain(),
+                          time_ms(torch, ring), time_ms(torch, plain),
+                          library_ms(torch, sdpa), nbytes, flops)
+        alone(torch, rec, ring, "mla_decode",
+              sdpa if rec["library_ms"] is not None else None)
+        rec["splits"] = splits
+        cases.append(rec)
+
+        cb = torch.zeros((B * n_pages + 1, page, 512), dtype=ckv.dtype,
+                         device=dev)
+        rb = torch.zeros((B * n_pages + 1, page, 64), dtype=ckv.dtype,
+                         device=dev)
+        cb[table.reshape(-1).long()] = ckv.reshape(B * n_pages, page, 512)
+        rb[table.reshape(-1).long()] = krope.reshape(B * n_pages, page, 64)
+
+        def paged():
+            return ops.paged_mla_decode_attention(q_lat, q_rope, cb, rb,
+                                                  table, lens, scale=scale)
+
+        def paged_plain():
+            return ref.paged_mla_decode_attention_ref(
+                q_lat, q_rope, cb, rb, table, lens, scale=scale)
+        pgot = paged()
+        if not torch.equal(pgot, got):
+            raise AssertionError(f"paged MLA decode {dtype}: not bitwise the "
+                                 "ring kernel's output on the same rows")
+        rec = case_record(torch, "paged_mla_decode_attention", dtype,
+                          [B, n_pages, page, H, MLA_LENS], pgot, paged_plain(),
+                          time_ms(torch, paged), time_ms(torch, paged_plain),
+                          None, nbytes + B * n_pages * 4, flops)
+        alone(torch, rec, paged, "mla_decode")
+        cases.append(rec)
+        print(f"   {'':16s} paged == ring bitwise; {splits} CTAs (one "
+              "cluster) a (row, 16-head block)")
     return cases
 
 
@@ -1630,7 +1820,8 @@ def same_weights_ssm(torch, ops, dev):
         launches = dict(ops.LAUNCHES)
         want = {"rmsnorm": 2 * SSM_LAYERS + 1, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd_scan": SSM_LAYERS, "preprocess": 0}
+                "ssd_scan": SSM_LAYERS, "preprocess": 0,
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
         if launches != want:
             raise AssertionError(f"mamba2 prefill launches {launches} != {want}")
         t0 = time.perf_counter()
@@ -1680,7 +1871,8 @@ def main_path(torch, ops):
     want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
             "flash_attention": N_LAYERS * c["prefill_calls"],
             "decode_attention": N_LAYERS * c["decode_steps"],
-            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
     if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
@@ -1766,7 +1958,7 @@ def print_top(res):
         print(f"   {k['ms_per_step']:8.3f} ms  x{k['calls_per_step']:<5g} {k['name']}")
 
 
-def decode_profile(torch, eng, steps=10, graph=True):
+def decode_profile(torch, eng, steps=10, graph=True, key=None):
     """Whole-batch decode steps of the drained engine (its slots are frozen
     lanes, which run the same batched compute as live ones): replays of
     the pool's captured graph, or with ``graph=False`` the eager step (the
@@ -1801,7 +1993,7 @@ def decode_profile(torch, eng, steps=10, graph=True):
         torch.cuda.synchronize()
         events_ms = start.elapsed_time(end) / steps
         dispatch_us = statistics.median(dispatch_s[steps:]) * 1e6
-        res = profile_window(torch, run)
+        res = profile_window(torch, run, key)
     finally:
         if not graph:
             pool.use_graph = use_graph
@@ -2181,7 +2373,8 @@ def paged_path(torch, ops, ring_engine):
         want = {"rmsnorm": (2 * N_LAYERS + 1) * forwards,
                 "flash_attention": N_LAYERS * c["prefill_calls"],
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd_scan": 0, "preprocess": 0}
+                "ssd_scan": 0, "preprocess": 0,
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
         want[decode] = N_LAYERS * c["decode_steps"]
         if launches != want:
             raise AssertionError(f"({name}) launch counts {launches} != path "
@@ -2301,7 +2494,8 @@ def ssm_path(torch, ops):
     forwards = c["prefill_calls"] + c["decode_steps"]
     want = {"rmsnorm": (2 * SSM_LAYERS + 1) * forwards, "flash_attention": 0,
             "decode_attention": 0, "paged_decode_attention": 0,
-            "ssd_scan": SSM_LAYERS * c["prefill_calls"], "preprocess": 0}
+            "ssd_scan": SSM_LAYERS * c["prefill_calls"], "preprocess": 0,
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
     print(f"   prompts {prompt_lens}; counters {c}; launches {launches}; "
           f"expected {want}")
     if launches != want or launches["ssd_scan"] == 0:
@@ -2393,17 +2587,18 @@ def serve_all(eng, prompts, new, features=None):
 
 
 def structure(c, layers, decode="decode_attention", ssm=False,
-              qk_norm=False):
+              qk_norm=False, mla=False):
     """Launch counts a served run must show: rmsnorm 2 per layer + 1 per
-    forward (4 per layer + 1 with qk-norm: the queries' and the keys'),
-    flash (or the SSD scan) once per layer per prefill call, whether
-    bucketed, packed or a chunk, the decode kernel once per layer per
-    step."""
-    per_layer = 4 if qk_norm else 2
+    forward (4 per layer + 1 with qk-norm -- the queries' and the keys' --
+    or MLA -- q_norm and kv_norm), flash (or the SSD scan) once per layer
+    per prefill call, whether bucketed, packed or a chunk, the decode
+    kernel once per layer per step."""
+    per_layer = 4 if qk_norm or mla else 2
     want = {"rmsnorm": (per_layer * layers + 1) * (c["prefill_calls"]
                                                    + c["decode_steps"]),
             "flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
     if ssm:
         want["ssd_scan"] = layers * c["prefill_calls"]
     else:
@@ -2690,7 +2885,8 @@ def graph_path(torch, ops, llama, shared, ssm_engine):
         return {"rmsnorm": (2 * L + 1) * (n + d["decode_steps"]),
                 "flash_attention": L * n,
                 "decode_attention": L * d["decode_steps"],
-                "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+                "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
 
     for way, kw in (("eager", dict(_graph=False)), ("graph", {}),
                     ("legacy", dict(legacy=True))):
@@ -3454,12 +3650,13 @@ def vlm_card_vs_cpu(torch, dev):
     return res
 
 
-def moe_card_vs_cpu(torch, dev):
-    """Phase 12 (b), card vs CPU: grok-1-314b at full width cut to 1 layer,
-    fp32 (TF32 off), a ragged bucketed prefill of 64 and 41 tokens then 4
-    decode steps, held to LOGIT_LIMIT; every router call's top-2 choices
-    on the card are compared with the CPU's, and the flipped (token, slot)
-    choices are counted and printed."""
+def moe_card_vs_cpu(torch, dev, arch="grok-1-314b", n_layers=1):
+    """Phase 12 (b), card vs CPU: grok-1-314b at full width cut to 1 layer
+    (phase 13: deepseek-v2-236b cut to its first 2, a dense layer and an
+    MoE one), fp32 (TF32 off), a ragged bucketed prefill of 64 and 41
+    tokens then 4 decode steps, held to LOGIT_LIMIT; every router call's
+    top-k choices on the card are compared with the CPU's, and the flipped
+    (token, slot) choices are counted and printed."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3467,7 +3664,7 @@ def moe_card_vs_cpu(torch, dev):
     from repro_torch.models.kvcache import grow_cache
     from repro_torch.models.schema import tree_map
 
-    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=1)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     gpu = Model(cfg, dtype=torch.float32, device=dev)
     params = gpu.init(torch.Generator(device=dev).manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
@@ -3652,6 +3849,269 @@ def moe_path(torch, ops, dev):
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"   peak device memory {out['peak_mem_gb']:.2f} GB", flush=True)
     del model, nodrop, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 13
+# --------------------------------------------------------------------------- #
+def mla_card_vs_cpu_bf16(torch, dev):
+    """Phase 13, card vs CPU in bf16: deepseek-v2-236b at full width cut to
+    layer 0 (MLA and the dense FFN), a ragged bucketed prefill of 64 and 41
+    tokens, then 4 decode steps on a 256-slot ring, held to LOGIT_LIMIT."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import grow_cache
+    from repro_torch.models.schema import tree_map
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=1)
+    gpu = Model(cfg, device=dev)
+    params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu"), params)
+    lens = [64, 41]
+    g = torch.Generator().manual_seed(1)
+    toks = torch.zeros((2, 64), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=g)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    first = []
+    for model, p, d in ((gpu, params, dev), (cpu, params_cpu, "cpu")):
+        lg, c, n = model.prefill_bucketed(p, toks.to(d), lens_t.to(d))
+        first.append((lg, grow_cache(c, 256), n))
+    res = walk_logits(torch, dev, gpu, params, cpu, params_cpu, *first, 4)
+    del gpu, params, params_cpu, first
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_path(torch, ops, dev):
+    """Phase 13: deepseek-v2-236b at published widths, MLA_LAYERS of 60
+    layers (layer 0's dense FFN, then MoE with 160 experts, top-6, 2
+    shared), random bf16 weights from seed 0, phase 4's 12 requests served
+    bucketed (the graph), eager (``_graph=False``), warmed, paged (which
+    MLA runs without prefix reuse), legacy and with ``packed=True,
+    prefill_chunk=256`` (both must report off), then through
+    DisaggregatedEngine under each mechanism (a warm pass, then a measured
+    pass): launch counts to the path (flash 3 a prefill call, the MLA
+    decode kernel or its paged twin 3 a step, rmsnorm 4L + 1 = 13 a
+    forward), eager, warmed and packed/chunked tokens == bucketed exactly,
+    paged == bucketed or parted at a top-2 gap under LOGIT_LIMIT, legacy
+    against bucketed reported (gated in fp32 by :func:`mla_legacy_fp32`),
+    the direct mechanisms' tokens == bucketed, HOST_STAGED's
+    first tokens, the handoffs' extents == RING_EXTENTS and wire bytes ==
+    MLA_WIRE (1,152 bytes a token a layer) and a host-side sum; TTFT and
+    TPOT p50 a path; a graphed decode step's device time, idle share, byte
+    bound and the MLA decode kernel's share; the handoff's bytes a token
+    against llama3-8b's and GDR's TTFT saving against RDMA and TCP."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.transfer import TransferMode
+    from repro_torch.models import Model
+    from repro_torch.serving import DisaggregatedEngine, ServingEngine
+
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    L = MLA_LAYERS
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gb = weights_gb(params)
+    print(f"   deepseek-v2-236b: {L} of {full.n_layers} layers, {gb:.2f} GB "
+          f"of bf16 weights ({full.param_count() * 2 / 1e9:.0f} GB at full "
+          "depth)", flush=True)
+    prompts = main_prompts(cfg.vocab_size)
+    out, tokens = {"weights_gb": gb}, {}
+    ways = (("bucketed", {}), ("eager", dict(_graph=False)),
+            ("warmed", dict(warmup=True)), ("paged", dict(paged=True)),
+            ("legacy", dict(legacy=True)),
+            ("packed_chunked", dict(packed=True, prefill_chunk=256)))
+
+    for name, kw in ways:
+        decode = ("paged_mla_decode_attention" if kw.get("paged")
+                  else "mla_decode_attention")
+        eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                            device=dev, **kw)
+        if eng.packed or eng._chunk_enabled or eng.prefix_reuse:
+            raise AssertionError(f"({name}) packed {eng.packed}, chunked "
+                                 f"{eng._chunk_enabled}, prefix reuse "
+                                 f"{eng.prefix_reuse}: MLA turns all off")
+        tokens[name], rec = served_once(
+            torch, ops, eng, prompts, 32,
+            lambda d, decode=decode, exact=len(prompts) if kw.get(
+                "legacy") else None: mla_structure(d, L, decode, exact))
+        if name == "warmed":
+            if rec["graph_replays"] != rec["measured"]["decode_steps"]:
+                raise AssertionError(f"(warmed) {rec['graph_replays']} "
+                                     "replays for "
+                                     f"{rec['measured']['decode_steps']} steps")
+            print("   (warmed) a graphed decode step of the drained engine:")
+            rec["decode_profile"] = decode_profile(torch, eng,
+                                                   key="mla_decode")
+        rec["warm_s"] = eng.warm_s
+        out[name] = rec
+        print(f"   ({name}) {rec['measured']['prefill_calls']} prefill calls,"
+              f" {rec['measured']['prefill_padded_tokens']} padded "
+              f"token-rows, {rec['measured']['decode_steps']} decode steps; "
+              f"TTFT p50 {rec['ttft_ms_p50']:.2f} ms, TPOT p50 "
+              f"{rec['tpot_ms']['p50']:.3f} ms; launches {rec['launches']}",
+              flush=True)
+        del eng
+    for name in ("eager", "warmed", "packed_chunked"):
+        if tokens[name] != tokens["bucketed"]:
+            raise AssertionError(f"({name}) tokens differ from the bucketed "
+                                 "(graph) engine's")
+    print(f"   eager, warmed, packed/chunked (off) == bucketed (graph) on all "
+          f"{12 * 32} tokens")
+    out["paged"]["parted"] = parted(torch, model, params, prompts,
+                                    tokens["bucketed"], tokens["paged"],
+                                    "paged")
+    # legacy prefills each request alone, so its expert slots are not the
+    # padded batch's and it drops other choices (as JAX's legacy loop
+    # does), and in bf16 its other prefill shapes round differently, which
+    # flips near-tied router choices among 160 experts: reported here,
+    # gated in fp32 without drops (mla_legacy_fp32)
+    out["legacy"]["parted"] = parted(
+        torch, model, params, prompts, tokens["bucketed"], tokens["legacy"],
+        "legacy (drops and rounding differ; reported)", gate=False)
+
+    template = meta_cache(torch, model, 8, 2048)
+    for mode in DISAGG_MODES:
+        eng = DisaggregatedEngine(model, params, max_batch=8, max_seq=2048,
+                                  device=dev,
+                                  transfer_mode=TransferMode(mode))
+        extents = record_extents(eng)
+        serve_all(eng, prompts, 32)  # warm: the hop's buffers grow
+        hop0 = eng.handoff_wall_s
+        tokens[mode], rec = served_once(torch, ops, eng, prompts, 32,
+                                        lambda d: mla_structure(d, L))
+        d = rec["measured"]
+        per = [extent_wire_bytes(torch, template, n, p, TransferMode(mode))
+               for n, p in extents]
+        c = eng.counters()
+        if (extents != RING_EXTENTS * 2 or d["handoff_wire_bytes"] != sum(
+                per[len(RING_EXTENTS):]) or d["handoff_wire_bytes"]
+                != MLA_WIRE[mode] or c["handoff_wire_bytes"] != sum(per)):
+            raise AssertionError(
+                f"({mode}) extents {extents}, {d['handoff_wire_bytes']} wire "
+                f"bytes a pass; worked out by hand: {RING_EXTENTS}, "
+                f"{MLA_WIRE[mode]}")
+        req_bytes = sum(eng.request_handoff_bytes(n) for n in MAIN_LENS)
+        if d["handoff_request_bytes"] != req_bytes:
+            raise AssertionError(f"({mode}) request bytes "
+                                 f"{d['handoff_request_bytes']} != "
+                                 f"{req_bytes}")
+        rec.update(hop_ms=1e3 * (eng.handoff_wall_s - hop0))
+        out[mode] = rec
+        print(f"   ({mode}) {len(RING_EXTENTS)} handoffs a pass, "
+              f"{d['handoff_wire_bytes']} wire bytes (== by hand and the "
+              f"host-side sum), hop {rec['hop_ms']:.3f} ms a pass; TTFT p50 "
+              f"{rec['ttft_ms_p50']:.2f} ms, TPOT p50 "
+              f"{rec['tpot_ms']['p50']:.3f} ms", flush=True)
+        del eng
+    for mode in ("direct_hbm", "direct_dma"):
+        if tokens[mode] != tokens["bucketed"]:
+            raise AssertionError(f"({mode}) tokens differ from the fused "
+                                 "engine's")
+    if ([t[0] for t in tokens["host_staged"]]
+            != [t[0] for t in tokens["bucketed"]]):
+        raise AssertionError("(host_staged) a first token differs")
+    ttft = {m: out[m]["ttft_ms_p50"] for m in DISAGG_MODES}
+    out["gdr_ttft_saving"] = {
+        "vs_rdma": 1 - ttft["direct_hbm"] / ttft["direct_dma"],
+        "vs_tcp": 1 - ttft["direct_hbm"] / ttft["host_staged"]}
+    llama_token = GQA_TOKEN_LAYER_BYTES * N_LAYERS
+    out["handoff_bytes_a_token"] = {
+        "deepseek_cut": MLA_TOKEN_LAYER_BYTES * L,
+        "deepseek_full": MLA_TOKEN_LAYER_BYTES * full.n_layers,
+        "llama3_8b": llama_token}
+    print(f"   direct mechanisms == bucketed on all {12 * 32} tokens, "
+          f"host_staged's first tokens equal; a token's handoff "
+          f"{MLA_TOKEN_LAYER_BYTES} B a layer ({MLA_TOKEN_LAYER_BYTES * L} "
+          f"here, {MLA_TOKEN_LAYER_BYTES * full.n_layers} at 60 layers) "
+          f"against llama3-8b's {GQA_TOKEN_LAYER_BYTES} a layer "
+          f"({llama_token}); GDR saves "
+          f"{100 * out['gdr_ttft_saving']['vs_rdma']:.1f}% of TTFT p50 "
+          f"against RDMA, {100 * out['gdr_ttft_saving']['vs_tcp']:.1f}% "
+          "against TCP", flush=True)
+    # a decode step reads every weight once: every expert of the MoE
+    # layers (C = 8 slots each at 8 rows), the attention's, the norms', the
+    # tied table for the head
+    prof = out["warmed"]["decode_profile"]
+    out["decode_bound_ms"] = gb * 1e9 / PEAK_BYTES_S * 1e3
+    busy = prof["device_busy_ms_per_step"]
+    out["mla_kernel_share"] = (prof["kernel_ms_per_step"] / busy
+                               if busy else None)
+    print(f"   a decode step's byte bound {out['decode_bound_ms']:.3f} ms "
+          f"({gb:.2f} GB at {PEAK_BYTES_S:.3g} B/s); the graphed step's "
+          "device busy " + ("not measured" if not busy else
+                            f"{busy:.3f} ms, idle share "
+                            f"{prof['device_idle_share']:.3f}, the MLA decode "
+                            f"kernel {prof['kernel_ms_per_step']:.4f} ms "
+                            f"({out['mla_kernel_share']:.3f} of busy)"),
+          flush=True)
+    out["launches"] = out["bucketed"]["launches"]
+    out["launches_paged"] = out["paged"]["launches"]
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"   peak device memory {out['peak_mem_gb']:.2f} GB", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_structure(c, layers, decode="mla_decode_attention", exact=None):
+    """:func:`structure` for an MLA stack (rmsnorm 4L + 1 a forward: ln1,
+    ln2, q_norm, kv_norm); ``exact`` prefills that count no prefill call
+    (the legacy loop's, one a request)."""
+    if exact is not None:
+        c = dict(c, prefill_calls=exact)
+    return structure(c, layers, decode, mla=True)
+
+
+def mla_legacy_fp32(torch, ops, dev):
+    """Phase 13, the legacy loop held in fp32 (TF32 off): deepseek-v2-236b
+    at full width cut to its first 2 layers (a dense layer, an MoE one),
+    at the capacity factor where nothing drops (E / K) and max_batch 2 (a
+    prefill's expert slots then stay a few GB), phase 4's 12 requests
+    bucketed and through ``legacy=True``: launch counts to each path, and
+    legacy's tokens == bucketed's or parted at a top-2 gap under
+    LOGIT_LIMIT. (In bf16 the two paths' prefill shapes round differently
+    and flip near-tied router choices among 160 experts.)"""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+
+    full = get_config("deepseek-v2-236b")
+    L = 2
+    cfg = dataclasses.replace(full, n_layers=L, moe=dataclasses.replace(
+        full.moe, capacity_factor=full.moe.n_experts / full.moe.top_k))
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = main_prompts(cfg.vocab_size)
+    out, tokens = {"weights_gb": weights_gb(params)}, {}
+    for name, kw in (("bucketed", {}), ("legacy", dict(legacy=True))):
+        eng = ServingEngine(model, params, max_batch=2, max_seq=2048,
+                            device=dev, **kw)
+        exact = len(prompts) if kw else None
+        tokens[name], rec = served_once(
+            torch, ops, eng, prompts, 32,
+            lambda d, exact=exact: mla_structure(d, L, exact=exact))
+        out[name] = rec
+        print(f"   (fp32, {name}) {rec['measured']['decode_steps']} decode "
+              f"steps; TTFT p50 {rec['ttft_ms_p50']:.2f} ms, TPOT p50 "
+              f"{rec['tpot_ms']['p50']:.3f} ms", flush=True)
+        del eng
+    out["parted"] = parted(torch, model, params, prompts, tokens["bucketed"],
+                           tokens["legacy"], "legacy (fp32, no drops)")
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return out

@@ -4,6 +4,7 @@ and the four input shapes."""
 from __future__ import annotations
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2_236B
 from repro_torch.configs.granite_34b import CONFIG as GRANITE_34B
 from repro_torch.configs.grok1_314b import CONFIG as GROK1_314B
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
@@ -15,7 +16,8 @@ from repro_torch.configs.starcoder2_3b import CONFIG as STARCODER2_3B
 
 ARCHITECTURES: dict[str, ModelConfig] = {
     c.name: c for c in (LLAMA3_8B, STARCODER2_3B, QWEN3_32B, GRANITE_34B,
-                        MAMBA2_130M, GROK1_314B, PIXTRAL_12B)}
+                        MAMBA2_130M, GROK1_314B, PIXTRAL_12B,
+                        DEEPSEEK_V2_236B)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -72,35 +72,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Stage TILE_K rows (t0.. of a tensor whose rows are ``*_stride_row``
-// elements apart) of K and V into shared memory as fp32, cooperatively over
-// NT threads (``tid`` in [0, NT)); rows at or past ``n`` become zeros.
-template <typename T, int HD, int NT>
-__device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* kbase,
-                                             const T* vbase, long long k_stride_row,
-                                             long long v_stride_row, int t0, int n, int tid) {
+// Stage TILE_K rows of one tensor, W elements wide, into shared memory as
+// fp32 rows S elements apart (W + 1 for a K tile, W for a V tile): each
+// thread issues its 16-byte loads, in chunks of up to 8, before its stores.
+template <typename T, int W, int NT, int S>
+__device__ __forceinline__ void load_rows(float* dst, const T* base, long long stride_row,
+                                          int t0, int n, int tid) {
   constexpr int VN = Vec<T>::N;
-  constexpr int ROW_VECS = HD / VN;
+  constexpr int ROW_VECS = W / VN;
   constexpr int NVEC = TILE_K * ROW_VECS;
-  constexpr int PER = (NVEC + NT - 1) / NT;  // vectors per thread per tensor
-  constexpr int CH = PER < 8 ? PER : 8;      // loads in flight per tensor
+  constexpr int PER = (NVEC + NT - 1) / NT;  // vectors per thread
+  constexpr int CH = PER < 8 ? PER : 8;      // loads in flight
   static_assert(PER % CH == 0, "tile vectors must split evenly into chunks");
 #pragma unroll
   for (int c0 = 0; c0 < PER; c0 += CH) {
-    uint4 kr[CH], vr[CH];
+    uint4 r[CH];
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int e = tid + (c0 + i) * NT;
       const int j = e / ROW_VECS;
       const int col = (e - j * ROW_VECS) * VN;
       const int row = t0 + j;
-      if (e < NVEC && row < n) {
-        kr[i] = *reinterpret_cast<const uint4*>(kbase + row * k_stride_row + col);
-        vr[i] = *reinterpret_cast<const uint4*>(vbase + row * v_stride_row + col);
-      } else {
-        kr[i] = make_uint4(0u, 0u, 0u, 0u);
-        vr[i] = make_uint4(0u, 0u, 0u, 0u);
-      }
+      r[i] = (e < NVEC && row < n)
+                 ? *reinterpret_cast<const uint4*>(base + row * stride_row + col)
+                 : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
@@ -109,14 +104,24 @@ __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* kbas
       const int j = e / ROW_VECS;
       const int col = (e - j * ROW_VECS) * VN;
       float f[VN];
-      Vec<T>::unpack(kr[i], f);
+      Vec<T>::unpack(r[i], f);
 #pragma unroll
-      for (int u = 0; u < VN; ++u) ks[j * (HD + 1) + col + u] = f[u];
-      Vec<T>::unpack(vr[i], f);
-#pragma unroll
-      for (int u = 0; u < VN; ++u) vs[j * HD + col + u] = f[u];
+      for (int u = 0; u < VN; ++u) dst[j * S + col + u] = f[u];
     }
   }
+}
+
+// Stage TILE_K rows (t0.. of a tensor whose rows are ``*_stride_row``
+// elements apart) of K and V into shared memory as fp32, cooperatively over
+// NT threads (``tid`` in [0, NT)); rows at or past ``n`` become zeros. K
+// rows are HD wide, V rows HDV (HD unless given: MLA's prefill reads K at
+// 192 and V at 128).
+template <typename T, int HD, int NT, int HDV = HD>
+__device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* kbase,
+                                             const T* vbase, long long k_stride_row,
+                                             long long v_stride_row, int t0, int n, int tid) {
+  load_rows<T, HD, NT, HD + 1>(ks, kbase, k_stride_row, t0, n, tid);
+  load_rows<T, HDV, NT, HDV>(vs, vbase, v_stride_row, t0, n, tid);
 }
 
 // Running softmax statistics of R query rows; lane l holds output dims
@@ -143,9 +148,10 @@ __device__ __forceinline__ void rows_init(Rows<HD, R>& st) {
 // one tile; rows at or past ``nrows`` are skipped. Lane j scores key j for
 // every row, so each K element read from shared memory feeds R FMAs and
 // each V element R FMAs. ``valid[r]`` is lane j's mask bit for row r.
-// Called by a whole warp.
-template <int HD, int R>
-__device__ __forceinline__ void rows_update(Rows<HD, R>& st, const float* qs,
+// Called by a whole warp. Scores run over HD, V rows (and the accumulators)
+// are HDV wide (HD unless given).
+template <int HD, int R, int HDV = HD>
+__device__ __forceinline__ void rows_update(Rows<HDV, R>& st, const float* qs,
                                             const float* ks, const float* vs,
                                             const bool (&valid)[R], int nrows,
                                             float scale, int lane) {
@@ -177,20 +183,20 @@ __device__ __forceinline__ void rows_update(Rows<HD, R>& st, const float* qs,
     p[r] = valid[r] ? expf(sv - m_new) : 0.f;
     st.l[r] = st.l[r] * corr + warp_sum(p[r]);
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i) st.acc[r][i] *= corr;
+    for (int i = 0; i < HDV / 32; ++i) st.acc[r][i] *= corr;
     st.m[r] = m_new;
   }
 #pragma unroll 4
   for (int j = 0; j < TILE_K; ++j) {
-    float v[HD / 32];
+    float v[HDV / 32];
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i) v[i] = vs[j * HD + lane + 32 * i];
+    for (int i = 0; i < HDV / 32; ++i) v[i] = vs[j * HDV + lane + 32 * i];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= nrows) break;
       const float pj = __shfl_sync(FULL_MASK, p[r], j);
 #pragma unroll
-      for (int i = 0; i < HD / 32; ++i) st.acc[r][i] = fmaf(pj, v[i], st.acc[r][i]);
+      for (int i = 0; i < HDV / 32; ++i) st.acc[r][i] = fmaf(pj, v[i], st.acc[r][i]);
     }
   }
 }

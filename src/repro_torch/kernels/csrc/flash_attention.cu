@@ -48,6 +48,9 @@
 //     that no row reaches are never visited (below);
 //   * under a causal mask the last q-tiles carry the most work, so they
 //     launch first: q-tiles are the slowest grid dimension, in reverse.
+//     With one query head a KV head (G = 1, MLA's prefill) no other head
+//     reads a head's K/V, so its q-tiles run next to each other instead,
+//     the heaviest first, and its K/V tiles stay in L2 across them.
 // Shared memory: 5 tiles of 64 x hd bf16 (80 KiB at hd 128), 2 CTAs an SM.
 //
 // Packed prefill (segment ids): each segment id forms one contiguous run of a
@@ -59,6 +62,14 @@
 // pairs a head, plus up to a tile a segment) instead of T^2 / 2. A tile in
 // the pad run starts at the pad run's start: pads attend to pads, as in the
 // plain version.
+//
+// K and V head dims are template parameters apart: every dense head dim
+// runs (hd, hd), and MLA's decompressed prefill runs (192, 128) -- q and k
+// 128 nope + 64 rope, v 128 -- with scale 1 / sqrt(192) from the caller.
+// At (192, 128) the bf16 body takes Q and K tiles three 128-byte column
+// blocks wide (S = Q.K^T in 12 k-steps) and a V tile of two (P.V keeps N =
+// 128); the fp32 body scores 192-wide K rows and sums 128-wide V rows.
+// Shared memory at (192, 128), bf16: 105.5 KiB a CTA, still 2 CTAs an SM.
 //
 // fp32: the CUDA-core body (flash_fwd_kernel). wgmma takes fp32 inputs only
 // as TF32, which keeps about three decimal digits; the fp32 path is held to
@@ -77,12 +88,13 @@ constexpr int FLASH_WARPS = 8;
 constexpr int FLASH_THREADS = FLASH_WARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / FLASH_WARPS;
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (BQ * HD + TILE_K * (HD + 1) + TILE_K * HD) + sizeof(int) * TILE_K;
+  return sizeof(float) * (BQ * HD + TILE_K * (HD + 1) + TILE_K * HDV) + sizeof(int) * TILE_K;
 }
 
-template <typename T, int HD>
+// HD: q and k's head dim; HDV: v's (and the output's)
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(FLASH_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, const int* __restrict__ q_seg,
@@ -97,8 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                           // [BQ][HD]
   float* ks = qs + BQ * HD;                   // [TILE_K][HD + 1]
-  float* vs = ks + TILE_K * (HD + 1);         // [TILE_K][HD]
-  int* kseg_s = reinterpret_cast<int*>(vs + TILE_K * HD);  // [TILE_K]
+  float* vs = ks + TILE_K * (HD + 1);         // [TILE_K][HDV]
+  int* kseg_s = reinterpret_cast<int*>(vs + TILE_K * HDV);  // [TILE_K]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -117,8 +129,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     qs[e] = qi < Sq ? to_f32(qbase[qi * sqs + d]) : 0.f;
   }
 
-  Rows<HD, ROWS_PER_WARP> st;
-  rows_init<HD, ROWS_PER_WARP>(st);
+  Rows<HDV, ROWS_PER_WARP> st;
+  rows_init<HDV, ROWS_PER_WARP>(st);
   int qseg_r[ROWS_PER_WARP];
   const int row0 = warp * ROWS_PER_WARP;
 #pragma unroll
@@ -137,7 +149,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* pvbase = pv + b * spvb + kvh * spvh;
   for (int t0 = p_begin; t0 < pvalid; t0 += TILE_K) {
     __syncthreads();  // the previous tile is consumed (and the q tile staged)
-    load_kv_tile<T, HD, FLASH_THREADS>(ks, vs, pkbase, pvbase, spks, spvs, t0, pvalid, tid);
+    load_kv_tile<T, HD, FLASH_THREADS, HDV>(ks, vs, pkbase, pvbase, spks, spvs, t0, pvalid,
+                                            tid);
     __syncthreads();
 
     const int kpos = t0 + lane;
@@ -149,8 +162,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       if (window > 0) ok = ok && kpos > pvalid + qpos - window;
       valid[r] = ok;
     }
-    rows_update<HD, ROWS_PER_WARP>(st, qs + row0 * HD, ks, vs, valid, ROWS_PER_WARP,
-                                   scale, lane);
+    rows_update<HD, ROWS_PER_WARP, HDV>(st, qs + row0 * HD, ks, vs, valid, ROWS_PER_WARP,
+                                        scale, lane);
   }
 
   // Then the suffix: the KV tiles any row of this q-tile can reach.
@@ -165,7 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* vbase = v + b * svb + kvh * svh;
   for (int t0 = kv_begin; t0 < kv_end; t0 += TILE_K) {
     __syncthreads();  // the previous tile is consumed (and the q tile staged)
-    load_kv_tile<T, HD, FLASH_THREADS>(ks, vs, kbase, vbase, sks, svs, t0, Skv, tid);
+    load_kv_tile<T, HD, FLASH_THREADS, HDV>(ks, vs, kbase, vbase, sks, svs, t0, Skv, tid);
     if (segmented && tid < TILE_K)
       kseg_s[tid] = (t0 + tid < Skv) ? k_seg[(long long)b * Skv + t0 + tid] : -3;
     __syncthreads();
@@ -181,8 +194,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       if (segmented) ok = ok && qseg_r[r] == kseg_s[lane];
       valid[r] = ok;
     }
-    rows_update<HD, ROWS_PER_WARP>(st, qs + row0 * HD, ks, vs, valid, ROWS_PER_WARP,
-                                   scale, lane);
+    rows_update<HD, ROWS_PER_WARP, HDV>(st, qs + row0 * HD, ks, vs, valid, ROWS_PER_WARP,
+                                        scale, lane);
   }
 
 #pragma unroll
@@ -190,9 +203,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qpos = q0 + row0 + r;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(st.l[r], 1e-30f);
-    T* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
+    T* orow = o + (((long long)b * Sq + qpos) * H + h) * HDV;
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i) orow[lane + 32 * i] = from_f32<T>(st.acc[r][i] * inv);
+    for (int i = 0; i < HDV / 32; ++i) orow[lane + 32 * i] = from_f32<T>(st.acc[r][i] * inv);
   }
 }
 
@@ -228,17 +241,18 @@ struct WgTile {
   }
 };
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t wg_smem_bytes() {
   // Q, then per stage K and V; then the key segment ids of each stage; plus
   // slack to align the tiles to the 1024-byte swizzle period
-  return (size_t)(1 + 2 * WG_STAGES) * WgTile<HD>::BYTES + sizeof(int) * WG_STAGES * WG_BK +
-         1024;
+  return (size_t)(1 + WG_STAGES) * WgTile<HD>::BYTES + (size_t)WG_STAGES * WgTile<HDV>::BYTES +
+         sizeof(int) * WG_STAGES * WG_BK + 1024;
 }
 
-// SEG: the row carries segment ids (q_seg / k_seg non-null); its own
-// instantiation, so unpacked prefill compiles no segment code at all
-template <int HD, bool SEG>
+// HD: q and k's head dim (the Q and K tiles); HDV: v's (the V tile and the
+// output). SEG: the row carries segment ids (q_seg / k_seg non-null); its
+// own instantiation, so unpacked prefill compiles no segment code at all
+template <int HD, int HDV, bool SEG>
 __global__ void __launch_bounds__(WG_THREADS, 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -251,19 +265,23 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
                    long long spks, long long spkh, long long spvb, long long spvs,
                    long long spvh, int causal, int window, int sq_real, int skv_real,
                    float scale) {
-  using Tl = WgTile<HD>;
+  using Tl = WgTile<HD>;   // Q and K tiles
+  using Tv = WgTile<HDV>;  // V tiles
+  constexpr uint32_t STAGE_BYTES = Tl::BYTES + Tv::BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (sbase - raw);
-  const uint32_t sq_tile = sbase;  // K of stage s at sq_tile + (1 + 2s) * BYTES, V after it
-  int* kseg_s = reinterpret_cast<int*>(smem + (1 + 2 * WG_STAGES) * Tl::BYTES);
+  // K of stage s at sq_tile + Tl::BYTES + s * STAGE_BYTES, V after it
+  const uint32_t sq_tile = sbase;
+  int* kseg_s = reinterpret_cast<int*>(smem + Tl::BYTES + WG_STAGES * STAGE_BYTES);
 
-  // q-tiles are the slowest grid dimension, the last (heaviest) first
+  // q-tiles are the slowest grid dimension, the last (heaviest) first; at
+  // G = 1 the fastest, a head's q-tiles next to each other
   const int nqt = (Sq + WG_BQ - 1) / WG_BQ;
   const int hb = gridDim.x / nqt;  // H * B
-  const int qt = nqt - 1 - (int)blockIdx.x / hb;
-  const int rem = (int)blockIdx.x - (nqt - 1 - qt) * hb;
+  const int qt = nqt - 1 - (G == 1 ? (int)blockIdx.x % nqt : (int)blockIdx.x / hb);
+  const int rem = G == 1 ? (int)blockIdx.x / nqt : (int)blockIdx.x - (nqt - 1 - qt) * hb;
   const int h = rem % H;
   const int b = rem / H;
   const int kvh = h / G;
@@ -333,18 +351,26 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const __nv_bfloat16* vt = prior ? pvb : vb;
     const long long ks = prior ? spks : sks;
     const long long vs = prior ? spvs : svs;
-    const uint32_t kd = sq_tile + (1 + 2 * stage) * Tl::BYTES;
+    const uint32_t kd = sq_tile + Tl::BYTES + stage * STAGE_BYTES;
     const uint32_t vd = kd + Tl::BYTES;
+    constexpr int KPER = Tl::CHUNKS / WG_THREADS, VPER = Tv::CHUNKS / WG_THREADS;
 #pragma unroll
-    for (int u = 0; u < Tl::CHUNKS / WG_THREADS; ++u) {
+    for (int u = 0; u < (KPER > VPER ? KPER : VPER); ++u) {
       const int e = tid + u * WG_THREADS;
-      const int r = e / (HD / 8);
-      const int ch = e - r * (HD / 8);
-      const int row = t0 + r;
-      const bool ok = row < n;
-      const long long rr = ok ? row : 0;
-      cp_async16(kd + Tl::offset(r, ch), kt + rr * ks + ch * 8, ok);
-      cp_async16(vd + Tl::offset(r, ch), vt + rr * vs + ch * 8, ok);
+      if (u < KPER) {
+        const int r = e / (HD / 8);
+        const int ch = e - r * (HD / 8);
+        const int row = t0 + r;
+        const bool ok = row < n;
+        cp_async16(kd + Tl::offset(r, ch), kt + (ok ? row : 0) * ks + ch * 8, ok);
+      }
+      if (u < VPER) {
+        const int r = e / (HDV / 8);
+        const int ch = e - r * (HDV / 8);
+        const int row = t0 + r;
+        const bool ok = row < n;
+        cp_async16(vd + Tv::offset(r, ch), vt + (ok ? row : 0) * vs + ch * 8, ok);
+      }
     }
     if (segmented && !prior && tid < WG_BK)
       kseg_s[stage * WG_BK + tid] = t0 + tid < Skv ? k_seg[(long long)b * Skv + t0 + tid] : -3;
@@ -356,11 +382,11 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     if (row_a + 8 < Sq) qseg[1] = q_seg[(long long)b * Sq + row_a + 8];
   }
 
-  float oacc[Tl::NPV][Tl::PVN / 2];
+  float oacc[Tv::NPV][Tv::PVN / 2];
 #pragma unroll
-  for (int n = 0; n < Tl::NPV; ++n)
+  for (int n = 0; n < Tv::NPV; ++n)
 #pragma unroll
-    for (int i = 0; i < Tl::PVN / 2; ++i) oacc[n][i] = 0.f;
+    for (int i = 0; i < Tv::PVN / 2; ++i) oacc[n][i] = 0.f;
   float m_run[2] = {NEG_INF_F, NEG_INF_F};  // running max, log2 domain
   float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
   const float scale_log2 = scale * LOG2E;
@@ -375,7 +401,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     fence_async_shared();
     __syncthreads();
 
-    const uint32_t kd = sq_tile + (1 + 2 * stage) * Tl::BYTES;
+    const uint32_t kd = sq_tile + Tl::BYTES + stage * STAGE_BYTES;
     const uint32_t vd = kd + Tl::BYTES;
     // S = Q . K^T over hd / 16 steps of 32 bytes along a row
     float s[32];
@@ -448,13 +474,13 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       l_run[r] = l_run[r] * corr[r] + sum;
     }
 #pragma unroll
-    for (int n = 0; n < Tl::NPV; ++n)
+    for (int n = 0; n < Tv::NPV; ++n)
 #pragma unroll
-      for (int i2 = 0; i2 < Tl::PVN / 2; ++i2) oacc[n][i2] *= corr[(i2 >> 1) & 1];
+      for (int i2 = 0; i2 < Tv::PVN / 2; ++i2) oacc[n][i2] *= corr[(i2 >> 1) & 1];
 
     // O += P . V: P's bf16 A fragments straight from the S fragment
 #pragma unroll
-    for (int n = 0; n < Tl::NPV; ++n) fence_regs(oacc[n]);
+    for (int n = 0; n < Tv::NPV; ++n) fence_regs(oacc[n]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk) {
@@ -465,10 +491,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
         a[u] = *reinterpret_cast<uint32_t*>(&p2);
       }
 #pragma unroll
-      for (int n = 0; n < Tl::NPV; ++n) {
-        const uint64_t dv = wg_desc(vd + n * (WG_BK * Tl::RB) + kk * 16 * Tl::RB, 8 * Tl::RB,
-                                    8 * Tl::RB, Tl::LAYOUT);
-        if constexpr (Tl::PVN == 64)
+      for (int n = 0; n < Tv::NPV; ++n) {
+        const uint64_t dv = wg_desc(vd + n * (WG_BK * Tv::RB) + kk * 16 * Tv::RB, 8 * Tv::RB,
+                                    8 * Tv::RB, Tv::LAYOUT);
+        if constexpr (Tv::PVN == 64)
           wgmma_rs_n64(oacc[n], a, dv);
         else
           wgmma_rs_n32(oacc[n], a, dv);
@@ -477,7 +503,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
-    for (int n = 0; n < Tl::NPV; ++n) fence_regs(oacc[n]);
+    for (int n = 0; n < Tv::NPV; ++n) fence_regs(oacc[n]);
     __syncthreads();  // this stage is free for tile i + 2
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -495,21 +521,21 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     // rows at or past sq_real see no key: zeros, as a fully masked row
     const bool live = qpos < sq_real;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
-    __nv_bfloat16* orow = o + (((long long)b * Sq + qpos) * H + h) * HD;
+    __nv_bfloat16* orow = o + (((long long)b * Sq + qpos) * H + h) * HDV;
 #pragma unroll
-    for (int n = 0; n < Tl::NPV; ++n)
+    for (int n = 0; n < Tv::NPV; ++n)
 #pragma unroll
-      for (int j = 0; j < Tl::PVN / 8; ++j) {
+      for (int j = 0; j < Tv::PVN / 8; ++j) {
         const __nv_bfloat162 w =
             live ? __floats2bfloat162_rn(oacc[n][4 * j + 2 * r] * inv,
                                          oacc[n][4 * j + 2 * r + 1] * inv)
                  : __floats2bfloat162_rn(0.f, 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * Tl::PVN + 8 * j + col0) = w;
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * Tv::PVN + 8 * j + col0) = w;
       }
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, const void* q_seg,
                  const void* k_seg, const void* seg_start, const void* pk, const void* pv,
                  const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
@@ -518,8 +544,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
                  long long spks, long long spkh, long long spvb, long long spvs, long long spvh,
                  int causal, int window, int sq_real, int skv_real, float scale,
                  cudaStream_t stream) {
-  constexpr size_t smem = wg_smem_bytes<HD>();
-  auto kernel = q_seg != nullptr ? flash_wgmma_kernel<HD, true> : flash_wgmma_kernel<HD, false>;
+  constexpr size_t smem = wg_smem_bytes<HD, HDV>();
+  auto kernel = q_seg != nullptr ? flash_wgmma_kernel<HD, HDV, true>
+                                 : flash_wgmma_kernel<HD, HDV, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -535,7 +562,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_seg,
            const void* k_seg, const void* seg_start, const void* pk, const void* pv,
            const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
@@ -543,8 +570,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
            long long skh, long long svb, long long svs, long long svh, long long spkb,
            long long spks, long long spkh, long long spvb, long long spvs, long long spvh,
            int causal, int window, int sq_real, int skv_real, float scale, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<T, HD>;
+  constexpr size_t smem = flash_smem_bytes<HD, HDV>();
+  auto kernel = flash_fwd_kernel<T, HD, HDV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -561,9 +588,11 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
 
 }  // namespace
 
-// q: [B, Sq, H, hd], k/v: [B, Skv, Hkv, hd] and pk/pv: [B, Pp, Hkv, hd]
-// addressed through the given element strides (last dim contiguous);
-// o: contiguous [B, Sq, H, hd]. q_seg / k_seg: contiguous int32 [B, Sq] /
+// q: [B, Sq, H, hd], k: [B, Skv, Hkv, hd], v: [B, Skv, Hkv, hdv] and pk/pv:
+// [B, Pp, Hkv, hd] addressed through the given element strides (last dim
+// contiguous); o: contiguous [B, Sq, H, hdv]. hdv == hd in {32, 64, 128},
+// or (hd, hdv) = (192, 128), MLA's prefill, which takes no prior and no
+// segment ids. q_seg / k_seg: contiguous int32 [B, Sq] /
 // [B, Skv], or both null; seg_start: contiguous int32 [B, Sq], each row's
 // run start (see above), or null (no tile skipped by segment, none taken
 // unmasked). prior_valid: contiguous int32 [B], or null with
@@ -573,26 +602,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    const void* q_seg, const void* k_seg,
                                    const void* seg_start, const void* pk,
                                    const void* pv, const void* prior_valid, int B, int Sq,
-                                   int Skv, int Pp, int H, int Hkv, int hd, long long sqb,
-                                   long long sqs, long long sqh, long long skb, long long sks,
-                                   long long skh, long long svb, long long svs, long long svh,
-                                   long long spkb, long long spks, long long spkh,
-                                   long long spvb, long long spvs, long long spvh, int causal,
-                                   int window, int sq_real, int skv_real, float scale,
-                                   int is_bf16, void* stream) {
+                                   int Skv, int Pp, int H, int Hkv, int hd, int hdv,
+                                   long long sqb, long long sqs, long long sqh, long long skb,
+                                   long long sks, long long skh, long long svb, long long svs,
+                                   long long svh, long long spkb, long long spks,
+                                   long long spkh, long long spvb, long long spvs,
+                                   long long spvh, int causal, int window, int sq_real,
+                                   int skv_real, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    DISPATCH_HD(hd, HD, return launch_wgmma<HD>(
-                            q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq,
-                            Skv, Pp, H,
-                            Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
-                            spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
-  } else {
-    DISPATCH_HD(hd, HD, return launch<float, HD>(
-                            q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq,
-                            Skv, Pp, H,
-                            Hkv, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh,
-                            spvb, spvs, spvh, causal, window, sq_real, skv_real, scale, s))
+#define FLASH_ARGS                                                                           \
+  q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq, Skv, Pp, H, Hkv, sqb, sqs, \
+      sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window,  \
+      sq_real, skv_real, scale, s
+  if (hdv != hd) {
+    if (hd != 192 || hdv != 128 || q_seg != nullptr || prior_valid != nullptr)
+      return (int)cudaErrorInvalidValue;
+    return is_bf16 ? launch_wgmma<192, 128>(FLASH_ARGS) : launch<float, 192, 128>(FLASH_ARGS);
   }
+  if (is_bf16) {
+    DISPATCH_HD(hd, HD, return launch_wgmma<HD, HD>(FLASH_ARGS))
+  } else {
+    DISPATCH_HD(hd, HD, return (launch<float, HD, HD>(FLASH_ARGS)))
+  }
+#undef FLASH_ARGS
   return 0;
 }

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mla_decode_attention as _mla
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import preprocess as _pp
 from repro_torch.kernels import ref
@@ -38,7 +39,8 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
-                            "preprocess": 0}
+                            "preprocess": 0, "mla_decode_attention": 0,
+                            "paged_mla_decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -160,7 +162,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     segment_starts=None, sq_real: Optional[int] = None,
                     skv_real: Optional[int] = None, prior_k=None,
                     prior_v=None, prior_valid=None):
-    """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd].
+    """q: [B,Sq,H,hd]; k: [B,Skv,Hkv,hd]; v: [B,Skv,Hkv,hdv] -> [B,Sq,H,hdv].
+
+    ``hdv`` is ``hd`` but for MLA's prefill (q/k 192, v 128); the scale
+    stays ``1/sqrt(hd)``, and a prior or segment ids need ``hdv == hd``.
 
     ``segment_ids``: optional [B, S] int packed-prefill ids (Sq == Skv,
     pads -1) forbidding cross-segment attention. Each id must form one
@@ -177,10 +182,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     and a prior exclude each other.
     """
     B, Sq, H, hd = q.shape
-    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if (k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]
+            or k.shape[0] != B or k.shape[3] != hd):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     if H % Hkv:
         raise ValueError(f"flash_attention: H={H} not a multiple of Hkv={Hkv}")
     if segment_ids is not None and (Sq != Skv
@@ -192,6 +198,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention: segment_starts goes with "
                          "segment_ids, in its shape")
     prior = (prior_k, prior_v, prior_valid)
+    if hdv != hd and (segment_ids is not None
+                      or any(t is not None for t in prior)):
+        raise ValueError(f"flash_attention: a prior or segment ids need v's "
+                         f"head dim {hdv} == q's {hd}")
     if any(t is not None for t in prior):
         if any(t is None for t in prior) or segment_ids is not None:
             raise ValueError("flash_attention: prior_k, prior_v and "
@@ -217,9 +227,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _check_kernel_dtype("flash_attention", q, *kv)
     _check_last_dim_contiguous("flash_attention", q, *kv)
     _check_rows_aligned("flash_attention", *kv)
-    if hd not in _fa.HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel head_dim {hd} not in "
-                         f"{_fa.HEAD_DIMS}")
+    if (hd, hdv) not in _fa.HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention kernel head dims (q/k, v) "
+                         f"{(hd, hdv)} not in {_fa.HEAD_DIM_PAIRS}")
     if prior_valid is not None and (prior_valid.dtype != torch.int32
                                     or not prior_valid.is_contiguous()):
         raise TypeError(f"flash_attention kernel: prior_valid must be "
@@ -314,6 +324,89 @@ def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
                             f"contiguous int32: {t.dtype}")
     out = _pdec.launch(q, k_blocks, v_blocks, page_table, lengths, scale=scale)
     LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def _check_mla(name, q_lat, q_rope, ckv, krope, valid_len, lead):
+    """Shapes shared by the ring and paged MLA decode ops: ``lead`` is the
+    latent leaves' leading dims ([B, W] or [N, page])."""
+    B, one, H, r = q_lat.shape
+    if (one != 1 or q_rope.ndim != 4 or q_rope.shape[:3] != q_lat.shape[:3]
+            or ckv.ndim != 3 or krope.ndim != 3
+            or tuple(ckv.shape) != (*lead, r)
+            or tuple(krope.shape) != (*lead, q_rope.shape[3])
+            or tuple(valid_len.shape) != (B,)):
+        raise ValueError(f"{name}: q_lat {tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, ckv {tuple(ckv.shape)}, "
+                         f"krope {tuple(krope.shape)}, valid_len "
+                         f"{tuple(valid_len.shape)}")
+
+
+def _check_mla_kernel(name, q_lat, q_rope, ckv, krope, valid_len):
+    _check_kernel_dtype(name, q_lat, q_rope, ckv, krope)
+    _check_last_dim_contiguous(name, q_lat, q_rope, ckv, krope)
+    _check_rows_aligned(name, ckv, krope)
+    H, dims = q_lat.shape[2], (ckv.shape[-1], krope.shape[-1])
+    if dims not in _mla.LATENT_DIMS or H % _mla.HEAD_BLOCK:
+        raise ValueError(f"{name} kernel: (latent, rope) dims {dims} not in "
+                         f"{_mla.LATENT_DIMS}, or {H} heads not a multiple "
+                         f"of {_mla.HEAD_BLOCK}")
+    if valid_len.dtype != torch.int32 or not valid_len.is_contiguous():
+        raise TypeError(f"{name} kernel: valid_len must be contiguous int32: "
+                        f"{valid_len.dtype}")
+
+
+def mla_decode_attention(q_lat, q_rope, ckv, krope, valid_len, *,
+                         scale: float):
+    """Absorbed MLA decode over the latent ring: q_lat [B,1,H,r] (the
+    query's nope half through W_UK), q_rope [B,1,H,dr] (its RoPE half),
+    ckv [B,W,r], krope [B,W,dr]; valid_len [B] int, slots at or past it
+    (or W) masked -> [B,1,H,r], the probability-weighted latent rows (see
+    :func:`ref.mla_decode_attention_ref`)."""
+    B, W = ckv.shape[:2]
+    _check_mla("mla_decode_attention", q_lat, q_rope, ckv, krope, valid_len,
+               (B, W))
+    if not _on_cuda(q_lat, q_rope, ckv, krope, valid_len):
+        return ref.mla_decode_attention_ref(
+            q_lat, q_rope, ckv, krope, valid_len.clamp(max=W), scale=scale)
+    _check_mla_kernel("mla_decode_attention", q_lat, q_rope, ckv, krope,
+                      valid_len)
+    out = _mla.launch(q_lat, q_rope, ckv, krope, valid_len, scale=scale)
+    LAUNCHES["mla_decode_attention"] += 1
+    return out
+
+
+def paged_mla_decode_attention(q_lat, q_rope, ckv_blocks, krope_blocks,
+                               page_table, valid_len, *, scale: float):
+    """:func:`mla_decode_attention` through a page table: ckv_blocks
+    [N,page,r], krope_blocks [N,page,dr] (the latent block pool);
+    page_table [B,n_pages] int32; positions at or past ``n_pages * page``
+    are masked. Nothing is gathered on the card."""
+    if page_table.ndim != 2 or page_table.shape[0] != q_lat.shape[0]:
+        raise ValueError(f"paged_mla_decode_attention: page_table "
+                         f"{tuple(page_table.shape)}, q_lat "
+                         f"{tuple(q_lat.shape)}")
+    _check_mla("paged_mla_decode_attention", q_lat, q_rope, ckv_blocks,
+               krope_blocks, valid_len, ckv_blocks.shape[:2])
+    if not _on_cuda(q_lat, q_rope, ckv_blocks, krope_blocks, page_table,
+                    valid_len):
+        return ref.paged_mla_decode_attention_ref(
+            q_lat, q_rope, ckv_blocks, krope_blocks, page_table, valid_len,
+            scale=scale)
+    name = "paged_mla_decode_attention"
+    _check_mla_kernel(name, q_lat, q_rope, ckv_blocks, krope_blocks,
+                      valid_len)
+    page = ckv_blocks.shape[1]
+    if any(t.stride(0) != page * t.stride(1)
+           for t in (ckv_blocks, krope_blocks)):
+        raise ValueError(f"{name} kernel needs evenly spaced block rows: "
+                         f"{ckv_blocks.stride()}, {krope_blocks.stride()}")
+    if page_table.dtype != torch.int32 or not page_table.is_contiguous():
+        raise TypeError(f"{name} kernel: page_table must be contiguous "
+                        f"int32: {page_table.dtype}")
+    out = _mla.launch_paged(q_lat, q_rope, ckv_blocks, krope_blocks,
+                            page_table, valid_len, scale=scale)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -58,7 +58,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         segment_ids=None, sq_real: Optional[int] = None,
                         skv_real: Optional[int] = None, prior_k=None,
                         prior_v=None, prior_valid=None):
-    """q: [B,Sq,H,hd]; k,v: [B,Skv,Hkv,hd] -> [B,Sq,H,hd] in q's dtype.
+    """q: [B,Sq,H,hd]; k: [B,Skv,Hkv,hd]; v: [B,Skv,Hkv,hdv] -> [B,Sq,H,hdv]
+    in q's dtype (hdv == hd but for MLA's prefill; the scale stays
+    1/sqrt(hd)).
 
     GQA: query head h reads KV head h // G. ``segment_ids`` [B, S]
     (Sq == Skv, pads -1) forbids attention across segments. Rows at or past
@@ -102,7 +104,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     p = _softmax_rows(s, mask[:, None, None])
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale: Optional[float] = None,
@@ -142,6 +144,54 @@ def paged_decode_attention_ref(q, k_blocks, v_blocks, page_table, lengths, *,
              for blk in (k_blocks, v_blocks)]
     return decode_attention_ref(q, dense[0], dense[1], lengths, scale=scale,
                                 w_real=n_pages * page)
+
+
+def mla_decode_attention_ref(q_lat, q_rope, ckv, krope, valid_len, *,
+                             scale: float):
+    """Absorbed MLA decode: q_lat [B,1,H,r], q_rope [B,1,H,dr] against the
+    latent ring ckv [B,W,r] and the shared RoPE key krope [B,W,dr];
+    valid_len [B] int -> [B,1,H,r] in ckv's dtype.
+
+    The JAX package's ``mla_decode_update`` ``attend`` plus its
+    normalisation: score = ``q_lat . ckv + q_rope . krope`` in fp32, times
+    ``scale``; slots at or past ``valid_len[b]`` masked; ``e = exp(s -
+    max)``, zero where masked, ``l`` its fp32 sum; the value sum of ``e``
+    cast to the cache dtype (JAX's order in bf16) against ``ckv``, cast to
+    that dtype, divided by ``l`` floored at 1e-30 (a row of length 0 gives
+    zeros). Slot order is not position order in a wrapped ring; the sum
+    does not care.
+    """
+    W = ckv.shape[1]
+    s = (torch.einsum("bhr,bkr->bhk", q_lat[:, 0].float(), ckv.float())
+         + torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(), krope.float()))
+    s = s * scale
+    valid = (torch.arange(W, device=ckv.device)[None, :]
+             < valid_len.to(torch.int64)[:, None])[:, None, :]  # [B,1,W]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    e = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                    torch.zeros_like(s))
+    l = e.sum(dim=-1)  # [B,H]
+    ctx = torch.einsum("bhk,bkr->bhr", e.to(ckv.dtype).float(),
+                       ckv.float()).to(ckv.dtype)
+    out = ctx / l.clamp_min(1e-30).to(ckv.dtype)[..., None]
+    return out[:, None]
+
+
+def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_blocks, krope_blocks,
+                                   page_table, valid_len, *, scale: float):
+    """:func:`mla_decode_attention_ref` through a page table: ckv_blocks
+    [N,page,r], krope_blocks [N,page,dr]; page_table [B,n_pages] int
+    (slot t of row b in block ``page_table[b, t // page]``, ids clamped
+    into the pool as the JAX gather's ``mode="clip"``); positions at or
+    past ``n_pages * page`` are masked."""
+    B, n_pages = page_table.shape
+    page = ckv_blocks.shape[1]
+    idx = page_table.to(torch.int64).clamp(0, ckv_blocks.shape[0] - 1)
+    dense = [blk[idx].reshape(B, n_pages * page, blk.shape[-1])
+             for blk in (ckv_blocks, krope_blocks)]
+    return mla_decode_attention_ref(
+        q_lat, q_rope, dense[0], dense[1],
+        valid_len.clamp(max=n_pages * page), scale=scale)
 
 
 def ssd_scan_ref(x, dt, A, B, C, chunk: int):

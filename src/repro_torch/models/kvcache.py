@@ -1,9 +1,11 @@
 """KV caches as nested dicts/lists of tensors: ring caches and the paged
 block pool.
 
-An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``;
-an SSM layer's is ``{"conv": [B, K-1, d_in + 2 ds], "state": [B, nh, hd,
-ds]}``, its state in fp32 whatever the model's dtype. Ring semantics: token
+An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``,
+an MLA layer's ``{"ckv": [B, W, kv_lora_rank], "krope": [B, W, qk_rope_dim]}``
+(one latent and one shared RoPE key a token); an SSM layer's is
+``{"conv": [B, K-1, d_in + 2 ds], "state": [B, nh, hd, ds]}``, its state
+in fp32 whatever the model's dtype. Ring semantics: token
 ``t`` of a row lives at slot ``t % W``, so a prefill of ``true_len <= W``
 tokens occupies slots ``[0, true_len)`` and a full ring models a
 sliding-window cache exactly (W = window). SSM leaves have no sequence dim:
@@ -36,9 +38,13 @@ def ring_write(cache_kv, new, lengths):
 
 
 def attn_cache_shapes(cfg, B: int, W: int) -> dict:
-    if cfg.mla is not None or cfg.is_encdec:
+    if cfg.is_encdec:
         raise NotImplementedError(
-            "MLA and encoder-decoder caches come with the architectures slice")
+            "encoder-decoder caches come with the architectures slice "
+            "(seamless)")
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": (B, W, m.kv_lora_rank), "krope": (B, W, m.qk_rope_dim)}
     return {
         "k": (B, W, cfg.n_kv_heads, cfg.head_dim),
         "v": (B, W, cfg.n_kv_heads, cfg.head_dim),
@@ -62,7 +68,8 @@ def layer_cache_shapes(cfg, sig, B: int, W: int) -> dict:
     return ssm_cache_shapes(cfg, B)
 
 
-SEQ_KEYS = ("k", "v")  # leaves with a ring (sequence) dim at axis 1
+# leaves with a ring (sequence) dim at axis 1: GQA's k/v, MLA's latents
+SEQ_KEYS = ("k", "v", "ckv", "krope")
 _F32_KEYS = ("state",)  # the SSM state carries fp32 for numerical stability
 
 
@@ -78,8 +85,9 @@ def init_layer_cache(shapes: dict, dtype, device) -> dict:
 
 
 def grow_cache(caches, new_w: int):
-    """Zero-pad the ring dim (axis 1) of every k/v leaf of a prefill cache
-    tree to ``new_w`` so decode can append; SSM leaves stay as they are."""
+    """Zero-pad the ring dim (axis 1) of every sequence leaf (k/v, MLA's
+    ckv/krope) of a prefill cache tree to ``new_w`` so decode can append;
+    SSM leaves stay as they are."""
 
     def walk(tree, key=None):
         if isinstance(tree, dict):
@@ -89,8 +97,8 @@ def grow_cache(caches, new_w: int):
         w = tree.shape[1]
         if key not in SEQ_KEYS or w >= new_w:
             return tree
-        # pad spec runs from the last dim: (hd, Hkv, W)
-        return F.pad(tree, (0, 0, 0, 0, 0, new_w - w))
+        # pad spec runs from the last dim: every dim after W unpadded
+        return F.pad(tree, (0, 0) * (tree.ndim - 2) + (0, new_w - w))
 
     return walk(caches)
 
@@ -106,7 +114,7 @@ def _map_keyed(fn, tree, key=None):
 
 def slice_cache(caches, n_rows: int, prefix_len: int):
     """A cache tree cut to its valid extent: the first ``n_rows`` rows of
-    every leaf and, for the k/v leaves, the first ``prefix_len`` ring
+    every leaf and, for the sequence leaves, the first ``prefix_len`` ring
     slots, both clamped to the leaf (views, no copy). SSM conv/state leaves
     keep their whole rows. What a disaggregated handoff puts on the wire:
     a prefill writes slots ``[0, true_len)``, so a ``prefix_len`` at or
@@ -181,7 +189,7 @@ def _first_leaf(tree):
 
 def request_cache_nbytes(caches, true_len: int, *, itemsize=None) -> int:
     """Bytes of ONE sequence's live cache in a pooled or padded tree: the
-    k/v leaves count their per-token bytes times ``true_len`` (clamped to
+    sequence leaves count their per-token bytes times ``true_len`` (clamped to
     the ring width), SSM conv/state leaves their whole row. The pool's
     batch and ring padding is excluded. ``itemsize``: optional fn(leaf) ->
     bytes per element for a wire format (int8 host staging)."""

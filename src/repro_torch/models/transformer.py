@@ -3,8 +3,8 @@
 Layers are grouped as in the JAX package (``layer_groups``), so parameter
 and cache trees keep its ``g{i}.l{j}`` names; where JAX scans over a
 group's stacked layers, the port keeps one entry per layer in a list and
-runs a Python loop over it. The port serves attention and Mamba-2 (SSM)
-layers, each with a dense or (attention stacks) an MoE FFN; MLA,
+runs a Python loop over it. The port serves attention (GQA or MLA) and
+Mamba-2 (SSM) layers, each with a dense or (attention stacks) an MoE FFN;
 encoder-decoder stacks and MoE in a hybrid stack raise and name the slice
 that brings them. Each full-sequence pass returns the MoE layers' summed
 load-balance loss beside its output, as the JAX stack does.
@@ -26,6 +26,12 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import ffn_apply, ffn_schema, rmsnorm, rmsnorm_schema
 from repro_torch.models.mamba import mamba_forward, mamba_schema
+from repro_torch.models.mla import (
+    mla_decode_update,
+    mla_prefill,
+    mla_schema,
+    paged_mla_decode_update,
+)
 from repro_torch.models.moe import moe_apply, moe_schema
 
 
@@ -62,9 +68,6 @@ def check_supported(cfg):
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder stacks come with the "
                                   "architectures slice (seamless)")
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention comes with the architectures "
-                                  "slice (deepseek-v2)")
     sigs = layer_signatures(cfg)
     if (any(is_moe for _, is_moe in sigs)
             and any(kind != "attn" for kind, _ in sigs)):
@@ -76,14 +79,15 @@ def check_supported(cfg):
 # Schemas
 # --------------------------------------------------------------------------- #
 def layer_schema(cfg, sig) -> dict:
-    """The JAX package's per-kind rule: ``ln1`` and the mixer (``attn`` or
-    ``ssm``), then ``ln2`` and ``moe`` (an MoE layer) or ``ffn`` unless the
-    family is ``ssm``."""
+    """The JAX package's per-kind rule: ``ln1`` and the mixer (``attn``,
+    MLA's schema under it for an MLA stack, or ``ssm``), then ``ln2`` and
+    ``moe`` (an MoE layer) or ``ffn`` unless the family is ``ssm``."""
     kind, is_moe = sig
     d = cfg.d_model
     s = {"ln1": rmsnorm_schema(d)}
     if kind == "attn":
-        s["attn"] = attn_schema(cfg)
+        s["attn"] = (mla_schema(cfg) if cfg.mla is not None
+                     else attn_schema(cfg))
     else:
         s["ssm"] = mamba_schema(cfg)
     if cfg.family != "ssm":
@@ -141,19 +145,28 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
                      segment_ids=None, segment_starts=None):
     """x: [B,S,d] -> (x, aux, cache): aux the MoE layer's load-balance
     loss (None for a dense FFN), cache {"k","v"} [B,S,Hkv,hd] for an
-    attention layer, {"conv","state"} for an SSM layer (prefilled from a
-    zero state).
+    attention layer ({"ckv","krope"} [B,S,r] / [B,S,rope] for MLA),
+    {"conv","state"} for an SSM layer (prefilled from a zero state).
 
     With ``prior_valid`` [B] it is a suffix prefill over this layer's prior
     KV: ``prior`` ({"k","v"} [B,Pp,Hkv,hd], dense), or ``prior_blocks``
     (this layer's block pool) with ``prior_pt`` [B, Pn], gathered here,
     right before the flash launch, ``Pn`` pages wide. ``segment_ids``
     [B,S] with ``segment_starts`` make it a packed prefill (attention
-    layers only, both)."""
+    layers only, both; MLA takes neither a prior nor segment ids, and
+    raises JAX's ValueErrors)."""
     B, S, _ = x.shape
+    if segment_ids is not None and (sig[0] != "attn" or cfg.mla is not None):
+        raise ValueError("packed prefill requires plain attention layers")
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
         o, cache = mamba_forward(lp["ssm"], cfg, h)
+        return (*_ffn_block(lp, cfg, x + o), cache)
+    if cfg.mla is not None:
+        if prior is not None or prior_blocks is not None:
+            raise ValueError("prefix-reuse prefill not supported for MLA")
+        o, cache = mla_prefill(lp["attn"], cfg, h, positions,
+                               window=cfg.sliding_window)
         return (*_ffn_block(lp, cfg, x + o), cache)
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     if prior_blocks is not None:
@@ -167,16 +180,20 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
 
 
 def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
-    """x: [B,1,d]; lcache's k/v ring-written (or its conv window and state
-    updated) in place. Returns x."""
+    """x: [B,1,d]; lcache's k/v (MLA: ckv/krope) ring-written (or its conv
+    window and state updated) in place. Returns x."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
         o, _ = mamba_forward(lp["ssm"], cfg, h, cache=lcache)
         return _ffn_block(lp, cfg, x + o)[0]
     positions = lengths[:, None]  # [B,1]
-    W = lcache["k"].shape[1]
+    W = lcache["ckv" if cfg.mla is not None else "k"].shape[1]
     valid_len = torch.clamp(lengths + 1, max=W).to(torch.int32)
+    if cfg.mla is not None:
+        o = mla_decode_update(lp["attn"], cfg, h, lcache, lengths, positions,
+                              valid_len=valid_len)
+        return _ffn_block(lp, cfg, x + o)[0]
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     o = decode_attention_update(q, k, v, lcache["k"], lcache["v"], lengths,
                                 valid_len=valid_len)
@@ -191,8 +208,14 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
     Returns x."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    width = page_table.shape[1] * lblocks["k"].shape[1]
-    valid_len = torch.clamp(lengths + 1, max=width).to(torch.int32)
+    page = lblocks["ckv" if cfg.mla is not None else "k"].shape[1]
+    valid_len = torch.clamp(lengths + 1, max=page_table.shape[1] * page).to(
+        torch.int32)
+    if cfg.mla is not None:
+        o = paged_mla_decode_update(lp["attn"], cfg, h, lblocks, page_table,
+                                    lengths, lengths[:, None],
+                                    valid_len=valid_len)
+        return _ffn_block(lp, cfg, x + o)[0]
     q, k, v = project_qkv(lp["attn"], cfg, h, lengths[:, None])
     o = paged_decode_attention_update(q, k, v, lblocks, page_table, lengths,
                                       valid_len=valid_len)

@@ -602,9 +602,12 @@ class ServingEngine:
         # paged pool + shared-prefix reuse (the ring pool is the A/B
         # baseline): reused prompt tokens are counted apart from the rest
         self.paged = bool(paged)
-        # token-packed prefill: the bucketing gate (attention-only), and
-        # off silently otherwise, so callers may set it on any stack
-        self.packed = bool(packed) and not (self.exact_prefill or self.legacy)
+        # token-packed prefill: the bucketing gate (attention-only) and no
+        # MLA (its latent cache has no segment masking, as in JAX), and off
+        # silently otherwise, so callers may set it on any stack
+        mla = model.cfg.mla is not None
+        self.packed = bool(packed) and not (self.exact_prefill or self.legacy
+                                            or mla)
         # chunked prefill: long prompts prefill C tokens an iteration
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0:
@@ -619,12 +622,15 @@ class ServingEngine:
                 raise ValueError(f"prefill_chunk {prefill_chunk} exceeds "
                                  f"max_seq {max_seq}")
         self._chunk_enabled = self.prefill_chunk > 0 and not (
-            self.exact_prefill or self.legacy)
+            self.exact_prefill or self.legacy or mla)
         self._chunk_jobs: deque[_ChunkJob] = deque()
         self._chunk_slots: set[int] = set()  # slots reserved by chunk jobs
         # a packed admission's pages interleave its segments and never
-        # align with the prefix index: reuse is off under packing
-        self.prefix_reuse = self.paged and bool(prefix_reuse) and not self.packed
+        # align with the prefix index: reuse is off under packing; MLA's
+        # suffix prefill cannot take a latent prior, so MLA pages without
+        # reuse (both as in JAX)
+        self.prefix_reuse = (self.paged and bool(prefix_reuse)
+                             and not self.packed and not mla)
         self.prefix_index = (RadixPrefixIndex(PAGE) if self.prefix_reuse
                              else None)
         self.prefix_hits = 0

@@ -14,7 +14,10 @@ step as one CUDA graph against the eager step, bitwise over 40 steps
 (ring at one and at several splits, paged with page-table edits between
 replays, mamba2-130m, sampling at temperature 0.8), warm-up's capture, and
 a capture that fails raising; an unwarmed EnginePipeline capturing on its
-dispatch thread, and a 2-replica in-process cluster's replayed graphs.
+dispatch thread, and a 2-replica in-process cluster's replayed graphs;
+MLA (deepseek-v2): flash at q/k 192, v 128, the absorbed-MLA decode
+kernel ring and paged against its plain versions at split and tile edges,
+and an MLA pool's graph against its eager step.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -683,6 +686,7 @@ def test_mamba_engine_on_card_matches_cpu(cuda_device):
         "flash_attention": 0, "decode_attention": 0,
         "paged_decode_attention": 0, "ssd_scan": L * c["prefill_calls"],
         "preprocess": 0,
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu")
@@ -734,6 +738,7 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
         "paged_decode_attention": L * c["decode_steps"],
         "ssd_scan": 0,
         "preprocess": 0,
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
@@ -784,6 +789,7 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "paged_decode_attention": 0,
         "ssd_scan": 0,
         "preprocess": 0,
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")
@@ -834,6 +840,7 @@ def test_packed_chunked_engine_on_card_matches_cpu(cuda_device, name):
         "paged_decode_attention": 0,
         "ssd_scan": 0,
         "preprocess": 0,
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
     }
     assert eng.logits_all_finite()
     want, cpu_eng = serve(cpu, params_cpu, "cpu")
@@ -912,7 +919,8 @@ def test_disaggregated_engine_on_card_matches_cpu(cuda_device, mode):
         want_launches = {
             "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
             "flash_attention": L * c["prefill_calls"], "decode_attention": 0,
-            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
         want_launches[decode] = L * c["decode_steps"]
         assert ops.LAUNCHES == want_launches
         assert c["handoffs"] > 0
@@ -1022,7 +1030,8 @@ def test_graph_ring_step_equals_eager(cuda_device, monkeypatch, splits):
     assert ops.LAUNCHES == {
         "rmsnorm": (2 * L + 1) * (calls + steps),
         "flash_attention": L * calls, "decode_attention": L * steps,
-        "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0}
+        "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
 
 
 @pytest.mark.cuda
@@ -1391,3 +1400,128 @@ def test_feature_engine_on_card_matches_cpu(cuda_device):
                                                      + c["decode_steps"])
     want, _ = serve(cpu, params_cpu, "cpu")
     assert got == want
+
+
+# --------------------------------------------------------------------------- #
+# MLA (deepseek-v2): flash at (192, 128), the absorbed decode kernel, the
+# latent pool's graph
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("S", [77, 200])
+def test_flash_mla_head_dims_match_plain(cuda_device, dtype, S):
+    """MLA's prefill: q/k at 192 (nope + rope), v at 128, scale 1/sqrt(192),
+    causal, S not a multiple of the 64-row tile, 16 heads (MHA)."""
+    B, H = 2, 16
+    q = _cuda_pair((B, S, H, 192), dtype, cuda_device, 0)
+    k = _cuda_pair((B, S, H, 192), dtype, cuda_device, 1)
+    v = _cuda_pair((B, S, H, 128), dtype, cuda_device, 2)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True, scale=192 ** -0.5)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert tuple(got.shape) == (B, S, H, 128)
+    want = ref.flash_attention_ref(q, k, v, causal=True, scale=192 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+
+
+def _mla_case(B, W, H, dtype, dev, seed):
+    q_lat = _cuda_pair((B, 1, H, 512), dtype, dev, seed)
+    q_rope = _cuda_pair((B, 1, H, 64), dtype, dev, seed + 1)
+    ckv = _cuda_pair((B, W, 512), dtype, dev, seed + 2)
+    krope = _cuda_pair((B, W, 64), dtype, dev, seed + 3)
+    return q_lat, q_rope, ckv, krope
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("H", [16, 128])
+@pytest.mark.parametrize("kind", ["edges", "one_long"])
+def test_mla_decode_kernel_ring_and_paged_match_plain(cuda_device, dtype, H,
+                                                      kind):
+    """The absorbed-MLA decode kernel, ring and paged (pages of 16 in a
+    shuffled pool), with the launcher's split count and each forced count,
+    against the plain versions; valid lengths 0 and 1, on and around the
+    32-row tile and the splits' boundaries; the paged output equals the
+    ring output on the same rows at the same split count, bitwise."""
+    from repro_torch.kernels import mla_decode_attention as _mla
+
+    B, W, page = 8, 1024, 16
+    q_lat, q_rope, ckv, krope = _mla_case(B, W, H, dtype, cuda_device, 3)
+    lens = torch.tensor(_decode_lens(kind, W), dtype=torch.int32,
+                        device=cuda_device)
+    scale = 192 ** -0.5
+    want = ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope, lens,
+                                        scale=scale)
+    n_pages = W // page
+    perm = torch.randperm(B * n_pages, generator=torch.Generator(
+        ).manual_seed(4)) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32).to(cuda_device)
+    cb = torch.zeros((B * n_pages + 1, page, 512), dtype=ckv.dtype,
+                     device=cuda_device)
+    rb = torch.zeros((B * n_pages + 1, page, 64), dtype=ckv.dtype,
+                     device=cuda_device)
+    cb[table.reshape(-1).long()] = ckv.reshape(B * n_pages, page, 512)
+    rb[table.reshape(-1).long()] = krope.reshape(B * n_pages, page, 64)
+    ops.reset_launches()
+    got = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
+                                   scale=scale)
+    pgot = ops.paged_mla_decode_attention(q_lat, q_rope, cb, rb, table, lens,
+                                          scale=scale)
+    assert ops.LAUNCHES["mla_decode_attention"] == 1
+    assert ops.LAUNCHES["paged_mla_decode_attention"] == 1
+    pwant = ref.paged_mla_decode_attention_ref(q_lat, q_rope, cb, rb, table,
+                                               lens, scale=scale)
+    torch.testing.assert_close(pwant, want, atol=0, rtol=0)
+    for out in (got, pgot):
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+        assert (out[lens == 0] == 0).all()
+    for splits in (1, 2, 3, 8):
+        ring = _mla.launch(q_lat, q_rope, ckv, krope, lens, scale=scale,
+                           _splits=splits)
+        paged = _mla.launch_paged(q_lat, q_rope, cb, rb, table, lens,
+                                  scale=scale, _splits=splits)
+        torch.testing.assert_close(ring.float(), want.float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+        assert torch.equal(ring, paged)
+
+
+def _mla_card_cfg():
+    """deepseek-v2 at its published MLA dims (latent 512, q rank 1536, nope
+    128, rope 64, v 128) with 16 heads, d_model 256 and 2 layers (a dense
+    FFN layer, then a reduced MoE one): the kernels' dims, a card test's
+    size."""
+    import dataclasses
+
+    from repro_torch.configs import MLAConfig, get_config
+
+    return dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                               n_heads=16, n_kv_heads=16, mla=MLAConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_graph_mla_step_equals_eager(cuda_device, paged):
+    """The latent pool's replayed decode step (both leaves written in
+    place, the MLA decode kernel or its paged twin captured) equals the
+    eager step bitwise over 20 replays; launches follow the path."""
+    cfg = _mla_card_cfg()
+    model, params = _graph_pair(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(6)
+    waves = [[rng.integers(0, cfg.vocab_size, s, dtype=np.int32)
+              for s in (7, 40, 100)], [rng.integers(0, cfg.vocab_size, 60,
+                                                    dtype=np.int32)]]
+    ops.reset_launches()
+    (eager, graph), toks = _lockstep(model, params, waves, 30, steps=21,
+                                     max_batch=4, max_seq=256, paged=paged)
+    assert toks[0] == toks[1]
+    assert graph.pool.graph_replays >= 20
+    L = cfg.n_layers
+    steps = eager.decode_steps + graph.decode_steps
+    calls = eager.counters()["prefill_calls"] * 2
+    decode = "paged_mla_decode_attention" if paged else "mla_decode_attention"
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update({"rmsnorm": (4 * L + 1) * (calls + steps),
+                 "flash_attention": L * calls, decode: L * steps})
+    assert ops.LAUNCHES == want

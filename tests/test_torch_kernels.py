@@ -146,10 +146,18 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.ssd_scan(x, torch.rand(4, 32, 2), -torch.ones(2), bc, bc, chunk=16)
     ops.preprocess(torch.zeros((4, 3), dtype=torch.uint8), torch.zeros(3),
                    torch.ones(3))
+    lat, rope = torch.randn(4, 1, 2, 16), torch.randn(4, 1, 2, 8)
+    lens = torch.full((4,), 7, dtype=torch.int32)
+    ops.mla_decode_attention(lat, rope, x[:, :, 0], x[:, :, 1, :8], lens,
+                             scale=0.25)
+    ops.paged_mla_decode_attention(lat, rope, x[:, :, 0], x[:, :, 1, :8],
+                                   torch.zeros((4, 2), dtype=torch.int32),
+                                   lens, scale=0.25)
     assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
-                            "preprocess": 0}
+                            "preprocess": 0, "mla_decode_attention": 0,
+                            "paged_mla_decode_attention": 0}
 
 
 def test_rmsnorm_on_cpu_tensors_imports_no_triton_and_loads_no_library():

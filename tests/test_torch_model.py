@@ -177,15 +177,16 @@ def test_cpu_prefill_counts_no_kernel_launch(pair):
 
 @pytest.mark.parametrize("change", [
     {"encoder_layers": 2},
-    {"moe": "moe", "mla": "mla"},
-    {"mla": "mla"},
+    {"attn_every": 2, "ssm": "ssm", "moe": "moe"},  # jamba's shape
+    {"encoder_layers": 2, "frontend": "audio"},  # seamless-m4t's shape
 ])
 def test_unported_layer_kinds_raise(change):
     import dataclasses
 
-    from repro_torch.configs.base import MLAConfig, MoEConfig
+    from repro_torch.configs.base import MoEConfig, SSMConfig
 
-    kinds = {"moe": MoEConfig(n_experts=4, top_k=2, d_ff=64), "mla": MLAConfig()}
+    kinds = {"moe": MoEConfig(n_experts=4, top_k=2, d_ff=64),
+             "ssm": SSMConfig(d_state=16, head_dim=32, chunk=32)}
     change = {k: kinds.get(v, v) for k, v in change.items()}
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="slice"):

@@ -7,9 +7,9 @@ JAX layer group (three layers of k/v): the port, which keeps a tensor per
 layer, must take ONE scale over the group's layers, as JAX does over its
 stacked leaf, so its int8 values, its scales and its dequantized values
 equal JAX's exactly; integer leaves cross bit for bit. ``payload_wire_bytes``
-and ``request_cache_nbytes`` equal JAX's on the reduced llama3-8b and
-mamba2-130m cache trees, and ``slice_cache`` matches JAX's and round-trips
-through ``pad_cache_rows``."""
+and ``request_cache_nbytes`` equal JAX's on the reduced llama3-8b,
+mamba2-130m and deepseek-v2 (MLA's latent leaves) cache trees, and
+``slice_cache`` matches JAX's and round-trips through ``pad_cache_rows``."""
 
 import numpy as np
 import pytest
@@ -162,7 +162,8 @@ def test_buffers_grow_to_the_largest_extent_and_serve_smaller_ones(mode):
         f.numel() for f in xfer.pack(big).flats]
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-130m",
+                                  "deepseek-v2-236b"])
 def test_wire_bytes_and_request_bytes_equal_jax(arch):
     jm = JaxModel(jax_get_config(arch).reduced(), dtype=jnp.bfloat16)
     tm = Model(get_config(arch).reduced(), device="cpu")
