@@ -41,6 +41,12 @@ result line:
    segments' causal pairs, SDPA with a block-diagonal causal mask beside
    it, and its device time against the [8, 1024] bucketed case's; rmsnorm
    at qwen3-32b's qk-norm width (128) for [524288, 128] and [512, 128];
+   the SSD scan at jamba-v0.1-52b's widths (128 heads of 64, d_state 16)
+   at 1024, 881, 192 and 64 positions, and its three bf16 launches and
+   heads-a-CTA sweep at 1024 and 2048 there; flash without the causal mask
+   at seamless-m4t's head dims: its encoder (4 x 1024 frames) and its
+   cross-attention (a 2-token prompt over 1024 frames), and the decode
+   kernel over its static cross cache (1024 rows), SDPA beside each;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -129,7 +135,7 @@ result line:
    too, their launch-count gates unchanged;
 11. tracing, the threaded pipeline, Gateway -> ServingCluster, process
    replicas and prefix_cache routing (see :func:`cluster_path`);
-12. feature payloads and the MoE layer (run last, every earlier model
+12. feature payloads and the MoE layer (after 11, every earlier model
    freed): (a) pixtral-12b at published widths and depth (40 layers),
    PIX_TRAFFIC (8 photo questions carrying 256-1024 patch embeddings, 4
    plain chat turns) through the bucketed engine (feature requests on the
@@ -146,7 +152,7 @@ result line:
    a graphed decode step's device time beside its byte bound, and the MoE
    layer's time split into router + plan, gather, expert products and
    combine;
-13. MLA (run last, every earlier model freed): deepseek-v2-236b
+13. MLA (after 12, every earlier model freed): deepseek-v2-236b
    (arXiv:2405.04434) at published widths, 3 of 60 layers (layer 0's dense
    FFN, layers 1-2 MoE with 160 experts, top-6, 2 shared), phase 4's
    traffic bucketed, eager, warmed, paged (without prefix reuse, as MLA
@@ -162,7 +168,29 @@ result line:
    graphed step's device time, byte bound and the MLA kernel's share; the
    handoff's bytes a token against llama3-8b's and GDR's TTFT saving; card
    vs CPU in fp32 on the first 2 layers (router flips counted) and in bf16
-   on layer 0.
+   on layer 0;
+14. the hybrid stack (run after 13): jamba-v0.1-52b (arXiv:2403.19887) at
+   published widths, 8 of 32 layers (one period of its interleave: 1
+   attention + MoE, 3 SSM + MoE, 4 SSM + dense; 26.0 GB), phase 4's
+   traffic through the exact-shape admission eager, warmed (the graph) and
+   legacy, then the tier under each mechanism: launch counts (ssd_scan 7
+   and flash 1 a prefill call, rmsnorm 24 a forward, ring decode 1 a
+   step), padded token-rows == prompt tokens, warmed == eager, legacy ==
+   them or parted at a near tie, direct mechanisms == fused, HOST_STAGED's
+   first tokens, wire bytes == worked out by hand (the attention layer's
+   4,096 bytes a token, each SSM layer's 573,632 a request); a graphed
+   step against its byte bound, the SSD kernel's share of a 1024-token
+   prefill, the hop a pass and GDR's TTFT saving; card vs CPU in fp32
+   without drops on the first 4 layers, within 1e-4 (router flips
+   counted);
+15. the encoder-decoder (run last): seamless-m4t-large-v2
+   (arXiv:2308.11596) at full depth (24 + 24 layers, 3.55 GB) through the
+   Model API (the serving engine refuses it, as JAX's has no path): 4
+   utterances of 512 and of 1024 precomputed frames, a 2-token target
+   prompt, 32 greedy tokens; launch counts (flash 72 a prefill: encoder,
+   self and cross; the decode kernel 48 a step: ring and cross), flash's
+   device time in a prefill against its bound; card vs CPU at full depth,
+   fp32 within 1e-4, bf16 within 0.02.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -204,6 +232,10 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--max-batch", "8", "--max-seq", "2048",
 # the SSD scan at mamba2-130m's widths (b=1: the exact path prefills one
 # request per call); its tolerances are tests/test_kernels.py's
 SSD_SHAPE = dict(nh=24, hd=64, ds=128, chunk=256)
+# jamba-v0.1-52b's: 8192 / 64 = 128 heads of 64, d_state 16, phase 14's
+# prompts (64-1024 tokens, one a prefill call)
+JAMBA_SSD_SHAPE = dict(nh=128, hd=64, ds=16, chunk=256)
+JAMBA_SSD_LENS = (1024, 881, 192, 64)
 # 4 chunks of 256, phase 7's longest prompt, a ragged tail, less than one
 SSD_LENS = (1024, 2048, 1000, 77)
 SSD_TOLS = {"bf16": 5e-2, "fp32": 3e-5}
@@ -236,9 +268,13 @@ MAMBA_REQUEST_WIRE = 19_132_432
 # bucket (d_model 4096); mamba2-130m decode at d_model 768 and d_inner 1536,
 # and its gate norm over a 2048-token prefill
 # and qwen3-32b's qk-norm at head_dim 128: the queries of an 8 x 1024 prefill
-# bucket ([8 * 1024 * 64 heads, 128]) and of a decode step ([8 * 64, 128])
+# bucket ([8 * 1024 * 64 heads, 128]) and of a decode step ([8 * 64, 128]);
+# jamba-v0.1-52b's gated norm at d_inner 8192 (a decode step of 8 rows, a
+# 1024-token prefill) and seamless-m4t-large-v2 at d_model 1024 (a decode
+# step of 4 utterances, their 4 x 1024 encoder frames)
 RMSNORM_SHAPES = ((8, 4096), (8192, 4096), (8, 768), (8, 1536), (2048, 1536),
-                  (524288, 128), (512, 128))
+                  (524288, 128), (512, 128), (8, 8192), (1024, 8192),
+                  (4, 1024), (4096, 1024))
 # phase 4's prompt lengths (ClosedLoopClient i = 0..11, 64-1024 tokens);
 # its first admission is the first 8 (6,043 tokens), packed into 8192 slots
 # with a pad run of 2,149 after them (phase 2's packed flash row)
@@ -299,6 +335,35 @@ MLA_WIRE = {"direct_hbm": 11_520 * 3 * 1152 + 13 * 16,
             "host_staged": 11_520 * 3 * 576 + 13 * 16 + 5 * 6 * 4}
 # llama3-8b's GQA cache a token and layer: k and v, 8 heads x 128, bf16
 GQA_TOKEN_LAYER_BYTES = 4096
+# phase 14: jamba-v0.1-52b cut to one period of its interleave, 8 of 32
+# layers (1 attention + MoE, 3 SSM + MoE, 4 SSM + dense)
+JAMBA_LAYERS = 8
+# the attention layer's k and v a token: 8 kv heads x 128 x 2 x bf16
+JAMBA_TOKEN_BYTES = 4096
+# an SSM layer's handoff row: the fp32 state [128, 64, 16] (524,288 B) and
+# the bf16 conv window [3, 8224] (49,344 B)
+JAMBA_SSM_BYTES = 573_632
+# phase 4's prompts' ring prefixes as the tier moves them (each the next
+# power of two: 9 x 1024 + 2 x 512 + 256), the 7 SSM layers' rows of the
+# 12 handoffs and their 4 int32 metadata rows; HOST_STAGED's wire is int8
+# (half the KV, a quarter of the state, half the window) with a 4-byte
+# scale for each of a handoff's 16 cache leaves
+JAMBA_SLOTS = 10_496
+JAMBA_WIRE = {
+    "direct_hbm": JAMBA_SLOTS * JAMBA_TOKEN_BYTES + 84 * JAMBA_SSM_BYTES + 192,
+    "direct_dma": JAMBA_SLOTS * JAMBA_TOKEN_BYTES + 84 * JAMBA_SSM_BYTES + 192,
+    "host_staged": (JAMBA_SLOTS * JAMBA_TOKEN_BYTES // 2
+                    + 84 * (524_288 // 4 + 49_344 // 2) + 192 + 12 * 16 * 4)}
+# the requests' own bytes a pass: the KV of their 8,269 prompt tokens, the
+# SSM layers' rows and the metadata (about 82 MB on the direct mechanisms)
+JAMBA_REQUEST = 8269 * JAMBA_TOKEN_BYTES + 84 * JAMBA_SSM_BYTES + 192
+JAMBA_CARD_VS_CPU_LAYERS = 4  # SSM + dense, SSM + MoE, SSM + dense, attn + MoE
+FP32_LOGIT_LIMIT = 1e-4  # card vs CPU in fp32, of the largest logit
+# phase 15: seamless-m4t-large-v2 at full depth, two batches of 4
+# utterances (precomputed frame features), a 2-token target prompt each
+SEAMLESS_BATCHES = ((4, 512), (4, 1024))
+SEAMLESS_PROMPT = 2
+SEAMLESS_NEW = 32
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -462,6 +527,24 @@ def main():
     results["mla_same_weights_bf16"] = mla_card_vs_cpu_bf16(torch, dev)
     done(t0)
 
+    t0 = phase("phase 14: jamba-v0.1-52b: attention + SSD + MoE in one "
+               "stack, the SSD kernel at d_state 16, the mixed handoff")
+    print(f"   device memory held before loading: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    results["hybrid"] = hybrid_path(torch, ops, dev)
+    print(f"   card vs CPU, jamba-v0.1-52b at full width, its first "
+          f"{JAMBA_CARD_VS_CPU_LAYERS} layers, fp32, no drops:")
+    results["hybrid_same_weights"] = moe_card_vs_cpu(
+        torch, dev, "jamba-v0.1-52b", JAMBA_CARD_VS_CPU_LAYERS, nodrop=True,
+        limit=FP32_LOGIT_LIMIT)
+    done(t0)
+
+    t0 = phase("phase 15: seamless-m4t-large-v2: the encoder-decoder "
+               "through the Model API")
+    results["encdec"] = encdec_path(torch, ops, dev)
+    results["encdec"]["same_weights"] = encdec_card_vs_cpu(torch, dev)
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
@@ -486,6 +569,11 @@ def main():
     results["phase13_launches"] = {
         "deepseek": results["mla"]["launches"],
         "deepseek_paged": results["mla"]["launches_paged"]}
+    results["phase14_launches"] = {"jamba": results["hybrid"]["launches"]}
+    results["phase15_launches"] = {
+        k: {"prefill": v["prefill_launches"],
+            "decode_step": v["decode_launches_a_step"]}
+        for k, v in results["encdec"]["batches"].items()}
     results["wall_s"] = time.perf_counter() - T_START
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -731,6 +819,7 @@ def design_report(torch, build, ops, dev):
         raise AssertionError(f"decode kernel: {splits} CTA(s) a row, launch "
                              f"{out['decode_attention']['launch']}")
     out["ssd_scan"] = ssd_design(torch, ops, dev)
+    out["ssd_scan_jamba"] = ssd_design(torch, ops, dev, JAMBA_SSD_SHAPE)
     # every instantiation of the kernels rebuilt for Hopper: no spills, no
     # stack (the paged kernel's fp32 staging spilled before)
     for name in ("rmsnorm", "paged_decode_attention", "decode_attention",
@@ -763,21 +852,22 @@ def design_report(torch, build, ops, dev):
     return out
 
 
-def ssd_design(torch, ops, dev):
+def ssd_design(torch, ops, dev, shape=SSD_SHAPE):
     """The bf16 SSD scan's three launches at b=1 and 1024 and 2048
-    positions: each launch's grid, block, shared memory and registers as
-    the profiler saw it and its device time alone; and the device time of
-    the whole scan at each heads-a-CTA choice of HEAD_GROUPS, beside the
+    positions (at mamba2-130m's widths, or jamba's): each launch's grid,
+    block, shared memory and registers as the profiler saw it and its
+    device time alone; and the device time of the whole scan at each
+    heads-a-CTA choice of HEAD_GROUPS that divides the heads, beside the
     launcher's pick (the readings its rule rests on). Fails when a launch
     is missing from the trace or the grid does not run one CTA column per
     chunk of 64 positions."""
     from repro_torch.kernels import ssd_scan as _ssd
 
-    nh, chunk = SSD_SHAPE["nh"], SSD_SHAPE["chunk"]
+    nh, chunk = shape["nh"], shape["chunk"]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for S in (1024, 2048):
-        x, dt, A, B, C = ssd_inputs(torch, "bf16", S, dev)
+        x, dt, A, B, C = ssd_inputs(torch, "bf16", S, dev, shape)
         nc = -(-S // _ssd.CHUNK)
         pick = _ssd.heads_per_cta(nc, nh, n_sm)
         rec = {"heads_per_cta": pick, "launches": {}, "device_ms": {}}
@@ -789,8 +879,9 @@ def ssd_design(torch, ops, dev):
         rec["heads_sweep_device_ms"] = {
             g: device_ms(torch, lambda g=g: _ssd.launch(x, dt, A, B, C, chunk=chunk,
                                                          _heads=g), "ssd_scan")
-            for g in _ssd.HEAD_GROUPS}
-        print(f"   ssd_scan bf16 S={S}: {pick} heads a CTA; launches "
+            for g in _ssd.HEAD_GROUPS if nh % g == 0}
+        print(f"   ssd_scan bf16 S={S} ds={shape['ds']}: {pick} heads a CTA; "
+              f"launches "
               f"{rec['launches']}; device ms {rec['device_ms']}; whole scan "
               f"by heads a CTA {rec['heads_sweep_device_ms']}")
         for key in ("ssd_scan_states", "ssd_scan_out"):
@@ -974,6 +1065,8 @@ def check_kernels(torch, ops, dev):
     cases += paged_cases(torch, ops, ref, dev)
     cases += mla_cases(torch, ops, ref, dev)
     cases += ssd_cases(torch, ops, ref, dev)
+    cases += ssd_cases(torch, ops, ref, dev, JAMBA_SSD_SHAPE, JAMBA_SSD_LENS)
+    cases += encdec_attention_cases(torch, ops, ref, dev)
     pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
     cases += pp_cases
 
@@ -1113,6 +1206,59 @@ def packed_flash_case(torch, ops, ref, dev, cases):
     del got, want, block, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
+
+
+def encdec_attention_cases(torch, ops, ref, dev):
+    """Phase 2's attention cases of seamless-m4t's encoder-decoder (16
+    heads of 64, G = 1), each beside SDPA (a yardstick only): flash without
+    the causal mask over its encoder's 4 utterances of 1024 frames (Sq ==
+    Skv) and for its cross-attention, a 2-token target prompt over the
+    1024 frames (Sq != Skv); and the decode kernel over the static cross
+    cache, every one of the 1024 rows valid."""
+    import torch.nn.functional as F
+
+    cases = []
+    B, H, hd = 4, 16, 64
+    for dtype in ("bf16", "fp32"):
+        q = rand(torch, (B, 1, H, hd), dtype, dev, 43)
+        k = rand(torch, (B, 1024, H, hd), dtype, dev, 44)
+        v = rand(torch, (B, 1024, H, hd), dtype, dev, 45)
+        full = torch.full((B,), 1024, dtype=torch.int32, device=dev)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        nbytes, flops = flash_cost(B, 1, 1024, H, H, hd, q.element_size())
+        rec = case_record(
+            torch, "decode_attention", dtype, [B, 1024, H, H, hd, "cross"],
+            ops.decode_attention(q, k, v, full),
+            ref.decode_attention_ref(q, k, v, full),
+            time_ms(torch, lambda: ops.decode_attention(q, k, v, full)),
+            time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, full)),
+            library_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt)), nbytes + B * 4, flops)
+        alone(torch, rec, lambda: ops.decode_attention(q, k, v, full),
+              "decode", lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        cases.append(rec)
+        for Sq, Skv in ((1024, 1024), (SEAMLESS_PROMPT, 1024)):
+            q = rand(torch, (B, Sq, H, hd), dtype, dev, 40)
+            k = rand(torch, (B, Skv, H, hd), dtype, dev, 41)
+            v = rand(torch, (B, Skv, H, hd), dtype, dev, 42)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            nbytes, flops = flash_cost(B, Sq, Skv, H, H, hd, q.element_size())
+            rec = case_record(
+                torch, "flash_attention", dtype,
+                [B, Sq, Skv, H, H, hd, "causal=False"],
+                ops.flash_attention(q, k, v, causal=False),
+                ref.flash_attention_ref(q, k, v, causal=False),
+                time_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                           causal=False)),
+                time_ms(torch, lambda: ref.flash_attention_ref(
+                    q, k, v, causal=False), reps=5, warmup=1),
+                library_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt)), nbytes, flops)
+            alone(torch, rec, lambda: ops.flash_attention(q, k, v,
+                                                          causal=False),
+                  "flash", lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            cases.append(rec)
+    return cases
 
 
 def flash_tiles(seg, starts, tile=64):
@@ -1460,10 +1606,11 @@ def mla_cases(torch, ops, ref, dev):
     return cases
 
 
-def ssd_inputs(torch, dtype, S, dev):
-    """x, dt, A, B, C at SSD_SHAPE's widths and b=1: x, B and C strided
-    views of one conv-output row [1, S, nh hd + 2 ds], dt and A fp32."""
-    nh, hd, ds = (SSD_SHAPE[k] for k in ("nh", "hd", "ds"))
+def ssd_inputs(torch, dtype, S, dev, shape=SSD_SHAPE):
+    """x, dt, A, B, C at ``shape``'s widths (mamba2-130m's, or jamba's
+    JAMBA_SSD_SHAPE) and b=1: x, B and C strided views of one conv-output
+    row [1, S, nh hd + 2 ds], dt and A fp32."""
+    nh, hd, ds = (shape[k] for k in ("nh", "hd", "ds"))
     xBC = rand(torch, (1, S, nh * hd + 2 * ds), dtype, dev, 20)
     x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
     B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
@@ -1474,8 +1621,9 @@ def ssd_inputs(torch, dtype, S, dev):
     return x, dt, A, B, C
 
 
-def ssd_cases(torch, ops, ref, dev):
-    """Phase 2's SSD-scan cases at mamba2-130m's widths and b=1, with x, B
+def ssd_cases(torch, ops, ref, dev, shape=SSD_SHAPE, lens=SSD_LENS):
+    """Phase 2's SSD-scan cases at mamba2-130m's widths (and at jamba's,
+    d_state 16 over 128 heads) and b=1, with x, B
     and C read as the model reads them (strided views of one conv-output
     row) and dt, A in fp32; y and the final state are each held against
     the plain version. On bf16 inputs the kernels carry their fp32
@@ -1485,11 +1633,11 @@ def ssd_cases(torch, ops, ref, dev):
     same input values, and the gap to the bf16 plain version is reported
     beside it. Each case also records the scan's device time alone (all
     its launches)."""
-    nh, hd, ds, chunk = (SSD_SHAPE[k] for k in ("nh", "hd", "ds", "chunk"))
+    nh, hd, ds, chunk = (shape[k] for k in ("nh", "hd", "ds", "chunk"))
     cases = []
     for dtype in ("bf16", "fp32"):
-        for S in SSD_LENS:
-            x, dt, A, B, C = ssd_inputs(torch, dtype, S, dev)
+        for S in lens:
+            x, dt, A, B, C = ssd_inputs(torch, dtype, S, dev, shape)
             y, st = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
             want_y, want_st = ref.ssd_scan_ref(x.float(), dt, A, B.float(),
                                                C.float(), chunk)
@@ -1525,7 +1673,7 @@ def ssd_cases(torch, ops, ref, dev):
             rec["library"] = "none: no single PyTorch call computes the SSD scan"
             print(f"   {'':16s} state err {err_st:.2e}; vs the plain "
                   f"version in {dtype} {gap_plain:.2e}")
-            if dtype == "fp32" and S == max(SSD_LENS):
+            if dtype == "fp32" and S == max(lens):
                 rec["vs_float64"] = ssd_float64_gap(torch, x, dt, A, B, C, y,
                                                     want_y)
             cases.append(rec)
@@ -1564,7 +1712,8 @@ def ssd_float64_gap(torch, x, dt, A, B, C, y, plain_y, h=0):
 # phase 3
 # --------------------------------------------------------------------------- #
 def walk_logits(torch, dev, gpu, params, cpu, params_cpu, first_g, first_c,
-                K, gate=True, witness=None, witness_limit=None):
+                K, gate=True, witness=None, witness_limit=None,
+                limit=LOGIT_LIMIT):
     """From each side's prefill result (logits, caches, lengths), K decode
     steps on both sides, each fed the card's greedy token, so each step
     compares logits on the same context (a parted token cannot grow into
@@ -1572,7 +1721,7 @@ def walk_logits(torch, dev, gpu, params, cpu, params_cpu, first_g, first_c,
     padded columns hold the -1e9 mask). Returns max|diff| / max|logit| per
     step, the greedy agreement and, where the tokens part, the CPU's top-2
     gap, its margin over the card's token and the row's largest logit
-    difference; with ``gate`` a ratio above 0.02 fails.
+    difference; with ``gate`` a ratio above ``limit`` (0.02) fails.
 
     ``witness`` is a third side on the CPU, (model, params, prefill result),
     fed the same tokens: the same weights in fp32. Each step then also
@@ -1620,12 +1769,12 @@ def walk_logits(torch, dev, gpu, params, cpu, params_cpu, first_g, first_c,
     print(f"   max|logit diff| / max|logit| per step: "
           f"{', '.join('%.2e' % r for r in rel)}; greedy agreement "
           f"{agree}/{total}{'' if gate else ' (reported, not gated)'}")
-    if gate and worst > LOGIT_LIMIT:
-        raise AssertionError(f"card vs CPU logits differ by {worst:.3e} > {LOGIT_LIMIT} "
+    if gate and worst > limit:
+        raise AssertionError(f"card vs CPU logits differ by {worst:.3e} > {limit} "
                              "of the largest logit")
     res = {"rel_err_per_step": rel, "greedy_agree": agree,
            "greedy_total": total, "greedy_misses": misses,
-           "tolerance": LOGIT_LIMIT if gate else None}
+           "tolerance": limit if gate else None}
     if witness is not None:
         print(f"   distance from the fp32 witness per step, card: "
               f"{', '.join('%.2e' % r for r in wit_card)}; CPU: "
@@ -3650,13 +3799,18 @@ def vlm_card_vs_cpu(torch, dev):
     return res
 
 
-def moe_card_vs_cpu(torch, dev, arch="grok-1-314b", n_layers=1):
+def moe_card_vs_cpu(torch, dev, arch="grok-1-314b", n_layers=1, nodrop=False,
+                    limit=LOGIT_LIMIT):
     """Phase 12 (b), card vs CPU: grok-1-314b at full width cut to 1 layer
     (phase 13: deepseek-v2-236b cut to its first 2, a dense layer and an
-    MoE one), fp32 (TF32 off), a ragged bucketed prefill of 64 and 41
-    tokens then 4 decode steps, held to LOGIT_LIMIT; every router call's
-    top-k choices on the card are compared with the CPU's, and the flipped
-    (token, slot) choices are counted and printed."""
+    MoE one; phase 14: jamba-v0.1-52b cut to its first 4, two of them MoE,
+    ``nodrop`` at the capacity factor where nothing drops and held to
+    FP32_LOGIT_LIMIT), fp32 (TF32 off), a ragged bucketed prefill of 64 and
+    41 tokens (a stack with SSM layers, which right-padding would reach:
+    an exact prefill of two rows of 64) then 4 decode steps, held to
+    ``limit``; every router call's top-k choices on the card are compared
+    with the CPU's, and the flipped (token, slot) choices are counted and
+    printed."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3665,11 +3819,15 @@ def moe_card_vs_cpu(torch, dev, arch="grok-1-314b", n_layers=1):
     from repro_torch.models.schema import tree_map
 
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if nodrop:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(n_layers))
     gpu = Model(cfg, dtype=torch.float32, device=dev)
     params = gpu.init(torch.Generator(device=dev).manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
     params_cpu = tree_map(lambda t: t.to("cpu"), params)
-    calls = []  # (device type, ids): card and CPU calls alternate
+    calls = []  # (device type, ids): each side's calls, card first
     topk = moe.router_topk
 
     def recorded(logits, k):
@@ -3677,29 +3835,41 @@ def moe_card_vs_cpu(torch, dev, arch="grok-1-314b", n_layers=1):
         calls.append((logits.device.type, ids.cpu()))
         return w, ids
 
-    lens = [64, 41]
     g = torch.Generator().manual_seed(1)
-    toks = torch.zeros((2, 64), dtype=torch.int32)
-    for i, n in enumerate(lens):
-        toks[i, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=g)
-    lens_t = torch.tensor(lens, dtype=torch.int32)
+    if gpu.attention_only:
+        lens = [64, 41]
+        toks = torch.zeros((2, 64), dtype=torch.int32)
+        for i, n in enumerate(lens):
+            toks[i, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=g)
+        lens_t = torch.tensor(lens, dtype=torch.int32)
+
+        def prefill(model, p, d):
+            return model.prefill_bucketed(p, toks.to(d), lens_t.to(d))
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                             dtype=torch.int32)
+
+        def prefill(model, p, d):
+            return model.prefill(p, toks.to(d))
     moe.router_topk = recorded
     try:
         first = []
         for model, p, d in ((gpu, params, dev), (cpu, params_cpu, "cpu")):
-            lg, c, n = model.prefill_bucketed(p, toks.to(d), lens_t.to(d))
+            lg, c, n = prefill(model, p, d)
             first.append((lg, grow_cache(c, 256), n))
         res = walk_logits(torch, dev, gpu, params, cpu, params_cpu, *first,
-                          4)
+                          4, limit=limit)
     finally:
         moe.router_topk = topk
     sides = [d for d, _ in calls]
-    if sides != [dev.type, "cpu"] * 5:
-        raise AssertionError(f"router calls {sides}: not one card and one "
-                             "CPU call for the prefill and each step")
-    pairs = list(zip(calls[0::2], calls[1::2]))
-    flips = sum(int((a != b).sum()) for (_, a), (_, b) in pairs)
-    total = sum(a.numel() for (_, a), _ in pairs)
+    if sides != ([dev.type] * n_moe + ["cpu"] * n_moe) * 5:
+        raise AssertionError(f"router calls {sides}: not each MoE layer's "
+                             "card and CPU calls for the prefill and each "
+                             "step")
+    card = [ids for d, ids in calls if d != "cpu"]
+    host = [ids for d, ids in calls if d == "cpu"]
+    flips = sum(int((a != b).sum()) for a, b in zip(card, host))
+    total = sum(a.numel() for a in card)
     res.update(router_flips=flips, router_choices=total)
     print(f"   router: {flips} flipped (token, slot) choices of {total} "
           "(prefill + 4 decode steps)", flush=True)
@@ -4060,6 +4230,356 @@ def mla_path(torch, ops, dev):
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"   peak device memory {out['peak_mem_gb']:.2f} GB", flush=True)
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_structure(c, n_ssm, n_attn, exact=None):
+    """Launch counts of a hybrid stack's served run: rmsnorm 3 an SSM layer
+    (ln1, the gated norm, ln2), 2 an attention layer and 1 final a forward;
+    the SSD scan once an SSM layer and flash once an attention layer a
+    prefill call, the decode kernel once an attention layer a step (an SSM
+    layer's one-token recurrence launches no kernel); ``exact`` prefills
+    that count no prefill call (the legacy loop's, one a request)."""
+    calls = c["prefill_calls"] if exact is None else exact
+    want = dict.fromkeys(structure(c, 0), 0)
+    want.update(
+        rmsnorm=(3 * n_ssm + 2 * n_attn + 1) * (calls + c["decode_steps"]),
+        ssd_scan=n_ssm * calls, flash_attention=n_attn * calls,
+        decode_attention=n_attn * c["decode_steps"])
+    return want
+
+
+def hybrid_path(torch, ops, dev):
+    """Phase 14: jamba-v0.1-52b (arXiv:2403.19887) at published widths,
+    JAMBA_LAYERS of 32 layers (one period of its interleave: 1 attention +
+    MoE, 3 SSM + MoE, 4 SSM + dense; d_state 16 over 128 SSD heads), random
+    bf16 weights from seed 0, phase 4's 12 requests through the exact-shape
+    admission (one request a prefill call) eager (``_graph=False``),
+    warmed (the graph) and legacy, then DisaggregatedEngine under each
+    mechanism (a warm pass, then a measured pass): launch counts to the
+    path (:func:`hybrid_structure`: ssd_scan 7 and flash 1 a prefill call,
+    rmsnorm 24 a forward, ring decode 1 a step), prefill_padded_tokens ==
+    the prompt tokens, eager == warmed tokens, legacy == them or parted at
+    a top-2 gap under LOGIT_LIMIT, the direct mechanisms' tokens == the
+    fused engine's, HOST_STAGED's first tokens, the handoffs' wire bytes
+    == JAMBA_WIRE (worked out by hand) and a host-side sum, their request
+    bytes == JAMBA_REQUEST; a graphed decode step's device time, idle
+    share and byte bound; the SSD kernel's share of a profiled 1024-token
+    exact prefill; TTFT and TPOT p50 a path, the hop a pass under each
+    mechanism and GDR's TTFT saving against RDMA and TCP."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.transfer import TransferMode
+    from repro_torch.models import Model
+    from repro_torch.serving import DisaggregatedEngine, ServingEngine
+
+    full = get_config("jamba-v0.1-52b")
+    L = JAMBA_LAYERS
+    cfg = dataclasses.replace(full, n_layers=L)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
+    n_ssm = L - n_attn
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gb = weights_gb(params)
+    print(f"   jamba-v0.1-52b: {L} of {full.n_layers} layers ({n_attn} "
+          f"attention, {n_ssm} SSM; "
+          f"{sum(cfg.layer_is_moe(i) for i in range(L))} MoE), {gb:.2f} GB of "
+          f"bf16 weights ({full.param_count() * 2 / 1e9:.0f} GB at full "
+          "depth)", flush=True)
+    prompts = main_prompts(cfg.vocab_size)
+    out, tokens = {"weights_gb": gb}, {}
+
+    def want(exact=None):
+        return lambda d: hybrid_structure(d, n_ssm, n_attn, exact)
+
+    for name, kw in (("eager", dict(_graph=False)),
+                     ("warmed", dict(warmup=True)),
+                     ("legacy", dict(legacy=True))):
+        eng = ServingEngine(model, params, max_batch=8, max_seq=2048,
+                            device=dev, packed=True, prefill_chunk=256, **kw)
+        if not eng.exact_prefill or eng.packed or eng._chunk_enabled:
+            raise AssertionError(f"({name}) exact {eng.exact_prefill}, packed "
+                                 f"{eng.packed}, chunked {eng._chunk_enabled}:"
+                                 " a hybrid stack takes the exact path")
+        legacy = bool(kw.get("legacy"))
+        tokens[name], rec = served_once(
+            torch, ops, eng, prompts, 32, want(len(prompts) if legacy
+                                               else None))
+        d = rec["measured"]
+        if not legacy and (d["prefill_calls"] != len(prompts)
+                           or d["prefill_padded_tokens"] != sum(MAIN_LENS)):
+            raise AssertionError(f"({name}) {d['prefill_calls']} prefill "
+                                 f"calls, {d['prefill_padded_tokens']} padded "
+                                 f"token-rows: one exact prefill a request, "
+                                 f"{sum(MAIN_LENS)} rows")
+        if name == "warmed":
+            if rec["graph_replays"] != d["decode_steps"]:
+                raise AssertionError(f"(warmed) {rec['graph_replays']} "
+                                     f"replays for {d['decode_steps']} steps")
+            print("   (warmed) a graphed decode step of the drained engine:")
+            rec["decode_profile"] = decode_profile(torch, eng,
+                                                   key="decode_split")
+            rec["prefill_profile"] = prefill_profile(
+                torch, eng, (1, 1024), "ssd_scan", "SSD scan")
+        rec["warm_s"] = eng.warm_s
+        out[name] = rec
+        print(f"   ({name}) {d['prefill_calls']} prefill calls, "
+              f"{d['prefill_padded_tokens']} padded token-rows, "
+              f"{d['decode_steps']} decode steps; TTFT p50 "
+              f"{rec['ttft_ms_p50']:.2f} ms, TPOT p50 "
+              f"{rec['tpot_ms']['p50']:.3f} ms; launches {rec['launches']}",
+              flush=True)
+        del eng
+    if tokens["warmed"] != tokens["eager"]:
+        raise AssertionError("(warmed) tokens differ from the eager step's")
+    print(f"   warmed (graph) == eager on all {12 * 32} tokens")
+    out["legacy"]["parted"] = parted(torch, model, params, prompts,
+                                     tokens["eager"], tokens["legacy"],
+                                     "legacy", ref="the exact path")
+
+    template = meta_cache(torch, model, 8, 2048)
+    for mode in DISAGG_MODES:
+        eng = DisaggregatedEngine(model, params, max_batch=8, max_seq=2048,
+                                  device=dev,
+                                  transfer_mode=TransferMode(mode))
+        extents = record_extents(eng)
+        serve_all(eng, prompts, 32)  # warm: the hop's buffers grow
+        hop0 = eng.handoff_wall_s
+        tokens[mode], rec = served_once(torch, ops, eng, prompts, 32, want())
+        d = rec["measured"]
+        per = [extent_wire_bytes(torch, template, n, p, TransferMode(mode))
+               for n, p in extents]
+        c = eng.counters()
+        if (d["handoffs"] != len(prompts)
+                or d["handoff_wire_bytes"] != JAMBA_WIRE[mode]
+                or d["handoff_wire_bytes"] != sum(per[len(prompts):])
+                or c["handoff_wire_bytes"] != sum(per)):
+            raise AssertionError(
+                f"({mode}) {d['handoffs']} handoffs, "
+                f"{d['handoff_wire_bytes']} wire bytes a pass; worked out by "
+                f"hand: {len(prompts)}, {JAMBA_WIRE[mode]}; host-side "
+                f"{sum(per[len(prompts):])}")
+        req_bytes = sum(eng.request_handoff_bytes(n) for n in MAIN_LENS)
+        if d["handoff_request_bytes"] != req_bytes or (
+                mode != "host_staged" and req_bytes != JAMBA_REQUEST):
+            raise AssertionError(f"({mode}) request bytes "
+                                 f"{d['handoff_request_bytes']}, by the "
+                                 f"template {req_bytes}, by hand "
+                                 f"{JAMBA_REQUEST}")
+        rec.update(hop_ms=1e3 * (eng.handoff_wall_s - hop0))
+        out[mode] = rec
+        print(f"   ({mode}) {d['handoffs']} handoffs a pass, "
+              f"{d['handoff_wire_bytes']} wire bytes (== by hand and the "
+              f"host-side sum), {d['handoff_request_bytes']} of the requests'"
+              f" own; hop {rec['hop_ms']:.3f} ms a pass; TTFT p50 "
+              f"{rec['ttft_ms_p50']:.2f} ms, TPOT p50 "
+              f"{rec['tpot_ms']['p50']:.3f} ms", flush=True)
+        del eng
+    for mode in ("direct_hbm", "direct_dma"):
+        if tokens[mode] != tokens["eager"]:
+            raise AssertionError(f"({mode}) tokens differ from the fused "
+                                 "engine's")
+    if ([t[0] for t in tokens["host_staged"]]
+            != [t[0] for t in tokens["eager"]]):
+        raise AssertionError("(host_staged) a first token differs")
+    ttft = {m: out[m]["ttft_ms_p50"] for m in DISAGG_MODES}
+    out["gdr_ttft_saving"] = {
+        "vs_rdma": 1 - ttft["direct_hbm"] / ttft["direct_dma"],
+        "vs_tcp": 1 - ttft["direct_hbm"] / ttft["host_staged"]}
+    kv = 8269 * JAMBA_TOKEN_BYTES
+    state = 12 * n_ssm * JAMBA_SSM_BYTES
+    out["handoff_split"] = {"kv_bytes": kv, "state_bytes": state,
+                            "state_share": state / (kv + state)}
+    print(f"   direct mechanisms == the fused engine on all {12 * 32} tokens,"
+          f" host_staged's first tokens equal; a pass carries {kv} B of KV "
+          f"and {state} B of SSM state ({100 * state / (kv + state):.1f}% "
+          f"fixed a request); GDR saves "
+          f"{100 * out['gdr_ttft_saving']['vs_rdma']:.1f}% of TTFT p50 "
+          f"against RDMA, {100 * out['gdr_ttft_saving']['vs_tcp']:.1f}% "
+          "against TCP", flush=True)
+    # a decode step reads every weight once (each MoE layer's 16 experts at
+    # 8 rows' slots), the tied-free head included
+    prof = out["warmed"]["decode_profile"]
+    out["decode_bound_ms"] = gb * 1e9 / PEAK_BYTES_S * 1e3
+    busy = prof["device_busy_ms_per_step"]
+    print(f"   a decode step's byte bound {out['decode_bound_ms']:.3f} ms "
+          f"({gb:.2f} GB at {PEAK_BYTES_S:.3g} B/s); the graphed step's "
+          "device busy " + ("not measured" if not busy else
+                            f"{busy:.3f} ms ({out['decode_bound_ms'] / busy:.3f}"
+                            f" of the bound), idle share "
+                            f"{prof['device_idle_share']:.3f}"), flush=True)
+    out["launches"] = out["eager"]["launches"]
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"   peak device memory {out['peak_mem_gb']:.2f} GB", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_cost(B, Sq, Skv, H, Hkv, hd, isz=2):
+    """(bytes, FLOPs) of one non-causal flash call: q and o of Sq rows, k
+    and v of Skv, each read or written once; Sq x Skv scores a head."""
+    return (2 * B * (Sq * H + Skv * Hkv) * hd * isz,
+            4 * hd * B * H * Sq * Skv)
+
+
+def encdec_path(torch, ops, dev):
+    """Phase 15: seamless-m4t-large-v2 (arXiv:2308.11596) at published
+    widths and full depth (24 encoder + 24 decoder layers), random bf16
+    weights from seed 0, through the Model API (the serving engine refuses
+    an encoder-decoder, as the JAX engine has no path for one): each of
+    SEAMLESS_BATCHES is a batch of speech-translation requests whose frame
+    features arrive precomputed; a prefill encodes them (flash with
+    causal=False) and runs the 2-token target prompt through the decoder
+    (its cross-attention through flash with Sq != Skv), then 31 decode
+    steps (the decode kernel over each layer's ring and over its static
+    cross leaves) give 32 greedy tokens. Launch counts to the structure
+    (flash 3 x 24 a prefill, the decode kernel 2 x 24 a step, rmsnorm 2 an
+    encoder layer + 1, 3 a decoder layer + 1), finite logits, the flash
+    kernel's device time in a profiled prefill of the 1024-frame batch
+    against its bound; card vs CPU in :func:`encdec_card_vs_cpu`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import FRONTEND_DIM, Model
+    from repro_torch.models.kvcache import grow_cache
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("seamless-m4t-large-v2")
+    L, E = cfg.n_layers, cfg.encoder_layers
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gb = weights_gb(params)
+    print(f"   seamless-m4t-large-v2: {E} encoder + {L} decoder layers, "
+          f"{gb:.2f} GB of bf16 weights", flush=True)
+    try:
+        ServingEngine(model, params, max_batch=4, max_seq=64, device=dev)
+    except ValueError as e:
+        print(f"   the serving engine refuses it: {e}")
+    else:
+        raise AssertionError("the serving engine took an encoder-decoder")
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    want_prefill = dict(zero, flash_attention=3 * L,
+                        rmsnorm=(2 * E + 1) + (3 * L + 1))
+    steps = SEAMLESS_NEW - 1
+    want_steps = dict(zero, decode_attention=2 * L * steps,
+                      rmsnorm=(3 * L + 1) * steps)
+    V = cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {"weights_gb": gb, "batches": {}}
+    for B, F_ in SEAMLESS_BATCHES:
+        feats = torch.randn((B, F_, FRONTEND_DIM), generator=g, device=dev)
+        toks = torch.randint(0, V, (B, SEAMLESS_PROMPT), generator=g,
+                             device=dev, dtype=torch.int32)
+        model.prefill(params, toks, feats)  # warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        lg, caches, n = model.prefill(params, toks, feats)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if dict(ops.LAUNCHES) != want_prefill:
+            raise AssertionError(f"prefill launches {dict(ops.LAUNCHES)} != "
+                                 f"{want_prefill}")
+        caches = grow_cache(caches, SEAMLESS_PROMPT + SEAMLESS_NEW)
+        xk = caches["g0"][0]["l0"]["xk"]
+        if tuple(xk.shape) != (B, F_, Hkv, hd):
+            raise AssertionError(f"cross leaf {tuple(xk.shape)}")
+        new = [lg[:, :V].argmax(-1).to(torch.int32)]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, caches, n = model.decode_step(params, caches, new[-1][:, None],
+                                              n)
+            new.append(lg[:, :V].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        if dict(ops.LAUNCHES) != want_steps:
+            raise AssertionError(f"decode launches {dict(ops.LAUNCHES)} != "
+                                 f"{want_steps}")
+        if not torch.isfinite(lg).all():
+            raise AssertionError("decode logits not finite")
+        rec = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+               "tokens": torch.stack(new, 1).cpu().tolist(),
+               "prefill_launches": want_prefill,
+               "decode_launches_a_step": {k: v // steps
+                                          for k, v in want_steps.items()}}
+        out["batches"][f"{B}x{F_}"] = rec
+        print(f"   {B} utterances of {F_} frames: prefill {prefill_ms:.2f} ms"
+              f" (host wall), {steps} decode steps {step_ms:.3f} ms each; "
+              f"{SEAMLESS_NEW} tokens a request; launches as the structure",
+              flush=True)
+    # the encoder's and the decoder's flash launches in one profiled prefill
+    # of the last batch, against their bound
+    prof = profile_call(torch, lambda: model.prefill(params, toks, feats),
+                        "flash", "flash", f"a {B} x {F_}-frame prefill",
+                        [B, F_])
+    costs = [flash_cost(B, F_, F_, H, Hkv, hd),  # encoder, bidirectional
+             flash_cost(B, SEAMLESS_PROMPT, SEAMLESS_PROMPT, H, Hkv, hd),
+             flash_cost(B, SEAMLESS_PROMPT, F_, H, Hkv, hd)]  # cross
+    enc_bound = bound(*costs[0], "bf16")
+    total = sum(bound(*c, "bf16")[0] for c in costs) * L
+    prof.update(flash_bound_ms=total, encoder_flash_bound_ms=enc_bound[0],
+                encoder_flash_bound_by=enc_bound[1])
+    print(f"   flash in that prefill: {prof['kernel_ms']:.3f} ms device time "
+          f"for {3 * L} launches against a bound of {total:.3f} ms "
+          + (f"({total / prof['kernel_ms']:.3f} of it); " if prof['kernel_ms']
+             else "; ")
+          + f"the encoder's launch alone bound {enc_bound[0]:.4f} ms "
+          f"({enc_bound[1]})", flush=True)
+    out["prefill_profile"] = prof
+    del model, params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_card_vs_cpu(torch, dev):
+    """Phase 15, card vs CPU: seamless-m4t-large-v2 at full depth, 2
+    utterances of 512 frames and a 2-token prompt, then 4 decode steps,
+    both sides fed the card's greedy token. The weights are drawn in bf16
+    from seed 0 and held in fp32 by the CPU model (TF32 off on the card):
+    the card in fp32 on the same values within FP32_LOGIT_LIMIT of the
+    largest logit, the card in bf16 within LOGIT_LIMIT."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import FRONTEND_DIM, Model
+    from repro_torch.models.kvcache import grow_cache
+    from repro_torch.models.schema import tree_map
+
+    cfg = get_config("seamless-m4t-large-v2")
+    bf = Model(cfg, device=dev)
+    params_bf = bf.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn((2, 512, FRONTEND_DIM), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, SEAMLESS_PROMPT),
+                         generator=g, dtype=torch.int32)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params_cpu = tree_map(lambda t: t.to("cpu", torch.float32), params_bf)
+    t0 = time.perf_counter()
+    lg, c, n = cpu.prefill(params_cpu, toks, feats)
+    first_c = (lg, grow_cache(c, 64), n)
+    print(f"   CPU prefill (fp32) {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, dtype, limit in (("fp32", torch.float32, FP32_LOGIT_LIMIT),
+                               ("bf16", torch.bfloat16, LOGIT_LIMIT)):
+        gpu = bf if dtype == torch.bfloat16 else Model(cfg, dtype=dtype,
+                                                       device=dev)
+        params = (params_bf if dtype == torch.bfloat16 else
+                  tree_map(lambda t: t.float(), params_bf))
+        lg, c, n = gpu.prefill(params, toks.to(dev), feats.to(dev))
+        here = (first_c[0], tree_map(lambda t: t.clone(), first_c[1]),
+                first_c[2])
+        print(f"   ({name}) the card against the CPU in fp32:")
+        out[name] = walk_logits(torch, dev, gpu, params, cpu, params_cpu,
+                                (lg, grow_cache(c, 64), n), here, 4,
+                                limit=limit)
+        del params, c
+        torch.cuda.empty_cache()
+    del bf, params_bf, params_cpu
     gc.collect()
     torch.cuda.empty_cache()
     return out

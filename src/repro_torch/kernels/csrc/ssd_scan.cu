@@ -20,8 +20,14 @@
 // once per chunk (one B/C group serves every head), and per head the causal
 // half of the scores times dt x, C.state and the state update, about
 // L^2 ds + L^2 hd + 4 L hd ds FLOPs, against reading x, dt, B, C once and
-// writing y and the state once; at the main path's shapes (S = 1024, 24
-// heads, hd 64, ds 128) the bytes bound it (about 2.3 us at 3.35 TB/s).
+// writing y and the state once; at the main paths' shapes the bytes bound
+// it: mamba2-130m (S = 1024, 24 heads, hd 64, ds 128) about 2.3 us at 3.35
+// TB/s, jamba-v0.1-52b (S = 1024, 128 heads, hd 64, ds 16) about 10 us.
+//
+// d_state is a template parameter (DS, 128 and 16) of every kernel here;
+// the wrapper picks the instance. No padded copy of a narrower state is
+// made: at DS = 16 the scratch and every product shrink to the state's own
+// width.
 //
 // bf16: the SSD algorithm's own steps (arXiv:2405.21060, section 6) on the
 // tensor cores, in three launches over (chunk of CL = 64 positions, group
@@ -33,7 +39,9 @@
 //      the state, X'^T . B with X' = x w, on wgmma.m64n64k16 (M = head dim,
 //      N = d_state in two column blocks, K = the chunk's positions) into an
 //      fp32 scratch [b, nc, nh, hd, ds]; and the chunk's decay
-//      exp(cums_last).
+//      exp(cums_last). At DS = 16 the B chunk is transposed once a CTA
+//      into the K-major operand of wgmma.m64n16k16 (an MN-major operand
+//      16 wide does not fill a 128-byte swizzled row).
 //   2. ssd_scan_pass_kernel: the state passing, sequential over chunks only,
 //      one float4 of every head's state a thread: prev_c (the state entering
 //      chunk c) = exp(cums_last,c-1) prev_c-1 + S_c-1 in fp32, stored for
@@ -51,14 +59,18 @@
 // past the bf16 tolerance (5e-2, rtol 2e-2 of the fp32 plain version) at
 // mamba2-130m's widths: the state sums every position's rounding and each
 // output reads it through a 128-term product (tests/test_torch_ssd_plan.py
-// states the plan and keeps those readings). The pairs cost wgmmas, which
-// are far from the bound here, and no bytes of x, B or C.
-// Operands sit in shared memory under the 128-byte swizzle (wgmma_common.cuh),
-// loaded by cp.async straight from the model's strided rows. Launches 1 and
-// 3 walk the CTA's heads with two stages: head k + 1's x, dt (and prev) load
-// while head k computes. Launch 3 holds 98 KB of shared memory, two CTAs an
-// SM; the B chunk, needed only for C.B^T, shares its room with stage 1.
-// Launch 1 holds 50 KB. The launcher allocates the scratch (torch.empty) and
+// states the plan and keeps those readings). DS = 16 keeps the pairs: no
+// reading yet shows one rounding inside the tolerance at jamba's widths.
+// The pairs cost wgmmas, which are far from the bound here, and no bytes of
+// x, B or C. At DS = 16 the state products C.B^T and C.prev^T are one
+// k-step each. Operands sit in shared memory under the 128-byte swizzle
+// (wgmma_common.cuh), loaded by cp.async straight from the model's strided
+// rows; a [64][16] operand keeps its 32-byte rows in the first two chunks
+// of 128-byte rows. Launches 1 and 3 walk the CTA's heads with two stages:
+// head k + 1's x, dt (and prev) load while head k computes. Launch 3 holds
+// 98 KB of shared memory, two CTAs an SM (56 KB at DS = 16); the B chunk,
+// needed only for C.B^T, shares its room with stage 1. Launch 1 holds 50 KB
+// (42 KB at DS = 16). The launcher allocates the scratch (torch.empty) and
 // picks the heads a CTA takes; prev of chunk 0 is never written or read (the
 // state starts at 0).
 //
@@ -89,17 +101,18 @@ namespace {
 
 constexpr int NT = 256;        // threads per CTA
 constexpr int TILE = 64;       // positions per row / column tile
-constexpr int DS = 128;        // d_state
 constexpr int TP = TILE + 4;   // pitch of a transposed [DS][TILE] tile
 constexpr int SP = TILE + 4;   // pitch of the [TILE][TILE] score tile
-constexpr int STP = DS + 1;    // pitch of the [P][DS] state
 constexpr int MAX_CHUNK = 256; // one scan element per thread
 constexpr int P = 16;          // head-dim columns of the state per CTA
 
+// d_state is a template parameter DS of every kernel below: 128
+// (mamba2-130m) and 16 (jamba-v0.1-52b), the widths the serving path runs
+template <int DS>
 constexpr size_t smem_floats(int chunk) {
   // the fp64 prefix sums and scan carries first (two floats each), then
-  // the fp32 arrays
-  return 2 * ((size_t)chunk + NT / 32) + (size_t)P * STP + 2 * (size_t)DS * TP +
+  // the fp32 arrays; the [P][DS] state at pitch DS + 1
+  return 2 * ((size_t)chunk + NT / 32) + (size_t)P * (DS + 1) + 2 * (size_t)DS * TP +
          (size_t)TILE * SP + (size_t)chunk * P + 2 * (size_t)chunk;
 }
 
@@ -108,11 +121,12 @@ constexpr size_t smem_floats(int chunk) {
 // zeros. Each thread issues all its 16-byte loads before its first
 // shared-memory store, so a tile costs one round trip to memory; consecutive
 // threads take consecutive rows, so the transposed stores hit 32 banks.
-template <typename T>
+template <int DS, typename T>
 __device__ __forceinline__ void load_tile_t(float* dst, const T* base, long long stride,
                                             int row0, int n, int tid) {
   constexpr int VN = Vec<T>::N;              // elements per 16-byte vector
   constexpr int PER = TILE * DS / VN / NT;   // vectors per thread
+  static_assert(PER * VN * NT == TILE * DS, "a tile in whole vectors");
   uint4 v[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
@@ -133,7 +147,7 @@ __device__ __forceinline__ void load_tile_t(float* dst, const T* base, long long
   }
 }
 
-template <typename T>
+template <typename T, int DS>
 __global__ void __launch_bounds__(NT)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
@@ -144,8 +158,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   // thread roles: RA rows x 1 column of the [TILE, P] output tile; a 4x4
   // block of the [TILE, TILE] score tile; SK rows x 1 column of the state
   constexpr int RA = TILE * P / NT;  // 4
-  constexpr int SK = P * DS / NT;    // 8
-  static_assert(RA % 4 == 0 && SK % 4 == 0 && NT % DS == 0, "tile shapes");
+  constexpr int SK = P * DS / NT;    // 8 at DS 128, 1 at DS 16
+  constexpr int STP = DS + 1;        // pitch of the [P][DS] state
+  static_assert(RA % 4 == 0 && SK * NT == P * DS && NT % DS == 0, "tile shapes");
 
   extern __shared__ __align__(16) float smem[];
   double* cums = reinterpret_cast<double*>(smem);  // [chunk] in-chunk prefix sum of dt * A
@@ -241,7 +256,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int ti = 0; ti < nti; ++ti) {
       const int i0 = ti * TILE;
       const bool last = ti == nti - 1;
-      load_tile_t(cT, Cb, scs, c0 + i0, min(TILE, Lc - i0), tid);
+      load_tile_t<DS>(cT, Cb, scs, c0 + i0, min(TILE, Lc - i0), tid);
       __syncthreads();
 
       // inter-chunk term: exp(cums_i) C_i . state[p, :]
@@ -272,7 +287,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int tj = 0; tj <= ti; ++tj) {
         const int j0 = tj * TILE;
         __syncthreads();  // the previous B tile and scores are consumed
-        load_tile_t(bT, Bb, sbs, c0 + j0, min(TILE, Lc - j0), tid);
+        load_tile_t<DS>(bT, Bb, sbs, c0 + j0, min(TILE, Lc - j0), tid);
         __syncthreads();
 
         // scores: a 4x4 block of C_i . B_j, decayed and masked to j <= i
@@ -333,13 +348,18 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const float* xrow = xa + (j0 + j + q) * P + sp;
+              if constexpr (SK % 4 == 0) {
 #pragma unroll
-              for (int k = 0; k < SK; k += 4) {
-                const float4 x4 = *reinterpret_cast<const float4*>(xrow + k);
-                sacc[k] += x4.x * bw[q];
-                sacc[k + 1] += x4.y * bw[q];
-                sacc[k + 2] += x4.z * bw[q];
-                sacc[k + 3] += x4.w * bw[q];
+                for (int k = 0; k < SK; k += 4) {
+                  const float4 x4 = *reinterpret_cast<const float4*>(xrow + k);
+                  sacc[k] += x4.x * bw[q];
+                  sacc[k + 1] += x4.y * bw[q];
+                  sacc[k + 2] += x4.z * bw[q];
+                  sacc[k + 3] += x4.w * bw[q];
+                }
+              } else {
+#pragma unroll
+                for (int k = 0; k < SK; ++k) sacc[k] += xrow[k] * bw[q];
               }
             }
           }
@@ -368,14 +388,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <typename T, int DS>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            void* y, void* state_out, int b, int S, int nh, int hd, int chunk, long long sxb,
            long long sxs, long long sxh, long long sdb, long long sds, long long sdh,
            long long sbb, long long sbs, long long scb, long long scs, cudaStream_t stream) {
   if (chunk % TILE || chunk > MAX_CHUNK || hd % P || S <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(chunk) * sizeof(float);
-  auto kernel = ssd_scan_kernel<T>;
+  const size_t smem = smem_floats<DS>(chunk) * sizeof(float);
+  auto kernel = ssd_scan_kernel<T, DS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -399,7 +419,27 @@ constexpr int CL = 64;            // positions a chunk: wgmma's M
 constexpr int HDW = 64;           // head dim of the tensor-core path
 constexpr int TB64 = 64 * 128;    // bytes of a 64-row, 128-byte column block
 constexpr int PASS_THREADS = 256;
-constexpr int HEAD4 = HDW * DS / 4;  // float4s of one head's state
+
+// 128-byte column blocks of a [rows][DS] bf16 tile with d_state contiguous:
+// DS / 64, and one at DS = 16, whose 32-byte rows take the first two 16-byte
+// chunks of each 128-byte row (wgmma's one k-step over d_state reads just
+// those), so every such operand keeps the 128-byte swizzle and its
+// 1024-byte 8-row stride
+template <int DS>
+__host__ __device__ constexpr int col_blocks() {
+  static_assert(DS == 16 || DS % 64 == 0, "d_state 16 or a multiple of 64");
+  return DS >= 64 ? DS / 64 : 1;
+}
+
+template <int DS>
+constexpr size_t states_smem() {
+  return (col_blocks<DS>() + 4) * TB64 + (3 * CL + 2) * sizeof(float) + 1024;
+}
+template <int DS>
+constexpr size_t out_smem() {
+  return (col_blocks<DS>() + 2 * (1 + 2 * col_blocks<DS>())) * TB64 +
+         (3 * CL + 2) * sizeof(float) + 1024;
+}
 
 // the in-chunk inclusive prefix sum of dt * A over CL = 64 positions, held
 // by warps 0 and 1 (thread t: position t); ``red`` takes the two warp sums.
@@ -434,6 +474,7 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 }
 
 // Launch 1: each chunk's contribution to the state, per head.
+template <int DS>
 __global__ void __launch_bounds__(WG)
 ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                        const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -441,15 +482,21 @@ ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                        int nc, int hpc, long long sxb, long long sxs, long long sxh,
                        long long sdb, long long sds, long long sdh, long long sbb,
                        long long sbs) {
+  constexpr int CB = col_blocks<DS>();
+  constexpr int CPR = DS / 8;  // 16-byte chunks of a B row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  // B chunk [64 j][128 s] (MN-major operand, 2 column blocks); X'^T hi and lo
-  // [64 p][64 j] (K-major operands); x of two stages [64 j][64 p],
-  // unswizzled; dt of two stages, w, the scan's warp sums
-  const uint32_t sB = base, sA = base + 2 * TB64, sX = base + 4 * TB64;
-  float* dts = reinterpret_cast<float*>(sm + 6 * TB64);
+  // the B chunk: at DS >= 64 [64 j][DS s], the MN-major operand (CB column
+  // blocks); at DS = 16 it lands unswizzled ([64 j][32 bytes]) and is
+  // transposed once a CTA to B^T [16 s][64 j] at +TB64 / 2, the K-major
+  // operand of an m64n16 product (an MN-major operand 16 wide does not fill
+  // the 128-byte swizzle's rows). Then X'^T hi and lo [64 p][64 j] (K-major
+  // operands); x of two stages [64 j][64 p], unswizzled; dt of two stages,
+  // w, the scan's warp sums
+  const uint32_t sB = base, sA = base + CB * TB64, sX = sA + 2 * TB64;
+  float* dts = reinterpret_cast<float*>(sm + (CB + 4) * TB64);
   float* ws = dts + 2 * CL;
   float* red = ws + CL;
 
@@ -461,11 +508,12 @@ ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
   const bf16* Bb = Bm + b * sbb;
 #pragma unroll
-  for (int u = 0; u < 2 * CL * 8 / WG; ++u) {
+  for (int u = 0; u < CL * CPR / WG; ++u) {
     const int e = tid + u * WG;
-    const int r = e >> 4, ch = e & 15;
+    const int r = e / CPR, ch = e % CPR;
     const bool ok = c0 + r < S;
-    cp_async16(sB + sw128(r, ch, CL), Bb + (ok ? c0 + r : 0) * sbs + ch * 8, ok);
+    const uint32_t dst = DS >= 64 ? sB + sw128(r, ch, CL) : sB + r * (2 * DS) + ch * 16;
+    cp_async16(dst, Bb + (ok ? c0 + r : 0) * sbs + ch * 8, ok);
   }
   auto stage = [&](int k, int st) {
     const int h = h0 + k;
@@ -493,6 +541,25 @@ ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     cp_async_wait1();  // head k's stage (and the B chunk) landed
     __syncthreads();
 
+    if constexpr (DS < 64) {
+      if (k == 0) {  // B^T, K-major: row s, 16-byte chunk q holds B[8q + t][s], t < 8
+        const bf16* bs = reinterpret_cast<const bf16*>(sm);
+        for (int e = tid; e < DS * (CL / 8); e += WG) {
+          const int s = e % DS, q = e / DS;
+          uint32_t w[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            __nv_bfloat162 pr;
+            pr.x = bs[(8 * q + 2 * t) * DS + s];
+            pr.y = bs[(8 * q + 2 * t + 1) * DS + s];
+            w[t] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+          *reinterpret_cast<uint4*>(sm + TB64 / 2 + sw128(s, q, DS)) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
+
     const float d = warp < 2 ? dts[st * CL + tid] : 0.f;
     float last;
     const float cums = chunk_cumsum(d * A[h], warp, lane, red, last);
@@ -502,7 +569,7 @@ ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 
     // X'^T = (x w)^T as a hi/lo pair, K-major: row p, 16-byte chunk q holds
     // x[8q + t][p] w[8q + t], t < 8
-    const bf16* xs = reinterpret_cast<const bf16*>(sm + 4 * TB64 + st * TB64);
+    const bf16* xs = reinterpret_cast<const bf16*>(sm + (sX - base) + st * TB64);
 #pragma unroll
     for (int u = 0; u < HDW * CL / 8 / WG; ++u) {
       const int e = tid + u * WG;
@@ -515,52 +582,80 @@ ssd_scan_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                    __bfloat162float(xs[(j + 1) * HDW + p]) * ws[j + 1], hi[t], lo[t]);
       }
       const uint32_t off = sw128(p, q, HDW);
-      *reinterpret_cast<uint4*>(sm + 2 * TB64 + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(sm + 3 * TB64 + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(sm + (sA - base) + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sm + (sA - base) + TB64 + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
     fence_async_shared();
     __syncthreads();
 
-    // state contribution [64 p][128 s] = (X'hi + X'lo)^T . B, K = the chunk's
+    // state contribution [64 p][DS s] = (X'hi + X'lo)^T . B, K = the chunk's
     // 64 positions
-    float d0[32], d1[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) d0[j] = d1[j] = 0.f;
-    fence_regs(d0);
-    fence_regs(d1);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < CL / 16; ++kk) {
-      const uint64_t hi = wg_desc(sA + kk * 32, 16, 1024, 1);
-      const uint64_t lo = wg_desc(sA + TB64 + kk * 32, 16, 1024, 1);
-      const uint64_t b0 = wg_desc(sB + kk * 16 * 128, 1024, 1024, 1);
-      const uint64_t b1 = wg_desc(sB + TB64 + kk * 16 * 128, 1024, 1024, 1);
-      wgmma_ss_n64<1>(d0, hi, b0, kk > 0);
-      wgmma_ss_n64<1>(d0, lo, b0, 1);
-      wgmma_ss_n64<1>(d1, hi, b1, kk > 0);
-      wgmma_ss_n64<1>(d1, lo, b1, 1);
-    }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(d0);
-    fence_regs(d1);
-
     float* out = states + (((long long)b * nc + c) * nh + h) * (HDW * DS);
+    if constexpr (DS >= 64) {
+      float dacc[CB][32];
 #pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      float* o = out + frag_row(j, warp, lane) * DS + frag_col(j, lane);
-      *reinterpret_cast<float2*>(o) = make_float2(d0[j], d0[j + 1]);
-      *reinterpret_cast<float2*>(o + 64) = make_float2(d1[j], d1[j + 1]);
+      for (int i = 0; i < CB; ++i) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) dacc[i][j] = 0.f;
+        fence_regs(dacc[i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CL / 16; ++kk) {
+        const uint64_t hi = wg_desc(sA + kk * 32, 16, 1024, 1);
+        const uint64_t lo = wg_desc(sA + TB64 + kk * 32, 16, 1024, 1);
+#pragma unroll
+        for (int i = 0; i < CB; ++i) {
+          const uint64_t bi = wg_desc(sB + i * TB64 + kk * 16 * 128, 1024, 1024, 1);
+          wgmma_ss_n64<1>(dacc[i], hi, bi, kk > 0);
+          wgmma_ss_n64<1>(dacc[i], lo, bi, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < CB; ++i) fence_regs(dacc[i]);
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        float* o = out + frag_row(j, warp, lane) * DS + frag_col(j, lane);
+#pragma unroll
+        for (int i = 0; i < CB; ++i)
+          *reinterpret_cast<float2*>(o + 64 * i) = make_float2(dacc[i][j], dacc[i][j + 1]);
+      }
+    } else {
+      float dacc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dacc[j] = 0.f;
+      fence_regs(dacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CL / 16; ++kk) {
+        const uint64_t hi = wg_desc(sA + kk * 32, 16, 1024, 1);
+        const uint64_t lo = wg_desc(sA + TB64 + kk * 32, 16, 1024, 1);
+        const uint64_t bt = wg_desc(sB + TB64 / 2 + kk * 32, 16, 1024, 1);
+        wgmma_ss_n16(dacc, hi, bt, kk > 0);
+        wgmma_ss_n16(dacc, lo, bt, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dacc);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2)
+        *reinterpret_cast<float2*>(out + frag_row(j, warp, lane) * DS + frag_col(j, lane)) =
+            make_float2(dacc[j], dacc[j + 1]);
     }
     __syncthreads();  // X'^T, w, the warp sums and this stage are free
   }
 }
 
 // Launch 2: the state passing, one float4 of one head's state a thread.
+template <int DS>
 __global__ void __launch_bounds__(PASS_THREADS)
 ssd_scan_pass_kernel(const float* __restrict__ states, const float* __restrict__ decay,
                      bf16* __restrict__ prev, float* __restrict__ state_out, int nh,
                      int nc) {
+  constexpr int HEAD4 = HDW * DS / 4;  // float4s of one head's state
   const int b = blockIdx.y;
   const int e = blockIdx.x * PASS_THREADS + threadIdx.x;
   if (e >= nh * HEAD4) return;
@@ -589,6 +684,7 @@ ssd_scan_pass_kernel(const float* __restrict__ states, const float* __restrict__
 }
 
 // Launch 3: each chunk's outputs, per group of heads.
+template <int DS>
 __global__ void __launch_bounds__(WG, 2)
 ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -596,15 +692,18 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     bf16* __restrict__ y, int S, int nh, int nc, int hpc, long long sxb,
                     long long sxs, long long sxh, long long sdb, long long sds, long long sdh,
                     long long sbb, long long sbs, long long scb, long long scs) {
-  constexpr uint32_t STAGE = 5 * TB64;  // x [64 j][64 p], prev hi and lo [64 p][128 s]
+  constexpr int CB = col_blocks<DS>();
+  constexpr int CPR = DS / 8;  // 16-byte chunks of a [*][DS] row
+  // a stage: x [64 j][64 p], prev hi and lo [64 p][DS s]
+  constexpr uint32_t STAGE = (1 + 2 * CB) * TB64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  // C chunk [64 i][128 s] (K-major), then two stages; the B chunk [64 j][128 s]
+  // C chunk [64 i][DS s] (K-major), then two stages; the B chunk [64 j][DS s]
   // (K-major) sits where stage 1 goes, and is dead once C.B^T is taken
-  const uint32_t sC = base, sS0 = base + 2 * TB64, sB = sS0 + STAGE;
-  float* dts = reinterpret_cast<float*>(sm + 2 * TB64 + 2 * STAGE);  // [2][CL]
+  const uint32_t sC = base, sS0 = base + CB * TB64, sB = sS0 + STAGE;
+  float* dts = reinterpret_cast<float*>(sm + CB * TB64 + 2 * STAGE);  // [2][CL]
   float* cs = dts + 2 * CL;                                          // [CL]
   float* red = cs + CL;
 
@@ -618,9 +717,9 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const bf16* Bb = Bm + b * sbb;
   const bf16* Cb = Cm + b * scb;
 #pragma unroll
-  for (int u = 0; u < 2 * CL * 8 / WG; ++u) {
+  for (int u = 0; u < CL * CPR / WG; ++u) {
     const int e = tid + u * WG;
-    const int r = e >> 4, ch = e & 15;
+    const int r = e / CPR, ch = e % CPR;
     const bool ok = c0 + r < S;
     const long long row = ok ? c0 + r : 0;
     cp_async16(sC + sw128(r, ch, CL), Cb + row * scs + ch * 8, ok);
@@ -640,11 +739,12 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (carry_in) {
       const bf16* ph = prev + (((long long)b * nc + c) * nh + h) * (2 * HDW * DS);
 #pragma unroll
-      for (int u = 0; u < 2 * HDW * 8 / WG; ++u) {
+      for (int u = 0; u < HDW * CPR / WG; ++u) {
         const int e = tid + u * WG;
-        const int r = e >> 4, ch = e & 15;
+        const int r = e / CPR, ch = e % CPR;
         cp_async16(sx + TB64 + sw128(r, ch, HDW), ph + r * DS + ch * 8, true);
-        cp_async16(sx + 3 * TB64 + sw128(r, ch, HDW), ph + HDW * DS + r * DS + ch * 8, true);
+        cp_async16(sx + (1 + CB) * TB64 + sw128(r, ch, HDW), ph + HDW * DS + r * DS + ch * 8,
+                   true);
       }
     }
     if (tid < CL) {
@@ -703,7 +803,7 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       for (int kk = 0; kk < DS / 16; ++kk) {
         const uint32_t off = (kk >> 2) * TB64 + (kk & 3) * 32;
         wgmma_ss_n64(yacc, wg_desc(sC + off, 16, 1024, 1),
-                     wg_desc(sx + 3 * TB64 + off, 16, 1024, 1), 1);
+                     wg_desc(sx + (1 + CB) * TB64 + off, 16, 1024, 1), 1);
       }
       wgmma_commit();
     }
@@ -760,19 +860,20 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-constexpr size_t STATES_SMEM = 6 * TB64 + (3 * CL + 2) * sizeof(float) + 1024;
-constexpr size_t OUT_SMEM = 12 * TB64 + (3 * CL + 2) * sizeof(float) + 1024;
-
+template <int DS>
 int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                 void* y, void* state_out, void* scratch, int b, int S, int nh, int hd, int hpc,
                 long long sxb, long long sxs, long long sxh, long long sdb, long long sds,
                 long long sdh, long long sbb, long long sbs, long long scb, long long scs,
                 cudaStream_t stream) {
   if (hd != HDW || hpc < 1 || S <= 0 || b <= 0) return (int)cudaErrorInvalidValue;
+  constexpr size_t STATES_SMEM = states_smem<DS>(), OUT_SMEM = out_smem<DS>();
+  auto states_kernel = ssd_scan_states_kernel<DS>;
+  auto out_kernel = ssd_scan_out_kernel<DS>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_states_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STATES_SMEM);
+      states_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STATES_SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_scan_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)OUT_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int nc = (S + CL - 1) / CL;
@@ -787,16 +888,17 @@ int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm, co
   float* st = static_cast<float*>(scratch);
   bf16* pv = reinterpret_cast<bf16*>(st + n_state);
   float* dc = st + 2 * n_state;
-  ssd_scan_states_kernel<<<grid, WG, STATES_SMEM, stream>>>(
+  states_kernel<<<grid, WG, STATES_SMEM, stream>>>(
       xb, dtf, Af, Bb, st, dc, S, nh, nc, hpc, sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_scan_pass_kernel<<<dim3((nh * HEAD4 + PASS_THREADS - 1) / PASS_THREADS, b),
-                         PASS_THREADS, 0, stream>>>(st, dc, pv, static_cast<float*>(state_out),
-                                                    nh, nc);
+  constexpr int HEAD4 = HDW * DS / 4;
+  ssd_scan_pass_kernel<DS><<<dim3((nh * HEAD4 + PASS_THREADS - 1) / PASS_THREADS, b),
+                             PASS_THREADS, 0, stream>>>(st, dc, pv,
+                                                        static_cast<float*>(state_out), nh, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_scan_out_kernel<<<grid, WG, OUT_SMEM, stream>>>(
+  out_kernel<<<grid, WG, OUT_SMEM, stream>>>(
       xb, dtf, Af, Bb, static_cast<const bf16*>(Cm), pv, static_cast<bf16*>(y), S, nh, nc,
       hpc, sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, scb, scs);
   return (int)cudaGetLastError();
@@ -804,35 +906,48 @@ int launch_bf16(const void* x, const void* dt, const void* A, const void* Bm, co
 
 }  // namespace
 
-// fp32. x: [b, S, nh, hd], dt: [b, S, nh] fp32, B/C: [b, S, 1, DS] addressed
+// fp32. x: [b, S, nh, hd], dt: [b, S, nh] fp32, B/C: [b, S, 1, ds] addressed
 // through the given element strides (x's and B/C's last dim contiguous); A:
 // [nh] fp32; y: contiguous [b, S, nh, hd]; state_out: contiguous
-// [b, nh, hd, DS] fp32; hd a multiple of P, chunk a multiple of 64 up to
-// 256. Returns the cudaError_t of the launch (0 on success).
+// [b, nh, hd, ds] fp32; ds 128 or 16, hd a multiple of P, chunk a multiple
+// of 64 up to 256. Returns the cudaError_t of the launch (0 on success).
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, void* y, void* state_out, int b, int S, int nh,
                             int hd, int ds, int chunk, long long sxb, long long sxs,
                             long long sxh, long long sdb, long long sds, long long sdh,
                             long long sbb, long long sbs, long long scb, long long scs,
                             void* stream) {
-  if (ds != DS) return (int)cudaErrorInvalidValue;
-  return launch<float>(x, dt, A, Bm, Cm, y, state_out, b, S, nh, hd, chunk, sxb, sxs, sxh,
-                       sdb, sds, sdh, sbb, sbs, scb, scs, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ds) {
+    case 128:
+      return launch<float, 128>(x, dt, A, Bm, Cm, y, state_out, b, S, nh, hd, chunk, sxb, sxs,
+                                sxh, sdb, sds, sdh, sbb, sbs, scb, scs, st);
+    case 16:
+      return launch<float, 16>(x, dt, A, Bm, Cm, y, state_out, b, S, nh, hd, chunk, sxb, sxs,
+                               sxh, sdb, sds, sdh, sbb, sbs, scb, scs, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16, the same layouts with hd == 64 and 16-byte-aligned rows, plus one
-// scratch buffer of (2 b nc nh hd DS + b nc nh) fp32 words, nc = ceil(S /
-// 64): the chunk states [b, nc, nh, hd, DS] fp32, the entering states
-// [b, nc, nh, 2, hd, DS] bf16, the decays [b, nc, nh] fp32; ``hpc`` heads a
-// CTA. Three launches on ``stream``; returns the first non-zero cudaError_t.
+// scratch buffer of (2 b nc nh hd ds + b nc nh) fp32 words, nc = ceil(S /
+// 64): the chunk states [b, nc, nh, hd, ds] fp32, the entering states
+// [b, nc, nh, 2, hd, ds] bf16, the decays [b, nc, nh] fp32; ``hpc`` heads a
+// CTA; ds 128 or 16. Three launches on ``stream``; returns the first non-zero cudaError_t.
 extern "C" int ssd_scan_bf16_fwd(const void* x, const void* dt, const void* A,
                                  const void* Bm, const void* Cm, void* y, void* state_out,
                                  void* scratch, int b, int S, int nh, int hd, int ds, int hpc,
                                  long long sxb, long long sxs, long long sxh, long long sdb,
                                  long long sds, long long sdh, long long sbb, long long sbs,
                                  long long scb, long long scs, void* stream) {
-  if (ds != DS) return (int)cudaErrorInvalidValue;
-  return launch_bf16(x, dt, A, Bm, Cm, y, state_out, scratch, b, S, nh, hd, hpc, sxb, sxs,
-                     sxh, sdb, sds, sdh, sbb, sbs, scb, scs,
-                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ds) {
+    case 128:
+      return launch_bf16<128>(x, dt, A, Bm, Cm, y, state_out, scratch, b, S, nh, hd, hpc, sxb,
+                              sxs, sxh, sdb, sds, sdh, sbb, sbs, scb, scs, st);
+    case 16:
+      return launch_bf16<16>(x, dt, A, Bm, Cm, y, state_out, scratch, b, S, nh, hd, hpc, sxb,
+                             sxs, sxh, sdb, sds, sdh, sbb, sbs, scb, scs, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

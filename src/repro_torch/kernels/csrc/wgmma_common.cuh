@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels: the
 // bf16 flash prefill (flash_attention.cu) and the bf16 SSD scan
-// (ssd_scan.cu).
+// (ssd_scan.cu, whose d_state-16 state contribution is an m64n16 product).
 //
 //   * cp.async copies from global to shared memory (16 bytes, or 4 bytes for
 //     scattered fp32 scalars), zero-filled when their predicate is false, in
@@ -106,6 +106,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D[64 x 16] (+)= A[64 x 16] . B, A and B K-major in shared memory (B[16 x 16]^T:
+// 16 rows of K, two 8-row groups at the stride byte offset)
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory

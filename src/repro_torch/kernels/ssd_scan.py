@@ -26,7 +26,7 @@ _FWD = build.CFunction("ssd_scan", "ssd_scan_fwd",
 _BF16 = build.CFunction("ssd_scan", "ssd_scan_bf16_fwd",
                         [_P] * 8 + [_I] * 6 + [_L] * 10)
 
-STATE_DIMS = (128,)  # d_state the kernels are built for
+STATE_DIMS = (16, 128)  # d_state the kernels are built for (jamba, mamba2)
 # fp32 (CUDA cores): the config's chunk, a multiple of TILE up to MAX_CHUNK;
 # the head dim a multiple of COLS
 TILE = 64
@@ -38,8 +38,9 @@ COLS = 16  # head-dim columns of the state per CTA (P in the source)
 CHUNK = 64
 BF16_HEAD_DIMS = (64,)
 # heads a CTA may take on the bf16 path: divisors of mamba2-130m's 24 heads
-HEAD_GROUPS = (1, 2, 3, 4, 6, 8, 12, 24)
-CTAS_PER_SM = 2  # the output launch's 98 KB of shared memory fits two an SM
+# and of jamba-v0.1-52b's 128
+HEAD_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64, 128)
+CTAS_PER_SM = 2  # the output launch's 98 KB (d_state 128) fits two an SM
 
 _sm_count: dict[int, int] = {}
 

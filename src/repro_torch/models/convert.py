@@ -4,9 +4,11 @@ The JAX param tree, given as nested dicts of numpy arrays, uses the dotted
 names the port keeps (``embed``, ``final_norm``, ``decoder.g0.l0.ln1``,
 ``decoder.g0.l0.attn.wq``, ..., ``decoder.g0.l0.ffn.w_down``); a scanned
 group's leaves carry a leading ``[count]`` layer axis, which is split into
-the port's per-superblock list. bf16 arrays reach numpy as the
-``ml_dtypes`` ``bfloat16`` dtype, which ``torch.from_numpy`` rejects: they
-cross as their 16-bit patterns and are viewed back as ``torch.bfloat16``.
+the port's per-superblock list (the encoder of an encoder-decoder is one
+such group, ``encoder.g0``, of ``encoder_layers`` layers). bf16 arrays
+reach numpy as the ``ml_dtypes`` ``bfloat16`` dtype, which
+``torch.from_numpy`` rejects: they cross as their 16-bit patterns and are
+viewed back as ``torch.bfloat16``.
 This module imports neither JAX nor ``ml_dtypes``.
 """
 
@@ -40,7 +42,11 @@ def params_from_numpy(tree, cfg, *, device, dtype=None) -> dict:
     ``dtype`` None keeps each array's own dtype.
     """
     out = {k: _convert(v, device, dtype) for k, v in tree.items()
-           if k != "decoder"}
+           if k not in ("decoder", "encoder")}
+    if "encoder" in tree:  # one scanned group of encoder_layers
+        block = _convert(tree["encoder"]["g0"], device, dtype)
+        out["encoder"] = {"g0": [_index(block, i)
+                                 for i in range(cfg.encoder_layers)]}
     decoder = {}
     for gi, g in enumerate(layer_groups(cfg)):
         block = _convert(tree["decoder"][f"g{gi}"], device, dtype)

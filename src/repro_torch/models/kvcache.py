@@ -3,13 +3,16 @@ block pool.
 
 An attention layer's cache is ``{"k": [B, W, Hkv, hd], "v": [B, W, Hkv, hd]}``,
 an MLA layer's ``{"ckv": [B, W, kv_lora_rank], "krope": [B, W, qk_rope_dim]}``
-(one latent and one shared RoPE key a token); an SSM layer's is
+(one latent and one shared RoPE key a token); an encoder-decoder's
+decoder layer adds the static cross-attention leaves ``{"xk", "xv"}: [B,
+F, Hkv, hd]`` (the encoder's F rows, written once by the prefill); an SSM
+layer's is
 ``{"conv": [B, K-1, d_in + 2 ds], "state": [B, nh, hd, ds]}``, its state
 in fp32 whatever the model's dtype. Ring semantics: token
 ``t`` of a row lives at slot ``t % W``, so a prefill of ``true_len <= W``
 tokens occupies slots ``[0, true_len)`` and a full ring models a
-sliding-window cache exactly (W = window). SSM leaves have no sequence dim:
-they always move whole.
+sliding-window cache exactly (W = window). SSM leaves and the cross
+leaves have no ring: they always move whole.
 
 Unlike the JAX package, whose arrays are immutable, :func:`ring_write`,
 :func:`scatter_pages`, :func:`paged_write` and :func:`splice_suffix` update
@@ -37,18 +40,19 @@ def ring_write(cache_kv, new, lengths):
     return cache_kv
 
 
-def attn_cache_shapes(cfg, B: int, W: int) -> dict:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder caches come with the architectures slice "
-            "(seamless)")
+def attn_cache_shapes(cfg, B: int, W: int, enc_len: int = 0) -> dict:
+    """An attention layer's leaves; an encoder-decoder's with ``enc_len``
+    encoder rows adds xk/xv."""
     if cfg.mla is not None:
         m = cfg.mla
-        return {"ckv": (B, W, m.kv_lora_rank), "krope": (B, W, m.qk_rope_dim)}
-    return {
-        "k": (B, W, cfg.n_kv_heads, cfg.head_dim),
-        "v": (B, W, cfg.n_kv_heads, cfg.head_dim),
-    }
+        s = {"ckv": (B, W, m.kv_lora_rank), "krope": (B, W, m.qk_rope_dim)}
+    else:
+        s = {"k": (B, W, cfg.n_kv_heads, cfg.head_dim),
+             "v": (B, W, cfg.n_kv_heads, cfg.head_dim)}
+    if cfg.is_encdec and enc_len:
+        s["xk"] = (B, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        s["xv"] = (B, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return s
 
 
 def ssm_cache_shapes(cfg, B: int) -> dict:
@@ -61,14 +65,15 @@ def ssm_cache_shapes(cfg, B: int) -> dict:
     }
 
 
-def layer_cache_shapes(cfg, sig, B: int, W: int) -> dict:
+def layer_cache_shapes(cfg, sig, B: int, W: int, enc_len: int = 0) -> dict:
     kind, _ = sig
     if kind == "attn":
-        return attn_cache_shapes(cfg, B, W)
+        return attn_cache_shapes(cfg, B, W, enc_len)
     return ssm_cache_shapes(cfg, B)
 
 
 # leaves with a ring (sequence) dim at axis 1: GQA's k/v, MLA's latents
+# (the cross leaves xk/xv are static: every encoder row, never ring-written)
 SEQ_KEYS = ("k", "v", "ckv", "krope")
 _F32_KEYS = ("state",)  # the SSM state carries fp32 for numerical stability
 
@@ -87,7 +92,7 @@ def init_layer_cache(shapes: dict, dtype, device) -> dict:
 def grow_cache(caches, new_w: int):
     """Zero-pad the ring dim (axis 1) of every sequence leaf (k/v, MLA's
     ckv/krope) of a prefill cache tree to ``new_w`` so decode can append;
-    SSM leaves stay as they are."""
+    SSM and cross (xk/xv) leaves stay as they are."""
 
     def walk(tree, key=None):
         if isinstance(tree, dict):
@@ -115,10 +120,10 @@ def _map_keyed(fn, tree, key=None):
 def slice_cache(caches, n_rows: int, prefix_len: int):
     """A cache tree cut to its valid extent: the first ``n_rows`` rows of
     every leaf and, for the sequence leaves, the first ``prefix_len`` ring
-    slots, both clamped to the leaf (views, no copy). SSM conv/state leaves
-    keep their whole rows. What a disaggregated handoff puts on the wire:
-    a prefill writes slots ``[0, true_len)``, so a ``prefix_len`` at or
-    above every row's length loses nothing. :func:`pad_cache_rows` is its
+    slots, both clamped to the leaf (views, no copy). SSM conv/state and
+    cross xk/xv leaves keep their whole rows. What a disaggregated handoff
+    puts on the wire: a prefill writes slots ``[0, true_len)``, so a
+    ``prefix_len`` at or above every row's length loses nothing. :func:`pad_cache_rows` is its
     row inverse."""
 
     def cut(leaf, key):

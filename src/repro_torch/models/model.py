@@ -8,7 +8,11 @@ A config with a ``frontend`` (pixtral-12b) takes feature payloads: the
 modality encoder is a stub, as in the JAX package, and the caller supplies
 its output, ``features`` [B, F, FRONTEND_DIM], which a linear projector
 (``frontend_proj``) maps into the residual stream ahead of the prompt's
-token embeddings.
+token embeddings. An encoder-decoder (seamless-m4t) takes them as its
+encoder's input instead: ``frontend_proj``, the bidirectional encoder and
+``enc_norm`` give the rows every decoder layer cross-attends to, and the
+prefill writes each layer's cross keys and values into static ``xk``/``xv``
+cache leaves that decode reads whole.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from repro_torch.models.layers import (
     rmsnorm_schema,
 )
 from repro_torch.models.transformer import (
+    encoder_apply,
+    encoder_schema,
     layer_groups,
     stack_apply_decode,
     stack_apply_decode_paged,
@@ -40,8 +46,9 @@ FRONTEND_DIM = 1024  # stubbed ViT / speech-encoder feature width
 
 
 class Model:
-    """Decoder-only model: attention stacks (dense or MoE FFNs, with or
-    without a feature frontend) and Mamba-2 (SSM) stacks.
+    """Attention stacks (GQA or MLA, dense or MoE FFNs, with or without a
+    feature frontend), Mamba-2 (SSM) stacks, hybrids of the two (jamba)
+    and the encoder-decoder (seamless-m4t).
 
     ``device`` defaults to CUDA; with no CUDA device the constructor raises
     unless ``device="cpu"`` is given. Every tensor method expects its
@@ -54,7 +61,7 @@ class Model:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.groups = layer_groups(cfg)
-        self._schema = self.schema()  # raises for layer kinds not yet ported
+        self._schema = self.schema()
 
     @property
     def attention_only(self) -> bool:
@@ -64,6 +71,12 @@ class Model:
         return all(kind == "attn" for g in self.groups for (kind, _) in g.sigs)
 
     def _require_attention_only(self, what: str):
+        """Refuse the serving engine's padded and packed prefills where
+        they would be wrong: an SSM layer's state, or an encoder-decoder
+        (its decoder needs the encoder's rows, which they do not take)."""
+        if self.cfg.is_encdec:
+            raise ValueError(f"{what} takes no encoder input: "
+                             f"{self.cfg.name} is an encoder-decoder")
         if not self.attention_only:
             raise ValueError(
                 f"{what} right-pads its rows, which would push pad tokens "
@@ -80,6 +93,9 @@ class Model:
             "final_norm": rmsnorm_schema(cfg.d_model),
             "decoder": stack_schema(cfg),
         }
+        if cfg.is_encdec:
+            s["encoder"] = encoder_schema(cfg)
+            s["enc_norm"] = rmsnorm_schema(cfg.d_model)
         if cfg.frontend:
             s["frontend_proj"] = sch.ParamSpec((FRONTEND_DIM, cfg.d_model))
         return s
@@ -106,14 +122,35 @@ class Model:
         proj = features.to(self.dtype) @ params["frontend_proj"]
         return torch.cat([proj, x], dim=1).to(self.dtype)
 
+    def _encode(self, params, features):
+        """An encoder-decoder's encoder: ``features`` [B, F, FRONTEND_DIM]
+        cast to the model's dtype, ``frontend_proj``, the bidirectional
+        stack and ``enc_norm`` -> [B, F, d] (JAX's ``_encode``)."""
+        x = features.to(self.dtype) @ params["frontend_proj"]
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = encoder_apply(params["encoder"], self.cfg, x, pos)
+        return rmsnorm(x, params["enc_norm"], self.cfg.norm_eps)
+
     def backbone(self, params, tokens, features=None):
         """Embed (``features`` first, see :meth:`_embed_inputs`) + decoder
         stack + final norm over [B, S] tokens. Returns (x [B,F+S,d], aux,
-        caches); aux is the MoE layers' summed load-balance loss."""
-        x = self._embed_inputs(params, tokens, features)
+        caches); aux is the MoE layers' summed load-balance loss. An
+        encoder-decoder encodes ``features`` (required) instead, and its
+        decoder over the tokens alone cross-attends to them: x [B,S,d],
+        the caches with each layer's xk/xv [B,F,Hkv,hd]."""
+        enc_out = None
+        if self.cfg.is_encdec:
+            if features is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
+                                 "its encoder needs features")
+            enc_out = self._encode(params, features)
+            x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        else:
+            x = self._embed_inputs(params, tokens, features)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         x, aux, caches = stack_apply_full(params["decoder"], self.cfg, x,
-                                          pos, groups=self.groups)
+                                          pos, groups=self.groups,
+                                          enc_out=enc_out)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
@@ -126,7 +163,10 @@ class Model:
     def prefill(self, params, tokens, features=None):
         """tokens [B, S] (after ``features`` [B, F, FRONTEND_DIM], if any)
         -> (last_logits [B,V], caches, lengths [B] = F + S); the LM head
-        runs on the last position only."""
+        runs on the last position only. An encoder-decoder's ``features``
+        feed its encoder: lengths = S, and the caches' xk/xv hold the F
+        encoder rows (grow the ring leaves with
+        :func:`repro_torch.models.kvcache.grow_cache` before decoding)."""
         x, _, caches = self.backbone(params, tokens, features)
         B, S = x.shape[:2]
         logits = lm_head(params["embed"], x[:, -1:], self.cfg.vocab_size)
@@ -256,11 +296,14 @@ class Model:
 
     def cache_specs(self, B: int, seq_len: int) -> dict:
         """Shapes of the cache tree for B rows of ``seq_len`` ring slots
-        (an SSM layer's shapes do not depend on ``seq_len``)."""
+        (an SSM layer's shapes do not depend on ``seq_len``); an
+        encoder-decoder's xk/xv get ``seq_len // 8`` encoder rows, as the
+        JAX model's ``cache_specs`` gives them."""
         W = self._seq_budget(seq_len)
+        enc_len = seq_len // 8 if self.cfg.is_encdec else 0
         return {
             f"g{gi}": [
-                {f"l{j}": kvc.layer_cache_shapes(self.cfg, sig, B, W)
+                {f"l{j}": kvc.layer_cache_shapes(self.cfg, sig, B, W, enc_len)
                  for j, sig in enumerate(g.sigs)}
                 for _ in range(g.count)
             ]

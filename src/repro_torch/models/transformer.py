@@ -1,13 +1,16 @@
-"""Decoder stack: layer grouping and per-layer application.
+"""Decoder and encoder stacks: layer grouping and per-layer application.
 
 Layers are grouped as in the JAX package (``layer_groups``), so parameter
 and cache trees keep its ``g{i}.l{j}`` names; where JAX scans over a
 group's stacked layers, the port keeps one entry per layer in a list and
 runs a Python loop over it. The port serves attention (GQA or MLA) and
-Mamba-2 (SSM) layers, each with a dense or (attention stacks) an MoE FFN;
-encoder-decoder stacks and MoE in a hybrid stack raise and name the slice
-that brings them. Each full-sequence pass returns the MoE layers' summed
-load-balance loss beside its output, as the JAX stack does.
+Mamba-2 (SSM) layers, each with a dense or an MoE FFN, in any interleave
+(jamba's hybrid: attention where ``i % attn_every == attn_offset``, MoE
+where ``i >= first_dense`` and ``(i - first_dense) % every == 0``), and
+the encoder-decoder stack (seamless): a bidirectional encoder and decoder
+layers that cross-attend to its output (``xattn`` after ``ln_x``). Each
+full-sequence pass returns the MoE layers' summed load-balance loss beside
+its output, as the JAX stack does.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (
     attn_schema,
@@ -63,31 +67,24 @@ def layer_groups(cfg) -> list:
     return groups
 
 
-def check_supported(cfg):
-    """Raise for the layer kinds later slices of the port bring."""
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder stacks come with the "
-                                  "architectures slice (seamless)")
-    sigs = layer_signatures(cfg)
-    if (any(is_moe for _, is_moe in sigs)
-            and any(kind != "attn" for kind, _ in sigs)):
-        raise NotImplementedError("MoE layers in a hybrid (SSM) stack come "
-                                  "with the architectures slice (jamba)")
-
-
 # --------------------------------------------------------------------------- #
 # Schemas
 # --------------------------------------------------------------------------- #
 def layer_schema(cfg, sig) -> dict:
     """The JAX package's per-kind rule: ``ln1`` and the mixer (``attn``,
-    MLA's schema under it for an MLA stack, or ``ssm``), then ``ln2`` and
-    ``moe`` (an MoE layer) or ``ffn`` unless the family is ``ssm``."""
+    MLA's schema under it for an MLA stack, or ``ssm``), with an
+    encoder-decoder's attention layer's ``ln_x`` and ``xattn``, then
+    ``ln2`` and ``moe`` (an MoE layer) or ``ffn`` unless the family is
+    ``ssm``."""
     kind, is_moe = sig
     d = cfg.d_model
     s = {"ln1": rmsnorm_schema(d)}
     if kind == "attn":
         s["attn"] = (mla_schema(cfg) if cfg.mla is not None
                      else attn_schema(cfg))
+        if cfg.is_encdec:
+            s["ln_x"] = rmsnorm_schema(d)
+            s["xattn"] = attn_schema(cfg)
     else:
         s["ssm"] = mamba_schema(cfg)
     if cfg.family != "ssm":
@@ -103,7 +100,6 @@ def stack_schema(cfg) -> dict:
     """{"g{i}": [superblock 0, superblock 1, ...]}, each superblock a dict
     {"l{j}": layer schema} (the JAX package stacks the superblocks along a
     leading axis instead)."""
-    check_supported(cfg)
     return {
         f"g{gi}": [
             {f"l{j}": layer_schema(cfg, sig) for j, sig in enumerate(g.sigs)}
@@ -111,6 +107,16 @@ def stack_schema(cfg) -> dict:
         ]
         for gi, g in enumerate(layer_groups(cfg))
     }
+
+
+def encoder_schema(cfg) -> dict:
+    """The bidirectional encoder: ``encoder_layers`` attention + dense FFN
+    layers, {"g0": [layer 0, layer 1, ...]} (JAX stacks them in one
+    scanned group)."""
+    d = cfg.d_model
+    return {"g0": [{"ln1": rmsnorm_schema(d), "attn": attn_schema(cfg),
+                    "ln2": rmsnorm_schema(d), "ffn": ffn_schema(d, cfg.d_ff)}
+                   for _ in range(cfg.encoder_layers)]}
 
 
 def _layers(groups):
@@ -140,9 +146,52 @@ def _ffn_block(lp, cfg, x):
     return x + ffn_apply(lp["ffn"], h), None
 
 
+def _cross_kv(p, cfg, enc_out):
+    """The cross-attention keys and values of the encoder's output
+    [B, F, d]: [B, F, Hkv, hd] each, no RoPE (JAX's ``_cross_kv``)."""
+    shape = enc_out.shape[:2] + (cfg.n_kv_heads, cfg.head_dim)
+    return ((enc_out @ p["wk"]).reshape(shape),
+            (enc_out @ p["wv"]).reshape(shape))
+
+
+def _cross_block(lp, cfg, x, *, kv=None, enc_out=None):
+    """The residual cross-attention half of a decoder layer: ``ln_x``, the
+    query projection, attention over every encoder row (flash with
+    ``causal=False``, ``Sq != Skv``, for a full sequence; the decode
+    kernel over the static ``xk``/``xv`` leaves, all F rows valid, for one
+    token) and ``wo``. ``kv`` is the cached (xk, xv); without it they come
+    from ``enc_out``. Returns (x, (xk, xv))."""
+    p = lp["xattn"]
+    xk, xv = kv if kv is not None else _cross_kv(p, cfg, enc_out)
+    h = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+    B, S = h.shape[:2]
+    q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if kv is None:
+        o = ops.flash_attention(q, xk, xv, causal=False)
+    else:
+        full = torch.full((B,), xk.shape[1], dtype=torch.int32,
+                          device=xk.device)
+        o = ops.decode_attention(q, xk, xv, full)
+    return x + o.reshape(B, S, -1) @ p["wo"], (xk, xv)
+
+
+def encoder_apply(params, cfg, x, positions):
+    """The bidirectional encoder over x [B, F, d] (projected frame
+    features): per layer, RoPE'd self-attention through flash with
+    ``causal=False`` and a dense FFN, each after its norm."""
+    B, F_ = x.shape[:2]
+    for lp in params["g0"]:
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = project_qkv(lp["attn"], cfg, h, positions)
+        o = ops.flash_attention(q, k, v, causal=False)
+        x = x + o.reshape(B, F_, -1) @ lp["attn"]["wo"]
+        x = x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return x
+
+
 def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
                      prior_blocks=None, prior_pt=None, prior_valid=None,
-                     segment_ids=None, segment_starts=None):
+                     segment_ids=None, segment_starts=None, enc_out=None):
     """x: [B,S,d] -> (x, aux, cache): aux the MoE layer's load-balance
     loss (None for a dense FFN), cache {"k","v"} [B,S,Hkv,hd] for an
     attention layer ({"ckv","krope"} [B,S,r] / [B,S,rope] for MLA),
@@ -154,7 +203,9 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
     right before the flash launch, ``Pn`` pages wide. ``segment_ids``
     [B,S] with ``segment_starts`` make it a packed prefill (attention
     layers only, both; MLA takes neither a prior nor segment ids, and
-    raises JAX's ValueErrors)."""
+    raises JAX's ValueErrors). ``enc_out`` [B,F,d] (an encoder-decoder's
+    decoder) adds the cross-attention after the self-attention, and its
+    static ``xk``/``xv`` [B,F,Hkv,hd] to the cache."""
     B, S, _ = x.shape
     if segment_ids is not None and (sig[0] != "attn" or cfg.mla is not None):
         raise ValueError("packed prefill requires plain attention layers")
@@ -176,12 +227,17 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
                           prior_valid=prior_valid, segment_ids=segment_ids,
                           segment_starts=segment_starts)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
-    return (*_ffn_block(lp, cfg, x), {"k": k, "v": v})
+    cache = {"k": k, "v": v}
+    if enc_out is not None:
+        x, (cache["xk"], cache["xv"]) = _cross_block(lp, cfg, x,
+                                                     enc_out=enc_out)
+    return (*_ffn_block(lp, cfg, x), cache)
 
 
 def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     """x: [B,1,d]; lcache's k/v (MLA: ckv/krope) ring-written (or its conv
-    window and state updated) in place. Returns x."""
+    window and state updated) in place; an encoder-decoder's layer then
+    cross-attends over its static xk/xv. Returns x."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
@@ -198,6 +254,8 @@ def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     o = decode_attention_update(q, k, v, lcache["k"], lcache["v"], lengths,
                                 valid_len=valid_len)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+    if "xk" in lcache:
+        x = _cross_block(lp, cfg, x, kv=(lcache["xk"], lcache["xv"]))[0]
     return _ffn_block(lp, cfg, x)[0]  # decode drops the aux, as JAX does
 
 
@@ -225,13 +283,14 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
 
 def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
                      prior_blocks=None, prior_pt=None, prior_valid=None,
-                     segment_ids=None, segment_starts=None):
+                     segment_ids=None, segment_starts=None, enc_out=None):
     """Prefill pass over every layer. Returns (x, aux, caches): aux the
     MoE layers' summed load-balance loss (an fp32 scalar, 0 without MoE),
     caches in the parameter tree's layout. ``prior`` (a dense cache tree)
     or ``prior_blocks`` (a block pool tree) with ``prior_pt``, and
     ``prior_valid``, make it a suffix prefill; ``segment_ids`` with
-    ``segment_starts`` a packed one (see :func:`apply_layer_full`)."""
+    ``segment_starts`` a packed one; ``enc_out`` the decoder of an
+    encoder-decoder (see :func:`apply_layer_full`)."""
     caches = {f"g{gi}": [{} for _ in range(g.count)]
               for gi, g in enumerate(groups)}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -242,7 +301,8 @@ def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
         x, aux, cache = apply_layer_full(
             params[gname][i][lname], cfg, sig, x, positions, prior=lprior,
             prior_blocks=lblocks, prior_pt=prior_pt, prior_valid=prior_valid,
-            segment_ids=segment_ids, segment_starts=segment_starts)
+            segment_ids=segment_ids, segment_starts=segment_starts,
+            enc_out=enc_out)
         caches[gname][i][lname] = cache
         if aux is not None:
             aux_total = aux_total + aux

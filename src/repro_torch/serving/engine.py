@@ -567,6 +567,13 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        if model.cfg.is_encdec:
+            # as the JAX engine, which has no encoder-decoder path: such a
+            # model is driven through Model.prefill / decode_step
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder: the serving engine "
+                "takes decoder-only models (drive it through Model.prefill "
+                "and Model.decode_step)")
         if model.cfg.sliding_window and model.cfg.sliding_window < max_seq:
             # the slot pool rings at W = window: right-pad past the window
             # would clobber live slots. Serve with max_seq <= window.
@@ -707,19 +714,20 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     _TRACE_WINDOW_STEPS = 8  # harvested decode steps per window span
 
-    def _trace_admission(self, path: str, reqs: list, t0: float, now: float,
+    def _trace_admission(self, path: str, reqs: list, t0: float, ends: list,
                          dt: float, n: int, **attrs):
         """Per admitted request: the queue-wait span (submit -> admission
         pick, exactly the charged 'queue' stage) and the prefill span over
-        the admission's dispatch -> completion interval (each request's
-        charge is its dt/n share, carried as an attr)."""
+        the admission's dispatch -> the request's first-token stamp
+        (``ends``, one a request; each request's charge is its dt/n share,
+        carried as an attr)."""
         tr = trace.tracer()
         if not tr.enabled:
             return
-        for req in reqs:
+        for req, end in zip(reqs, ends):
             rec = self._records[req.request_id]
             tr.emit("queue", rec.t_issue, t0, request_id=req.request_id)
-            tr.emit(f"prefill.{path}", t0, now, request_id=req.request_id,
+            tr.emit(f"prefill.{path}", t0, end, request_id=req.request_id,
                     share_s=dt / max(n, 1), n=n, **attrs)
 
     def _trace_note_step(self, t_end: float, dt: float, busy: int):
@@ -1205,11 +1213,17 @@ class ServingEngine:
         if before_place is not None:
             before_place()
         self._trace_flush_window()  # decode windows never span a prefill
+        # each request's first-token stamp, on the timeline t_done is
+        # stamped on: the tier's CPU run swaps the hop's measured wall for
+        # the modelled hop in both (and in the request's prefill span)
+        first = [now + self._ttft_adjust(self._records[r.request_id])
+                 for r in reqs]
         path, attrs = trace_as
         if queued:
-            self._trace_admission(path, reqs, t0, now, dt, len(reqs), **attrs)
+            self._trace_admission(path, reqs, t0, first, dt, len(reqs),
+                                  **attrs)
         else:
-            trace.tracer().emit(f"prefill.{path}", t0, now,
+            trace.tracer().emit(f"prefill.{path}", t0, first[0],
                                 request_id=reqs[0].request_id, **attrs)
         for j, (req, slot) in enumerate(zip(reqs, slots)):
             rec = self._records[req.request_id]
@@ -1217,7 +1231,7 @@ class ServingEngine:
                 rec.add("queue", max(t0 - rec.t_issue, 0.0))
             rec.add("preprocess", dt / len(reqs))  # prefill = "preprocessing"
             req.generated.append(int(toks_host[j]))
-            req.t_first_token = now
+            req.t_first_token = first[j]
             self._place(req, slot)
         self._t_mark = now  # prefill time is "preprocess", not "inference"
 
@@ -1498,9 +1512,13 @@ class ServingEngine:
         return art, 0.0
 
     def _ttft_adjust(self, rec: RequestRecord) -> float:
-        """Modelled latency folded into ttft/total beyond the measured
-        stamps (the disaggregated tier swaps the measured handoff wall for
-        the profile-modelled hop on CPU runs)."""
+        """Modelled latency folded into both latency stamps beyond the
+        measured clock (the disaggregated tier swaps the measured handoff
+        wall for the profile-modelled hop on CPU runs): ``t_first_token``
+        and the request's prefill span end at placement, and ``t_done``
+        and its root span at finish, take the same shift, so
+        ``t_arrival <= t_first_token <= t_done`` holds and the root span
+        holds its children either way."""
         return 0.0
 
     def _finish(self, req: Request, rec: RequestRecord) -> Response:
@@ -1534,7 +1552,8 @@ class ServingEngine:
         return Response(
             request_id=req.request_id,
             tokens=list(req.generated),
-            ttft_s=req.t_first_token - req.t_arrival + ingress + adj,
+            # the adjustment already rides t_first_token (placement)
+            ttft_s=req.t_first_token - req.t_arrival + ingress,
             total_s=rec.t_done - rec.t_issue,
             stage_s=dict(rec.stage_s),
         )
@@ -1601,7 +1620,7 @@ class ServingEngine:
         req.generated.append(next_tok)
         self.pool.slots[slot] = req
         req.t_first_token = time.perf_counter()
-        self._trace_admission("legacy", [req], t0, req.t_first_token, dt, 1)
+        self._trace_admission("legacy", [req], t0, [req.t_first_token], dt, 1)
 
     def _admit_legacy(self):
         """Admit the highest-priority queued request (the first of equals)

@@ -73,7 +73,7 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     ("bf16", "bf16"), ("bf16", "fp32"), ("fp32", "bf16"), ("fp32", "fp32")])
-@pytest.mark.parametrize("D", [128, 768, 1001, 1536, 4096])
+@pytest.mark.parametrize("D", [128, 768, 1001, 1536, 4096, 8192])
 @pytest.mark.parametrize("N", [1, 8, 257, 8192])
 def test_rmsnorm_kernel_shapes_and_dtypes(cuda_device, N, D, x_dtype,
                                           w_dtype):
@@ -591,29 +591,37 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, S):
 
 
 SSD_EDGE_LENS = [1, 63, 64, 65, 255, 256, 257, 1000, 1024, 2048]
+# mamba2-130m's SSD widths (24 heads of 64, d_state 128) and jamba-v0.1-52b's
+# (8192 / 64 = 128 heads of 64, d_state 16)
+SSD_WIDTHS = {"mamba2": {}, "jamba": dict(nh=128, hd=64, ds=16)}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("chunk", [64, 256])
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("S", SSD_EDGE_LENS)
-def test_ssd_kernel_at_chunk_edges(cuda_device, S, b, chunk, dtype):
+def test_ssd_kernel_at_chunk_edges(cuda_device, S, b, chunk, dtype, width):
     """Every tile and chunk edge of both kernels (the bf16 path's 64-position
     chunks, the fp32 kernel's 64-row tiles and its chunk of 64 or 256), one
-    and three batch rows, through the model's strided views."""
-    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, 10 * S + b, b=b)
+    and three batch rows, through the model's strided views (no padded copy
+    of the state at d_state 16)."""
+    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, 10 * S + b, b=b,
+                               **SSD_WIDTHS[width])
     _ssd_hold(x, dt, A, B, C, dtype, chunk=chunk)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("S", [65, 1000, 2048])
-def test_ssd_kernel_under_strong_decay(cuda_device, S, dtype):
+def test_ssd_kernel_under_strong_decay(cuda_device, S, dtype, width):
     """dt |A| up to about 5: exp(cums) underflows within a chunk, the decay
     of the carried state reaches 0, and the scores' decay spans many
     orders of magnitude."""
-    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, S + 5, b=2, strong=True)
+    x, dt, A, B, C = _ssd_case(S, dtype, cuda_device, S + 5, b=2, strong=True,
+                               **SSD_WIDTHS[width])
     assert float((dt * A.abs()).max()) > 3.0
     _ssd_hold(x, dt, A, B, C, dtype)
 
@@ -630,18 +638,59 @@ def test_ssd_kernel_at_its_largest_grid(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
 @pytest.mark.parametrize("S", [63, 1000, 2048])
-def test_ssd_bf16_heads_per_cta_agree_bitwise(cuda_device, S):
-    """The bf16 launches give the same bits whatever the heads a CTA takes:
-    a head's arithmetic does not depend on its group, and C.B^T is the same
-    product in every CTA of a chunk."""
+def test_ssd_bf16_heads_per_cta_agree_bitwise(cuda_device, S, width):
+    """The bf16 launches give the same bits whatever the heads a CTA takes
+    (every HEAD_GROUPS entry, a last CTA short of heads where the entry
+    does not divide the heads): a head's arithmetic does not depend on its
+    group, and C.B^T is the same product in every CTA of a chunk."""
     from repro_torch.kernels import ssd_scan as _ssd
 
-    x, dt, A, B, C = _ssd_case(S, "bf16", cuda_device, S)
+    x, dt, A, B, C = _ssd_case(S, "bf16", cuda_device, S, **SSD_WIDTHS[width])
     y1, st1 = _ssd.launch(x, dt, A, B, C, chunk=256, _heads=1)
     for g in _ssd.HEAD_GROUPS[1:]:
         y, st = _ssd.launch(x, dt, A, B, C, chunk=256, _heads=g)
         assert torch.equal(y, y1) and torch.equal(st, st1), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv", [
+    (2, 300, 300),  # seamless's encoder: bidirectional over the frames
+    (4, 2, 512),  # its cross-attention: a 2-token prompt over 512 frames
+    (2, 77, 200),  # Sq != Skv, neither a multiple of a tile
+])
+def test_flash_kernel_non_causal(cuda_device, dtype, B, Sq, Skv):
+    """flash with causal=False at seamless's head dim (16 heads of 64), Sq
+    == Skv and Sq != Skv, against the plain version."""
+    q = _cuda_pair((B, Sq, 16, 64), dtype, cuda_device, 3)
+    k = _cuda_pair((B, Skv, 16, 64), dtype, cuda_device, 4)
+    v = _cuda_pair((B, Skv, 16, 64), dtype, cuda_device, 5)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_decode_kernel_over_a_static_cross_cache(cuda_device, dtype):
+    """The decode kernel over seamless's cross leaves: every one of the F
+    encoder rows valid, G = 1."""
+    B, F_ = 4, 1024
+    q = _cuda_pair((B, 1, 16, 64), dtype, cuda_device, 6)
+    k = _cuda_pair((B, F_, 16, 64), dtype, cuda_device, 7)
+    v = _cuda_pair((B, F_, 16, 64), dtype, cuda_device, 8)
+    full = torch.full((B,), F_, dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, full)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    want = ref.decode_attention_ref(q, k, v, full)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
 
 
 @pytest.mark.cuda

@@ -130,7 +130,10 @@ def test_modelled_charge_swaps_the_measured_wall_out_of_ttft(llama):
         want = eng.profile.handoff_time(hop, share)
         assert rec.stage_s["transfer"] == pytest.approx(want, rel=1e-9)
         ingress = rec.stage_s["request"] + rec.stage_s.get("copy_in", 0.0)
-        raw = req.t_first_token - req.t_arrival
+        # t_first_token carries the swap, as t_done does (one timeline);
+        # JAX's formula reads the placement clock before it
+        raw = req.t_first_token - (want - eng.handoff_wall_s) - req.t_arrival
+        assert req.t_arrival <= req.t_first_token <= req.t_done
         assert rsp.ttft_s == pytest.approx(
             raw + ingress - eng.handoff_wall_s + want, abs=1e-9)
     assert eng.handoff_request_bytes <= eng.handoff_wire_bytes

@@ -173,21 +173,3 @@ def test_cpu_prefill_counts_no_kernel_launch(pair):
     ops.reset_launches()
     tm.prefill(tp, torch.zeros((1, 8), dtype=torch.int32))
     assert sum(ops.LAUNCHES.values()) == 0
-
-
-@pytest.mark.parametrize("change", [
-    {"encoder_layers": 2},
-    {"attn_every": 2, "ssm": "ssm", "moe": "moe"},  # jamba's shape
-    {"encoder_layers": 2, "frontend": "audio"},  # seamless-m4t's shape
-])
-def test_unported_layer_kinds_raise(change):
-    import dataclasses
-
-    from repro_torch.configs.base import MoEConfig, SSMConfig
-
-    kinds = {"moe": MoEConfig(n_experts=4, top_k=2, d_ff=64),
-             "ssm": SSMConfig(d_state=16, head_dim=32, chunk=32)}
-    change = {k: kinds.get(v, v) for k, v in change.items()}
-    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="slice"):
-        Model(cfg, device="cpu")

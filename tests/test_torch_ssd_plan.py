@@ -299,6 +299,9 @@ def test_rounding_once_misses_at_the_model_widths():
     (256, 24, 132, 24),  # b=8, S=2048: one CTA a chunk
     (512, 24, 132, 24),  # no group fits one wave: all heads a CTA
     (16, 5, 132, 1),  # 5 heads: no divisor in HEAD_GROUPS but 1
+    (16, 128, 132, 8),  # jamba, S=1024: 256 CTAs
+    (32, 128, 132, 16),  # jamba, S=2048: 256 CTAs, not all 128 heads in one
+    (1, 128, 132, 1),  # jamba, one chunk: 128 CTAs
 ])
 def test_heads_per_cta(n_chunks, nh, n_sm, want):
     g = ssd.heads_per_cta(n_chunks, nh, n_sm)

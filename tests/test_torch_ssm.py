@@ -58,6 +58,7 @@ def _ssd_inputs(b, S, nh, hd, ds, seed, dtype=np.float32):
     (2, 96, 4, 32, 16, 32),
     (1, 128, 1, 64, 64, 64),
     (2, 100, 3, 16, 8, 32),  # ragged: zero-padded to a chunk multiple
+    (1, 80, 16, 64, 16, 32),  # jamba's SSD widths (hd 64, ds 16), 16 heads
 ])
 def test_ssd_plain_matches_jax_kernel_and_oracle(dtype, b, S, nh, hd, ds,
                                                   chunk):
@@ -360,16 +361,3 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
     assert all(len(r.tokens) == 3 for r in out["responses"])
     assert out["engine"].exact_prefill
     assert "mamba2-130m-reduced (2 layers)" in capsys.readouterr().out
-
-
-def test_jamba_still_raises_on_its_moe():
-    """A jamba-like hybrid (SSM layers, attention every other layer, MoE
-    FFNs) raises on its MoE, which a later slice brings."""
-    from repro_torch.configs.base import MoEConfig
-
-    cfg = dataclasses.replace(
-        get_config("llama3-8b").reduced(), family="hybrid", attn_every=2,
-        attn_offset=1, ssm=get_config(ARCH).reduced().ssm,
-        moe=MoEConfig(n_experts=4, top_k=2, d_ff=64))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Model(cfg, device="cpu")

@@ -8,6 +8,7 @@ converted weights, for the bucket, packed, chunked, paged, exact-shape
 (mamba2-130m) and legacy paths and the disaggregated tier (CPU, fp32)."""
 
 import collections
+import dataclasses
 import json
 import threading
 import time
@@ -26,6 +27,8 @@ from repro.core import obs as jax_obs  # noqa: E402
 from repro.core import trace as jax_trace  # noqa: E402
 from repro.core.profiler import RequestRecord as JaxRecord  # noqa: E402
 from repro.core.transfer import TransferMode as JaxMode  # noqa: E402
+from repro.core.transport import PAPER_A2  # noqa: E402
+from repro.core.transport import TransportProfile  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.serving import DisaggregatedEngine as JaxDisagg  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
@@ -347,8 +350,6 @@ def _pair(arch):
     the JAX micro widths (llama3-8b) or reduced (mamba2-130m), fp32, one
     weight set."""
     if arch not in _PAIRS:
-        import dataclasses
-
         def cut(cfg):
             if arch != "llama3-8b":
                 return cfg.reduced()
@@ -369,6 +370,22 @@ def _pair(arch):
 LENS = [5, 17, 33, 12, 40]
 
 
+class _LongHop(TransportProfile):
+    """PAPER_A2 with a second added to every modelled handoff. The JAX tier
+    stamps a request's prefill span on the measured timeline and its
+    t_done on the modelled one, so a hop wall above the model (a loaded
+    CPU) leaves the span of a request finishing at placement outside its
+    root: a modelled hop longer than any CPU wall keeps the JAX side's
+    tree and reconcile checks deterministic."""
+
+    def handoff_time(self, transport, nbytes):
+        return 1.0 + super().handoff_time(transport, nbytes)
+
+
+LONG_HOP = _LongHop(**{f.name: getattr(PAPER_A2, f.name)
+                       for f in dataclasses.fields(PAPER_A2)})
+
+
 def _traced(side, arch, knobs, disagg=None):
     """Drain LENS (seeded prompts, 5 new tokens, one of them at 1) through
     the JAX or the port engine with tracing on: (multiset of (span name,
@@ -382,7 +399,8 @@ def _traced(side, arch, knobs, disagg=None):
     mod.enable_tracing(process="main")
     if side == "jax":
         eng = (JaxEngine(jm, jp, **kw) if disagg is None else
-               JaxDisagg(jm, jp, transfer_mode=JaxMode(disagg), **kw))
+               JaxDisagg(jm, jp, transfer_mode=JaxMode(disagg),
+                         profile=LONG_HOP, **kw))
         req_cls = JaxRequest
     else:
         eng = (ServingEngine(tm, tp, device="cpu", debug_stamps=True, **kw)
@@ -428,7 +446,10 @@ def test_engine_spans_counters_and_snapshot_match_jax(path):
     assert ts["counters"]["engine.prefill_calls"] == tc["prefill_calls"]
 
 
-@pytest.mark.parametrize("mode", ["direct_hbm", "direct_dma"])
+MODES = ["direct_hbm", "direct_dma", "host_staged"]
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_disaggregated_spans_match_jax(mode):
     got, teng, _ = _traced("port", "llama3-8b", {}, disagg=mode)
     want, _, _ = _traced("jax", "llama3-8b", {}, disagg=mode)
@@ -437,6 +458,73 @@ def test_disaggregated_spans_match_jax(mode):
     assert teng.trace_tag == "engine"
     assert teng.metrics_snapshot()["counters"]["engine.handoffs"] == \
         teng.handoffs
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_disaggregated_stamps_ordered_when_hop_wall_exceeds_model(
+        mode, monkeypatch):
+    """A hop whose measured wall is far above the modelled one (a CPU run
+    swaps the one for the other): every request keeps t_arrival <=
+    t_first_token <= t_done, the one finishing at placement too, its
+    root span holds its prefill span, and its ttft_s / total_s are JAX's
+    formula on the placement clock, read by a witness of its own: the
+    clock after the hop returns and at the request's placement bracket
+    it."""
+    from repro_torch.serving import disagg
+
+    move = disagg.xfer.move
+
+    def slow_move(*a, **k):
+        time.sleep(0.02)
+        return move(*a, **k)
+
+    monkeypatch.setattr(disagg.xfer, "move", slow_move)
+    _, _, tm, tp = _pair("llama3-8b")
+    rng = np.random.default_rng(5)
+    eng = DisaggregatedEngine(tm, tp, device="cpu", debug_stamps=True,
+                              transfer_mode=TransferMode(mode), max_batch=2,
+                              max_seq=96)
+    after_hop, at_place = {}, {}
+    hop, place = eng._handoff, eng._place
+
+    def spy_hop(art):
+        out = hop(art)
+        t = time.perf_counter()
+        for r in art.reqs:
+            after_hop.setdefault(r.request_id, t)
+        return out
+
+    def spy_place(req, slot):
+        at_place.setdefault(req.request_id, time.perf_counter())
+        return place(req, slot)
+
+    eng._handoff, eng._place = spy_hop, spy_place
+    reqs = [Request(prompt_tokens=rng.integers(0, tm.cfg.vocab_size, s,
+                                               dtype=np.int32),
+                    max_new_tokens=1 if i == 1 else 4)
+            for i, s in enumerate((7, 20, 33))]
+    trace.enable_tracing(process="main")
+    for r in reqs:
+        eng.submit(r, time.perf_counter())
+    rsps = {r.request_id: r for r in eng.run_until_drained(max_steps=10_000)}
+    tr = trace.Trace.from_buffer()
+    trace.disable_tracing()
+    recs = {r.request_id: r for r in eng.store.records}
+    assert len(rsps) == len(reqs)
+    assert tr.reconcile(eng.store.records) == []  # tree_problems included
+    for req in reqs:
+        assert req.t_arrival <= req.t_first_token <= req.t_done
+        rec, rsp = recs[req.request_id], rsps[req.request_id]
+        adj = rec.stage_s["transfer"] - rec.transfer_wall_s
+        assert adj < 0  # the wall exceeds the model: the stamp moved back
+        ingress = rec.stage_s.get("request", 0.0) + rec.stage_s.get(
+            "copy_in", 0.0)
+        lo, hi = after_hop[req.request_id], at_place[req.request_id]
+        assert lo <= req.t_first_token - adj <= hi
+        # JAX's formula: ttft_s = placed - t_arrival + ingress + adj
+        assert lo - req.t_arrival + ingress + adj - 1e-9 <= rsp.ttft_s
+        assert rsp.ttft_s <= hi - req.t_arrival + ingress + adj + 1e-9
+        assert rsp.total_s == rec.t_done - rec.t_issue
 
 
 def test_tracing_off_emits_nothing_and_keeps_tokens():
