@@ -36,7 +36,14 @@ to one card, and compares each reading only within that call:
   prefix reuse), profiled as ``chip_smoke.py`` profiles it;
 - phase 7 (``repro_torch.launch.serve`` on the 24-layer mamba2-130m):
   TTFT and TPOT p50, and the 2048-token exact prefill's device busy time
-  and the SSD kernels' share of it.
+  and the SSD kernels' share of it;
+- the absorbed-MLA decode kernel bf16 at phase 2's shape (max_batch 8,
+  2,048 latent slots, 128 heads, ``chip_smoke.MLA_LENS``), ring and paged:
+  events and device time alone;
+- phase 13's graphed decode step (deepseek-v2-236b at
+  ``chip_smoke.MLA_LAYERS`` layers, warmed, after phase 4's requests):
+  device busy time, idle share, and the MLA kernel's ms and share of the
+  busy time.
 
 A reading whose entry point a tree lacks prints as absent (null).
 
@@ -70,6 +77,57 @@ def phase7(torch, ops):
             "prefill_2048_device_busy_ms": pf["device_busy_ms"],
             "prefill_2048_ssd_ms": pf["kernel_ms"],
             "prefill_2048_ssd_share": pf["kernel_share_of_device_time"]}
+
+
+def mla(torch, ops, dev):
+    """The MLA decode kernel bf16 at phase 2's shape, ring and paged:
+    events and device time alone; None where the tree lacks it."""
+    if not hasattr(ops, "paged_mla_decode_attention"):
+        print("   MLA decode absent in this tree")
+        return None
+    (q_lat, q_rope, ckv, krope, lens), (cb, rb, table), scale = cs.mla_inputs(
+        torch, dev)
+    ring = lambda: ops.mla_decode_attention(  # noqa: E731
+        q_lat, q_rope, ckv, krope, lens, scale=scale)
+    paged = lambda: ops.paged_mla_decode_attention(  # noqa: E731
+        q_lat, q_rope, cb, rb, table, lens, scale=scale)
+    return {"ring": {"ms": cs.time_ms(torch, ring),
+                     "device_ms": cs.device_ms(torch, ring, "mla_decode")},
+            "paged": {"ms": cs.time_ms(torch, paged),
+                      "device_ms": cs.device_ms(torch, paged, "mla_decode")}}
+
+
+def phase13_step(torch, dev):
+    """Phase 13's graphed decode step: deepseek-v2-236b at MLA_LAYERS
+    layers, a warmed engine after phase 4's requests, profiled as
+    ``chip_smoke.py`` profiles it; None where the tree lacks the model."""
+    import dataclasses
+
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+        from repro_torch.serving import ServingEngine
+
+        cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                                  n_layers=cs.MLA_LAYERS)
+    except (ImportError, AttributeError, KeyError) as e:
+        print(f"   phase 13 absent in this tree: {type(e).__name__}: {e}")
+        return None
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = ServingEngine(model, params, max_batch=8, max_seq=2048, device=dev,
+                        warmup=True)
+    cs.serve_all(eng, cs.main_prompts(cfg.vocab_size), 32)
+    prof = cs.decode_profile(torch, eng, key="mla_decode")
+    busy, kernel = prof.get("device_busy_ms_per_step"), prof.get(
+        "kernel_ms_per_step")
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return {"device_busy_ms_per_step": busy,
+            "device_idle_share": prof.get("device_idle_share"),
+            "mla_decode_ms_per_step": kernel,
+            "mla_decode_share_of_busy": kernel / busy if busy and kernel
+            is not None else None}
 
 
 def flash(torch, ops, dev):
@@ -152,6 +210,7 @@ def main():
                             "device_ms": cs.device_ms(torch, ssd, "ssd_scan")}
     del x, dt, A, B, C
     out.update(flash(torch, ops, dev))
+    out["mla"] = mla(torch, ops, dev)
     print(f"   kernels: {json.dumps(out)}", flush=True)
 
     served, engine = cs.main_path(torch, ops)
@@ -181,6 +240,7 @@ def main():
     del eng, model, params
     torch.cuda.empty_cache()
     out["phase7"] = phase7(torch, ops)
+    out["phase13_step"] = phase13_step(torch, dev)
     line = json.dumps(out)
     (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
     (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)

@@ -778,12 +778,13 @@ def design_report(torch, build, ops, dev):
     warpgroup a 64-row q-tile, wgmma), ring decode at B=8, W=2048 (a
     cluster of CTAs a row) and the SSD scan (``ssd_design``). Grid, block,
     shared memory and registers as launched; registers and spills from
-    ptxas; the cluster from the launcher's split plan; HGMMA in the flash
-    and SSD libraries' SASS; registers and spills of every instantiation
-    of rmsnorm, the two decode kernels and the SSD scan. Fails when the
-    profiler records no decode launch, when the decode kernel runs one CTA
-    a row there, when one of those instantiations spills or takes stack,
-    or when cuobjdump finds no HGMMA."""
+    ptxas; the cluster from the launcher's split plan; HGMMA in the flash,
+    SSD and MLA decode libraries' SASS; registers and spills of every
+    instantiation of rmsnorm, the two decode kernels and the SSD scan; the
+    bf16 MLA decode kernel (``mla_design``). Fails when the profiler
+    records no decode launch, when the decode kernel runs one CTA a row
+    there, when one of those instantiations spills or takes stack, or when
+    cuobjdump finds no HGMMA."""
     from repro_torch.kernels import decode_attention as _dec
 
     B, H, Hkv, hd, S, W = 8, 32, 8, 128, 1024, 2048
@@ -836,13 +837,10 @@ def design_report(torch, build, ops, dev):
         out.setdefault("ptxas", {})[name] = stats
         if spilled:
             raise AssertionError(f"{name}: spills or stack in {spilled}")
-    # the MLA decode kernel (CUDA cores, fp32 accumulators): its
-    # instantiations' registers and spills, reported
-    stats = ptxas_stats(build.build_log.get("mla_decode_attention", ""))
-    out.setdefault("ptxas", {})["mla_decode_attention"] = stats
-    for fn, st in stats.items():
-        print(f"   mla_decode_attention {fn[:60]}: {st}")
-    for name in ("flash_attention", "ssd_scan"):
+    out["mla_decode_attention"] = mla_design(torch, build, ops, dev)
+    out.setdefault("ptxas", {})["mla_decode_attention"] = out[
+        "mla_decode_attention"].pop("ptxas")
+    for name in ("flash_attention", "ssd_scan", "mla_decode_attention"):
         n = hgmma_count(build._lib_path(name))
         print(f"   HGMMA instructions in the {name} library's SASS: "
               f"{'cuobjdump not found' if n is None else n}")
@@ -850,6 +848,79 @@ def design_report(torch, build, ops, dev):
             raise AssertionError(f"{name}: no HGMMA in its SASS")
         out[name]["hgmma_in_sass"] = n
     return out
+
+
+def mla_inputs(torch, dev, dtype="bf16", page=16):
+    """MLA decode inputs at phase 2's shape (max_batch 8, 2,048 latent
+    slots, MLA_HEADS heads, MLA_LENS), the pool (pages of ``page`` in a
+    shuffled order) holding the same rows, and the scale."""
+    B, W, H = 8, 2048, MLA_HEADS
+    q_lat = rand(torch, (B, 1, H, 512), dtype, dev, 24)
+    q_rope = rand(torch, (B, 1, H, 64), dtype, dev, 25)
+    ckv = rand(torch, (B, W, 512), dtype, dev, 26)
+    krope = rand(torch, (B, W, 64), dtype, dev, 27)
+    lens = torch.tensor(MLA_LENS, dtype=torch.int32, device=dev)
+    n_pages = W // page
+    perm = torch.randperm(B * n_pages, generator=torch.Generator().manual_seed(
+        23)) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32).to(dev)
+    cb = torch.zeros((B * n_pages + 1, page, 512), dtype=ckv.dtype, device=dev)
+    rb = torch.zeros((B * n_pages + 1, page, 64), dtype=ckv.dtype, device=dev)
+    cb[table.reshape(-1).long()] = ckv.reshape(B * n_pages, page, 512)
+    rb[table.reshape(-1).long()] = krope.reshape(B * n_pages, page, 64)
+    return (q_lat, q_rope, ckv, krope, lens), (cb, rb, table), 192 ** -0.5
+
+
+def mla_design(torch, build, ops, dev):
+    """The bf16 MLA decode kernel (wgmma) at phase 2's shape: its launch as
+    the profiler saw it (grid, block, shared memory, registers), the
+    launcher's cluster size and cudaOccupancyMaxActiveClusters at every
+    cluster size it can launch; the device time alone, ring and paged, at
+    each split count (1 to 8); registers and spills of every instantiation.
+    Fails on spills or stack in a bf16 (wgmma) instantiation, or when the
+    profiler records no launch."""
+    from repro_torch.kernels import mla_decode_attention as _mla
+
+    (q_lat, q_rope, ckv, krope, lens), (cb, rb, table), scale = mla_inputs(
+        torch, dev)
+    B, W, H = ckv.shape[0], ckv.shape[1], q_lat.shape[2]
+    idx = dev.index or 0
+    splits = _mla.plan(W, B, H, True, idx)
+    rec = {"shape": [B, W, H, 512, 64, MLA_LENS], "splits": splits,
+           "launch": launch_info(torch, lambda: ops.mla_decode_attention(
+               q_lat, q_rope, ckv, krope, lens, scale=scale), "mla_decode"),
+           "active_clusters": {s: _mla.max_active_clusters(s, device_index=idx)
+                               for s in (1, 2, 4, 8)}}
+    print(f"   mla_decode_attention (bf16): launch {rec['launch']}; cluster "
+          f"[{splits}, 1, 1]; max active clusters by size "
+          f"{rec['active_clusters']}")
+    if not rec["launch"].get("grid"):
+        raise AssertionError("MLA decode kernel: the profiler recorded no "
+                             "launch, so its grid was not measured")
+    rec["device_ms"] = {}
+    for s in (1, 2, 4, 8):
+        ring = lambda: _mla.launch(q_lat, q_rope, ckv, krope, lens,  # noqa: E731
+                                   scale=scale, _splits=s)
+        paged = lambda: _mla.launch_paged(  # noqa: E731
+            q_lat, q_rope, cb, rb, table, lens, scale=scale, _splits=s)
+        rec["device_ms"][f"splits={s}"] = {
+            "ring": device_ms(torch, ring, "mla_decode"),
+            "paged": device_ms(torch, paged, "mla_decode")}
+        print(f"   mla_decode_attention bf16 splits={s}: device ms alone "
+              f"{rec['device_ms'][f'splits={s}']}", flush=True)
+    stats = ptxas_stats(build.build_log.get("mla_decode_attention", ""))
+    if not stats:
+        raise AssertionError("mla_decode_attention: no ptxas report in its "
+                             "build log")
+    rec["ptxas"] = stats
+    for fn, st in stats.items():
+        print(f"   mla_decode_attention {fn[60:110]}: {st}")
+    spilled = {fn: st for fn, st in stats.items() if "wgmma" in fn and (
+        st.get("spill_stores") or st.get("spill_loads") or st.get("stack"))}
+    if spilled:
+        raise AssertionError(f"mla_decode_attention: spills or stack in the "
+                             f"bf16 body: {spilled}")
+    return rec
 
 
 def ssd_design(torch, ops, dev, shape=SSD_SHAPE):
@@ -1532,18 +1603,12 @@ def mla_cases(torch, ops, ref, dev):
         torch.cuda.empty_cache()
 
     W, page = 2048, 16
-    lens = torch.tensor(MLA_LENS, dtype=torch.int32, device=dev)
     n_pos = sum(MLA_LENS)
     n_pages = W // page
-    perm = torch.randperm(B * n_pages, generator=torch.Generator().manual_seed(
-        23)) + 1
-    table = perm.reshape(B, n_pages).to(torch.int32).to(dev)
-    splits = _mla.splits_for(W, B * H // _mla.HEAD_BLOCK, dev.index or 0)
     for dtype in ("bf16", "fp32"):
-        q_lat = rand(torch, (B, 1, H, 512), dtype, dev, 24)
-        q_rope = rand(torch, (B, 1, H, 64), dtype, dev, 25)
-        ckv = rand(torch, (B, W, 512), dtype, dev, 26)
-        krope = rand(torch, (B, W, 64), dtype, dev, 27)
+        splits = _mla.plan(W, B, H, dtype == "bf16", dev.index or 0)
+        (q_lat, q_rope, ckv, krope, lens), (cb, rb, table), _ = mla_inputs(
+            torch, dev, dtype, page)
         isz = ckv.element_size()
         nbytes = n_pos * 576 * isz + B * H * (576 + 512) * isz + B * 4
         flops = 2 * (576 + 512) * H * n_pos
@@ -1577,13 +1642,6 @@ def mla_cases(torch, ops, ref, dev):
         rec["splits"] = splits
         cases.append(rec)
 
-        cb = torch.zeros((B * n_pages + 1, page, 512), dtype=ckv.dtype,
-                         device=dev)
-        rb = torch.zeros((B * n_pages + 1, page, 64), dtype=ckv.dtype,
-                         device=dev)
-        cb[table.reshape(-1).long()] = ckv.reshape(B * n_pages, page, 512)
-        rb[table.reshape(-1).long()] = krope.reshape(B * n_pages, page, 64)
-
         def paged():
             return ops.paged_mla_decode_attention(q_lat, q_rope, cb, rb,
                                                   table, lens, scale=scale)
@@ -1602,7 +1660,9 @@ def mla_cases(torch, ops, ref, dev):
         alone(torch, rec, paged, "mla_decode")
         cases.append(rec)
         print(f"   {'':16s} paged == ring bitwise; {splits} CTAs (one "
-              "cluster) a (row, 16-head block)")
+              f"cluster) a (row, "
+              f"{_mla.WG_HEADS if dtype == 'bf16' else _mla.HEAD_BLOCK}-head "
+              "block)")
     return cases
 
 

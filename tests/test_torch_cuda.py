@@ -1482,22 +1482,30 @@ def _mla_case(B, W, H, dtype, dev, seed):
     return q_lat, q_rope, ckv, krope
 
 
+def _mla_lens(kind, W):
+    if kind == "tiles":  # on and around the 64-row tile and, at 8 splits,
+        # one tile a CTA (512) and one over (513)
+        return [63, 64, 65, 127, 128, 129, 512, 513]
+    return _decode_lens(kind, W)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("H", [16, 128])
-@pytest.mark.parametrize("kind", ["edges", "one_long"])
+@pytest.mark.parametrize("H", [16, 48, 64, 128])
+@pytest.mark.parametrize("kind", ["edges", "one_long", "tiles"])
 def test_mla_decode_kernel_ring_and_paged_match_plain(cuda_device, dtype, H,
                                                       kind):
     """The absorbed-MLA decode kernel, ring and paged (pages of 16 in a
     shuffled pool), with the launcher's split count and each forced count,
     against the plain versions; valid lengths 0 and 1, on and around the
-    32-row tile and the splits' boundaries; the paged output equals the
+    32-row (fp32) and 64-row (bf16) tiles and the splits' boundaries; H
+    covering a partial 64-head block (16, 48). The paged output equals the
     ring output on the same rows at the same split count, bitwise."""
     from repro_torch.kernels import mla_decode_attention as _mla
 
     B, W, page = 8, 1024, 16
     q_lat, q_rope, ckv, krope = _mla_case(B, W, H, dtype, cuda_device, 3)
-    lens = torch.tensor(_decode_lens(kind, W), dtype=torch.int32,
+    lens = torch.tensor(_mla_lens(kind, W), dtype=torch.int32,
                         device=cuda_device)
     scale = 192 ** -0.5
     want = ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope, lens,
@@ -1533,7 +1541,62 @@ def test_mla_decode_kernel_ring_and_paged_match_plain(cuda_device, dtype, H,
                                   scale=scale, _splits=splits)
         torch.testing.assert_close(ring.float(), want.float(),
                                    atol=TOLS[dtype], rtol=1e-2)
-        assert torch.equal(ring, paged)
+        assert torch.equal(ring, paged), splits
+        assert (ring[lens == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 12, 64, 128])
+def test_mla_decode_kernel_page_sizes(cuda_device, page):
+    """The bf16 kernel over pools of other page sizes -- whole TMA boxes of
+    a page (8), of 64 rows in a page (64, 128), and a page no box fits
+    (12: cp.async) -- against the plain version and, bitwise, the ring."""
+    from repro_torch.kernels import mla_decode_attention as _mla
+
+    B, W, H = 4, 768, 64
+    q_lat, q_rope, ckv, krope = _mla_case(B, W, H, "bf16", cuda_device, 7)
+    lens = torch.tensor([0, 65, 500, W], dtype=torch.int32,
+                        device=cuda_device)
+    n_pages = W // page
+    perm = torch.randperm(B * n_pages, generator=torch.Generator(
+        ).manual_seed(8)) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32).to(cuda_device)
+    cb = torch.zeros((B * n_pages + 1, page, 512), dtype=ckv.dtype,
+                     device=cuda_device)
+    rb = torch.zeros((B * n_pages + 1, page, 64), dtype=ckv.dtype,
+                     device=cuda_device)
+    cb[table.reshape(-1).long()] = ckv.reshape(B * n_pages, page, 512)
+    rb[table.reshape(-1).long()] = krope.reshape(B * n_pages, page, 64)
+    want = ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope, lens,
+                                        scale=0.07)
+    for splits in (1, 4):
+        ring = _mla.launch(q_lat, q_rope, ckv, krope, lens, scale=0.07,
+                           _splits=splits)
+        paged = _mla.launch_paged(q_lat, q_rope, cb, rb, table, lens,
+                                  scale=0.07, _splits=splits)
+        torch.testing.assert_close(paged.float(), want.float(),
+                                   atol=TOLS["bf16"], rtol=1e-2)
+        assert torch.equal(ring, paged), splits
+
+
+@pytest.mark.cuda
+def test_mla_decode_kernel_strided_query(cuda_device):
+    """bf16 queries read through (b, h) strides that are not 16-byte
+    multiples (a narrow view of a wider tensor): the kernel's element-wise
+    Q staging, against the plain version."""
+    B, W, H = 4, 300, 48
+    wide = _cuda_pair((B, 1, H, 512 + 64 + 3), "bf16", cuda_device, 11)
+    q_lat, q_rope = wide[..., :512], wide[..., 515:]
+    ckv = _cuda_pair((B, W, 512), "bf16", cuda_device, 12)
+    krope = _cuda_pair((B, W, 64), "bf16", cuda_device, 13)
+    lens = torch.tensor([0, 64, 190, 300], dtype=torch.int32,
+                        device=cuda_device)
+    got = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
+                                   scale=0.1)
+    want = ref.mla_decode_attention_ref(q_lat, q_rope, ckv, krope, lens,
+                                        scale=0.1)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOLS["bf16"], rtol=1e-2)
 
 
 def _mla_card_cfg():

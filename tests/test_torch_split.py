@@ -253,3 +253,106 @@ def test_split_plan_is_asked_once_per_shape(card_of):
     finally:
         torch.cuda.get_device_properties = real
     assert asked == [0]
+
+
+# --------------------------------------------------------------------------- #
+# the absorbed-MLA decode kernel's plan (csrc/mla_decode_attention.cu)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("W,B,H,bf16,n_sm,want", [
+    (2048, 8, 128, True, 132, 8),  # phase 2 and phase 13: 16 x 8 = 128 CTAs
+    (2048, 8, 128, False, 132, 8),  # fp32 there: 64 x 8 = 512 CTAs
+    (256, 4, 16, True, 132, 4),  # the card tests' MLA config: 4 tiles
+    (2048, 64, 128, True, 132, 1),  # 128 (row, head block)s fill the card
+    (2048, 32, 128, True, 132, 2),
+    (100_000, 1, 64, True, 132, 8),  # the portable cluster caps it
+])
+def test_mla_num_splits(W, B, H, bf16, n_sm, want):
+    """A power of two within [1, MAX_SPLITS]; in bf16 (one CTA an SM) the
+    grid never passes one CTA an SM once split."""
+    from repro_torch.kernels import mla_decode_attention as mla
+
+    rows = B * mla.head_blocks(H, bf16)
+    s = mla.num_splits(W, rows, n_sm, bf16)
+    assert s == want
+    assert s & (s - 1) == 0 and 1 <= s <= mla.MAX_SPLITS
+    if bf16 and s > 1:
+        assert rows * s <= n_sm
+
+
+@pytest.mark.parametrize("H,bf16,want", [
+    (16, True, 1), (48, True, 1), (64, True, 1), (128, True, 2),
+    (16, False, 1), (48, False, 3), (128, False, 8)])
+def test_mla_head_blocks(H, bf16, want):
+    """bf16: ceil(H / 64) blocks of wgmma's 64 rows (a partial one
+    zero-filled); fp32: H / 16."""
+    from repro_torch.kernels import mla_decode_attention as mla
+
+    assert mla.head_blocks(H, bf16) == want
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, "plan"])
+def test_mla_tile_shares_cover_every_valid_tile_once(bf16, splits):
+    """The kernel's share rule (``tile_shares``), at forced split counts and
+    at the launcher's count for phase 2's shape: each CTA's share is whole
+    tiles, in order; together they hold every tile with a valid row exactly
+    once, and empty shares only trail."""
+    from repro_torch.kernels import mla_decode_attention as mla
+
+    tile, W = (mla.WG_TILE if bf16 else mla.TILE), 2048
+    if splits == "plan":
+        splits = mla.num_splits(W, 8 * mla.head_blocks(128, bf16), 132, bf16)
+    assert 1 <= splits <= mla.MAX_SPLITS
+    for length in sorted({0, 1, 63, 64, 65, 127, 128, 129, 300, 512, 513,
+                          777, 1024, 1500, W - 1, W, W + 5}):
+        shares = mla.tile_shares(length, W, splits, tile)
+        assert len(shares) == splits
+        n_tiles = -(-min(length, W) // tile)
+        covered = [t for a, b in shares for t in range(a, b)]
+        assert covered == list(range(n_tiles))
+        sizes = [b - a for a, b in shares]
+        assert max(sizes) == -(-n_tiles // splits)
+        assert sizes == sorted(sizes, reverse=True)  # empties only trail
+
+
+@pytest.mark.parametrize("dtype,H", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 48),
+                                     (torch.float32, 128)])
+def test_mla_launchers_take_one_plan(monkeypatch, dtype, H):
+    """The ring and paged MLA launchers pass the same split count, the
+    plan's for a ring of n_pages * page slots, and a forced count as
+    given."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import mla_decode_attention as mla
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(multi_processor_count=132))
+    mla.splits_for.cache_clear()
+    ring, paged = _Recorder(), _Recorder()
+    monkeypatch.setattr(mla, "_RING", ring)
+    monkeypatch.setattr(mla, "_PAGED", paged)
+    B, page, n_pages = 8, 16, 128
+    W = n_pages * page
+    q_lat, q_rope = torch.zeros((B, 1, H, 512), dtype=dtype), \
+        torch.zeros((B, 1, H, 64), dtype=dtype)
+    lens = torch.zeros((B,), dtype=torch.int32)
+    try:
+        for kw in ({}, {"_splits": 3}):
+            mla.launch(q_lat, q_rope, torch.zeros((B, W, 512), dtype=dtype),
+                       torch.zeros((B, W, 64), dtype=dtype), lens, scale=1.0,
+                       **kw)
+            mla.launch_paged(q_lat, q_rope,
+                             torch.zeros((3, page, 512), dtype=dtype),
+                             torch.zeros((3, page, 64), dtype=dtype),
+                             torch.zeros((B, n_pages), dtype=torch.int32),
+                             lens, scale=1.0, **kw)
+            bf16 = dtype is torch.bfloat16
+            want = kw.get("_splits") or mla.num_splits(
+                W, B * mla.head_blocks(H, bf16), 132, bf16)
+            # (..., scale, is_bf16, splits); the paged entry takes B, the
+            # pool's blocks, n_pages and page after its 7 pointers
+            assert ring.args[-3:] == paged.args[-3:] == (1.0, bf16, want)
+            assert paged.args[7:11] == (B, 3, n_pages, page)
+    finally:
+        mla.splits_for.cache_clear()
