@@ -10,8 +10,9 @@ result line:
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every CUDA kernel from the sources in the checkout;
-2. every kernel of the serving paths (rmsnorm, flash prefill -- plain and
-   with a cached prefix --, ring decode, paged decode, the SSD scan)
+2. every kernel of the serving and training paths (rmsnorm, flash
+   prefill -- plain and with a cached prefix --, ring decode, paged
+   decode, the SSD scan, the backward kernels)
    against its plain PyTorch version on the card, at the main paths'
    shapes, in bf16 and fp32, with its time beside its bound, the plain
    version's time and one PyTorch library call's time where one computes
@@ -46,7 +47,13 @@ result line:
    heads-a-CTA sweep at 1024 and 2048 there; flash without the causal mask
    at seamless-m4t's head dims: its encoder (4 x 1024 frames) and its
    cross-attention (a 2-token prompt over 1024 frames), and the decode
-   kernel over its static cross cache (1024 rows), SDPA beside each;
+   kernel over its static cross cache (1024 rows), SDPA beside each; the
+   two backward kernels (training): flash's at phase 16's [2, 4096] (32
+   heads, 8 KV heads, 128) and at [8, 1024], causal, and rmsnorm's at
+   [8192, 4096] and [8, 4096], bf16 and fp32, against ``torch.autograd``
+   through the plain versions, two calls bitwise equal, their device time
+   alone, SDPA's and ``F.rms_norm``'s backward beside them, and no ptxas
+   spills in their bodies;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -190,7 +197,23 @@ result line:
    prompt, 32 greedy tokens; launch counts (flash 72 a prefill: encoder,
    self and cross; the decode kernel 48 a step: ring and cross), flash's
    device time in a prefill against its bound; card vs CPU at full depth,
-   fp32 within 1e-4, bf16 within 0.02.
+   fp32 within 1e-4, bf16 within 0.02;
+16. training (run last): ``repro_torch.training.train`` on llama3-8b at
+   full width cut to 8 of 32 layers (2.27B parameters, about 27 GB of
+   bf16 weights and gradients and fp32 moments), bf16 weights from seed 0,
+   ``SyntheticLM`` batches of [2, 4096] (train_4k's sequence; batch 2 of
+   256), full remat, 10 AdamW steps on the launcher's schedule (lr 1e-3,
+   1 warm-up step): every loss and grad norm finite, the last 3 losses'
+   mean under the first, launches a step exactly flash 2L, its backward
+   L, rmsnorm 4L + 1, its backward 2L + 1 and no serving kernel; step wall
+   (CUDA events), tokens/s, model FLOPs (6 N T + attention) against 989
+   TFLOP/s, peak memory; (c) the trained parameters (none requiring grad)
+   serve 4 of phase 4's prompts through ServingEngine with its launch
+   structure; one more step profiled (weight GEMMs, flash forward and
+   backward, rmsnorm by kernel name; idle share) and cross-entropy, the
+   embedding's backward and the AdamW update timed alone; (b) card vs
+   CPU in fp32 on 2 layers and one [1, 512] batch: the loss within 1e-5,
+   every gradient leaf within 1e-4 of its largest entry.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -201,6 +224,7 @@ chiprun_out/chip_smoke.json.
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -364,6 +388,34 @@ FP32_LOGIT_LIMIT = 1e-4  # card vs CPU in fp32, of the largest logit
 SEAMLESS_BATCHES = ((4, 512), (4, 1024))
 SEAMLESS_PROMPT = 2
 SEAMLESS_NEW = 32
+# phase 2's backward cases: flash at phase 16's training shape and the
+# [8, 1024] bucket (H 32, Hkv 8, hd 128, causal), rmsnorm at phase 16's rows
+# (B * S = 8192 of d_model 4096) and a decode-sized [8, 4096]
+FLASH_BWD_SHAPES = ((2, 4096), (8, 1024))
+RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096))
+# gradients, each held on its own: |kernel - plain| <= atol * (its largest
+# |plain|) + rtol * |plain| elementwise, and |kernel - plain| <= ntol *
+# |plain| in the 2-norm over the whole gradient (zeroed rows or dropped key
+# tiles move it by 0.2-0.4, rounding by under 0.003); a gradient that is 0
+# in exact arithmetic (dq where every row sees one key) takes its case's
+# largest entry and norm instead. fp32 differs by summation order only,
+# bf16 also by the kernel rounding P and dS to bf16 for its products and
+# reading the bf16-rounded output O for D = rowsum(dO o O)
+BWD_TOLS = {"bf16": (1e-2, 1e-2, 1e-2), "fp32": (1e-5, 1e-4, 1e-5)}
+# phase 16: llama3-8b at full width cut to 8 of 32 layers (2.27B parameters,
+# about 27 GB of training state at 12 bytes a parameter; the 32-layer
+# model's 90 GB needs the sharding of several cards), train_4k's sequence at
+# batch 2 (of 256), 10 AdamW steps on the launcher's schedule
+TRAIN_LAYERS = 8
+TRAIN_BATCH = (2, 4096)
+TRAIN_STEPS = 10
+# (b): card vs CPU, fp32, 2 layers, one [1, 512] batch: the loss within
+# TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_TOL of its largest
+# entry (the kernels and the CPU's plain versions sum in different orders;
+# the embedding's gradient is summed with atomics on the card)
+TRAIN_CHECK = dict(layers=2, batch=(1, 512))
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
 SSM_ARGV = ["--arch", "mamba2-130m", "--max-batch", "8", "--max-seq", "2048",
             "--clients", "12", "--requests", "1", "--prompt-len", "64:2048",
             "--new-tokens", "32", "--transport", "gdr"]
@@ -545,6 +597,14 @@ def main():
     results["encdec"]["same_weights"] = encdec_card_vs_cpu(torch, dev)
     done(t0)
 
+    t0 = phase(f"phase 16: training llama3-8b at full width, {TRAIN_LAYERS} "
+               f"of 32 layers, through the backward kernels")
+    print(f"   device memory held before loading: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    results["train"] = train_path(torch, ops, dev)
+    results["train"]["same_weights"] = train_card_vs_cpu(torch, ops, dev)
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
@@ -552,7 +612,9 @@ def main():
     runs = {"paged_decode_attention": results["paged_path"]["runs"]["reuse"],
             "ssd_scan": results["ssm_path"],
             "preprocess": results["kernels"]["preprocess_path"],
-            "mla_decode_attention": results["mla"]["bucketed"]}
+            "mla_decode_attention": results["mla"]["bucketed"],
+            "flash_attention_bwd": results["train"],
+            "rmsnorm_bwd": results["train"]}
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
@@ -570,6 +632,8 @@ def main():
         "deepseek": results["mla"]["launches"],
         "deepseek_paged": results["mla"]["launches_paged"]}
     results["phase14_launches"] = {"jamba": results["hybrid"]["launches"]}
+    results["phase16_launches"] = {"train": results["train"]["launches"],
+                                   "serve": results["train"]["serve"]["launches"]}
     results["phase15_launches"] = {
         k: {"prefill": v["prefill_launches"],
             "decode_step": v["decode_launches_a_step"]}
@@ -667,6 +731,14 @@ def case_record(torch, name, dtype, shape, got, want, t_kernel, t_plain,
                 t_lib, nbytes, flops, tols=TOLS, rtol=RTOL, flop_dtype=None):
     err = compare(torch, got, want, dtype, f"{name} {dtype} {shape}", tols,
                   rtol)
+    return err_record(name, dtype, shape, err, t_kernel, t_plain, t_lib,
+                      nbytes, flops, flop_dtype)
+
+
+def err_record(name, dtype, shape, err, t_kernel, t_plain, t_lib, nbytes,
+               flops, flop_dtype=None):
+    """A case's record and printed line from its error against the plain
+    version and its times."""
     b_ms, b_by = bound(nbytes, flops, flop_dtype or dtype)
     rec = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
@@ -1140,6 +1212,7 @@ def check_kernels(torch, ops, dev):
     cases += encdec_attention_cases(torch, ops, ref, dev)
     pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
     cases += pp_cases
+    cases += backward_cases(torch, ref, dev)
 
     # the line's entry per kernel: bf16 (the serving dtype) at the shape the
     # main path launches most (decode for rmsnorm, the 1024 bucket for flash)
@@ -1150,7 +1223,9 @@ def check_kernels(torch, ops, dev):
             "ssd_scan": [1, 1024, SSD_SHAPE["nh"], SSD_SHAPE["hd"],
                          SSD_SHAPE["ds"]],
             "preprocess": list(PP_FRAMES),
-            "mla_decode_attention": [B, 2048, MLA_HEADS, 512, 64, MLA_LENS]}
+            "mla_decode_attention": [B, 2048, MLA_HEADS, 512, 64, MLA_LENS],
+            "flash_attention_bwd": [*TRAIN_BATCH, H, Hkv, hd, "causal"],
+            "rmsnorm_bwd": [TRAIN_BATCH[0] * TRAIN_BATCH[1], 4096]}
     meta = {
         "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -1169,6 +1244,12 @@ def check_kernels(torch, ops, dev):
         "mla_decode_attention": (
             "cuda", "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
             "src/repro/models/mla.py:111"),
+        # no Pallas backward: JAX differentiates its jnp attention and norm
+        "flash_attention_bwd": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/models/attention.py:71"),
+        "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/models/layers.py:19"),
     }
     summary = []
     for name, shape in pick.items():
@@ -1277,6 +1358,172 @@ def packed_flash_case(torch, ops, ref, dev, cases):
     del got, want, block, qt, kt, vt
     torch.cuda.empty_cache()
     return rec
+
+
+def grad_errs(torch, gots, wants, dtype, what, names):
+    """Hold each gradient of one case against its plain version under
+    BWD_TOLS, failing past them. Returns (the case's max |kernel - plain|,
+    {name: [the largest share of the elementwise limit, the relative norm
+    error]})."""
+    atol, rtol, ntol = BWD_TOLS[dtype]
+    wants = [w.float() for w in wants]
+    top = max(float(w.abs().max()) for w in wants)
+    top_norm = max(float(w.norm()) for w in wants)
+    worst, shares = 0.0, {}
+    for n, got, want in zip(names, gots, wants):
+        got = got.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what} {n}: kernel gradient not finite")
+        err = (got - want).abs()
+        lim = atol * (float(want.abs().max()) or top) + rtol * want.abs()
+        share = float((err / lim.clamp_min(1e-30)).max())
+        rel = float(err.norm()) / (float(want.norm()) or top_norm)
+        if share > 1 or rel > ntol:
+            raise AssertionError(
+                f"{what} {n}: {int((err > lim).sum())} elements beyond atol "
+                f"{atol} x max|plain| rtol {rtol} (max err "
+                f"{float(err.max()):.3e}, {share:.3f} of the limit); norm "
+                f"error {rel:.3e} of the plain norm against {ntol}")
+        worst = max(worst, float(err.max()))
+        shares[n] = [share, rel]
+    return worst, shares
+
+
+def backward_cases(torch, ref, dev):
+    """The two backward kernels against their plain versions (autograd
+    through ``kernels/ref.py``) at phase 16's shapes and beside them, bf16
+    and fp32, called as the training path calls them: ``torch.autograd.grad``
+    through ``ops.flash_attention`` and ``ops.rmsnorm`` on tensors that
+    require grad, so the autograd Functions' forward (flash saving its
+    log-sum-exp), their argument handling and launch counts are held too.
+    Also: two calls bitwise equal, the time of the backward (CUDA events)
+    and of its kernels alone (torch.profiler), the bound, and one library
+    call's backward as the yardstick (SDPA's, ``F.rms_norm``'s)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build, ops
+
+    cases = []
+    H, Hkv, hd = 32, 8, 128
+    for dtype in ("bf16", "fp32"):
+        for B, S in FLASH_BWD_SHAPES:
+            q, do = (rand(torch, (B, S, H, hd), dtype, dev, sd)
+                     for sd in (12, 15))
+            k, v = (rand(torch, (B, S, Hkv, hd), dtype, dev, sd)
+                    for sd in (13, 14))
+            shape = [B, S, H, Hkv, hd, "causal"]
+            what = f"flash_attention_bwd {dtype} {shape}"
+            qkv = [t.requires_grad_(True) for t in (q, k, v)]
+            o = ops.flash_attention(*qkv, causal=True)
+            if type(o.grad_fn).__name__ != "_FlashFnBackward":
+                raise AssertionError(f"{what}: the forward ran outside the "
+                                     f"autograd Function ({o.grad_fn})")
+            with torch.no_grad():
+                compare(torch, o, ref.flash_attention_ref(q, k, v, causal=True),
+                        dtype, f"{what} forward (lse written)")
+            run = lambda: torch.autograd.grad(  # noqa: E731
+                o, qkv, do, retain_graph=True)
+            n0 = ops.LAUNCHES["flash_attention_bwd"]
+            got, again = run(), run()
+            if ops.LAUNCHES["flash_attention_bwd"] - n0 != 2:
+                raise AssertionError(f"{what}: two backward calls counted "
+                                     f"{ops.LAUNCHES['flash_attention_bwd'] - n0}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            want = ref.flash_attention_bwd_ref(q, k, v, do, causal=True)
+            err, shares = grad_errs(torch, got, want, dtype, what,
+                                    ("dq", "dk", "dv"))
+            del got, again, want
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_(True) for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_fn = None
+            try:
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True)
+                lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+                    out, (qt, kt, vt), dot, retain_graph=True)
+            except (TypeError, RuntimeError) as e:
+                print(f"   (library call unavailable: {e})")
+            t_lib = None if lib_fn is None else library_ms(torch, lib_fn,
+                                                           reps=5, warmup=1)
+            pairs = S * (S + 1) // 2 * B * H
+            isz = q.element_size()
+            nbytes = (4 * B * S * H * hd + 4 * B * S * Hkv * hd) * isz \
+                + 4 * B * H * S
+            rec = err_record(
+                "flash_attention_bwd", dtype, shape, err,
+                time_ms(torch, run, reps=5, warmup=2),
+                time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, do, causal=True), reps=3, warmup=1),
+                t_lib, nbytes, 10 * hd * pairs)
+            rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
+            rec["library_device_ms"] = (None if t_lib is None else
+                                        device_ms(torch, lib_fn, "", reps=5))
+            rec["bitwise_repeat"] = True
+            rec["limit_shares"] = shares
+            print(f"   {'':16s} share of the elementwise limit, norm error: "
+                  f"{shares}", flush=True)
+            print(f"   {'':16s} device time alone (torch.profiler): kernels "
+                  f"{rec['device_ms']} ms, SDPA's backward "
+                  f"{rec['library_device_ms']} ms", flush=True)
+            cases.append(rec)
+            del q, k, v, do, o, qkv, qt, kt, vt, dot, lib_fn, run
+            if t_lib is not None:
+                del out
+            torch.cuda.empty_cache()
+        for N, D in RMSNORM_BWD_SHAPES:
+            x, dy = (rand(torch, (N, D), dtype, dev, sd) for sd in (16, 18))
+            w = rand(torch, (D,), dtype, dev, 17)
+            what = f"rmsnorm_bwd {dtype} [{N}, {D}]"
+            xw = [t.requires_grad_(True) for t in (x, w)]
+            y = ops.rmsnorm(*xw, eps=1e-5)
+            if type(y.grad_fn).__name__ != "_RmsnormFnBackward":
+                raise AssertionError(f"{what}: the forward ran outside the "
+                                     f"autograd Function ({y.grad_fn})")
+            run = lambda: torch.autograd.grad(  # noqa: E731
+                y, xw, dy, retain_graph=True)
+            n0 = ops.LAUNCHES["rmsnorm_bwd"]
+            got, again = run(), run()
+            if ops.LAUNCHES["rmsnorm_bwd"] - n0 != 2:
+                raise AssertionError(f"{what}: two backward calls counted "
+                                     f"{ops.LAUNCHES['rmsnorm_bwd'] - n0}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            want = ref.rmsnorm_bwd_ref(x, w, dy)
+            err, shares = grad_errs(torch, got, want, dtype, what,
+                                    ("dx", "dw"))
+            xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+            out = F.rms_norm(xr, (D,), wr, 1e-5)
+            lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+                out, (xr, wr), dy, retain_graph=True)
+            isz = x.element_size()
+            rec = err_record(
+                "rmsnorm_bwd", dtype, [N, D], err,
+                time_ms(torch, run), time_ms(torch, lambda: ref.rmsnorm_bwd_ref(
+                    x, w, dy)), library_ms(torch, lib_fn),
+                (3 * N * D + 2 * D) * isz, 10 * N * D)
+            rec["device_ms"] = device_ms(torch, run, "rmsnorm_")
+            rec["library_device_ms"] = device_ms(torch, lib_fn, "")
+            rec["bitwise_repeat"] = True
+            rec["limit_shares"] = shares
+            print(f"   {'':16s} share of the elementwise limit, norm error: "
+                  f"{shares}", flush=True)
+            print(f"   {'':16s} device time alone (torch.profiler): kernels "
+                  f"{rec['device_ms']} ms, F.rms_norm's backward "
+                  f"{rec['library_device_ms']} ms", flush=True)
+            cases.append(rec)
+
+    # ptxas: no spills or stack in the backward bodies
+    for src, keys in (("flash_attention_bwd", ("flash_bwd",)),
+                      ("rmsnorm", ("rmsnorm_bwd", "rmsnorm_dw"))):
+        for fn, st in ptxas_stats(build.build_log.get(src, "")).items():
+            if not matches(keys, fn):
+                continue
+            print(f"   ptxas {fn[:70]}: {st}")
+            if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
+                raise AssertionError(f"{fn}: spills or stack {st}")
+    return cases
 
 
 def encdec_attention_cases(torch, ops, ref, dev):
@@ -2030,7 +2277,8 @@ def same_weights_ssm(torch, ops, dev):
         want = {"rmsnorm": 2 * SSM_LAYERS + 1, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd_scan": SSM_LAYERS, "preprocess": 0,
-                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
         if launches != want:
             raise AssertionError(f"mamba2 prefill launches {launches} != {want}")
         t0 = time.perf_counter()
@@ -2081,7 +2329,8 @@ def main_path(torch, ops):
             "flash_attention": N_LAYERS * c["prefill_calls"],
             "decode_attention": N_LAYERS * c["decode_steps"],
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
     if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
@@ -2583,7 +2832,8 @@ def paged_path(torch, ops, ring_engine):
                 "flash_attention": N_LAYERS * c["prefill_calls"],
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd_scan": 0, "preprocess": 0,
-                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
         want[decode] = N_LAYERS * c["decode_steps"]
         if launches != want:
             raise AssertionError(f"({name}) launch counts {launches} != path "
@@ -2704,7 +2954,8 @@ def ssm_path(torch, ops):
     want = {"rmsnorm": (2 * SSM_LAYERS + 1) * forwards, "flash_attention": 0,
             "decode_attention": 0, "paged_decode_attention": 0,
             "ssd_scan": SSM_LAYERS * c["prefill_calls"], "preprocess": 0,
-            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     print(f"   prompts {prompt_lens}; counters {c}; launches {launches}; "
           f"expected {want}")
     if launches != want or launches["ssd_scan"] == 0:
@@ -2807,7 +3058,8 @@ def structure(c, layers, decode="decode_attention", ssm=False,
                                                    + c["decode_steps"]),
             "flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     if ssm:
         want["ssd_scan"] = layers * c["prefill_calls"]
     else:
@@ -3095,7 +3347,8 @@ def graph_path(torch, ops, llama, shared, ssm_engine):
                 "flash_attention": L * n,
                 "decode_attention": L * d["decode_steps"],
                 "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-                "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+                "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
     for way, kw in (("eager", dict(_graph=False)), ("graph", {}),
                     ("legacy", dict(legacy=True))):
@@ -4695,6 +4948,288 @@ def mla_legacy_fp32(torch, ops, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: training
+# --------------------------------------------------------------------------- #
+STEP_PARTS = (  # kernel-name keys of a profiled training step's parts
+    ("flash_attention_fwd", ("flash_wgmma_kernel", "flash_fwd_kernel")),
+    ("flash_attention_bwd", ("flash_bwd",)),
+    ("rmsnorm", ("rmsnorm",)),
+    ("weight_gemms", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "Kernel2")),
+)
+
+
+def train_structure(L, steps):
+    """Launches of ``steps`` training steps of an L-layer dense stack under
+    full remat: every layer's forward runs twice (the pass, then its
+    recompute in the backward), the final norm once."""
+    return {"rmsnorm": (4 * L + 1) * steps, "flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
+            "rmsnorm_bwd": (2 * L + 1) * steps, "decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+
+
+def train_path(torch, ops, dev):
+    """(a) ``repro_torch.training.train``: TRAIN_STEPS AdamW steps of
+    llama3-8b at full width, TRAIN_LAYERS of 32 layers, ``SyntheticLM``
+    batches of TRAIN_BATCH, full remat; (c) the trained parameters served;
+    then one more step profiled, and the parts torch.profiler cannot name
+    (cross-entropy, the embedding's backward, the optimizer) timed alone."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import STATE_BYTES_PER_PARAM, param_count
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
+    from repro_torch.training.data import make_dataset
+
+    L, (B, S) = TRAIN_LAYERS, TRAIN_BATCH
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=L)
+    model = Model(cfg, remat=True, remat_policy="full")
+    n_params = param_count(model)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                      seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                      total_steps=TRAIN_STEPS)
+    print(f"   llama3-8b, {L} of 32 layers at full width: {n_params:,} "
+          f"parameters, training state {STATE_BYTES_PER_PARAM * n_params / 1e9:.1f} "
+          f"GB; batch [{B}, {S}], remat full, {TRAIN_STEPS} steps", flush=True)
+    t0 = time.perf_counter()
+    next(make_dataset(data).batches())
+    data_ms = (time.perf_counter() - t0) * 1e3
+
+    events = []
+
+    def log(msg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        print(f"   {msg}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, state, hist = train(model, data, TrainConfig(
+        steps=TRAIN_STEPS, log_every=1, seed=0), opt, log_fn=log)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    marks = [start] + events
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"training: a loss or grad norm not finite: "
+                             f"{losses} {norms}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"training: the loss did not fall: {losses}")
+    want = train_structure(L, TRAIN_STEPS)
+    print(f"   launches {launches}; expected {want}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    steady = statistics.median(step_ms[1:])
+    T = B * S
+    attn_flops = 12 * cfg.head_dim * (S * (S + 1) // 2) * B * cfg.n_heads * L
+    model_flops = 6 * n_params * T + attn_flops
+    res = {"layers": L, "batch": [B, S], "params": n_params,
+           "losses": losses, "grad_norms": norms, "launches": launches,
+           "step_ms": step_ms, "step_ms_median_after_first": steady,
+           "tokens_per_s": T / steady * 1e3, "model_flops": model_flops,
+           "mfu": model_flops / (steady / 1e3) / PEAK_FLOPS["bf16"],
+           "peak_mem_gb": peak / 1e9, "data_batch_host_ms": data_ms}
+    print(f"   step wall (CUDA events) first {step_ms[0]:.1f} ms, median of "
+          f"the rest {steady:.1f} ms; {res['tokens_per_s']:.0f} tokens/s; "
+          f"model FLOPs {model_flops / 1e12:.2f} T a step (6 N T + "
+          f"attention), {res['mfu']:.3f} of 989 TFLOP/s; peak device memory "
+          f"{peak / 1e9:.2f} GB; one batch of the data pipeline "
+          f"{data_ms:.0f} ms of host time", flush=True)
+
+    if any(p.requires_grad for p in tree_leaves(params)):
+        raise AssertionError("train returned parameters that require grad")
+    res["serve"] = train_serve(torch, ops, model, params)
+    res["profile"] = train_step_profile(torch, model, params, state, data, opt)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_serve(torch, ops, model, params):
+    """(c) the trained parameters served: 4 of phase 4's prompts, 8 new
+    tokens each, through ServingEngine; its launches follow the serving
+    path (no backward kernel)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    L = model.cfg.n_layers
+    eng = ServingEngine(model, params, max_batch=4, max_seq=2048,
+                        device=model.device)
+    ops.reset_launches()
+    for p in main_prompts(model.cfg.vocab_size)[:4]:
+        eng.submit(Request(prompt_tokens=p, max_new_tokens=8))
+    out = eng.run_until_drained()
+    launches = dict(ops.LAUNCHES)
+    c = eng.counters()
+    if len(out) != 4 or any(len(r.tokens) != 8 for r in out):
+        raise AssertionError(f"trained params served {[len(r.tokens) for r in out]}")
+    if not eng.logits_all_finite():
+        raise AssertionError("trained params: a logit was not finite")
+    forwards = c["prefill_calls"] + c["decode_steps"]
+    want = {**train_structure(L, 0),
+            "rmsnorm": (2 * L + 1) * forwards,
+            "flash_attention": L * c["prefill_calls"],
+            "decode_attention": L * c["decode_steps"]}
+    print(f"   (c) served 4 requests x 8 tokens on the trained parameters: "
+          f"counters {c}; launches {launches}", flush=True)
+    if launches != want or not c["decode_steps"]:
+        raise AssertionError(f"serving launches {launches} != {want}")
+    del eng
+    return {"counters": c, "launches": launches,
+            "tokens": [r.tokens for r in out]}
+
+
+def train_step_profile(torch, model, params, state, data, opt):
+    """One more training step under torch.profiler (device busy by part,
+    idle share of the step's wall), and cross-entropy, the embedding's
+    backward and the optimizer's update each timed alone (CUDA events)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.models.schema import tree_map
+    from repro_torch.training.data import make_dataset
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.steps import make_train_step
+
+    dev = model.device
+    p = tree_map(lambda t: t.detach(), params)  # own leaf objects
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in next(make_dataset(data).batches()).items()}
+    step = make_train_step(model, opt)
+    p, state, _ = step(p, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        p, state, _ = step(p, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        kernels.append((us / 1e3, evt.key, evt.count))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    parts, left = {}, list(kernels)
+    for part, keys in STEP_PARTS:
+        parts[part] = sum(k[0] for k in left if matches(keys, k[1]))
+        left = [k for k in left if not matches(keys, k[1])]
+    parts["other"] = sum(k[0] for k in left)
+
+    B, S = batch["tokens"].shape
+    logits = torch.randn((B, S, params["embed"].shape[0]), device=dev,
+                         dtype=model.dtype).requires_grad_(True)
+    labels = batch["labels"]
+    alone = {"cross_entropy_fwd_bwd": time_ms(torch, lambda: torch.autograd.grad(
+        cross_entropy(logits, labels), logits), reps=5, warmup=1)}
+    del logits
+    table = params["embed"].detach().clone().requires_grad_(True)
+    emb = F.embedding(batch["tokens"], table)
+    g = torch.randn_like(emb)
+    alone["embedding_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        emb, table, g, retain_graph=True), reps=5, warmup=1)
+    del emb, g, table
+    zeros = tree_map(torch.zeros_like, p)
+    alone["adamw_update"] = time_ms(torch, lambda: adamw_update(
+        opt, zeros, state, p), reps=3, warmup=1)
+    del zeros, p
+    res = {"host_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / wall_ms if busy else None,
+           "parts_ms": parts, "alone_ms": alone,
+           "top": [{"ms": ms, "name": n[:80], "calls": c}
+                   for ms, n, c in kernels[:12]]}
+    if busy:
+        print(f"   profiled step: host wall {wall_ms:.1f} ms, device busy "
+              f"{busy:.1f} ms over {sum(k[2] for k in kernels)} kernels, idle "
+              f"share {res['device_idle_share']:.3f}; by kernel name (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+        for k in res["top"]:
+            print(f"   {k['ms']:9.3f} ms  x{k['calls']:<5d} {k['name']}")
+    else:
+        print(f"   profiled step: host wall {wall_ms:.1f} ms; the profiler "
+              "reported no device time: busy and idle not measured")
+    print(f"   alone (CUDA events, ms): cross-entropy forward + backward over "
+          f"[{B}, {S}, {params['embed'].shape[0]}] {alone['cross_entropy_fwd_bwd']:.2f}, "
+          f"the embedding's backward {alone['embedding_bwd']:.2f}, the AdamW "
+          f"update {alone['adamw_update']:.2f}", flush=True)
+    return res
+
+
+def train_card_vs_cpu(torch, ops, dev):
+    """(b) The same weights on card and CPU, fp32: llama3-8b at full width
+    cut to TRAIN_CHECK's layers, one batch; the loss and every leaf's
+    gradient, the card through the forward and backward kernels, the CPU
+    through the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.training.data import DataConfig, make_dataset
+
+    L, (B, S) = TRAIN_CHECK["layers"], TRAIN_CHECK["batch"]
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=L)
+    gpu = Model(cfg, dtype=torch.float32, device=dev, remat=True)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu", remat=True)
+    params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    batch = next(make_dataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=0)).batches())
+
+    def grads(model, tree):
+        leaves = tree_leaves(tree)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss(tree, {k: torch.as_tensor(v, device=model.device)
+                                 for k, v in batch.items()})
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    ops.reset_launches()
+    lg, gg = grads(gpu, params)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches != train_structure(L, 1):
+        raise AssertionError(f"card vs CPU launches {launches}")
+    t0 = time.perf_counter()
+    lc, gc_ = grads(cpu, params_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(gg, gc_))
+    print(f"   (b) card vs CPU, fp32, {L} layers, [{B}, {S}]: loss {lg:.6f} / "
+          f"{lc:.6f} (relative {loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); worst "
+          f"gradient leaf {worst:.2e} of its largest entry over "
+          f"{len(gg)} leaves (limit {TRAIN_GRAD_TOL}); CPU pass {cpu_s:.1f} s",
+          flush=True)
+    if loss_rel > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError("card vs CPU training gradients apart")
+    del gpu, cpu, params, params_cpu, gg, gc_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_card": lg, "loss_cpu": lc, "loss_rel": loss_rel,
+            "worst_leaf_rel": worst, "launches": launches, "cpu_s": cpu_s}
 
 
 if __name__ == "__main__":

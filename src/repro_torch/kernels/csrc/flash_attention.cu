@@ -71,6 +71,11 @@
 // 128); the fp32 body scores 192-wide K rows and sums 128-wide V rows.
 // Shared memory at (192, 128), bf16: 105.5 KiB a CTA, still 2 CTAs an SM.
 //
+// Training: given a non-null lse, both bodies also write each row's
+// log-sum-exp of its scaled scores (fp32 [B, H, Sq], natural units, +inf
+// for a row that sees no key), from which flash_attention_bwd.cu recomputes
+// P; a serving launch passes null and writes nothing more.
+//
 // fp32: the CUDA-core body (flash_fwd_kernel). wgmma takes fp32 inputs only
 // as TF32, which keeps about three decimal digits; the fp32 path is held to
 // 2e-5 of the plain version, so it stays on fp32 FMAs: 8 warps of 8 query
@@ -84,7 +89,15 @@
 namespace {
 
 constexpr int BQ = 64;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int FLASH_WARPS = 8;
+
+// A row's log-sum-exp of its scaled scores, from its running max m and sum
+// l in natural units: +inf for a row that saw no key, so that the
+// backward's exp(s * scale - lse) is 0 there.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
 constexpr int FLASH_THREADS = FLASH_WARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / FLASH_WARPS;
 
@@ -97,7 +110,7 @@ constexpr size_t flash_smem_bytes() {
 template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(FLASH_THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, const int* __restrict__ q_seg,
+                 T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ q_seg,
                  const int* __restrict__ k_seg, const int* __restrict__ seg_start,
                  const T* __restrict__ pk,
                  const T* __restrict__ pv, const int* __restrict__ prior_valid, int Sq,
@@ -203,6 +216,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qpos = q0 + row0 + r;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(st.l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * H + h) * Sq + qpos] = row_lse(st.m[r], st.l[r]);
     T* orow = o + (((long long)b * Sq + qpos) * H + h) * HDV;
 #pragma unroll
     for (int i = 0; i < HDV / 32; ++i) orow[lane + 32 * i] = from_f32<T>(st.acc[r][i] * inv);
@@ -256,7 +271,8 @@ template <int HD, int HDV, bool SEG>
 __global__ void __launch_bounds__(WG_THREADS, 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                   const int* __restrict__ q_seg, const int* __restrict__ k_seg,
+                   float* __restrict__ lse, const int* __restrict__ q_seg,
+                   const int* __restrict__ k_seg,
                    const int* __restrict__ seg_start, const __nv_bfloat16* __restrict__ pk,
                    const __nv_bfloat16* __restrict__ pv,
                    const int* __restrict__ prior_valid, int Sq, int Skv, int Pp, int H, int G,
@@ -521,6 +537,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     // rows at or past sq_real see no key: zeros, as a fully masked row
     const bool live = qpos < sq_real;
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * H + h) * Sq + qpos] =
+          live ? row_lse(m_run[r] * LN2, l_run[r]) : __int_as_float(0x7f800000);
     __nv_bfloat16* orow = o + (((long long)b * Sq + qpos) * H + h) * HDV;
 #pragma unroll
     for (int n = 0; n < Tv::NPV; ++n)
@@ -536,7 +555,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 }
 
 template <int HD, int HDV>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, const void* q_seg,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                 const void* q_seg,
                  const void* k_seg, const void* seg_start, const void* pk, const void* pv,
                  const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
                  long long sqb, long long sqs, long long sqh, long long skb, long long sks,
@@ -554,7 +574,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
   const int nqt = (Sq + WG_BQ - 1) / WG_BQ;
   kernel<<<nqt * H * B, WG_THREADS, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<bf*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
+      static_cast<bf*>(o), static_cast<float*>(lse), static_cast<const int*>(q_seg),
+      static_cast<const int*>(k_seg),
       static_cast<const int*>(seg_start), static_cast<const bf*>(pk), static_cast<const bf*>(pv),
       static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
       skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
@@ -563,7 +584,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const voi
 }
 
 template <typename T, int HD, int HDV>
-int launch(const void* q, const void* k, const void* v, void* o, const void* q_seg,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* q_seg,
            const void* k_seg, const void* seg_start, const void* pk, const void* pv,
            const void* prior_valid, int B, int Sq, int Skv, int Pp, int H, int Hkv,
            long long sqb, long long sqs, long long sqh, long long skb, long long sks,
@@ -578,7 +599,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, FLASH_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<const int*>(q_seg), static_cast<const int*>(k_seg),
+      static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(q_seg),
+      static_cast<const int*>(k_seg),
       static_cast<const int*>(seg_start), static_cast<const T*>(pk), static_cast<const T*>(pv),
       static_cast<const int*>(prior_valid), Sq, Skv, Pp, H, H / Hkv, sqb, sqs, sqh, skb, sks,
       skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window, sq_real,
@@ -588,6 +610,10 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
 
 }  // namespace
 
+// lse: contiguous fp32 [B, H, Sq], each row's log-sum-exp of its scaled
+// scores (+inf where the row sees no key), or null: written only when
+// given (a training forward keeps it for csrc/flash_attention_bwd.cu; a
+// serving launch passes null and writes nothing more than before).
 // q: [B, Sq, H, hd], k: [B, Skv, Hkv, hd], v: [B, Skv, Hkv, hdv] and pk/pv:
 // [B, Pp, Hkv, hd] addressed through the given element strides (last dim
 // contiguous); o: contiguous [B, Sq, H, hdv]. hdv == hd in {32, 64, 128},
@@ -599,7 +625,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* q_s
 // no prior (pk / pv are then not read). Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const void* q_seg, const void* k_seg,
+                                   void* lse, const void* q_seg, const void* k_seg,
                                    const void* seg_start, const void* pk,
                                    const void* pv, const void* prior_valid, int B, int Sq,
                                    int Skv, int Pp, int H, int Hkv, int hd, int hdv,
@@ -611,7 +637,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int skv_real, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS                                                                           \
-  q, k, v, o, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq, Skv, Pp, H, Hkv, sqb, sqs, \
+  q, k, v, o, lse, q_seg, k_seg, seg_start, pk, pv, prior_valid, B, Sq, Skv, Pp, H, Hkv, sqb, sqs, \
       sqh, skb, sks, skh, svb, svs, svh, spkb, spks, spkh, spvb, spvs, spvh, causal, window,  \
       sq_real, skv_real, scale, s
   if (hdv != hd) {

@@ -45,6 +45,23 @@
 //   4096 fp32 elements) runs the persistent kernel, which walks it in
 //   chunks: the first stays in registers, the rest are read a second time
 //   for the output, their w with them.
+//
+// Backward (rmsnorm_bwd, new: the JAX package differentiates its jnp
+// rmsnorm, models/layers.py:19, and the Pallas kernel has no VJP). Given x,
+// w and dy it recomputes each row's r = rsqrt(mean(x^2) + eps) from x (the
+// forward keeps nothing) and writes, in the plain version's autograd
+// rounding order (kernels/ref.py rmsnorm_ref):
+//   g  = dy * w rounded to x's dtype, t = x * r (fp32),
+//   dx = r * (g - t * mean(g * t)), rounded to x's dtype;
+//   dw = sum over rows of dy * y^, y^ = x * r rounded to x's dtype, summed
+//        in fp32 and rounded to w's dtype.
+// What bounds it: bytes (x and dy read, dx written; dw is one row). A
+// persistent grid of CTAs walks the rows (rmsnorm_bwd_kernel); a thread
+// holds its columns' w and its dw partial sums in registers, one reduction
+// through shared memory gives a row's sum x^2 and sum g x together. Each
+// CTA writes its dw partial row to an fp32 scratch [CTAs, D] and a second
+// launch (rmsnorm_dw_kernel) sums the rows of it in order: no atomics, so
+// two calls give the same bits. D up to 8192.
 #include <stdint.h>
 
 #include <type_traits>
@@ -325,7 +342,153 @@ int launch_x(const void* x, const void* w, void* o, int N, int D, float eps,
   return launch<TX, TW, 1, V_ONE>(x, w, o, N, D, eps, s);
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+constexpr int BWD_THREADS_MAX = 256;
+constexpr int BWD_ELEMS = 32;  // elements of a row a thread holds at most
+
+// One CTA walks rows blockIdx.x, + gridDim.x, ...; thread t holds accesses
+// t, t + NT, ... (V of them) of E elements. partial: [gridDim.x, D] fp32.
+template <typename TX, typename TW, int E>
+__global__ void __launch_bounds__(BWD_THREADS_MAX, 1)
+rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w, const TX* __restrict__ dy,
+                   TX* __restrict__ dx, float* __restrict__ partial, int N, int D, float eps) {
+  using A = Access<TX, E>;
+  constexpr int V = BWD_ELEMS / E;
+  __shared__ float2 red[32];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int nwarps = nt >> 5;
+  const int n_acc = D / E;
+  float wr[V][E], dw[V][E];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int a = tid + i * nt;
+#pragma unroll
+    for (int u = 0; u < E; ++u) {
+      wr[i][u] = a < n_acc ? to_f32(w[a * E + u]) : 0.f;
+      dw[i][u] = 0.f;
+    }
+  }
+  for (long long row = blockIdx.x; row < N; row += gridDim.x) {
+    const TX* xr = x + row * D;
+    const TX* gr = dy + row * D;
+    float xf[V][E], gf[V][E];
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int a = tid + i * nt;
+      const bool on = a < n_acc;
+      A::unpack(on ? A::load(xr + a * E) : A::zero(), xf[i]);
+      A::unpack(on ? A::load(gr + a * E) : A::zero(), gf[i]);
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        // g = dy * w rounded to x's dtype, as the plain version's autograd
+        const float g = to_f32(from_f32<TX>(gf[i][u] * wr[i][u]));
+        ss = fmaf(xf[i][u], xf[i][u], ss);
+        gx = fmaf(g, xf[i][u], gx);
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    __syncthreads();  // the previous row's reads of red are done
+    if ((tid & 31) == 0) red[tid >> 5] = make_float2(ss, gx);
+    __syncthreads();
+    float tss = 0.f, tgx = 0.f;
+    for (int k = 0; k < nwarps; ++k) {
+      tss += red[k].x;
+      tgx += red[k].y;
+    }
+    const float r = rsqrtf(tss / (float)D + eps);
+    const float c = r * tgx / (float)D;  // mean(g * t), t = x * r
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int a = tid + i * nt;
+      if (a >= n_acc) continue;
+      float o[E];
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        const float t = xf[i][u] * r;
+        const float g = to_f32(from_f32<TX>(gf[i][u] * wr[i][u]));
+        o[u] = r * (g - t * c);
+        dw[i][u] = fmaf(gf[i][u], to_f32(from_f32<TX>(t)), dw[i][u]);
+      }
+      A::store(dx + row * D + a * E, o);
+    }
+  }
+  float* pr = partial + (long long)blockIdx.x * D;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int a = tid + i * nt;
+    if (a >= n_acc) continue;
+#pragma unroll
+    for (int u = 0; u < E; ++u) pr[a * E + u] = dw[i][u];
+  }
+}
+
+// dw[c] = sum over the P partial rows of partial[., c], in row order.
+template <typename TW>
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial, TW* __restrict__ dw, int P,
+                                  int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float acc = 0.f;
+  for (int p = 0; p < P; ++p) acc += partial[(long long)p * D + c];
+  dw[c] = from_f32<TW>(acc);
+}
+
+template <typename TX, typename TW, int E>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw, void* partial,
+               int N, int D, int ctas, float eps, cudaStream_t stream) {
+  constexpr int V = BWD_ELEMS / E;
+  const int n_acc = D / E;
+  int nt = ((n_acc + V - 1) / V + 31) / 32 * 32;
+  if (nt > BWD_THREADS_MAX) return (int)cudaErrorInvalidValue;
+  rmsnorm_bwd_kernel<TX, TW, E><<<ctas, nt, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<const TX*>(dy),
+      static_cast<TX*>(dx), static_cast<float*>(partial), N, D, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rmsnorm_dw_kernel<TW><<<(D + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(partial),
+                                                             static_cast<TW*>(dw), ctas, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TW>
+int launch_bwd_x(const void* x, const void* w, const void* dy, void* dx, void* dw, void* partial,
+                 int N, int D, int ctas, float eps, cudaStream_t s) {
+  constexpr int VE = Vec<TX>::N;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                       reinterpret_cast<uintptr_t>(dx);
+  if (al % 16 == 0 && D % VE == 0)
+    return launch_bwd<TX, TW, VE>(x, w, dy, dx, dw, partial, N, D, ctas, eps, s);
+  return launch_bwd<TX, TW, 1>(x, w, dy, dx, dw, partial, N, D, ctas, eps, s);
+}
+
 }  // namespace
+
+// x, dy, dx: contiguous [N, D] of one dtype (N >= 1, D <= 8192); w, dw:
+// contiguous [D] of one dtype; partial: fp32 scratch [ctas, D], 1 <= ctas
+// <= N, the rows the first launch's persistent grid splits the work into.
+// ``dtypes`` as rmsnorm_fwd's. Two launches; returns the cudaError_t of the
+// first that fails (0 on success).
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                           void* partial, int N, int D, int ctas, float eps, int dtypes,
+                           void* stream) {
+  if (N < 1 || D < 1 || D > BWD_THREADS_MAX * BWD_ELEMS || ctas < 1 || ctas > N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BWD_ARGS x, w, dy, dx, dw, partial, N, D, ctas, eps, s
+  switch (dtypes) {
+    case 0: return launch_bwd_x<float, float>(BWD_ARGS);
+    case 1: return launch_bwd_x<__nv_bfloat16, float>(BWD_ARGS);
+    case 2: return launch_bwd_x<float, __nv_bfloat16>(BWD_ARGS);
+    case 3: return launch_bwd_x<__nv_bfloat16, __nv_bfloat16>(BWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BWD_ARGS
+}
 
 // x: contiguous [N, D] (N >= 1); w: contiguous [D]; o: contiguous [N, D]
 // of x's dtype, 16-byte aligned. ``dtypes``: bit 0 set for bf16 x, bit 1 for

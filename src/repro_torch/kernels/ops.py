@@ -10,6 +10,14 @@ Each op checks device, dtype, shape and contiguity before launching, and
 counts its kernel launches in :data:`LAUNCHES` (plain-version calls are not
 counted), so a run can show which kernels its main path went through.
 
+Gradients. On the CPU the plain versions are differentiable PyTorch. On
+the card an op whose inputs need a gradient (``torch.is_grad_enabled()``
+and any input ``requires_grad``) either runs through its
+``torch.autograd.Function``, whose backward is a hand-written kernel too
+(``flash_attention`` without segment ids or a prior at the dense head
+dims, ``rmsnorm``), or raises NotImplementedError naming what its backward
+waits for: a kernel's output never leaves the autograd graph silently.
+
 The counts are of kernels launched on the card, by an op or a replay. A
 CUDA graph capture runs the ops' Python but launches no kernel, and a
 replay launches the captured kernels with no Python at all: the decode
@@ -40,7 +48,10 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
                             "preprocess": 0, "mla_decode_attention": 0,
-                            "paged_mla_decode_attention": 0}
+                            "paged_mla_decode_attention": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+SERVING_ONLY = "a serving kernel: no training path runs it"
 
 
 def reset_launches() -> None:
@@ -78,6 +89,78 @@ def _on_cuda(*tensors) -> bool:
                      f"CPU: {[str(t.device) for t in tensors]}")
 
 
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` (None skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name, why, *tensors) -> None:
+    """Raise where a kernel without a backward would cut the graph."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(f"{name} kernel has no backward ({why}); "
+                                  "its inputs require grad")
+
+
+def _aligned(t):
+    """``t`` itself when its last dim is contiguous and its rows 16-byte
+    aligned (what the backward kernel loads as vectors), else a fresh
+    contiguous copy."""
+    isz = t.element_size()
+    if (t.stride(-1) == 1 and not t.data_ptr() % 16
+            and not any(s * isz % 16 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _RmsnormFn(torch.autograd.Function):
+    """rmsnorm on the card with its hand-written backward
+    (``csrc/rmsnorm.cu`` ``rmsnorm_bwd``): the forward kernel as serving
+    runs it, x and w saved; the backward recomputes the row statistics."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        out = _rn.launch(x, w, eps)
+        LAUNCHES["rmsnorm"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _rn.launch_bwd(x, w, dy.contiguous(), ctx.eps)
+        LAUNCHES["rmsnorm_bwd"] += 1
+        return dx, dw, None
+
+
+class _FlashFn(torch.autograd.Function):
+    """flash attention on the card with its hand-written backward
+    (``csrc/flash_attention_bwd.cu``): the forward kernel also writes each
+    row's log-sum-exp, saved with q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, sq_real, skv_real):
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        o = _fa.launch(q, k, v, causal=causal, window=window, scale=scale,
+                       segment_ids=None, sq_real=sq_real, skv_real=skv_real,
+                       lse=lse)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, window=window, scale=scale,
+                        sq_real=sq_real, skv_real=skv_real)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.launch_bwd(*(_aligned(t) for t in (q, k, v, o)),
+                                    lse, _aligned(do), **ctx.args)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None, None, None
+
+
 def _check_kernel_dtype(name, *tensors):
     dt = tensors[0].dtype
     if dt not in KERNEL_DTYPES or any(t.dtype != dt for t in tensors):
@@ -111,6 +194,7 @@ def preprocess(x_u8, mean, std, *, out_dtype=torch.bfloat16):
                          f"{tuple(mean.shape)}, std {tuple(std.shape)}")
     if not _on_cuda(x_u8, mean, std):
         return ref.preprocess_ref(x_u8, mean, std, out_dtype)
+    _refuse_grad("preprocess", SERVING_ONLY, mean, std)
     if x_u8.dtype != torch.uint8 or out_dtype not in KERNEL_DTYPES:
         raise TypeError(f"preprocess kernel takes uint8 to one of "
                         f"{KERNEL_DTYPES}: {x_u8.dtype} -> {out_dtype}")
@@ -140,6 +224,12 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
         raise ValueError(f"rmsnorm kernel needs a contiguous x: {x.stride()}")
     if not x.numel():
         return torch.empty_like(x)
+    if _needs_grad(x, w):
+        if w.shape[0] > _rn.BWD_MAX_D:
+            raise NotImplementedError(
+                f"rmsnorm backward kernel takes D up to {_rn.BWD_MAX_D}: "
+                f"D {w.shape[0]}; its inputs require grad")
+        return _RmsnormFn.apply(x, w, eps)
     out = _rn.launch(x, w, eps)
     LAUNCHES["rmsnorm"] += 1
     return out
@@ -243,6 +333,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise TypeError(f"flash_attention kernel: segment_starts must be "
                             f"contiguous int32 on q's device: "
                             f"{segment_starts.dtype}")
+    if _needs_grad(q, k, v, *kv[2:]):
+        if hdv != hd:
+            raise NotImplementedError(
+                f"flash_attention kernel has no backward at head dims "
+                f"{(hd, hdv)}: deepseek-v2 training waits for one; its inputs "
+                "require grad")
+        if segment_ids is not None or prior_k is not None:
+            raise NotImplementedError(
+                "flash_attention kernel has no backward with segment ids or "
+                "a prior (packed and suffix prefill are serving paths); its "
+                "inputs require grad")
+        return _FlashFn.apply(q, k, v, causal, window, scale, sq_real,
+                              skv_real)
     out = _fa.launch(q, k, v, causal=causal, window=window, scale=scale,
                      segment_ids=segment_ids, sq_real=sq_real,
                      skv_real=skv_real, segment_starts=segment_starts,
@@ -270,6 +373,7 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
     if not _on_cuda(q, k, v, lengths):
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
                                         w_real=w_real)
+    _refuse_grad("decode_attention", SERVING_ONLY, q, k, v)
     _check_kernel_dtype("decode_attention", q, k, v)
     _check_last_dim_contiguous("decode_attention", q, k, v)
     _check_rows_aligned("decode_attention", k, v)
@@ -307,6 +411,7 @@ def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
     if not _on_cuda(q, k_blocks, v_blocks, page_table, lengths):
         return ref.paged_decode_attention_ref(q, k_blocks, v_blocks,
                                               page_table, lengths, scale=scale)
+    _refuse_grad("paged_decode_attention", SERVING_ONLY, q, k_blocks, v_blocks)
     _check_kernel_dtype("paged_decode_attention", q, k_blocks, v_blocks)
     _check_last_dim_contiguous("paged_decode_attention", q, k_blocks, v_blocks)
     _check_rows_aligned("paged_decode_attention", k_blocks, v_blocks)
@@ -369,6 +474,8 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, valid_len, *,
     if not _on_cuda(q_lat, q_rope, ckv, krope, valid_len):
         return ref.mla_decode_attention_ref(
             q_lat, q_rope, ckv, krope, valid_len.clamp(max=W), scale=scale)
+    _refuse_grad("mla_decode_attention", SERVING_ONLY, q_lat, q_rope, ckv,
+                 krope)
     _check_mla_kernel("mla_decode_attention", q_lat, q_rope, ckv, krope,
                       valid_len)
     out = _mla.launch(q_lat, q_rope, ckv, krope, valid_len, scale=scale)
@@ -394,6 +501,7 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_blocks, krope_blocks,
             q_lat, q_rope, ckv_blocks, krope_blocks, page_table, valid_len,
             scale=scale)
     name = "paged_mla_decode_attention"
+    _refuse_grad(name, SERVING_ONLY, q_lat, q_rope, ckv_blocks, krope_blocks)
     _check_mla_kernel(name, q_lat, q_rope, ckv_blocks, krope_blocks,
                       valid_len)
     page = ckv_blocks.shape[1]
@@ -428,6 +536,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
                          f"{tuple(C.shape)}")
     if not _on_cuda(x, dt, A, B, C):
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    _refuse_grad("ssd_scan", "mamba2-130m and jamba training wait for an SSD "
+                 "scan backward kernel", x, dt, A, B, C)
     _check_kernel_dtype("ssd_scan", x, B, C)
     _check_last_dim_contiguous("ssd_scan", x, B, C)
     _check_rows_aligned("ssd_scan", x, B, C)

@@ -44,6 +44,17 @@ def rmsnorm_ref(x, w, eps: float = 1e-5):
     return (y.float() * w.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-5):
+    """(dx, dw): the gradients of :func:`rmsnorm_ref`'s output given dy
+    (its shape and dtype), by ``torch.autograd.grad`` through it -- the
+    plain version the rmsnorm backward kernel is held against."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        wg = w.detach().requires_grad_(True)
+        dx, dw = torch.autograd.grad(rmsnorm_ref(xg, wg, eps), (xg, wg), dy)
+    return dx, dw
+
+
 def _softmax_rows(s, mask):
     """Masked online-softmax result in closed form: exp(s - max) zeroed
     where masked, normalised by the row sum floored at 1e-30."""
@@ -105,6 +116,17 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = _softmax_rows(s, mask[:, None, None])
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, do, **kw):
+    """(dq, dk, dv): the gradients of :func:`flash_attention_ref`'s output
+    given do (its shape and dtype), by ``torch.autograd.grad`` through it
+    with the same keyword arguments -- the plain version the flash
+    backward kernel is held against."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_ref(*qkv, **kw)
+        return torch.autograd.grad(o, qkv, do)
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale: Optional[float] = None,

@@ -1,4 +1,5 @@
-"""Shared layer math: RMSNorm, RoPE, SwiGLU, embedding and output head."""
+"""Shared layer math: RMSNorm, RoPE, SwiGLU, embedding, output head and
+the training loss."""
 
 from __future__ import annotations
 
@@ -82,3 +83,15 @@ def lm_head(table, x, true_vocab: int):
     if table.shape[0] != true_vocab:
         logits[..., true_vocab:] = -1e9
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token NLL (JAX's ``cross_entropy``): fp32 logsumexp minus the
+    gold logit; with ``mask`` [B, S] the masked mean, over at least one."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

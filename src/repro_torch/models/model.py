@@ -25,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import schema as sch
 from repro_torch.models.layers import (
+    cross_entropy,
     embed_lookup,
     embed_schema,
     lm_head,
@@ -33,6 +34,7 @@ from repro_torch.models.layers import (
     rmsnorm_schema,
 )
 from repro_torch.models.transformer import (
+    REMAT_POLICIES,
     encoder_apply,
     encoder_schema,
     layer_groups,
@@ -53,13 +55,25 @@ class Model:
     ``device`` defaults to CUDA; with no CUDA device the constructor raises
     unless ``device="cpu"`` is given. Every tensor method expects its
     inputs on :attr:`device`.
+
+    ``remat`` and ``remat_policy`` (JAX's ``Model`` fields) set what a
+    training pass (:meth:`loss`) saves for the backward: with ``remat``
+    each layer is rematerialised under the policy (``"full"``, ``"dots"``
+    or ``"none"``, see :func:`repro_torch.models.transformer.remat_call`);
+    without it everything is saved.
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", remat: bool = False,
+                 remat_policy: str = "full"):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.groups = layer_groups(cfg)
         self._schema = self.schema()
 
@@ -122,35 +136,46 @@ class Model:
         proj = features.to(self.dtype) @ params["frontend_proj"]
         return torch.cat([proj, x], dim=1).to(self.dtype)
 
-    def _encode(self, params, features):
+    @property
+    def _remat(self):
+        """The policy a training pass saves each layer under (None: all)."""
+        return self.remat_policy if self.remat else None
+
+    def _encode(self, params, features, remat=None):
         """An encoder-decoder's encoder: ``features`` [B, F, FRONTEND_DIM]
         cast to the model's dtype, ``frontend_proj``, the bidirectional
-        stack and ``enc_norm`` -> [B, F, d] (JAX's ``_encode``)."""
+        stack (each layer saved as ``remat``) and ``enc_norm`` -> [B, F, d]
+        (JAX's ``_encode``)."""
         x = features.to(self.dtype) @ params["frontend_proj"]
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
-        x = encoder_apply(params["encoder"], self.cfg, x, pos)
+        x = encoder_apply(params["encoder"], self.cfg, x, pos, remat=remat)
         return rmsnorm(x, params["enc_norm"], self.cfg.norm_eps)
 
-    def backbone(self, params, tokens, features=None):
+    def backbone(self, params, tokens, features=None, want_cache=True):
         """Embed (``features`` first, see :meth:`_embed_inputs`) + decoder
         stack + final norm over [B, S] tokens. Returns (x [B,F+S,d], aux,
         caches); aux is the MoE layers' summed load-balance loss. An
         encoder-decoder encodes ``features`` (required) instead, and its
         decoder over the tokens alone cross-attends to them: x [B,S,d],
-        the caches with each layer's xk/xv [B,F,Hkv,hd]."""
+        the caches with each layer's xk/xv [B,F,Hkv,hd].
+
+        ``want_cache=False`` is the training pass (JAX's ``backbone(...,
+        want_cache=False)``): caches None, each layer under the model's
+        remat policy."""
         enc_out = None
+        remat = None if want_cache else self._remat
         if self.cfg.is_encdec:
             if features is None:
                 raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
                                  "its encoder needs features")
-            enc_out = self._encode(params, features)
+            enc_out = self._encode(params, features, remat)
             x = embed_lookup(params["embed"], tokens).to(self.dtype)
         else:
             x = self._embed_inputs(params, tokens, features)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, aux, caches = stack_apply_full(params["decoder"], self.cfg, x,
-                                          pos, groups=self.groups,
-                                          enc_out=enc_out)
+        x, aux, caches = stack_apply_full(
+            params["decoder"], self.cfg, x, pos, groups=self.groups,
+            enc_out=enc_out, want_cache=want_cache, remat=remat)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
@@ -159,6 +184,26 @@ class Model:
         the caches (the JAX model's ``forward``)."""
         x, aux, caches = self.backbone(params, tokens, features)
         return lm_head(params["embed"], x, self.cfg.vocab_size), aux, caches
+
+    def loss(self, params, batch):
+        """The training loss of JAX's ``Model.loss``: ``batch`` is a dict of
+        tensors on :attr:`device` -- ``tokens`` [B, S], ``labels`` [B, S],
+        optionally ``features`` [B, F, FRONTEND_DIM] (a model with a
+        frontend; an encoder-decoder's encoder input) and ``loss_mask``
+        [B, S]. The mean (or masked mean) fp32 token NLL over the labels --
+        a VLM's over the text suffix only -- plus ``router_aux_weight``
+        times the MoE layers' load-balance loss. A full pass that keeps no
+        caches, each layer under the model's remat policy."""
+        labels = batch["labels"]
+        features = batch.get("features") if self.cfg.frontend else None
+        aux_w = self.cfg.moe.router_aux_weight if self.cfg.moe else 0.0
+        x, aux, _ = self.backbone(params, batch["tokens"], features,
+                                  want_cache=False)
+        if features is not None and not self.cfg.is_encdec:
+            x = x[:, -labels.shape[1]:]  # VLM: loss only over the text suffix
+        logits = lm_head(params["embed"], x, self.cfg.vocab_size)
+        return cross_entropy(logits, labels, batch.get("loss_mask")) \
+            + aux_w * aux
 
     def prefill(self, params, tokens, features=None):
         """tokens [B, S] (after ``features`` [B, F, FRONTEND_DIM], if any)

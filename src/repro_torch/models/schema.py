@@ -52,3 +52,32 @@ def init_params(gen: torch.Generator, schema, dtype, device):
     """Draw every leaf of ``schema`` from ``gen`` on ``device`` (the
     generator must live on that device)."""
     return tree_map(lambda s: _init_leaf(gen, s, dtype, device), schema)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list structure in JAX's order: a dict's
+    entries by sorted key, a list's in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with its leaves, in :func:`tree_leaves` order,
+    replaced by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out

@@ -11,13 +11,22 @@ the encoder-decoder stack (seamless): a bidirectional encoder and decoder
 layers that cross-attend to its output (``xattn`` after ``ln_x``). Each
 full-sequence pass returns the MoE layers' summed load-balance loss beside
 its output, as the JAX stack does.
+
+A training pass (``want_cache=False``) keeps no K/V caches, and may
+rematerialise each layer in the backward (``remat``, JAX's
+``REMAT_POLICIES``): ``"full"`` saves nothing of a layer but its input
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also saves the
+outputs of its matrix products, ``"none"`` saves everything. JAX
+checkpoints a scanned superblock; the port, one layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
@@ -119,6 +128,33 @@ def encoder_schema(cfg) -> dict:
                    for _ in range(cfg.encoder_layers)]}
 
 
+REMAT_POLICIES = ("full", "dots", "none")
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``"dots"``: keep the outputs of the
+    matrix products (JAX's ``dots_with_no_batch_dims_saveable``, which on
+    a 3-D activation times a 2-D weight saves the same products),
+    recompute the rest."""
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, policy, *args):
+    """``fn(*args)`` saved for the backward as ``policy`` (one of
+    :data:`REMAT_POLICIES`, or None: no rematerialisation, as ``"none"``)."""
+    if policy in (None, "none"):
+        return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _layers(groups):
     """Yield (group, superblock index, j, sig) over the stack in order."""
     for gi, g in enumerate(groups):
@@ -175,17 +211,22 @@ def _cross_block(lp, cfg, x, *, kv=None, enc_out=None):
     return x + o.reshape(B, S, -1) @ p["wo"], (xk, xv)
 
 
-def encoder_apply(params, cfg, x, positions):
+def _encoder_layer(lp, cfg, x, positions):
+    B, F_ = x.shape[:2]
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = project_qkv(lp["attn"], cfg, h, positions)
+    o = ops.flash_attention(q, k, v, causal=False)
+    x = x + o.reshape(B, F_, -1) @ lp["attn"]["wo"]
+    return x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+def encoder_apply(params, cfg, x, positions, *, remat=None):
     """The bidirectional encoder over x [B, F, d] (projected frame
     features): per layer, RoPE'd self-attention through flash with
-    ``causal=False`` and a dense FFN, each after its norm."""
-    B, F_ = x.shape[:2]
+    ``causal=False`` and a dense FFN, each after its norm; each layer
+    saved for the backward as ``remat`` (see :func:`remat_call`)."""
     for lp in params["g0"]:
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = project_qkv(lp["attn"], cfg, h, positions)
-        o = ops.flash_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, F_, -1) @ lp["attn"]["wo"]
-        x = x + ffn_apply(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        x = remat_call(_encoder_layer, remat, lp, cfg, x, positions)
     return x
 
 
@@ -283,27 +324,35 @@ def apply_layer_decode_paged(lp, cfg, sig, x, lblocks, page_table, lengths):
 
 def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
                      prior_blocks=None, prior_pt=None, prior_valid=None,
-                     segment_ids=None, segment_starts=None, enc_out=None):
+                     segment_ids=None, segment_starts=None, enc_out=None,
+                     want_cache=True, remat=None):
     """Prefill pass over every layer. Returns (x, aux, caches): aux the
     MoE layers' summed load-balance loss (an fp32 scalar, 0 without MoE),
     caches in the parameter tree's layout. ``prior`` (a dense cache tree)
     or ``prior_blocks`` (a block pool tree) with ``prior_pt``, and
     ``prior_valid``, make it a suffix prefill; ``segment_ids`` with
     ``segment_starts`` a packed one; ``enc_out`` the decoder of an
-    encoder-decoder (see :func:`apply_layer_full`)."""
-    caches = {f"g{gi}": [{} for _ in range(g.count)]
-              for gi, g in enumerate(groups)}
+    encoder-decoder (see :func:`apply_layer_full`). Each layer is saved
+    for the backward as ``remat`` (see :func:`remat_call`).
+
+    ``want_cache=False`` is the training pass: caches None, each layer's
+    cache dropped as soon as the layer returns."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = ({f"g{gi}": [{} for _ in range(g.count)]
+               for gi, g in enumerate(groups)} if want_cache else None)
     for gname, i, lname, sig in _layers(groups):
-        lprior = None if prior is None else prior[gname][i][lname]
-        lblocks = (None if prior_blocks is None
-                   else prior_blocks[gname][i][lname])
-        x, aux, cache = apply_layer_full(
-            params[gname][i][lname], cfg, sig, x, positions, prior=lprior,
-            prior_blocks=lblocks, prior_pt=prior_pt, prior_valid=prior_valid,
+        layer = functools.partial(
+            apply_layer_full,
+            prior=None if prior is None else prior[gname][i][lname],
+            prior_blocks=(None if prior_blocks is None
+                          else prior_blocks[gname][i][lname]),
+            prior_pt=prior_pt, prior_valid=prior_valid,
             segment_ids=segment_ids, segment_starts=segment_starts,
             enc_out=enc_out)
-        caches[gname][i][lname] = cache
+        x, aux, cache = remat_call(layer, remat, params[gname][i][lname],
+                                   cfg, sig, x, positions)
+        if want_cache:
+            caches[gname][i][lname] = cache
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total, caches

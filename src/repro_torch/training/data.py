@@ -1,0 +1,91 @@
+"""Token data pipeline: deterministic synthetic LM streams + file-backed bins.
+
+A copy of the JAX package's ``training/data.py`` (numpy only), so that the
+port imports nothing of it: the same seed gives the same batches, bit for
+bit, as numpy arrays the trainer moves to the model's device.
+
+Synthetic corpus: a mixture of Zipf-distributed unigrams and short Markov
+motifs, so a ~100M model shows a real falling loss within a few hundred
+steps (pure-uniform tokens would leave nothing to learn).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    zipf_a: float = 1.2
+    motif_len: int = 8
+    n_motifs: int = 64
+    motif_prob: float = 0.35
+    path: Optional[str] = None  # .bin file of uint16/uint32 tokens
+
+
+class SyntheticLM:
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        self.rng = np.random.default_rng(cfg.seed)
+        v = cfg.vocab_size
+        self.motifs = self.rng.integers(
+            0, v, (cfg.n_motifs, cfg.motif_len), dtype=np.int64
+        )
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        p = 1.0 / ranks ** cfg.zipf_a
+        self.p = p / p.sum()
+
+    def _sequence(self, n: int) -> np.ndarray:
+        out = np.empty(n + 1, dtype=np.int64)
+        i = 0
+        while i <= n:
+            if self.rng.random() < self.cfg.motif_prob:
+                m = self.motifs[self.rng.integers(self.cfg.n_motifs)]
+                k = min(len(m), n + 1 - i)
+                out[i : i + k] = m[:k]
+                i += k
+            else:
+                out[i] = self.rng.choice(self.cfg.vocab_size, p=self.p)
+                i += 1
+        return out
+
+    def batches(self) -> Iterator[dict]:
+        cfg = self.cfg
+        while True:
+            seqs = np.stack([self._sequence(cfg.seq_len) for _ in range(cfg.batch_size)])
+            yield {
+                "tokens": seqs[:, :-1].astype(np.int32),
+                "labels": seqs[:, 1:].astype(np.int32),
+            }
+
+
+class BinTokenFile:
+    """Memory-mapped flat token file -> LM batches (production-style)."""
+
+    def __init__(self, cfg: DataConfig):
+        assert cfg.path is not None
+        self.cfg = cfg
+        self.tokens = np.memmap(cfg.path, dtype=np.uint32, mode="r")
+        self.rng = np.random.default_rng(cfg.seed)
+
+    def batches(self) -> Iterator[dict]:
+        cfg = self.cfg
+        n = len(self.tokens) - cfg.seq_len - 1
+        while True:
+            starts = self.rng.integers(0, n, cfg.batch_size)
+            seqs = np.stack([self.tokens[s : s + cfg.seq_len + 1] for s in starts])
+            yield {
+                "tokens": seqs[:, :-1].astype(np.int32),
+                "labels": seqs[:, 1:].astype(np.int32),
+            }
+
+
+def make_dataset(cfg: DataConfig):
+    return BinTokenFile(cfg) if cfg.path else SyntheticLM(cfg)

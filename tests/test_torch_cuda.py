@@ -17,7 +17,13 @@ a capture that fails raising; an unwarmed EnginePipeline capturing on its
 dispatch thread, and a 2-replica in-process cluster's replayed graphs;
 MLA (deepseek-v2): flash at q/k 192, v 128, the absorbed-MLA decode
 kernel ring and paged against its plain versions at split and tile edges,
-and an MLA pool's graph against its eager step.
+and an MLA pool's graph against its eager step. The backward kernels
+(``-k backward``): flash's against ``ref.flash_attention_bwd_ref`` at
+sequence, group, head-dim, window, pad and Sq != Skv edges, fully masked
+rows, two calls bitwise; rmsnorm's against ``ref.rmsnorm_bwd_ref`` at the
+models' widths and ragged row counts; the ops without a backward refusing
+inputs that require grad; both autograd Functions under
+``torch.utils.checkpoint``.
 Every test here skips without a card (the kernels have no CPU mode); the
 file imports no JAX, so it runs on the card's machine:
 
@@ -736,6 +742,7 @@ def test_mamba_engine_on_card_matches_cpu(cuda_device):
         "paged_decode_attention": 0, "ssd_scan": L * c["prefill_calls"],
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu")
@@ -788,6 +795,7 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
@@ -839,6 +847,7 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")
@@ -890,6 +899,7 @@ def test_packed_chunked_engine_on_card_matches_cpu(cuda_device, name):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, cpu_eng = serve(cpu, params_cpu, "cpu")
@@ -969,7 +979,8 @@ def test_disaggregated_engine_on_card_matches_cpu(cuda_device, mode):
             "rmsnorm": (2 * L + 1) * (c["prefill_calls"] + c["decode_steps"]),
             "flash_attention": L * c["prefill_calls"], "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+            "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
         want_launches[decode] = L * c["decode_steps"]
         assert ops.LAUNCHES == want_launches
         assert c["handoffs"] > 0
@@ -1080,7 +1091,8 @@ def test_graph_ring_step_equals_eager(cuda_device, monkeypatch, splits):
         "rmsnorm": (2 * L + 1) * (calls + steps),
         "flash_attention": L * calls, "decode_attention": L * steps,
         "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-        "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+        "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -1637,3 +1649,215 @@ def test_graph_mla_step_equals_eager(cuda_device, paged):
     want.update({"rmsnorm": (4 * L + 1) * (calls + steps),
                  "flash_attention": L * calls, decode: L * steps})
     assert ops.LAUNCHES == want
+
+
+# --------------------------------------------------------------------------- #
+# backward kernels (training)
+# --------------------------------------------------------------------------- #
+# gradients, each held on its own (the rule of chip_smoke.py's phase 2):
+# |kernel - plain| <= atol * (its largest |plain|) + rtol * |plain|
+# elementwise, and |kernel - plain| <= ntol * |plain| in the 2-norm over the
+# whole gradient (zeroed rows or dropped key tiles move it by 0.2-0.4,
+# rounding by under 0.003); a gradient that is 0 in exact arithmetic (dq
+# where every row sees one key) takes its case's largest entry and norm
+# instead. fp32 differs by summation order only, bf16 also by the kernel
+# rounding P and dS to bf16 for its products and reading the bf16-rounded
+# output O for D = rowsum(dO o O)
+BWD_TOLS = {"fp32": (1e-5, 1e-4, 1e-5), "bf16": (1e-2, 1e-2, 1e-2)}
+
+
+def _close_grads(got, want, dtypes, what, names):
+    """Hold each gradient of one case against its plain version under
+    BWD_TOLS (``dtypes``: each gradient's tolerance key)."""
+    want = [w.float() for w in want]
+    top = max(float(w.abs().max()) for w in want)
+    top_norm = max(float(w.norm()) for w in want)
+    for name, g, w, dtype in zip(names, got, want, dtypes):
+        atol, rtol, ntol = BWD_TOLS[dtype]
+        g = g.float()
+        assert torch.isfinite(g).all(), (what, name)
+        err = (g - w).abs()
+        lim = atol * (float(w.abs().max()) or top) + rtol * w.abs()
+        rel = float(err.norm()) / (float(w.norm()) or top_norm)
+        assert (err <= lim).all(), (what, name, float(err.max()),
+                                    float(w.abs().max()))
+        assert rel <= ntol, (what, name, rel)
+
+
+def _grad_run(q, k, v, do, **kw):
+    """ops.flash_attention's gradients through its autograd Function."""
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention(*qkv, **kw)
+    return o, torch.autograd.grad(o, qkv, do)
+
+
+# (B, Sq, Skv, H, Hkv, hd, causal, window, sq_real, skv_real)
+FLASH_BWD_CASES = [
+    (2, 1, 1, 4, 4, 64, True, 0, None, None),
+    (2, 63, 63, 8, 2, 128, True, 0, None, None),
+    (1, 64, 64, 8, 1, 64, True, 0, None, None),
+    (2, 65, 65, 4, 1, 128, True, 0, None, None),
+    (1, 1000, 1000, 8, 1, 128, True, 256, None, None),
+    (1, 1000, 1000, 4, 4, 64, True, 256, None, None),
+    (1, 4096, 4096, 8, 1, 128, True, 0, None, None),
+    (1, 1000, 1000, 4, 4, 64, False, 0, None, None),
+    (2, 7, 300, 4, 1, 64, False, 0, None, None),
+    (2, 300, 1000, 8, 2, 128, False, 0, None, None),
+    (2, 200, 200, 4, 1, 64, True, 0, 150, 170),
+    (2, 130, 100, 4, 2, 32, False, 0, 120, 90),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_matches_plain(cuda_device, dtype, case):
+    B, Sq, Skv, H, Hkv, hd, causal, window, sq_real, skv_real = case
+    q = _cuda_pair((B, Sq, H, hd), dtype, cuda_device, 0)
+    k = _cuda_pair((B, Skv, Hkv, hd), dtype, cuda_device, 1)
+    v = _cuda_pair((B, Skv, Hkv, hd), dtype, cuda_device, 2)
+    do = _cuda_pair((B, Sq, H, hd), dtype, cuda_device, 3)
+    kw = dict(causal=causal, window=window, sq_real=sq_real,
+              skv_real=skv_real)
+    ops.reset_launches()
+    o, got = _grad_run(q, k, v, do, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    torch.testing.assert_close(o.float(), ref.flash_attention_ref(
+        q, k, v, **kw).float(), atol=TOLS[dtype], rtol=1e-2)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    _close_grads(got, want, [dtype] * 3, case, ("dq", "dk", "dv"))
+    if sq_real is not None:  # rows past sq_real see no key
+        assert (got[0][:, sq_real:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_backward_fully_masked_rows_give_zeros(cuda_device, dtype):
+    """skv_real = 0: no row sees a key; the output and every gradient are
+    zeros, not NaN (the forward's lse is +inf there)."""
+    q = _cuda_pair((2, 70, 4, 64), dtype, cuda_device, 0)
+    k = _cuda_pair((2, 90, 2, 64), dtype, cuda_device, 1)
+    v = _cuda_pair((2, 90, 2, 64), dtype, cuda_device, 2)
+    do = _cuda_pair((2, 70, 4, 64), dtype, cuda_device, 3)
+    o, got = _grad_run(q, k, v, do, causal=False, skv_real=0)
+    assert (o == 0).all()
+    for g in got:
+        assert (g == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_backward_is_deterministic(cuda_device, dtype):
+    """No atomics: two calls give the same bits (GQA at G = 4, causal)."""
+    q = _cuda_pair((2, 1000, 16, 128), dtype, cuda_device, 0)
+    k = _cuda_pair((2, 1000, 4, 128), dtype, cuda_device, 1)
+    v = _cuda_pair((2, 1000, 4, 128), dtype, cuda_device, 2)
+    do = _cuda_pair((2, 1000, 16, 128), dtype, cuda_device, 3)
+    _, a = _grad_run(q, k, v, do, causal=True)
+    _, b = _grad_run(q, k, v, do, causal=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    ("bf16", "bf16"), ("fp32", "fp32"), ("bf16", "fp32")])
+@pytest.mark.parametrize("D", [128, 1024, 4096, 8192])
+@pytest.mark.parametrize("N", [1, 257, 8192])
+def test_rmsnorm_backward_matches_plain(cuda_device, N, D, x_dtype, w_dtype):
+    x = _cuda_pair((N, D), x_dtype, cuda_device, 0)
+    w = _cuda_pair((D,), w_dtype, cuda_device, 1)
+    dy = _cuda_pair((N, D), x_dtype, cuda_device, 2)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ops.reset_launches()
+    got = torch.autograd.grad(ops.rmsnorm(xg, wg), (xg, wg), dy)
+    assert ops.LAUNCHES["rmsnorm"] == 1 and ops.LAUNCHES["rmsnorm_bwd"] == 1
+    want = ref.rmsnorm_bwd_ref(x, w, dy)
+    _close_grads(got, want, [x_dtype, "bf16" if "bf16" in (x_dtype, w_dtype)
+                             else "fp32"], (N, D), ("dx", "dw"))
+    again = torch.autograd.grad(ops.rmsnorm(xg, wg), (xg, wg), dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_backward_refusals(cuda_device):
+    """On CUDA tensors that require grad, every kernel op without a
+    backward raises NotImplementedError; under no_grad it runs."""
+    dev = cuda_device
+    bf = torch.bfloat16
+    q = torch.randn(2, 1, 8, 64, device=dev, dtype=bf, requires_grad=True)
+    kc = torch.randn(2, 32, 2, 64, device=dev, dtype=bf)
+    lens = torch.tensor([5, 32], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        ops.decode_attention(q, kc, kc, lens)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    blocks = torch.randn(5, 16, 2, 64, device=dev, dtype=bf)
+    with pytest.raises(NotImplementedError, match="paged_decode"):
+        ops.paged_decode_attention(q, blocks, blocks, pt, lens)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, kc, lens)
+    x = torch.randn(1, 64, 2, 64, device=dev, dtype=bf, requires_grad=True)
+    dt = torch.rand(1, 64, 2, device=dev)
+    A = -torch.rand(2, device=dev)
+    Bm = torch.randn(1, 64, 1, 16, device=dev, dtype=bf)
+    with pytest.raises(NotImplementedError, match="SSD"):
+        ops.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    ql = torch.randn(1, 1, 16, 512, device=dev, dtype=bf, requires_grad=True)
+    qr = torch.randn(1, 1, 16, 64, device=dev, dtype=bf)
+    ckv = torch.randn(1, 64, 512, device=dev, dtype=bf)
+    kr = torch.randn(1, 64, 64, device=dev, dtype=bf)
+    vl = torch.tensor([10], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="mla_decode"):
+        ops.mla_decode_attention(ql, qr, ckv, kr, vl, scale=0.1)
+    frames = torch.zeros(2, 4, 3, dtype=torch.uint8, device=dev)
+    mean = torch.zeros(3, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="preprocess"):
+        ops.preprocess(frames, mean, torch.ones(3, device=dev))
+    qf = torch.randn(1, 64, 4, 192, device=dev, dtype=bf, requires_grad=True)
+    kf = torch.randn(1, 64, 4, 192, device=dev, dtype=bf)
+    vf = torch.randn(1, 64, 4, 128, device=dev, dtype=bf)
+    with pytest.raises(NotImplementedError, match="192"):
+        ops.flash_attention(qf, kf, vf)
+    qs = torch.randn(1, 64, 4, 64, device=dev, dtype=bf, requires_grad=True)
+    seg = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="segment ids"):
+        ops.flash_attention(qs, qs.detach(), qs.detach(), segment_ids=seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_backward_functions_under_checkpoint(cuda_device, dtype):
+    """A norm + attention block under non-reentrant torch.utils.checkpoint:
+    the recompute runs each forward kernel a second time and the gradients
+    equal the unchecked run's bit for bit."""
+    import torch.utils.checkpoint as ckpt
+
+    B, S, H, hd = 2, 300, 4, 64
+    x = _cuda_pair((B, S, H * hd), dtype, cuda_device, 0)
+    w = _cuda_pair((H * hd,), dtype, cuda_device, 1)
+    g = _cuda_pair((B, S, H * hd), dtype, cuda_device, 2)
+
+    def block(x, w):
+        h = ops.rmsnorm(x, w).reshape(B, S, H, hd)
+        o = ops.flash_attention(h, h, h, causal=True)
+        return x + o.reshape(B, S, -1)
+
+    def grads(remat):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ops.reset_launches()
+        out = (ckpt.checkpoint(block, xg, wg, use_reentrant=False) if remat
+               else block(xg, wg))
+        res = torch.autograd.grad(out, (xg, wg), g)
+        return res, dict(ops.LAUNCHES)
+
+    plain, n_plain = grads(False)
+    remat, n_remat = grads(True)
+    for name in ("rmsnorm", "flash_attention"):
+        assert n_plain[name] == 1 and n_remat[name] == 2
+    for name in ("rmsnorm_bwd", "flash_attention_bwd"):
+        assert n_plain[name] == 1 and n_remat[name] == 1
+    assert all(torch.equal(a, b) for a, b in zip(plain, remat))

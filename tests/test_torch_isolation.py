@@ -1,7 +1,8 @@
-"""The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor the ``repro`` package, no source file of the port imports
-them, a replica worker process the cluster spawns loads neither, and its
-entry points refuse to fall back to the CPU on their own."""
+"""The port stands alone: importing every ``repro_torch`` module (the
+training package and its launcher among them) loads neither JAX nor the
+``repro`` package, no source file of the port imports them, a replica
+worker process the cluster spawns loads neither, and its entry points
+(serving and training) refuse to fall back to the CPU on their own."""
 
 import ast
 import subprocess
@@ -103,6 +104,26 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         ServingEngine(model, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama3-8b", "--reduced"])
+
+
+def test_training_entry_points_need_cuda_unless_asked_for_cpu():
+    """The training launcher and ``train`` run on the card by default and
+    never carry on on the CPU by themselves."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.training import DataConfig, TrainConfig, train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "llama3-8b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "llama3-8b", "--steps", "1"])
+    cfg = get_config("llama3-8b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(Model(cfg), DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                     batch_size=1), TrainConfig(steps=1))
 
 
 def test_launcher_serves_on_cpu_when_asked(capsys):

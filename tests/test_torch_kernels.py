@@ -153,11 +153,16 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.paged_mla_decode_attention(lat, rope, x[:, :, 0], x[:, :, 1, :8],
                                    torch.zeros((4, 2), dtype=torch.int32),
                                    lens, scale=0.25)
+    # a gradient on the CPU is the plain versions' autograd: no launch
+    xg = x.clone().requires_grad_(True)
+    (ops.rmsnorm(xg, torch.ones(16)).sum()
+     + ops.flash_attention(xg, k, k).sum()).backward()
     assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
                             "preprocess": 0, "mla_decode_attention": 0,
-                            "paged_mla_decode_attention": 0}
+                            "paged_mla_decode_attention": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def test_rmsnorm_on_cpu_tensors_imports_no_triton_and_loads_no_library():
