@@ -24,7 +24,9 @@ to one card, and compares each reading only within that call:
 - flash bf16 at llama3-8b's heads: the [8, 1024] bucket, and phase 2's
   packed [1, 8192] row (phase 4's first admission) called with its
   segment ids alone (a tree whose kernel skips no tile by segment sweeps
-  every key tile up to the diagonal): events and device time alone;
+  every key tile up to the diagonal): events and device time alone; its
+  backward at phase 16's [2, 4096], causal, through the autograd
+  Function: events and the device time of its three kernels alone;
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
 - phase 5's decode step on that engine (10 whole-batch steps of the
@@ -132,7 +134,10 @@ def phase13_step(torch, dev):
 
 def flash(torch, ops, dev):
     """Flash bf16 at the [8, 1024] bucket and on phase 2's packed [1, 8192]
-    row: events and device time alone."""
+    row, and its backward at phase 16's [2, 4096], causal, through
+    ``torch.autograd.grad`` of ``ops.flash_attention`` (the autograd
+    Function, as training calls it): events and device time alone (the
+    backward's three kernels)."""
     H, Hkv, hd = 32, 8, 128
     out = {}
     for name, B, S, seg in (
@@ -146,6 +151,15 @@ def flash(torch, ops, dev):
                                          segment_ids=seg)
         out[name] = {"ms": cs.time_ms(torch, fn, reps=10),
                      "device_ms": cs.device_ms(torch, fn, "flash")}
+    B, S = cs.TRAIN_BATCH
+    q, do = (cs.rand(torch, (B, S, H, hd), "bf16", dev, sd) for sd in (12, 15))
+    k, v = (cs.rand(torch, (B, S, Hkv, hd), "bf16", dev, sd) for sd in (13, 14))
+    qkv = [t.requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention(*qkv, causal=True)
+    bwd = lambda: torch.autograd.grad(o, qkv, do, retain_graph=True)  # noqa: E731
+    out[f"flash_bwd_{B}x{S}"] = {
+        "ms": cs.time_ms(torch, bwd, reps=5, warmup=2),
+        "device_ms": cs.device_ms(torch, bwd, "flash_bwd", reps=5)}
     return out
 
 

@@ -25,10 +25,12 @@ result line:
    ring and paged decode, the SSD scan and preprocess beside the CUDA-event
    time; for the kernels redesigned for Hopper the grid, block, shared
    memory and registers as launched, the cluster shape, ptxas's registers
-   and spills (none allowed in rmsnorm, either decode kernel or the SSD
-   scan), and the HGMMA instructions in the flash and SSD libraries' SASS
-   where cuobjdump exists (none found fails); the SSD scan at 1024, 2048,
-   1000 and 77 positions, the device time of each of its three bf16
+   and spills (none allowed in rmsnorm, either decode kernel, the SSD
+   scan or any flash-backward instantiation), and the HGMMA instructions
+   in the flash, flash-backward and SSD libraries' SASS where cuobjdump
+   exists (none found fails); the bf16 flash backward's three launches
+   (grid, shared memory, registers) at phase 16's shape; the SSD scan at
+   1024, 2048, 1000 and 77 positions, the device time of each of its three bf16
    launches and of the whole scan at each heads-a-CTA choice at 1024 and
    2048 positions; deepseek-v2-236b's attention at its published dims and
    128 heads: flash over the [8, 1024] bucket at q/k 192, v 128 (SDPA
@@ -53,7 +55,8 @@ result line:
    [8192, 4096] and [8, 4096], bf16 and fp32, against ``torch.autograd``
    through the plain versions, two calls bitwise equal, their device time
    alone, SDPA's and ``F.rms_norm``'s backward beside them, and no ptxas
-   spills in their bodies;
+   spills in their bodies (flash's bf16 body on wgmma, its fp32 body on
+   the CUDA cores);
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -851,9 +854,10 @@ def design_report(torch, build, ops, dev):
     cluster of CTAs a row) and the SSD scan (``ssd_design``). Grid, block,
     shared memory and registers as launched; registers and spills from
     ptxas; the cluster from the launcher's split plan; HGMMA in the flash,
-    SSD and MLA decode libraries' SASS; registers and spills of every
-    instantiation of rmsnorm, the two decode kernels and the SSD scan; the
-    bf16 MLA decode kernel (``mla_design``). Fails when the profiler
+    flash backward, SSD and MLA decode libraries' SASS; registers and
+    spills of every instantiation of rmsnorm, the two decode kernels and
+    the SSD scan; the bf16 MLA decode kernel (``mla_design``) and the flash
+    backward (``flash_bwd_design``). Fails when the profiler
     records no decode launch, when the decode kernel runs one CTA a row
     there, when one of those instantiations spills or takes stack, or when
     cuobjdump finds no HGMMA."""
@@ -912,13 +916,71 @@ def design_report(torch, build, ops, dev):
     out["mla_decode_attention"] = mla_design(torch, build, ops, dev)
     out.setdefault("ptxas", {})["mla_decode_attention"] = out[
         "mla_decode_attention"].pop("ptxas")
-    for name in ("flash_attention", "ssd_scan", "mla_decode_attention"):
+    out["flash_attention_bwd"] = flash_bwd_design(torch, build, ops, dev)
+    out["ptxas"]["flash_attention_bwd"] = out["flash_attention_bwd"].pop(
+        "ptxas")
+    for name in ("flash_attention", "ssd_scan", "mla_decode_attention",
+                 "flash_attention_bwd"):
         n = hgmma_count(build._lib_path(name))
         print(f"   HGMMA instructions in the {name} library's SASS: "
               f"{'cuobjdump not found' if n is None else n}")
         if n == 0:
             raise AssertionError(f"{name}: no HGMMA in its SASS")
         out[name]["hgmma_in_sass"] = n
+    return out
+
+
+# the flash backward's three launches (D, dK/dV, dQ) by kernel-name key
+FLASH_BWD_KERNELS = (("dot", "flash_bwd_dot"),
+                     ("dkdv", "flash_bwd_dkdv_wgmma"),
+                     ("dq", "flash_bwd_dq_wgmma"))
+
+
+def flash_bwd_design(torch, build, ops, dev):
+    """The bf16 flash backward at phase 16's shape ([2, 4096], 32/8 heads
+    of 128, causal) through the autograd Function: each of its three
+    launches' grid, block, shared memory and registers as the profiler saw
+    them; registers, spills and stack of every instantiation in its library
+    (the bf16 tensor-core body and the fp32 CUDA-core body) from ptxas, and
+    ptxas's performance advisories (wgmma serialized, warpgroup.arrive
+    injected). Fails on spills or stack in any instantiation, or when the
+    profiler records no dK/dV or dQ launch."""
+    B, S = TRAIN_BATCH
+    H, Hkv, hd = 32, 8, 128
+    q, do = (rand(torch, (B, S, H, hd), "bf16", dev, sd) for sd in (12, 15))
+    k, v = (rand(torch, (B, S, Hkv, hd), "bf16", dev, sd) for sd in (13, 14))
+    qkv = [t.requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention(*qkv, causal=True)
+    run = lambda: torch.autograd.grad(o, qkv, do, retain_graph=True)  # noqa: E731
+    out = {"launch": {}}
+    for part, key in FLASH_BWD_KERNELS:
+        out["launch"][part] = launch_info(torch, run, key)
+        print(f"   flash_attention_bwd (bf16) {part}: launch "
+              f"{out['launch'][part]}")
+    for part in ("dkdv", "dq"):
+        if not out["launch"][part].get("grid"):
+            raise AssertionError(f"flash_attention_bwd: the profiler recorded "
+                                 f"no {part} launch")
+    log = build.build_log.get("flash_attention_bwd", "")
+    stats = ptxas_stats(log)
+    if not stats:
+        raise AssertionError("flash_attention_bwd: no ptxas report in its "
+                             "build log")
+    for fn, st in sorted(stats.items()):
+        print(f"   ptxas {fn[fn.find('flash_bwd'):][:56]}: {st}")
+    spilled = {fn: st for fn, st in stats.items()
+               if st.get("spill_stores") or st.get("spill_loads")
+               or st.get("stack")}
+    if spilled:
+        raise AssertionError(f"flash_attention_bwd: spills or stack in "
+                             f"{spilled}")
+    out["wgmma_remarks"] = [line.strip() for line in log.splitlines()
+                            if "(C75" in line]
+    print(f"   ptxas advisories (wgmma serialized, warpgroup.arrive "
+          f"injected): {out['wgmma_remarks'] or 'none'}")
+    out["ptxas"] = stats
+    del q, k, v, do, o, qkv, run
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1514,15 +1576,14 @@ def backward_cases(torch, ref, dev):
                   f"{rec['library_device_ms']} ms", flush=True)
             cases.append(rec)
 
-    # ptxas: no spills or stack in the backward bodies
-    for src, keys in (("flash_attention_bwd", ("flash_bwd",)),
-                      ("rmsnorm", ("rmsnorm_bwd", "rmsnorm_dw"))):
-        for fn, st in ptxas_stats(build.build_log.get(src, "")).items():
-            if not matches(keys, fn):
-                continue
-            print(f"   ptxas {fn[:70]}: {st}")
-            if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
-                raise AssertionError(f"{fn}: spills or stack {st}")
+    # ptxas: no spills or stack in rmsnorm's backward (the flash backward's
+    # instantiations are held in design_report's flash_bwd_design)
+    for fn, st in ptxas_stats(build.build_log.get("rmsnorm", "")).items():
+        if not matches(("rmsnorm_bwd", "rmsnorm_dw"), fn):
+            continue
+        print(f"   ptxas {fn[:70]}: {st}")
+        if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
+            raise AssertionError(f"{fn}: spills or stack {st}")
     return cases
 
 
@@ -5158,13 +5219,17 @@ def train_step_profile(torch, model, params, state, data, opt):
     res = {"host_wall_ms": wall_ms, "device_busy_ms": busy,
            "device_idle_share": 1 - busy / wall_ms if busy else None,
            "parts_ms": parts, "alone_ms": alone,
+           "flash_bwd_share_of_busy": (parts["flash_attention_bwd"] / busy
+                                       if busy else None),
            "top": [{"ms": ms, "name": n[:80], "calls": c}
                    for ms, n, c in kernels[:12]]}
     if busy:
         print(f"   profiled step: host wall {wall_ms:.1f} ms, device busy "
               f"{busy:.1f} ms over {sum(k[2] for k in kernels)} kernels, idle "
               f"share {res['device_idle_share']:.3f}; by kernel name (ms): "
-              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+              + f"; the flash backward's share of busy "
+              f"{res['flash_bwd_share_of_busy']:.3f}")
         for k in res["top"]:
             print(f"   {k['ms']:9.3f} ms  x{k['calls']:<5d} {k['name']}")
     else:

@@ -229,32 +229,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------------------------------------------------------------------
 constexpr int WG_THREADS = 128;  // one warpgroup
 constexpr int WG_BQ = 64;        // query rows a CTA owns: wgmma's M
-constexpr int WG_BK = 64;        // keys a K/V tile holds
+constexpr int WG_BK = WG_TILE_ROWS;  // keys a K/V tile holds
 constexpr int WG_STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// A [64 x HD] bf16 tile in shared memory: HD * 2 bytes a row, cut into column
-// blocks of RB bytes (128, or 64 at hd 32); block c holds every row's bytes
-// [c * RB, (c + 1) * RB), rows RB apart, under the RB-byte swizzle (the
-// 16-byte chunk index XORed with address bits 7.., as wgmma reads it).
-template <int HD>
-struct WgTile {
-  static constexpr int RB = HD * 2 >= 128 ? 128 : HD * 2;
-  static constexpr int BYTES = WG_BK * HD * 2;
-  static constexpr int CHUNKS = WG_BK * HD / 8;      // 16-byte chunks in a tile
-  static constexpr uint32_t SWZ = RB == 128 ? 0x70u : 0x30u;
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1ull : 2ull;  // SW128 / SW64
-  static constexpr int PVN = RB / 2;                // wgmma N of one P.V product
-  static constexpr int NPV = HD / PVN;              // P.V products per k-step
-  static_assert(HD * 2 % RB == 0, "whole column blocks");
-
-  // byte offset of 16-byte chunk ``ch`` of row ``r`` inside the tile
-  __device__ static __forceinline__ uint32_t offset(int r, int ch) {
-    const int cpr = RB / 16;  // chunks per row of a column block
-    const uint32_t off = (ch / cpr) * (WG_BK * RB) + r * RB + (ch % cpr) * 16;
-    return off ^ ((off >> 3) & SWZ);
-  }
-};
 
 template <int HD, int HDV>
 constexpr size_t wg_smem_bytes() {

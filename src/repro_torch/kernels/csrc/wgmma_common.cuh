@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels: the
-// bf16 flash prefill (flash_attention.cu) and the bf16 SSD scan
-// (ssd_scan.cu, whose d_state-16 state contribution is an m64n16 product).
+// bf16 flash prefill (flash_attention.cu) and its backward
+// (flash_attention_bwd.cu), and the bf16 SSD scan (ssd_scan.cu, whose
+// d_state-16 state contribution is an m64n16 product).
 //
 //   * cp.async copies from global to shared memory (16 bytes, or 4 bytes for
 //     scattered fp32 scalars), zero-filled when their predicate is false, in
@@ -9,7 +10,8 @@
 //     wgmma's reads;
 //   * wgmma's fence / commit / wait and a register pin for accumulators;
 //   * the shared-memory matrix descriptor and the m64nNk16 bf16 products the
-//     kernels run, with fp32 accumulators.
+//     kernels run, with fp32 accumulators;
+//   * the attention kernels' 64-row head tile (``WgTile``).
 //
 // Tiles live in shared memory under the 128-byte swizzle: a tile of R rows
 // is cut into column blocks of 128 bytes (64 bf16); block c holds every
@@ -108,6 +110,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 16] (+)= A[64 x 16] . B, A and B K-major in shared memory (B[16 x 16]^T:
 // 16 rows of K, two 8-row groups at the stride byte offset)
 __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
@@ -160,3 +175,30 @@ __device__ __forceinline__ int frag_row(int j, int warp, int lane) {
 __device__ __forceinline__ int frag_col(int j, int lane) {
   return 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
 }
+
+// A [64 x HD] bf16 tile of the attention kernels in shared memory: HD * 2
+// bytes a row, cut into column blocks of RB bytes (128, or 64 at hd 32);
+// block c holds every row's bytes [c * RB, (c + 1) * RB), rows RB apart,
+// under the RB-byte swizzle (the 16-byte chunk index XORed with address
+// bits 7.., as wgmma reads it). Read K-major, it is the A or B operand of a
+// product over HD; read MN-major (one column block of PVN columns at a
+// time), the B operand of a product whose N is HD.
+constexpr int WG_TILE_ROWS = 64;
+template <int HD>
+struct WgTile {
+  static constexpr int RB = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int BYTES = WG_TILE_ROWS * HD * 2;
+  static constexpr int CHUNKS = WG_TILE_ROWS * HD / 8;  // 16-byte chunks in a tile
+  static constexpr uint32_t SWZ = RB == 128 ? 0x70u : 0x30u;
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1ull : 2ull;  // SW128 / SW64
+  static constexpr int PVN = RB / 2;                // wgmma N of one MN-major product
+  static constexpr int NPV = HD / PVN;              // such products per k-step
+  static_assert(HD * 2 % RB == 0, "whole column blocks");
+
+  // byte offset of 16-byte chunk ``ch`` of row ``r`` inside the tile
+  __device__ static __forceinline__ uint32_t offset(int r, int ch) {
+    const int cpr = RB / 16;  // chunks per row of a column block
+    const uint32_t off = (ch / cpr) * (WG_TILE_ROWS * RB) + r * RB + (ch % cpr) * 16;
+    return off ^ ((off >> 3) & SWZ);
+  }
+};

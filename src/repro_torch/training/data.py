@@ -40,7 +40,13 @@ class SyntheticLM:
         )
         ranks = np.arange(1, v + 1, dtype=np.float64)
         p = 1.0 / ranks ** cfg.zipf_a
-        self.p = p / p.sum()
+        p = p / p.sum()
+        # numpy's ``choice(v, p=p)``, which the JAX package calls once a
+        # token, rebuilds this cumulative sum on every call, then takes one
+        # ``random()`` and a right-sided search: kept once, a token costs a
+        # search, with the same stream and the same generator state
+        self.cdf = p.cumsum()
+        self.cdf /= self.cdf[-1]
 
     def _sequence(self, n: int) -> np.ndarray:
         out = np.empty(n + 1, dtype=np.int64)
@@ -52,7 +58,8 @@ class SyntheticLM:
                 out[i : i + k] = m[:k]
                 i += k
             else:
-                out[i] = self.rng.choice(self.cfg.vocab_size, p=self.p)
+                u = self.rng.random()
+                out[i] = int(self.cdf.searchsorted(u, side="right"))
                 i += 1
         return out
 

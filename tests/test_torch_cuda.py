@@ -1660,9 +1660,10 @@ def test_graph_mla_step_equals_eager(cuda_device, paged):
 # whole gradient (zeroed rows or dropped key tiles move it by 0.2-0.4,
 # rounding by under 0.003); a gradient that is 0 in exact arithmetic (dq
 # where every row sees one key) takes its case's largest entry and norm
-# instead. fp32 differs by summation order only, bf16 also by the kernel
-# rounding P and dS to bf16 for its products and reading the bf16-rounded
-# output O for D = rowsum(dO o O)
+# instead. fp32 (the CUDA-core body) differs by summation order only; bf16
+# (the tensor-core body) also by rounding P and dS to bf16 as the A
+# operands of its dV, dK and dQ products (fp32 sums) and by reading the
+# bf16-rounded output O for D = rowsum(dO o O)
 BWD_TOLS = {"fp32": (1e-5, 1e-4, 1e-5), "bf16": (1e-2, 1e-2, 1e-2)}
 
 
@@ -1705,6 +1706,13 @@ FLASH_BWD_CASES = [
     (2, 300, 1000, 8, 2, 128, False, 0, None, None),
     (2, 200, 200, 4, 1, 64, True, 0, 150, 170),
     (2, 130, 100, 4, 2, 32, False, 0, 120, 90),
+    # the tensor-core body's own edges: hd 32 (the 64-byte swizzle), the
+    # training head layout at a ragged length, a window of one tile, and
+    # pads that cut a q-tile and a key tile mid-tile under a causal mask
+    (2, 129, 129, 4, 4, 32, True, 0, None, None),
+    (1, 2049, 2049, 32, 8, 128, True, 0, None, None),
+    (1, 640, 640, 8, 2, 128, True, 64, None, None),
+    (2, 300, 300, 8, 2, 64, True, 0, 227, 165),
 ]
 
 

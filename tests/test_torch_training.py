@@ -108,6 +108,20 @@ def test_synthetic_batches_equal_jax_bitwise():
             np.testing.assert_array_equal(x[k], y[k])
 
 
+def test_synthetic_stream_at_llama3_vocab_equals_jax_bitwise():
+    """A 1,024-token stream over llama3's 128,256 ids, drawn from the kept
+    cdf, equals the JAX package's ``choice`` stream bit for bit, and both
+    generators are left in the same state (their next draws are equal)."""
+    cfg = dict(vocab_size=128_256, seq_len=1023, batch_size=1, seed=11)
+    a = tdata.SyntheticLM(tdata.DataConfig(**cfg))
+    b = jdata.SyntheticLM(jdata.DataConfig(**cfg))
+    x, y = a._sequence(cfg["seq_len"]), b._sequence(cfg["seq_len"])
+    assert x.shape == y.shape == (1024,) and x.dtype == y.dtype
+    np.testing.assert_array_equal(x, y)
+    assert (x < 128_256).all() and (x >= 0).all()
+    assert a.rng.random() == b.rng.random()
+
+
 def test_bin_token_file_batches_equal_jax_bitwise(tmp_path):
     path = tmp_path / "tokens.bin"
     np.random.default_rng(0).integers(0, 50_000, 4096, dtype=np.uint32) \
