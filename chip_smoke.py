@@ -56,7 +56,12 @@ result line:
    through the plain versions, two calls bitwise equal, their device time
    alone, SDPA's and ``F.rms_norm``'s backward beside them, and no ptxas
    spills in their bodies (flash's bf16 body on wgmma, its fp32 body on
-   the CUDA cores);
+   the CUDA cores); flash's at MLA's head dims (192, 128, 128 heads) at
+   [2, 4096], [8, 1024] and with a pad, SDPA's backward beside it; the SSD
+   scan's at mamba2-130m's and jamba's training shapes ([8, 4096], [2,
+   4096]), ragged, below one chunk and under strong decay, bf16 and fp32
+   (the fp32 oracle the plain version in float64), each with its bound by
+   bytes and by operations, and no ptxas spills in its five kernels;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -216,7 +221,13 @@ result line:
    backward, rmsnorm by kernel name; idle share) and cross-entropy, the
    embedding's backward and the AdamW update timed alone; (b) card vs
    CPU in fp32 on 2 layers and one [1, 512] batch: the loss within 1e-5,
-   every gradient leaf within 1e-4 of its largest entry.
+   every gradient leaf within 1e-4 of its largest entry; (d) the same 10
+   steps, gates and a profiled step for mamba2-130m (24 layers, [8,
+   4096]), jamba-v0.1-52b (2 layers: SSM + dense, attention + MoE; [2,
+   4096]) and deepseek-v2-236b (layer 0, [2, 4096]), launches a step from
+   each config (``train_structure``), and (b)'s gate on each (mamba2's 24
+   layers at [1, 500] against the CPU model in float64, jamba at [1, 256],
+   deepseek-v2 at [1, 512]).
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -396,6 +407,22 @@ SEAMLESS_NEW = 32
 # (B * S = 8192 of d_model 4096) and a decode-sized [8, 4096]
 FLASH_BWD_SHAPES = ((2, 4096), (8, 1024))
 RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096))
+# the flash backward at MLA's head dims (q/k 192, v 128, deepseek-v2-236b's
+# 128 heads, scale 1/sqrt(192), causal): phase 16's [2, 4096], an [8, 1024]
+# batch and a pad (rows and keys at or past 1000 of 1024 masked); the plain
+# version runs 16 heads at a time (the heads are independent at G = 1),
+# which keeps its fp32 score tensors at [2, 16, 4096, 4096]
+MLA_BWD_CASES = ((2, 4096, None), (8, 1024, None), (2, 1024, 1000))
+MLA_BWD_HEADS = 16
+# the SSD-scan backward at phase 16's training shapes (mamba2-130m [8,
+# 4096], jamba [2, 4096]) and at its edges: a ragged last chunk, a sequence
+# below one chunk, strong decay (dt about 0.9 and A about -1.8: A dt near
+# -2 a step, where dt A's in-chunk sums reach -100 and more)
+SSD_BWD_CASES = (  # (widths, b, S, decay)
+    (SSD_SHAPE, 8, 4096, "normal"), (JAMBA_SSD_SHAPE, 2, 4096, "normal"),
+    (SSD_SHAPE, 1, 1000, "normal"), (JAMBA_SSD_SHAPE, 1, 881, "normal"),
+    (SSD_SHAPE, 1, 40, "normal"), (JAMBA_SSD_SHAPE, 1, 40, "normal"),
+    (SSD_SHAPE, 1, 1024, "strong"), (JAMBA_SSD_SHAPE, 1, 1024, "strong"))
 # gradients, each held on its own: |kernel - plain| <= atol * (its largest
 # |plain|) + rtol * |plain| elementwise, and |kernel - plain| <= ntol *
 # |plain| in the 2-norm over the whole gradient (zeroed rows or dropped key
@@ -608,6 +635,15 @@ def main():
     results["train"]["same_weights"] = train_card_vs_cpu(torch, ops, dev)
     done(t0)
 
+    t0 = phase("phase 16 (d): training mamba2-130m, jamba-v0.1-52b and "
+               "deepseek-v2-236b at full width (the SSD backward at d_state "
+               "128 and 16, the flash backward at 192/128)")
+    results["train_family"] = train_family_path(torch, ops, dev)
+    results["train_family_same_weights"] = [
+        train_card_vs_cpu(torch, ops, dev, *check)
+        for check in TRAIN_FAMILY_CHECK]
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
@@ -617,7 +653,8 @@ def main():
             "preprocess": results["kernels"]["preprocess_path"],
             "mla_decode_attention": results["mla"]["bucketed"],
             "flash_attention_bwd": results["train"],
-            "rmsnorm_bwd": results["train"]}
+            "rmsnorm_bwd": results["train"],
+            "ssd_scan_bwd": results["train_family"]["mamba2-130m"]}
     kernel_line = []
     for k in results["kernels"]["summary"]:
         k = dict(k)
@@ -635,8 +672,10 @@ def main():
         "deepseek": results["mla"]["launches"],
         "deepseek_paged": results["mla"]["launches_paged"]}
     results["phase14_launches"] = {"jamba": results["hybrid"]["launches"]}
-    results["phase16_launches"] = {"train": results["train"]["launches"],
-                                   "serve": results["train"]["serve"]["launches"]}
+    results["phase16_launches"] = {
+        "train": results["train"]["launches"],
+        "serve": results["train"]["serve"]["launches"],
+        **{arch: r["launches"] for arch, r in results["train_family"].items()}}
     results["phase15_launches"] = {
         k: {"prefill": v["prefill_launches"],
             "decode_step": v["decode_launches_a_step"]}
@@ -1275,6 +1314,8 @@ def check_kernels(torch, ops, dev):
     pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
     cases += pp_cases
     cases += backward_cases(torch, ref, dev)
+    cases += mla_backward_cases(torch, ref, dev)
+    cases += ssd_backward_cases(torch, ref, dev)
 
     # the line's entry per kernel: bf16 (the serving dtype) at the shape the
     # main path launches most (decode for rmsnorm, the 1024 bucket for flash)
@@ -1287,7 +1328,9 @@ def check_kernels(torch, ops, dev):
             "preprocess": list(PP_FRAMES),
             "mla_decode_attention": [B, 2048, MLA_HEADS, 512, 64, MLA_LENS],
             "flash_attention_bwd": [*TRAIN_BATCH, H, Hkv, hd, "causal"],
-            "rmsnorm_bwd": [TRAIN_BATCH[0] * TRAIN_BATCH[1], 4096]}
+            "rmsnorm_bwd": [TRAIN_BATCH[0] * TRAIN_BATCH[1], 4096],
+            "ssd_scan_bwd": [8, 4096, SSD_SHAPE["nh"], SSD_SHAPE["hd"],
+                             SSD_SHAPE["ds"], "normal"]}
     meta = {
         "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:23"),
@@ -1312,6 +1355,9 @@ def check_kernels(torch, ops, dev):
             "src/repro/models/attention.py:71"),
         "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/models/layers.py:19"),
+        # no Pallas backward: JAX differentiates its jnp ssd_chunked
+        "ssd_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                         "src/repro/models/mamba.py:70"),
     }
     summary = []
     for name, shape in pick.items():
@@ -1974,19 +2020,22 @@ def mla_cases(torch, ops, ref, dev):
     return cases
 
 
-def ssd_inputs(torch, dtype, S, dev, shape=SSD_SHAPE):
+def ssd_inputs(torch, dtype, S, dev, shape=SSD_SHAPE, b=1, decay="normal"):
     """x, dt, A, B, C at ``shape``'s widths (mamba2-130m's, or jamba's
-    JAMBA_SSD_SHAPE) and b=1: x, B and C strided views of one conv-output
-    row [1, S, nh hd + 2 ds], dt and A fp32."""
+    JAMBA_SSD_SHAPE) and ``b`` rows: x, B and C strided views of one
+    conv-output tensor [b, S, nh hd + 2 ds], dt and A fp32 (``decay``
+    "strong": dt about 0.9 and A about -1.8 instead of 0.09 and -0.9)."""
     nh, hd, ds = (shape[k] for k in ("nh", "hd", "ds"))
-    xBC = rand(torch, (1, S, nh * hd + 2 * ds), dtype, dev, 20)
-    x = xBC[..., :nh * hd].reshape(1, S, nh, hd)
-    B = xBC[..., nh * hd:nh * hd + ds].reshape(1, S, 1, ds)
-    C = xBC[..., nh * hd + ds:].reshape(1, S, 1, ds)
+    xBC = rand(torch, (b, S, nh * hd + 2 * ds), dtype, dev, 20)
+    x = xBC[..., :nh * hd].reshape(b, S, nh, hd)
+    B = xBC[..., nh * hd:nh * hd + ds].reshape(b, S, 1, ds)
+    C = xBC[..., nh * hd + ds:].reshape(b, S, 1, ds)
     g = torch.Generator(device=dev).manual_seed(21)
-    dt = torch.randn((1, S, nh), generator=g, device=dev).abs() * 0.1 + 0.01
-    A = -torch.randn((nh,), generator=g, device=dev).abs() - 0.1
-    return x, dt, A, B, C
+    dt = torch.randn((b, S, nh), generator=g, device=dev).abs()
+    A = -torch.randn((nh,), generator=g, device=dev).abs()
+    if decay == "strong":
+        return x, dt * 0.5 + 0.5, A - 1.0, B, C
+    return x, dt * 0.1 + 0.01, A - 0.1, B, C
 
 
 def ssd_cases(torch, ops, ref, dev, shape=SSD_SHAPE, lens=SSD_LENS):
@@ -2074,6 +2123,226 @@ def ssd_float64_gap(torch, x, dt, A, B, C, y, plain_y, h=0):
         raise AssertionError(f"fp32 SSD kernel {res['kernel']:.3e} from the "
                              f"float64 recurrence > {SSD_TOLS['fp32']}")
     return res
+
+
+def ssd_bwd_cost(b, S, nh, hd, ds, isz, L=64):
+    """(bytes, FLOPs, how) of the SSD scan's backward: x, dy, B, C (``isz``
+    bytes), dt and A (fp32) read once; dx, dB, dC, ddt and dA written once.
+    The operations the gradient needs per chunk of L positions (the
+    kernel's chunk): the causal half of C.B^T once (one B/C group); per
+    head the causal halves of dy.x'^T, (C.B^T)^T dy, W^T C and W B, and the
+    state products -- the chunk's state contribution (not for the last
+    chunk: the final state takes no gradient), its part of the entering
+    state's gradient (not for the first: nothing enters it), G'B^T and
+    x'^T G' (not for the last: G' is 0 there), dy^T H (not for the first: H
+    is 0 there)."""
+    nbytes = ((3 * b * S * nh * hd + 4 * b * S * ds) * isz
+              + 2 * b * S * nh * 4 + 2 * nh * 4)
+    flops = 0
+    nc = -(-S // L)
+    for c in range(nc):
+        n = min(L, S - c * L)
+        causal = n * (n + 1) // 2
+        state = 2 * n * hd * ds
+        n_state = (c < nc - 1) * 3 + (c > 0) * 2
+        flops += b * (2 * causal * ds + nh * (
+            4 * causal * hd + 4 * causal * ds + n_state * state))
+    how = (f"bytes: x, dy, dx ({isz} B), B, C, dB, dC ({isz} B), dt, ddt, A, "
+           f"dA (fp32) once; FLOPs: per {L}-position chunk the causal C.B^T "
+           f"once, per head 4 causal products over hd and ds and the state "
+           f"products each chunk needs")
+    return nbytes, flops, how
+
+
+def ssd_backward_cases(torch, ref, dev):
+    """The SSD-scan backward kernel against its plain version at
+    SSD_BWD_CASES, bf16 and fp32, called as the training path calls it:
+    ``torch.autograd.grad`` through ``ops.ssd_scan`` on inputs that require
+    grad (x, B and C strided views of one conv output, as the model reads
+    them), so the autograd Function's forward, saved inputs and launch
+    count are held too. The oracle: the plain version run in fp32 on bf16
+    inputs (the kernel rounds nothing but its outputs) and in float64 on
+    fp32 inputs -- the fp32 plain version sums dt A's in-chunk prefix in
+    fp32 (the kernel in fp64), and under strong decay its own dA comes
+    within reach of the fp32 rule's 1e-5 of the largest entry; its gap to
+    the float64 oracle is reported beside each case. Also: two
+    calls bitwise equal, the backward's time (CUDA events) and its five
+    kernels' device time (torch.profiler), the bound by bytes and by
+    operations, the plain version's time (no PyTorch call computes it);
+    fails on ptxas spills or stack in any of its kernels."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    cases = []
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    for dtype in ("bf16", "fp32"):
+        for shape, b, S, decay in SSD_BWD_CASES:
+            nh, hd, ds = (shape[k] for k in ("nh", "hd", "ds"))
+            x, dt, A, B, C = ssd_inputs(torch, dtype, S, dev, shape, b, decay)
+            dy = rand(torch, (b, S, nh, hd), dtype, dev, 22)
+            ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+            what = f"ssd_scan_bwd {dtype} [{b}, {S}, {nh}, {hd}, {ds}] {decay}"
+            y, _ = ops.ssd_scan(*ins, chunk=shape["chunk"])
+            if type(y.grad_fn).__name__ != "_SsdScanFnBackward":
+                raise AssertionError(f"{what}: the forward ran outside the "
+                                     f"autograd Function ({y.grad_fn})")
+            run = lambda: torch.autograd.grad(  # noqa: E731
+                y, ins, dy, retain_graph=True)
+            n0 = ops.LAUNCHES["ssd_scan_bwd"]
+            got, again = run(), run()
+            if ops.LAUNCHES["ssd_scan_bwd"] - n0 != 2:
+                raise AssertionError(f"{what}: two backward calls counted "
+                                     f"{ops.LAUNCHES['ssd_scan_bwd'] - n0}")
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            plain = lambda: ref.ssd_scan_bwd_ref(  # noqa: E731
+                x, dt, A, B, C, dy, _ssd.BWD_CHUNK)
+            if dtype == "fp32":
+                want = ref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, _ssd.BWD_CHUNK,
+                                            compute=torch.float64)
+                fp32_plain = plain()
+                plain_gap = {n: float((p - w).abs().max() / w.abs().max())
+                             for n, p, w in zip(names, fp32_plain, want)}
+                del fp32_plain
+            else:
+                want, plain_gap = plain(), None
+            err, shares = grad_errs(torch, got, want, dtype, what, names)
+            del got, again, want
+            nbytes, flops, how = ssd_bwd_cost(b, S, nh, hd, ds,
+                                              x.element_size())
+            rec = err_record(
+                "ssd_scan_bwd", dtype, [b, S, nh, hd, ds, decay], err,
+                time_ms(torch, run, reps=5, warmup=2),
+                time_ms(torch, plain, reps=3, warmup=1), None, nbytes, flops)
+            rec["device_ms"] = device_ms(torch, run, "ssd_bwd", reps=5)
+            rec["bound_bytes_ms"] = nbytes / PEAK_BYTES_S * 1e3
+            rec["bound_ops_ms"] = flops / PEAK_FLOPS[dtype] * 1e3
+            rec["bound_counted"] = how
+            rec["library"] = "none: no single PyTorch call computes it"
+            rec["bitwise_repeat"] = True
+            rec["limit_shares"] = shares
+            rec["fp32_plain_vs_float64"] = plain_gap
+            print(f"   {'':16s} share of the elementwise limit, norm error: "
+                  f"{shares}", flush=True)
+            print(f"   {'':16s} device time alone (torch.profiler): kernels "
+                  f"{rec['device_ms']} ms; bound by bytes "
+                  f"{rec['bound_bytes_ms']:.4f} ms, by operations "
+                  f"{rec['bound_ops_ms']:.4f} ms ({how}); library: none"
+                  + ("" if plain_gap is None else
+                     f"; the fp32 plain version against float64 (of each "
+                     f"gradient's largest): "
+                     + ", ".join(f"{n} {v:.1e}" for n, v in plain_gap.items())),
+                  flush=True)
+            cases.append(rec)
+            del x, dt, A, B, C, dy, ins, y, run, plain
+            torch.cuda.empty_cache()
+    # ptxas: no spills or stack in any instantiation of its five kernels
+    for fn, st in ptxas_stats(build.build_log.get("ssd_scan_bwd", "")).items():
+        print(f"   ptxas {fn[fn.find('ssd_bwd'):][:60]}: {st}")
+        if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
+            raise AssertionError(f"{fn}: spills or stack {st}")
+    return cases
+
+
+def mla_flash_bwd_ref(torch, ref, q, k, v, do, heads=MLA_BWD_HEADS, **kw):
+    """The plain flash backward on ``heads`` heads at a time (G = 1: every
+    query head reads its own key head), concatenated."""
+    parts = [ref.flash_attention_bwd_ref(
+        *(t[:, :, h:h + heads] for t in (q, k, v, do)), **kw)
+        for h in range(0, q.shape[2], heads)]
+    return [torch.cat(g, dim=2) for g in zip(*parts)]
+
+
+def mla_backward_cases(torch, ref, dev):
+    """The flash backward at MLA's head dims (192, 128) against its plain
+    version at MLA_BWD_CASES, bf16 and fp32, through
+    ``torch.autograd.grad`` of ``ops.flash_attention`` (the autograd
+    Function, as deepseek-v2's training calls it), under BWD_TOLS; two
+    calls bitwise equal; CUDA-event and device times, the bound, the plain
+    version's time, and SDPA's backward at the same shape beside it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    cases = []
+    H, hd, hdv = MLA_HEADS, 192, 128
+    scale = 1.0 / math.sqrt(hd)
+    for dtype in ("bf16", "fp32"):
+        for B, S, real in MLA_BWD_CASES:
+            q, k = (rand(torch, (B, S, H, hd), dtype, dev, sd) for sd in (30, 31))
+            v, do = (rand(torch, (B, S, H, hdv), dtype, dev, sd)
+                     for sd in (32, 33))
+            kw = dict(causal=True, scale=scale, sq_real=real, skv_real=real)
+            shape = [B, S, H, hd, hdv, "causal"] + ([f"pad {real}"] if real
+                                                    else [])
+            what = f"flash_attention_bwd {dtype} {shape}"
+            qkv = [t.requires_grad_(True) for t in (q, k, v)]
+            o = ops.flash_attention(*qkv, **kw)
+            if type(o.grad_fn).__name__ != "_FlashFnBackward":
+                raise AssertionError(f"{what}: the forward ran outside the "
+                                     f"autograd Function ({o.grad_fn})")
+            run = lambda: torch.autograd.grad(  # noqa: E731
+                o, qkv, do, retain_graph=True)
+            n0 = ops.LAUNCHES["flash_attention_bwd"]
+            got, again = run(), run()
+            if ops.LAUNCHES["flash_attention_bwd"] - n0 != 2:
+                raise AssertionError(f"{what}: two backward calls counted "
+                                     f"{ops.LAUNCHES['flash_attention_bwd'] - n0}")
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            plain = lambda: mla_flash_bwd_ref(  # noqa: E731
+                torch, ref, q, k, v, do, **kw)
+            want = plain()
+            err, shares = grad_errs(torch, got, want, dtype, what,
+                                    ("dq", "dk", "dv"))
+            del got, again, want
+            lib_fn, t_lib, out = None, None, None
+            if real is None:
+                qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                              .requires_grad_(True) for t in (q, k, v))
+                dot = do.transpose(1, 2).contiguous()
+                try:
+                    out = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, scale=scale)
+                    lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+                        out, (qt, kt, vt), dot, retain_graph=True)
+                    t_lib = library_ms(torch, lib_fn, reps=3, warmup=1)
+                except (TypeError, RuntimeError) as e:
+                    print(f"   (library call unavailable: "
+                          f"{type(e).__name__}: {str(e)[:120]})")
+                    lib_fn = None
+            n = S if real is None else real
+            pairs = n * (n + 1) // 2 * B * H
+            isz = q.element_size()
+            nbytes = ((2 * B * S * H * hd + 4 * B * S * H * hdv) * isz
+                      + 2 * B * S * H * hd * isz + 4 * B * H * S)
+            rec = err_record(
+                "flash_attention_bwd", dtype, shape, err,
+                time_ms(torch, run, reps=5, warmup=2),
+                time_ms(torch, plain, reps=2, warmup=1), t_lib, nbytes,
+                2 * (3 * hd + 2 * hdv) * pairs)
+            rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
+            rec["library_device_ms"] = (None if t_lib is None else
+                                        device_ms(torch, lib_fn, "", reps=3))
+            rec["bound_bytes_ms"] = nbytes / PEAK_BYTES_S * 1e3
+            rec["bound_ops_ms"] = rec["flops"] / PEAK_FLOPS[dtype] * 1e3
+            rec["bitwise_repeat"] = True
+            rec["limit_shares"] = shares
+            print(f"   {'':16s} share of the elementwise limit, norm error: "
+                  f"{shares}", flush=True)
+            print(f"   {'':16s} device time alone (torch.profiler): kernels "
+                  f"{rec['device_ms']} ms, SDPA's backward "
+                  f"{rec['library_device_ms']} ms; bound by bytes "
+                  f"{rec['bound_bytes_ms']:.4f} ms (q, k, dq, dk at 192, v, "
+                  f"o, do, dv at 128, lse once), by operations "
+                  f"{rec['bound_ops_ms']:.4f} ms (S, dP, dV, dK, dQ over "
+                  f"the causal pairs of the real rows)", flush=True)
+            cases.append(rec)
+            del q, k, v, do, o, qkv, run, plain, lib_fn, out
+            if real is None:
+                del qt, kt, vt, dot
+            torch.cuda.empty_cache()
+    return cases
 
 
 # --------------------------------------------------------------------------- #
@@ -2339,7 +2608,7 @@ def same_weights_ssm(torch, ops, dev):
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd_scan": SSM_LAYERS, "preprocess": 0,
                 "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
         if launches != want:
             raise AssertionError(f"mamba2 prefill launches {launches} != {want}")
         t0 = time.perf_counter()
@@ -2391,7 +2660,7 @@ def main_path(torch, ops):
             "decode_attention": N_LAYERS * c["decode_steps"],
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
             "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
     print(f"   counters {c}; launches {launches}; expected {want}")
     if min(launches[k] for k in list(want)[:3]) == 0 or launches != want:
         raise AssertionError(f"launch counts {launches} != path structure {want}")
@@ -2894,7 +3163,7 @@ def paged_path(torch, ops, ring_engine):
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd_scan": 0, "preprocess": 0,
                 "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
         want[decode] = N_LAYERS * c["decode_steps"]
         if launches != want:
             raise AssertionError(f"({name}) launch counts {launches} != path "
@@ -3016,7 +3285,7 @@ def ssm_path(torch, ops):
             "decode_attention": 0, "paged_decode_attention": 0,
             "ssd_scan": SSM_LAYERS * c["prefill_calls"], "preprocess": 0,
             "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
     print(f"   prompts {prompt_lens}; counters {c}; launches {launches}; "
           f"expected {want}")
     if launches != want or launches["ssd_scan"] == 0:
@@ -3120,7 +3389,7 @@ def structure(c, layers, decode="decode_attention", ssm=False,
             "flash_attention": 0, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
             "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
     if ssm:
         want["ssd_scan"] = layers * c["prefill_calls"]
     else:
@@ -3409,7 +3678,7 @@ def graph_path(torch, ops, llama, shared, ssm_engine):
                 "decode_attention": L * d["decode_steps"],
                 "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
                 "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
 
     for way, kw in (("eager", dict(_graph=False)), ("graph", {}),
                     ("legacy", dict(legacy=True))):
@@ -5017,48 +5286,118 @@ def mla_legacy_fp32(torch, ops, dev):
 STEP_PARTS = (  # kernel-name keys of a profiled training step's parts
     ("flash_attention_fwd", ("flash_wgmma_kernel", "flash_fwd_kernel")),
     ("flash_attention_bwd", ("flash_bwd",)),
+    ("ssd_scan_bwd", ("ssd_bwd",)),
+    ("ssd_scan_fwd", ("ssd_scan",)),
     ("rmsnorm", ("rmsnorm",)),
     ("weight_gemms", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "Kernel2")),
 )
+BWD_PARTS = ("flash_attention_bwd", "ssd_scan_bwd")
+# phase 16 (d): the SSM, hybrid and MLA stacks trained at full width, each
+# as TRAIN_STEPS steps of (a): (arch, layers, batch, config changes)
+TRAIN_FAMILY = (
+    # all 24 layers, 0.13B parameters, about 1.6 GB of training state
+    ("mamba2-130m", 24, (8, 4096), {}),
+    # reduced()'s interleave at full width: layer 0 SSM + dense FFN, layer 1
+    # attention + MoE (16 experts, top-2); 3.7B parameters, about 44 GB
+    ("jamba-v0.1-52b", 2, (2, 4096), dict(attn_every=2, attn_offset=1)),
+    # its first layer: MLA + the dense 12,288 FFN; 1.4B parameters, 17 GB
+    ("deepseek-v2-236b", 1, (2, 4096), {}),
+)
+# (b)'s gates for them: (arch, layers, batch, config changes, the CPU side
+# in float64), fp32 on the card; mamba2's 500 positions end in a ragged
+# chunk. Through mamba2's 24 random layers the CPU's own fp32 rounding
+# grows past the gate (its gradients sit about 2e-4 of a leaf's largest
+# from a float64 CPU pass, the card's under 1e-4: the CPU plain version,
+# not the kernels, is the far side), so its gate holds the card to the CPU
+# model run in float64 and reports the fp32 CPU pass beside it
+TRAIN_FAMILY_CHECK = (
+    ("mamba2-130m", 24, (1, 500), {}, True),
+    ("jamba-v0.1-52b", 2, (1, 256), dict(attn_every=2, attn_offset=1), False),
+    ("deepseek-v2-236b", 1, (1, 512), {}, False),
+)
 
 
-def train_structure(L, steps):
-    """Launches of ``steps`` training steps of an L-layer dense stack under
+def layer_norms(cfg, i):
+    """rmsnorm launches of layer ``i``'s forward: ln1, and ln2 unless the
+    stack is of the SSM family; an SSM layer's gate_norm; an MLA layer's
+    latent norms (q_norm where the query is low-rank, kv_norm)."""
+    n = 1 + (cfg.family != "ssm")
+    if cfg.layer_kind(i) == "ssm":
+        return n + 1
+    if cfg.mla is not None:
+        return n + 1 + bool(cfg.mla.q_lora_rank)
+    return n
+
+
+def train_structure(cfg, steps):
+    """Launches of ``steps`` training steps of ``cfg``'s decoder stack under
     full remat: every layer's forward runs twice (the pass, then its
-    recompute in the backward), the final norm once."""
-    return {"rmsnorm": (4 * L + 1) * steps, "flash_attention": 2 * L * steps,
-            "flash_attention_bwd": L * steps,
-            "rmsnorm_bwd": (2 * L + 1) * steps, "decode_attention": 0,
-            "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
-            "mla_decode_attention": 0, "paged_mla_decode_attention": 0}
+    recompute in the backward) and its backward once -- flash per
+    attention layer, the SSD scan per SSM layer, rmsnorm per
+    :func:`layer_norms` -- and the final norm once each way."""
+    L = cfg.n_layers
+    norms = sum(layer_norms(cfg, i) for i in range(L))
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
+    n_ssm = L - n_attn
+    return {"rmsnorm": (2 * norms + 1) * steps,
+            "flash_attention": 2 * n_attn * steps,
+            "flash_attention_bwd": n_attn * steps,
+            "rmsnorm_bwd": (norms + 1) * steps, "decode_attention": 0,
+            "paged_decode_attention": 0, "ssd_scan": 2 * n_ssm * steps,
+            "preprocess": 0, "mla_decode_attention": 0,
+            "paged_mla_decode_attention": 0, "ssd_scan_bwd": n_ssm * steps}
 
 
-def train_path(torch, ops, dev):
-    """(a) ``repro_torch.training.train``: TRAIN_STEPS AdamW steps of
-    llama3-8b at full width, TRAIN_LAYERS of 32 layers, ``SyntheticLM``
-    batches of TRAIN_BATCH, full remat; (c) the trained parameters served;
-    then one more step profiled, and the parts torch.profiler cannot name
-    (cross-entropy, the embedding's backward, the optimizer) timed alone."""
+def train_config(arch, layers, changes):
     import dataclasses
 
     from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers, **changes)
+
+
+def model_flops(cfg, n_params, B, S):
+    """A step's model FLOPs: 6 N T over the parameters a token passes
+    through (an MoE layer's top-k experts, not all of them) plus causal
+    attention's 6 (hd_qk + hd_v) a (query, key) pair a head; the SSD scan's
+    own products are not counted."""
+    active = n_params
+    for i in range(cfg.n_layers):
+        if cfg.layer_is_moe(i):
+            active -= ((cfg.moe.n_experts - cfg.moe.top_k) * 3 * cfg.d_model
+                       * cfg.moe.d_ff)
+    if cfg.mla is not None:
+        hd_qk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+        hd_v = cfg.mla.v_head_dim
+    else:
+        hd_qk = hd_v = cfg.head_dim
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    attn = 6 * (hd_qk + hd_v) * (S * (S + 1) // 2) * B * cfg.n_heads * n_attn
+    return 6 * active * B * S + attn
+
+
+def train_run(torch, ops, dev, cfg, batch, label):
+    """``repro_torch.training.train``: TRAIN_STEPS AdamW steps of ``cfg``
+    (full remat, bf16), ``SyntheticLM`` batches of ``batch``, seed 0; the
+    gates: finite losses and grad norms, the mean of the last three losses
+    below the first, launches equal to :func:`train_structure`. Returns
+    (its record, model, params, state, data, opt)."""
     from repro_torch.launch.train import STATE_BYTES_PER_PARAM, param_count
     from repro_torch.models import Model
-    from repro_torch.models.schema import tree_leaves
     from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
     from repro_torch.training.data import make_dataset
 
-    L, (B, S) = TRAIN_LAYERS, TRAIN_BATCH
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=L)
+    B, S = batch
     model = Model(cfg, remat=True, remat_policy="full")
     n_params = param_count(model)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
                       seed=0)
     opt = AdamWConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
                       total_steps=TRAIN_STEPS)
-    print(f"   llama3-8b, {L} of 32 layers at full width: {n_params:,} "
-          f"parameters, training state {STATE_BYTES_PER_PARAM * n_params / 1e9:.1f} "
-          f"GB; batch [{B}, {S}], remat full, {TRAIN_STEPS} steps", flush=True)
+    state_gb = STATE_BYTES_PER_PARAM * n_params / 1e9
+    print(f"   {label}: {n_params:,} parameters, training state "
+          f"{state_gb:.1f} GB; batch [{B}, {S}], remat full, {TRAIN_STEPS} "
+          f"steps", flush=True)
     t0 = time.perf_counter()
     next(make_dataset(data).batches())
     data_ms = (time.perf_counter() - t0) * 1e3
@@ -5088,31 +5427,46 @@ def train_path(torch, ops, dev):
     norms = [h["grad_norm"] for h in hist]
     if len(hist) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"training: a loss or grad norm not finite: "
-                             f"{losses} {norms}")
+        raise AssertionError(f"{label} training: a loss or grad norm not "
+                             f"finite: {losses} {norms}")
     if not statistics.mean(losses[-3:]) < losses[0]:
-        raise AssertionError(f"training: the loss did not fall: {losses}")
-    want = train_structure(L, TRAIN_STEPS)
+        raise AssertionError(f"{label} training: the loss did not fall: "
+                             f"{losses}")
+    want = train_structure(cfg, TRAIN_STEPS)
     print(f"   launches {launches}; expected {want}")
     if launches != want:
-        raise AssertionError(f"training launches {launches} != {want}")
+        raise AssertionError(f"{label} training launches {launches} != {want}")
     steady = statistics.median(step_ms[1:])
     T = B * S
-    attn_flops = 12 * cfg.head_dim * (S * (S + 1) // 2) * B * cfg.n_heads * L
-    model_flops = 6 * n_params * T + attn_flops
-    res = {"layers": L, "batch": [B, S], "params": n_params,
+    flops = model_flops(cfg, n_params, B, S)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+           "params": n_params, "state_gb": state_gb,
            "losses": losses, "grad_norms": norms, "launches": launches,
            "step_ms": step_ms, "step_ms_median_after_first": steady,
-           "tokens_per_s": T / steady * 1e3, "model_flops": model_flops,
-           "mfu": model_flops / (steady / 1e3) / PEAK_FLOPS["bf16"],
+           "tokens_per_s": T / steady * 1e3, "model_flops": flops,
+           "mfu": flops / (steady / 1e3) / PEAK_FLOPS["bf16"],
            "peak_mem_gb": peak / 1e9, "data_batch_host_ms": data_ms}
     print(f"   step wall (CUDA events) first {step_ms[0]:.1f} ms, median of "
           f"the rest {steady:.1f} ms; {res['tokens_per_s']:.0f} tokens/s; "
-          f"model FLOPs {model_flops / 1e12:.2f} T a step (6 N T + "
+          f"model FLOPs {flops / 1e12:.2f} T a step (6 N T + "
           f"attention), {res['mfu']:.3f} of 989 TFLOP/s; peak device memory "
           f"{peak / 1e9:.2f} GB; one batch of the data pipeline "
           f"{data_ms:.0f} ms of host time", flush=True)
+    return res, model, params, state, data, opt
 
+
+def train_path(torch, ops, dev):
+    """(a) ``repro_torch.training.train``: TRAIN_STEPS AdamW steps of
+    llama3-8b at full width, TRAIN_LAYERS of 32 layers, ``SyntheticLM``
+    batches of TRAIN_BATCH, full remat; (c) the trained parameters served;
+    then one more step profiled, and the parts torch.profiler cannot name
+    (cross-entropy, the embedding's backward, the optimizer) timed alone."""
+    from repro_torch.models.schema import tree_leaves
+
+    cfg = train_config("llama3-8b", TRAIN_LAYERS, {})
+    res, model, params, state, data, opt = train_run(
+        torch, ops, dev, cfg, TRAIN_BATCH,
+        f"llama3-8b, {TRAIN_LAYERS} of 32 layers at full width")
     if any(p.requires_grad for p in tree_leaves(params)):
         raise AssertionError("train returned parameters that require grad")
     res["serve"] = train_serve(torch, ops, model, params)
@@ -5121,6 +5475,26 @@ def train_path(torch, ops, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def train_family_path(torch, ops, dev):
+    """(d) TRAIN_FAMILY: mamba2-130m, jamba-v0.1-52b and deepseek-v2-236b
+    trained on the card as (a) trains llama3-8b, each with the same gates
+    and one more step profiled (device busy by part, the idle share, the
+    backward kernels' share of busy)."""
+    out = {}
+    for arch, layers, batch, changes in TRAIN_FAMILY:
+        cfg = train_config(arch, layers, changes)
+        res, model, params, state, data, opt = train_run(
+            torch, ops, dev, cfg, batch,
+            f"(d) {arch}, {layers} layer{'s' * (layers > 1)} at full width")
+        res["profile"] = train_step_profile(torch, model, params, state,
+                                            data, opt, time_alone=False)
+        out[arch] = res
+        del model, params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_serve(torch, ops, model, params):
@@ -5143,7 +5517,7 @@ def train_serve(torch, ops, model, params):
     if not eng.logits_all_finite():
         raise AssertionError("trained params: a logit was not finite")
     forwards = c["prefill_calls"] + c["decode_steps"]
-    want = {**train_structure(L, 0),
+    want = {**train_structure(model.cfg, 0),
             "rmsnorm": (2 * L + 1) * forwards,
             "flash_attention": L * c["prefill_calls"],
             "decode_attention": L * c["decode_steps"]}
@@ -5156,10 +5530,11 @@ def train_serve(torch, ops, model, params):
             "tokens": [r.tokens for r in out]}
 
 
-def train_step_profile(torch, model, params, state, data, opt):
+def train_step_profile(torch, model, params, state, data, opt, time_alone=True):
     """One more training step under torch.profiler (device busy by part,
-    idle share of the step's wall), and cross-entropy, the embedding's
-    backward and the optimizer's update each timed alone (CUDA events)."""
+    idle share of the step's wall, the backward kernels' share of busy),
+    and with ``time_alone`` cross-entropy, the embedding's backward and the
+    optimizer's update each timed alone (CUDA events)."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5198,29 +5573,13 @@ def train_step_profile(torch, model, params, state, data, opt):
         parts[part] = sum(k[0] for k in left if matches(keys, k[1]))
         left = [k for k in left if not matches(keys, k[1])]
     parts["other"] = sum(k[0] for k in left)
-
-    B, S = batch["tokens"].shape
-    logits = torch.randn((B, S, params["embed"].shape[0]), device=dev,
-                         dtype=model.dtype).requires_grad_(True)
-    labels = batch["labels"]
-    alone = {"cross_entropy_fwd_bwd": time_ms(torch, lambda: torch.autograd.grad(
-        cross_entropy(logits, labels), logits), reps=5, warmup=1)}
-    del logits
-    table = params["embed"].detach().clone().requires_grad_(True)
-    emb = F.embedding(batch["tokens"], table)
-    g = torch.randn_like(emb)
-    alone["embedding_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
-        emb, table, g, retain_graph=True), reps=5, warmup=1)
-    del emb, g, table
-    zeros = tree_map(torch.zeros_like, p)
-    alone["adamw_update"] = time_ms(torch, lambda: adamw_update(
-        opt, zeros, state, p), reps=3, warmup=1)
-    del zeros, p
+    bwd = sum(parts[k] for k in BWD_PARTS)
     res = {"host_wall_ms": wall_ms, "device_busy_ms": busy,
            "device_idle_share": 1 - busy / wall_ms if busy else None,
-           "parts_ms": parts, "alone_ms": alone,
+           "parts_ms": parts,
            "flash_bwd_share_of_busy": (parts["flash_attention_bwd"] / busy
                                        if busy else None),
+           "bwd_kernels_share_of_busy": bwd / busy if busy else None,
            "top": [{"ms": ms, "name": n[:80], "calls": c}
                    for ms, n, c in kernels[:12]]}
     if busy:
@@ -5229,33 +5588,68 @@ def train_step_profile(torch, model, params, state, data, opt):
               f"share {res['device_idle_share']:.3f}; by kernel name (ms): "
               + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
               + f"; the flash backward's share of busy "
-              f"{res['flash_bwd_share_of_busy']:.3f}")
+              f"{res['flash_bwd_share_of_busy']:.3f}, the backward kernels' "
+              f"(flash, SSD) {res['bwd_kernels_share_of_busy']:.3f}")
         for k in res["top"]:
             print(f"   {k['ms']:9.3f} ms  x{k['calls']:<5d} {k['name']}")
     else:
         print(f"   profiled step: host wall {wall_ms:.1f} ms; the profiler "
               "reported no device time: busy and idle not measured")
+    if not time_alone:
+        del p, state
+        return res
+
+    B, S = batch["tokens"].shape
+    logits = torch.randn((B, S, params["embed"].shape[0]), device=dev,
+                         dtype=model.dtype).requires_grad_(True)
+    labels = batch["labels"]
+    times = {"cross_entropy_fwd_bwd": time_ms(torch, lambda: torch.autograd.grad(
+        cross_entropy(logits, labels), logits), reps=5, warmup=1)}
+    del logits
+    table = params["embed"].detach().clone().requires_grad_(True)
+    emb = F.embedding(batch["tokens"], table)
+    g = torch.randn_like(emb)
+    times["embedding_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        emb, table, g, retain_graph=True), reps=5, warmup=1)
+    del emb, g, table
+    zeros = tree_map(torch.zeros_like, p)
+    times["adamw_update"] = time_ms(torch, lambda: adamw_update(
+        opt, zeros, state, p), reps=3, warmup=1)
+    del zeros, p
+    res["alone_ms"] = times
     print(f"   alone (CUDA events, ms): cross-entropy forward + backward over "
-          f"[{B}, {S}, {params['embed'].shape[0]}] {alone['cross_entropy_fwd_bwd']:.2f}, "
-          f"the embedding's backward {alone['embedding_bwd']:.2f}, the AdamW "
-          f"update {alone['adamw_update']:.2f}", flush=True)
+          f"[{B}, {S}, {params['embed'].shape[0]}] {times['cross_entropy_fwd_bwd']:.2f}, "
+          f"the embedding's backward {times['embedding_bwd']:.2f}, the AdamW "
+          f"update {times['adamw_update']:.2f}", flush=True)
     return res
 
 
-def train_card_vs_cpu(torch, ops, dev):
-    """(b) The same weights on card and CPU, fp32: llama3-8b at full width
-    cut to TRAIN_CHECK's layers, one batch; the loss and every leaf's
-    gradient, the card through the forward and backward kernels, the CPU
-    through the plain versions."""
-    import dataclasses
+def leaf_gap(card, cpu):
+    """|card - cpu| over the CPU leaf's largest entry; a leaf whose CPU
+    gradient is all zero (an expert no token reached) must be zero on the
+    card too (0 when it is, infinity when not)."""
+    top = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    if top:
+        return err / top
+    return 0.0 if not err else math.inf
 
-    from repro_torch.configs import get_config
+
+def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
+                      layers=TRAIN_CHECK["layers"], batch=TRAIN_CHECK["batch"],
+                      changes=None, witness64=False):
+    """(b) The same weights on card and CPU, fp32: ``arch`` at full width
+    cut to ``layers`` (llama3-8b at TRAIN_CHECK's by default), one batch;
+    the loss and every leaf's gradient, the card through the forward and
+    backward kernels, the CPU through the plain versions. With
+    ``witness64`` the gate's CPU side is the CPU model in float64, and the
+    fp32 CPU pass's distance from both is reported beside."""
     from repro_torch.models import Model
     from repro_torch.models.schema import tree_leaves, tree_map
     from repro_torch.training.data import DataConfig, make_dataset
 
-    L, (B, S) = TRAIN_CHECK["layers"], TRAIN_CHECK["batch"]
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=L)
+    L, (B, S) = layers, batch
+    cfg = train_config(arch, L, changes or {})
     gpu = Model(cfg, dtype=torch.float32, device=dev, remat=True)
     cpu = Model(cfg, dtype=torch.float32, device="cpu", remat=True)
     params = gpu.init(torch.Generator(device=dev).manual_seed(0))
@@ -5275,26 +5669,44 @@ def train_card_vs_cpu(torch, ops, dev):
     lg, gg = grads(gpu, params)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    if launches != train_structure(L, 1):
-        raise AssertionError(f"card vs CPU launches {launches}")
+    if launches != train_structure(cfg, 1):
+        raise AssertionError(f"{arch} card vs CPU launches {launches} != "
+                             f"{train_structure(cfg, 1)}")
     t0 = time.perf_counter()
     lc, gc_ = grads(cpu, params_cpu)
     cpu_s = time.perf_counter() - t0
+    extra, side = {}, "CPU"
+    if witness64:
+        cpu64 = Model(cfg, dtype=torch.float64, device="cpu", remat=True)
+        l64, g64 = grads(cpu64, tree_map(lambda t: t.detach().double(),
+                                         params_cpu))
+        extra = {"loss_cpu_fp32": lc,
+                 "worst_card_vs_cpu_fp32": max(
+                     leaf_gap(a.cpu().double(), b.double())
+                     for a, b in zip(gg, gc_)),
+                 "worst_cpu_fp32_vs_float64": max(
+                     leaf_gap(a.double(), b) for a, b in zip(gc_, g64))}
+        print(f"   (b) {arch}: the fp32 CPU pass {extra['worst_cpu_fp32_vs_float64']:.2e} "
+              f"of a leaf's largest from the float64 one, the card "
+              f"{extra['worst_card_vs_cpu_fp32']:.2e} from the fp32 one; the "
+              f"gate holds the card to the float64 pass", flush=True)
+        lc, gc_, side = l64, g64, "CPU in float64"
+        del cpu64
     loss_rel = abs(lg - lc) / abs(lc)
-    worst = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
-                for a, b in zip(gg, gc_))
-    print(f"   (b) card vs CPU, fp32, {L} layers, [{B}, {S}]: loss {lg:.6f} / "
-          f"{lc:.6f} (relative {loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); worst "
-          f"gradient leaf {worst:.2e} of its largest entry over "
-          f"{len(gg)} leaves (limit {TRAIN_GRAD_TOL}); CPU pass {cpu_s:.1f} s",
-          flush=True)
+    worst = max(leaf_gap(a.cpu().to(b.dtype), b) for a, b in zip(gg, gc_))
+    print(f"   (b) card vs {side}, {arch}, fp32, {L} layer{'s' * (L > 1)}, "
+          f"[{B}, {S}]: loss {lg:.6f} / {lc:.6f} (relative {loss_rel:.2e}, "
+          f"limit {TRAIN_LOSS_RTOL}); worst gradient leaf {worst:.2e} of its "
+          f"largest entry over {len(gg)} leaves (limit {TRAIN_GRAD_TOL}); "
+          f"CPU pass {cpu_s:.1f} s", flush=True)
     if loss_rel > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_TOL:
-        raise AssertionError("card vs CPU training gradients apart")
+        raise AssertionError(f"{arch}: card vs CPU training gradients apart")
     del gpu, cpu, params, params_cpu, gg, gc_
     gc.collect()
     torch.cuda.empty_cache()
-    return {"loss_card": lg, "loss_cpu": lc, "loss_rel": loss_rel,
-            "worst_leaf_rel": worst, "launches": launches, "cpu_s": cpu_s}
+    return {"arch": arch, "layers": L, "batch": [B, S], "loss_card": lg,
+            "loss_cpu": lc, "loss_rel": loss_rel, "worst_leaf_rel": worst,
+            "cpu_side": side, "launches": launches, "cpu_s": cpu_s, **extra}
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd",
            "decode_attention", "paged_decode_attention", "ssd_scan",
-           "mla_decode_attention")
+           "ssd_scan_bwd", "mla_decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

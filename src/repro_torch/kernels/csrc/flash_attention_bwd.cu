@@ -18,8 +18,9 @@
 // under every mask the forward takes but segment ids and a prior: causal
 // (query i sees key j <= i, absolute indices, as the forward), the window
 // (j > i - window), the pads (rows at or past sq_real, keys at or past
-// skv_real), Sq != Skv (cross-attention), any G, hd 32 / 64 / 128. A row
-// that sees no key has lse = +inf and P = 0, so its gradients are zero.
+// skv_real), Sq != Skv (cross-attention), any G, hd 32 / 64 / 128 and MLA's
+// (q/k 192, v 128). A row that sees no key has lse = +inf and P = 0, so its
+// gradients are zero.
 //
 // Nothing is atomic, and every sum runs in a fixed order, so two calls give
 // the same bits. Three launches:
@@ -79,9 +80,24 @@
 // 4-key x hd/16-dim tile of dK / dV / dQ, operands read as 16-byte vectors
 // from fp32 tiles whose rows are padded by 4 floats).
 //
-// Left: MLA's head dims (192, 128), one more instantiation of the bf16
-// body once a 64 x 192 dK accumulator has its own register plan; a fused
-// dQ (five products, not seven) needs a deterministic cross-CTA sum.
+// MLA's head dims (192, 128): q and k at 192, v, dO and O at 128 (D sums
+// over 128). The bf16 dK/dV plan above holds dK and dV in 128 + 128 fp32
+// columns; a 64 x 192 dK beside dV's 128 would take 96 + 64 accumulator
+// registers and spill. So dK is taken in two passes over the q-walk, as two
+// launches of the same body (template parameters DKB0, NDKB, WITH_DV): the
+// first writes dV and dK's column blocks 0-1 (the dense plan's registers,
+// S^T over 192), the second recomputes S^T and dP^T and writes dK's block 2
+// (64 columns) alone. That repeats two of the four products of a (q-tile,
+// key-tile) pair in the second pass: the price of no spill. dQ keeps its 64
+// x 192 accumulator (96 registers) in one CTA and takes each key tile in two
+// halves of 32 keys (S, dP and dS at 16 registers each, each half's dS two
+// k-steps of dQ), as dK/dV takes its q-tile: with 64-key S and dP beside
+// it, it spilled at the 255 registers of two CTAs an SM. The fp32 body runs (192, 128) with its own shared
+// memory: K and Q tiles 196 floats a row, V and dO 132, 198.5 KiB (dK/dV)
+// and 181.5 KiB (dQ) a CTA.
+//
+// Left: a fused dQ (five products, not seven) needs a deterministic
+// cross-CTA sum.
 #include <cstdint>
 
 #include "attn_common.cuh"
@@ -201,13 +217,16 @@ __device__ __forceinline__ void mm_tn(float (&acc)[RA][HD / 16], const float* a,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dkdv_smem_bytes() {
-  // K, V, Q, dO tiles; P and dS tiles; lse and D of the q-tile
-  return sizeof(float) * (4 * 64 * (HD + PAD) + 2 * BR * (BC + PAD) + 2 * BR);
+  // K, Q tiles (HD); V, dO tiles (HDV); P and dS tiles; lse and D of the
+  // q-tile: 198.5 KiB at (192, 128)
+  return sizeof(float) *
+         (2 * 64 * (HD + PAD) + 2 * 64 * (HDV + PAD) + 2 * BR * (BC + PAD) + 2 * BR);
 }
 
-template <int HD>
+// HD: q and k's head dim (Q, K, dK); HDV: v's (V, dO, dV)
+template <int HD, int HDV>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
@@ -218,14 +237,16 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       long long svh, long long sdb, long long sds, long long sdh, int causal,
                       int window, int sq_real, int skv_real, float scale) {
   constexpr int LD = HD + PAD;
+  constexpr int LDV = HDV + PAD;
   constexpr int LP = BC + PAD;
   constexpr int DU = HD / 16;
+  constexpr int DUV = HDV / 16;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;            // [BC][LD]
-  float* vs = ks + 64 * LD;    // [BC][LD]
-  float* qs = vs + 64 * LD;    // [BR][LD]
-  float* dos = qs + 64 * LD;   // [BR][LD]
-  float* ps = dos + 64 * LD;   // [BR][LP]: P
+  float* vs = ks + 64 * LD;    // [BC][LDV]
+  float* qs = vs + 64 * LDV;   // [BR][LD]
+  float* dos = qs + 64 * LD;   // [BR][LDV]
+  float* ps = dos + 64 * LDV;  // [BR][LP]: P
   float* dss = ps + BR * LP;   // [BR][LP]: dS
   float* lse_s = dss + BR * LP;
   float* d_s = lse_s + BR;
@@ -236,16 +257,20 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int Hkv = H / G;
   const int tid = threadIdx.x;
   const int tm = tid >> 4, tn = tid & 15;        // S tile: rows tm + 16 r, keys tn + 16 c
-  const int m0 = (tid & 15) * RA, d0 = (tid >> 4) * DU;  // dK / dV: keys m0 .., dims d0 ..
+  // dK / dV: keys m0 .., dims d0 .. (dK) and dv0 .. (dV)
+  const int m0 = (tid & 15) * RA, d0 = (tid >> 4) * DU, dv0 = (tid >> 4) * DUV;
 
   load_tile<HD>(ks, k + b * skb + kvh * skh, sks, k0, Skv, tid);
-  load_tile<HD>(vs, v + b * svb + kvh * svh, svs, k0, Skv, tid);
+  load_tile<HDV>(vs, v + b * svb + kvh * svh, svs, k0, Skv, tid);
 
-  float dk_acc[RA][DU], dv_acc[RA][DU];
+  float dk_acc[RA][DU], dv_acc[RA][DUV];
 #pragma unroll
-  for (int r = 0; r < RA; ++r)
+  for (int r = 0; r < RA; ++r) {
 #pragma unroll
-    for (int u = 0; u < DU; ++u) dk_acc[r][u] = dv_acc[r][u] = 0.f;
+    for (int u = 0; u < DU; ++u) dk_acc[r][u] = 0.f;
+#pragma unroll
+    for (int u = 0; u < DUV; ++u) dv_acc[r][u] = 0.f;
+  }
 
   // the q rows that see any key of this tile
   int q_begin = causal ? k0 : 0;
@@ -259,7 +284,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int q0 = q_begin; q0 < q_end; q0 += BR) {
       __syncthreads();  // the previous tile's reads are done (and K, V staged)
       load_tile<HD>(qs, q + b * sqb + h * sqh, sqs, q0, Sq, tid);
-      load_tile<HD>(dos, dout + b * sdb + h * sdh, sds, q0, Sq, tid);
+      load_tile<HDV>(dos, dout + b * sdb + h * sdh, sds, q0, Sq, tid);
       if (tid < BR) {
         const int i = q0 + tid;
         const long long at = ((long long)b * H + h) * Sq + i;
@@ -274,7 +299,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < RS; ++c) s[r][c] = dp[r][c] = 0.f;
       mm_nt<HD>(s, qs, ks, tm, tn);
-      mm_nt<HD>(dp, dos, vs, tm, tn);
+      mm_nt<HDV>(dp, dos, vs, tm, tn);
 #pragma unroll
       for (int r = 0; r < RS; ++r) {
         const int il = tm + 16 * r;
@@ -289,33 +314,33 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      mm_tn<HD, LP>(dv_acc, ps, dos, m0, d0);
+      mm_tn<HDV, LP>(dv_acc, ps, dos, m0, dv0);
       mm_tn<HD, LP>(dk_acc, dss, qs, m0, d0);
     }
   }
 
-  const long long hkv_row = (long long)Hkv * HD;  // dk, dv: contiguous [B, Skv, Hkv, HD]
+  // dk, dv: contiguous [B, Skv, Hkv, HD] and [B, Skv, Hkv, HDV]
 #pragma unroll
   for (int r = 0; r < RA; ++r) {
     const int j = k0 + m0 + r;
     if (j >= Skv) continue;
-    float* dkr = dk + ((long long)b * Skv + j) * hkv_row + (long long)kvh * HD + d0;
-    float* dvr = dv + ((long long)b * Skv + j) * hkv_row + (long long)kvh * HD + d0;
+    const long long row = (long long)b * Skv + j;
+    float* dkr = dk + (row * Hkv + kvh) * HD + d0;
+    float* dvr = dv + (row * Hkv + kvh) * HDV + dv0;
 #pragma unroll
-    for (int u = 0; u < DU; ++u) {
-      dkr[u] = dk_acc[r][u] * scale;
-      dvr[u] = dv_acc[r][u];
-    }
+    for (int u = 0; u < DU; ++u) dkr[u] = dk_acc[r][u] * scale;
+#pragma unroll
+    for (int u = 0; u < DUV; ++u) dvr[u] = dv_acc[r][u];
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V tiles; dS^T; lse and D of the q-tile
-  return sizeof(float) * (4 * 64 * (HD + PAD) + BC * (BR + PAD) + 2 * BR);
+  // Q, K tiles (HD); dO, V tiles (HDV); dS^T; lse and D of the q-tile
+  return sizeof(float) * (2 * 64 * (HD + PAD) + 2 * 64 * (HDV + PAD) + BC * (BR + PAD) + 2 * BR);
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
@@ -326,14 +351,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     long long sdh, int causal, int window, int sq_real, int skv_real,
                     float scale) {
   constexpr int LD = HD + PAD;
+  constexpr int LDV = HDV + PAD;
   constexpr int LT = BR + PAD;
   constexpr int DU = HD / 16;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [BR][LD]
-  float* dos = qs + 64 * LD;   // [BR][LD]
-  float* ks = dos + 64 * LD;   // [BC][LD]
-  float* vs = ks + 64 * LD;    // [BC][LD]
-  float* dst = vs + 64 * LD;   // [BC][LT]: dS^T
+  float* dos = qs + 64 * LD;   // [BR][LDV]
+  float* ks = dos + 64 * LDV;  // [BC][LD]
+  float* vs = ks + 64 * LD;    // [BC][LDV]
+  float* dst = vs + 64 * LDV;  // [BC][LT]: dS^T
   float* lse_s = dst + BC * LT;
   float* d_s = lse_s + BR;
 
@@ -347,7 +373,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int m0 = (tid & 15) * RA, d0 = (tid >> 4) * DU;  // dQ: rows m0 .., dims d0 ..
 
   load_tile<HD>(qs, q + b * sqb + h * sqh, sqs, q0, Sq, tid);
-  load_tile<HD>(dos, dout + b * sdb + h * sdh, sds, q0, Sq, tid);
+  load_tile<HDV>(dos, dout + b * sdb + h * sdh, sds, q0, Sq, tid);
   if (tid < BR) {
     const int i = q0 + tid;
     const long long at = ((long long)b * H + h) * Sq + i;
@@ -373,7 +399,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = kv_begin; k0 < kv_end; k0 += BC) {
     __syncthreads();  // the previous tile's reads are done (and Q, dO staged)
     load_tile<HD>(ks, kb, sks, k0, Skv, tid);
-    load_tile<HD>(vs, vb, svs, k0, Skv, tid);
+    load_tile<HDV>(vs, vb, svs, k0, Skv, tid);
     __syncthreads();
 
     float s[RS][RS], dp[RS][RS];
@@ -382,7 +408,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < RS; ++c) s[r][c] = dp[r][c] = 0.f;
     mm_nt<HD>(s, qs, ks, tm, tn);
-    mm_nt<HD>(dp, dos, vs, tm, tn);
+    mm_nt<HDV>(dp, dos, vs, tm, tn);
 #pragma unroll
     for (int r = 0; r < RS; ++r) {
       const int il = tm + 16 * r;
@@ -410,7 +436,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_fp32(const void* q, const void* k, const void* v, const void* o, const void* lse,
                 const void* dout, void* dq, void* dk, void* dv, void* dsum, int B, int Sq,
                 int Skv, int H, int Hkv, long long sqb, long long sqs, long long sqh,
@@ -428,28 +454,28 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* o, cons
 
   const long long rows = (long long)B * H * Sq;
   const int per = BWD_THREADS / 32;
-  flash_bwd_dot_kernel<float, HD><<<(unsigned)((rows + per - 1) / per), BWD_THREADS, 0,
-                                    stream>>>(static_cast<const float*>(o), dt, ds, B, Sq, H,
-                                              sob, sos, soh, sdb, sds, sdh);
+  flash_bwd_dot_kernel<float, HDV><<<(unsigned)((rows + per - 1) / per), BWD_THREADS, 0,
+                                     stream>>>(static_cast<const float*>(o), dt, ds, B, Sq, H,
+                                               sob, sos, soh, sdb, sds, sdh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr size_t s1 = dkdv_smem_bytes<HD>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+  constexpr size_t s1 = dkdv_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<HD><<<dim3((Skv + BC - 1) / BC, Hkv, B), BWD_THREADS, s1, stream>>>(
+  flash_bwd_dkdv_kernel<HD, HDV><<<dim3((Skv + BC - 1) / BC, Hkv, B), BWD_THREADS, s1, stream>>>(
       qt, kt, vt, dt, lt, ds, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, H, G,
       sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, sdb, sds, sdh, causal, window, sq_real,
       skv_real, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr size_t s2 = dq_smem_bytes<HD>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
+  constexpr size_t s2 = dq_smem_bytes<HD, HDV>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD, HDV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<HD><<<dim3((Sq + BR - 1) / BR, H, B), BWD_THREADS, s2, stream>>>(
+  flash_bwd_dq_kernel<HD, HDV><<<dim3((Sq + BR - 1) / BR, H, B), BWD_THREADS, s2, stream>>>(
       qt, kt, vt, dt, lt, ds, static_cast<float*>(dq), Sq, Skv, H, G, sqb, sqs, sqh, skb, sks,
       skh, svb, svs, svh, sdb, sds, sdh, causal, window, sq_real, skv_real, scale);
   return (int)cudaGetLastError();
@@ -498,19 +524,20 @@ __device__ __forceinline__ void mma_nt(float (&d)[N / 2], uint32_t a, uint32_t b
   }
 }
 
-// d[64 x HD] += A[64 x 16 KS] . B[16 KS x HD]: A the bf16 pairs of a 64 x
-// 16 KS accumulator fragment (a[i] holds its elements 2 i, 2 i + 1), B rows
-// of a WgTile (from ``b``, which may start at row 32) read MN-major, one
-// column block of PVN columns a product
-template <int HD, int KS>
-__device__ __forceinline__ void mma_rs(float (&d)[WgTile<HD>::NPV][WgTile<HD>::PVN / 2],
+// d[64 x NB PVN] += A[64 x 16 KS] . B[16 KS x NB PVN]: A the bf16 pairs of
+// a 64 x 16 KS accumulator fragment (a[i] holds its elements 2 i, 2 i + 1),
+// B rows of a WgTile read MN-major, one column block of PVN columns a
+// product, NB blocks from ``b`` (which may start at row 32, and at any
+// column block: all of them by default)
+template <int HD, int KS, int NB = WgTile<HD>::NPV>
+__device__ __forceinline__ void mma_rs(float (&d)[NB][WgTile<HD>::PVN / 2],
                                        const uint32_t (&a)[4 * KS], uint32_t b) {
   using Tt = WgTile<HD>;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
 #pragma unroll
-    for (int n = 0; n < Tt::NPV; ++n) {
+    for (int n = 0; n < NB; ++n) {
       const uint64_t db = wg_desc(b + n * (WG_M * Tt::RB) + kk * 16 * Tt::RB, 8 * Tt::RB,
                                   8 * Tt::RB, Tt::LAYOUT);
       if constexpr (Tt::PVN == 64)
@@ -539,13 +566,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Rows ``row`` and ``row`` + 8 of a fragment-shaped [64 x HD] fp32 sum,
+// Rows ``row`` and ``row`` + 8 of a fragment-shaped [64 x NB PVN] fp32 sum,
 // times ``mul``, as bf16 into a contiguous row-major tensor whose rows are
-// ``ld`` elements apart (``out`` at row 0, column 0); rows at or past n are
-// not written.
-template <int HD>
+// ``ld`` elements apart (``out`` at row 0 and the sum's first column); rows
+// at or past n are not written.
+template <int HD, int NB = WgTile<HD>::NPV>
 __device__ __forceinline__ void store_frag(bf16* out, long long ld, int row, int n, int col0,
-                                           const float (&d)[WgTile<HD>::NPV][WgTile<HD>::PVN / 2],
+                                           const float (&d)[NB][WgTile<HD>::PVN / 2],
                                            float mul) {
   using Tt = WgTile<HD>;
 #pragma unroll
@@ -553,7 +580,7 @@ __device__ __forceinline__ void store_frag(bf16* out, long long ld, int row, int
     if (row + 8 * r >= n) continue;
     bf16* o = out + (long long)(row + 8 * r) * ld;
 #pragma unroll
-    for (int c = 0; c < Tt::NPV; ++c)
+    for (int c = 0; c < NB; ++c)
 #pragma unroll
       for (int j = 0; j < Tt::PVN / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(o + c * Tt::PVN + 8 * j + col0) =
@@ -569,8 +596,13 @@ constexpr size_t dkdv_wgmma_smem_bytes() {
          1024;
 }
 
-// HD: q and k's head dim (the Q and K tiles, dK); HDV: v's (V, dO, dV)
-template <int HD, int HDV>
+// HD: q and k's head dim (the Q and K tiles, dK); HDV: v's (V, dO, dV).
+// The CTA writes dK's column blocks DKB0 .. DKB0 + NDKB - 1 (of PVN
+// columns each) and, when WITH_DV, dV: at (HD, HDV) = (192, 128) one
+// launch takes dV and dK's first two blocks, a second dK's third, so that
+// no CTA holds more than the 128 + 128 accumulator columns of the dense
+// plan (see launch_wgmma).
+template <int HD, int HDV, int DKB0 = 0, int NDKB = WgTile<HD>::NPV, bool WITH_DV = true>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -636,7 +668,9 @@ flash_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
               st_h0 + (long long)hg * Sq + min(i, Sq - 1), i < Sq);
   };
 
-  float dk_acc[Tk::NPV][Tk::PVN / 2], dv_acc[Tv::NPV][Tv::PVN / 2];
+  static_assert(DKB0 + NDKB <= Tk::NPV, "dK's column blocks inside the tile");
+  constexpr uint32_t DK_COL = DKB0 * (WG_M * Tk::RB);  // bytes to dK's first column block
+  float dk_acc[NDKB][Tk::PVN / 2], dv_acc[WITH_DV ? Tv::NPV : 1][Tv::PVN / 2];
   zero_acc(dk_acc);
   zero_acc(dv_acc);
   const float scale_log2 = scale * LOG2E;
@@ -700,8 +734,8 @@ flash_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
       // dV += P^T . dO and dK += dS^T . Q over the half's 32 q rows, the A
       // fragments from registers
       wgmma_fence();
-      mma_rs<HDV, 2>(dv_acc, pa[f], dod + f * 32 * Tv::RB);
-      mma_rs<HD, 2>(dk_acc, da[f], qd + f * 32 * Tk::RB);
+      if constexpr (WITH_DV) mma_rs<HDV, 2>(dv_acc, pa[f], dod + f * 32 * Tv::RB);
+      mma_rs<HD, 2, NDKB>(dk_acc, da[f], qd + f * 32 * Tk::RB + DK_COL);
       wgmma_commit();
     }
     wgmma_wait0();
@@ -713,8 +747,10 @@ flash_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
   // dk, dv: contiguous [B, Skv, Hkv, HD / HDV]
   const long long kv_at = (long long)b * Skv * Hkv + kvh;  // row 0 of this (b, kv head)
-  store_frag<HD>(dk + kv_at * HD, (long long)Hkv * HD, key_a, Skv, col0, dk_acc, scale);
-  store_frag<HDV>(dv + kv_at * HDV, (long long)Hkv * HDV, key_a, Skv, col0, dv_acc, 1.f);
+  store_frag<HD, NDKB>(dk + kv_at * HD + DKB0 * Tk::PVN, (long long)Hkv * HD, key_a, Skv, col0,
+                       dk_acc, scale);
+  if constexpr (WITH_DV)
+    store_frag<HDV>(dv + kv_at * HDV, (long long)Hkv * HDV, key_a, Skv, col0, dv_acc, 1.f);
 }
 
 template <int HD, int HDV>
@@ -790,6 +826,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float dq_acc[Tk::NPV][Tk::PVN / 2];
   zero_acc(dq_acc);
   const float scale_log2 = scale * LOG2E;
+  constexpr int KH = HD > 128 ? 2 : 1;  // parts of a key tile
+  constexpr int NK = WG_M / KH;         // keys a part
 
   if (n_tiles > 0) issue(0, 0);
   cp_async_commit();  // with the Q and dO tiles
@@ -804,45 +842,52 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int t0 = kv_begin + i * WG_M;
     const uint32_t kd = stage0 + stage * STAGE_BYTES;
     const uint32_t vd = kd + Tk::BYTES;
-    // S = Q . K^T and dP = dO . V^T: 64 q rows x 64 keys each
-    float s[32], dp[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
-    mma_nt<HD, 64>(s, q_tile, kd);
-    mma_nt<HDV, 64>(dp, do_tile, vd);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // dS in the fragment (element j at row row_a + 8 ((j / 2) % 2), key t0 +
-    // 8 (j / 4) + col0 + j % 2); masked entries 0 on boundary tiles
     const bool full = tile_full(q0, t0, causal, window, sq_real, skv_real);
-    uint32_t da[16];
+    // the key tile in KH parts of NK keys: at HD 192 the 64 x 192 dQ (96
+    // registers) leaves no room for a 64-key S and dP beside it, so S, dP
+    // and dS take 32 keys at a time (each part's dS feeds two k-steps of dQ)
 #pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      const int r = (j >> 1) & 1;
-      const int key = t0 + 8 * (j >> 2) + col0;
-      float p0 = exp2f(fmaf(s[j], scale_log2, -l_row[r]));
-      float p1 = exp2f(fmaf(s[j + 1], scale_log2, -l_row[r]));
-      if (!full) {
-        const int qpos = row_a + 8 * r;
-        if (!visible(qpos, key, causal, window, sq_real, skv_real)) p0 = 0.f;
-        if (!visible(qpos, key + 1, causal, window, sq_real, skv_real)) p1 = 0.f;
-      }
-      da[j >> 1] = pack_bf16(p0 * (dp[j] - d_row[r]), p1 * (dp[j + 1] - d_row[r]));
-    }
+    for (int f = 0; f < KH; ++f) {
+      // S = Q . K^T and dP = dO . V^T: 64 q rows x NK keys each
+      float s[NK / 2], dp[NK / 2];
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) s[j] = dp[j] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_nt<HD, NK>(s, q_tile, kd + f * NK * Tk::RB);
+      mma_nt<HDV, NK>(dp, do_tile, vd + f * NK * Tv::RB);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      fence_regs(dp);
 
-    // dQ += dS . K, the K tile read MN-major
-    fence_acc(dq_acc);
-    wgmma_fence();
-    mma_rs<HD, 4>(dq_acc, da, kd);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_acc(dq_acc);
+      // dS in the fragment (element j at row row_a + 8 ((j / 2) % 2), key
+      // t0 + NK f + 8 (j / 4) + col0 + j % 2); masked entries 0 on boundary
+      // tiles
+      uint32_t da[NK / 4];
+#pragma unroll
+      for (int j = 0; j < NK / 2; j += 2) {
+        const int r = (j >> 1) & 1;
+        const int key = t0 + f * NK + 8 * (j >> 2) + col0;
+        float p0 = exp2f(fmaf(s[j], scale_log2, -l_row[r]));
+        float p1 = exp2f(fmaf(s[j + 1], scale_log2, -l_row[r]));
+        if (!full) {
+          const int qpos = row_a + 8 * r;
+          if (!visible(qpos, key, causal, window, sq_real, skv_real)) p0 = 0.f;
+          if (!visible(qpos, key + 1, causal, window, sq_real, skv_real)) p1 = 0.f;
+        }
+        da[j >> 1] = pack_bf16(p0 * (dp[j] - d_row[r]), p1 * (dp[j + 1] - d_row[r]));
+      }
+
+      // dQ += dS . K over the part's keys, the K tile read MN-major
+      fence_acc(dq_acc);
+      wgmma_fence();
+      mma_rs<HD, NK / 16>(dq_acc, da, kd + f * NK * Tk::RB);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dq_acc);
+    }
     __syncthreads();  // this stage is free for tile i + 2
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -851,6 +896,31 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const long long q_at = (long long)b * Sq * H + h;  // row 0 of this (b, head)
   store_frag<HD>(dq + q_at * HD, (long long)H * HD, row_a, Sq, col0, dq_acc, scale);
 }
+
+template <int HD, int HDV, int DKB0, int NDKB, bool WITH_DV>
+cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                        const float* lse, const float* dsum, bf16* dk, bf16* dv, int B, int Sq,
+                        int Skv, int H, int G, long long sqb, long long sqs, long long sqh,
+                        long long skb, long long sks, long long skh, long long svb,
+                        long long svs, long long svh, long long sdb, long long sds,
+                        long long sdh, int causal, int window, int sq_real, int skv_real,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t s1 = dkdv_wgmma_smem_bytes<HD, HDV>();
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, HDV, DKB0, NDKB, WITH_DV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (Skv + WG_M - 1) / WG_M;
+  dkdv<<<n_kt * (H / G) * B, WG_THREADS, s1, stream>>>(
+      q, k, v, dout, lse, dsum, dk, dv, Sq, Skv, H, G, sqb, sqs, sqh, skb, sks, skh, svb, svs,
+      svh, sdb, sds, sdh, causal, window, sq_real, skv_real, scale);
+  return cudaGetLastError();
+}
+
+#define BWD_DKDV_ARGS                                                                         \
+  qt, kt, vt, dt, lt, ds, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Skv, H, G, sqb, \
+      sqs, sqh, skb, sks, skh, svb, svs, svh, sdb, sds, sdh, causal, window, sq_real, skv_real,  \
+      scale, stream
 
 template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* lse,
@@ -876,17 +946,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr size_t s1 = dkdv_wgmma_smem_bytes<HD, HDV>();
-  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, HDV>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  // dK and dV: one launch where dK is at most two column blocks wide (hd
+  // up to 128); at HD 192, dV and dK's blocks 0-1, then dK's block 2
+  constexpr int NPV = WgTile<HD>::NPV;
+  constexpr int FIRST = NPV < 2 ? NPV : 2;
+  err = launch_dkdv<HD, HDV, 0, FIRST, true>(BWD_DKDV_ARGS);
   if (err != cudaSuccess) return (int)err;
-  const int n_kt = (Skv + WG_M - 1) / WG_M;
-  dkdv<<<n_kt * Hkv * B, WG_THREADS, s1, stream>>>(
-      qt, kt, vt, dt, lt, ds, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, G,
-      sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, sdb, sds, sdh, causal, window, sq_real,
-      skv_real, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if constexpr (NPV > FIRST) {
+    err = launch_dkdv<HD, HDV, FIRST, NPV - FIRST, false>(BWD_DKDV_ARGS);
+    if (err != cudaSuccess) return (int)err;
+  }
 
   constexpr size_t s2 = dq_wgmma_smem_bytes<HD, HDV>();
   auto dqk = flash_bwd_dq_wgmma_kernel<HD, HDV>;
@@ -898,20 +967,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
       skh, svb, svs, svh, sdb, sds, sdh, causal, window, sq_real, skv_real, scale);
   return (int)cudaGetLastError();
 }
+#undef BWD_DKDV_ARGS
 
 }  // namespace
 
-// q, o, dout: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd], each addressed
-// through its (batch, position, head) element strides, last dim contiguous,
-// rows 16-byte aligned; lse: contiguous fp32 [B, H, Sq] from the forward;
-// dq, dk, dv: contiguous, of q's, k's and v's shapes; dsum: fp32 scratch of
-// B * H * Sq. hd in {32, 64, 128}; H a multiple of Hkv. bf16 runs the
-// tensor-core body, fp32 the CUDA-core body. Three launches on ``stream``.
-// Returns the cudaError_t of the first that fails (0 on success).
+// q: [B, Sq, H, hd]; o, dout: [B, Sq, H, hdv]; k: [B, Skv, Hkv, hd]; v:
+// [B, Skv, Hkv, hdv], each addressed through its (batch, position, head)
+// element strides, last dim contiguous, rows 16-byte aligned; lse:
+// contiguous fp32 [B, H, Sq] from the forward; dq, dk, dv: contiguous, of
+// q's, k's and v's shapes; dsum: fp32 scratch of B * H * Sq. (hd, hdv) is
+// (32, 32), (64, 64), (128, 128) or MLA's (192, 128); H a multiple of Hkv.
+// bf16 runs the tensor-core body, fp32 the CUDA-core body. Three launches
+// on ``stream`` (four in bf16 at (192, 128)). Returns the cudaError_t of
+// the first that fails (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* dsum, int B, int Sq, int Skv, int H, int Hkv,
-                                   int hd, long long sqb, long long sqs, long long sqh,
+                                   int hd, int hdv, long long sqb, long long sqs, long long sqh,
                                    long long skb, long long sks, long long skh, long long svb,
                                    long long svs, long long svh, long long sob, long long sos,
                                    long long soh, long long sdb, long long sds, long long sdh,
@@ -922,10 +994,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 #define BWD_ARGS                                                                              \
   q, k, v, o, lse, dout, dq, dk, dv, dsum, B, Sq, Skv, H, Hkv, sqb, sqs, sqh, skb, sks, skh, svb, \
       svs, svh, sob, sos, soh, sdb, sds, sdh, causal, window, sq_real, skv_real, scale, s
+  if (hd == 192 && hdv == 128)
+    return is_bf16 ? launch_wgmma<192, 128>(BWD_ARGS) : launch_fp32<192, 128>(BWD_ARGS);
+  if (hdv != hd) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     DISPATCH_HD(hd, HD, return (launch_wgmma<HD, HD>(BWD_ARGS)))
   } else {
-    DISPATCH_HD(hd, HD, return (launch_fp32<HD>(BWD_ARGS)))
+    DISPATCH_HD(hd, HD, return (launch_fp32<HD, HD>(BWD_ARGS)))
   }
 #undef BWD_ARGS
   return 0;

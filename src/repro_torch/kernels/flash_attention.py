@@ -31,7 +31,7 @@ _FWD = build.CFunction("flash_attention", "flash_attention_fwd",
                        [_P] * 11 + [_I] * 8 + [_L] * 15 + [_I] * 4
                        + [ctypes.c_float, _I])
 _BWD = build.CFunction("flash_attention_bwd", "flash_attention_bwd",
-                       [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4
+                       [_P] * 10 + [_I] * 7 + [_L] * 15 + [_I] * 4
                        + [ctypes.c_float, _I])
 
 HEAD_DIMS = (32, 64, 128)
@@ -79,13 +79,16 @@ def launch(q, k, v, *, causal: bool, window: int, scale: float,
 def launch_bwd(q, k, v, o, lse, do, *, causal: bool, window: int,
                scale: float, sq_real: int, skv_real: int):
     """The gradients of :func:`launch`'s output through
-    ``csrc/flash_attention_bwd.cu`` (three launches). q, o, do:
-    [B,Sq,H,hd]; k, v: [B,Skv,Hkv,hd], one dtype, hd in :data:`HEAD_DIMS`,
-    last dim contiguous and rows 16-byte aligned (checked by the caller);
-    lse: the forward's contiguous fp32 [B,H,Sq]. Returns new contiguous
-    (dq, dk, dv) in q's, k's and v's shapes and dtype."""
+    ``csrc/flash_attention_bwd.cu``. q: [B,Sq,H,hd]; o, do: [B,Sq,H,hdv];
+    k: [B,Skv,Hkv,hd]; v: [B,Skv,Hkv,hdv], one dtype, (hd, hdv) in
+    :data:`HEAD_DIM_PAIRS`, last dim contiguous and rows 16-byte aligned
+    (checked by the caller); lse: the forward's contiguous fp32 [B,H,Sq].
+    Three launches (D over hdv, dK/dV, dQ); at MLA's (192, 128) in bf16,
+    four: dK in two passes over the q-walk, the first with dV (see the
+    source). Returns new contiguous (dq, dk, dv) in q's, k's and v's shapes
+    and dtype."""
     B, Sq, H, hd = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
     dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -93,7 +96,7 @@ def launch_bwd(q, k, v, o, lse, do, *, causal: bool, window: int,
         q.get_device(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dsum.data_ptr(), B, Sq, Skv, H, Hkv, hd,
+        dsum.data_ptr(), B, Sq, Skv, H, Hkv, hd, hdv,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),

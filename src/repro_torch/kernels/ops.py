@@ -14,8 +14,8 @@ Gradients. On the CPU the plain versions are differentiable PyTorch. On
 the card an op whose inputs need a gradient (``torch.is_grad_enabled()``
 and any input ``requires_grad``) either runs through its
 ``torch.autograd.Function``, whose backward is a hand-written kernel too
-(``flash_attention`` without segment ids or a prior at the dense head
-dims, ``rmsnorm``), or raises NotImplementedError naming what its backward
+(``flash_attention`` without segment ids or a prior, ``rmsnorm``,
+``ssd_scan``), or raises NotImplementedError naming what its backward
 waits for: a kernel's output never leaves the autograd graph silently.
 
 The counts are of kernels launched on the card, by an op or a replay. A
@@ -49,7 +49,8 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "paged_decode_attention": 0, "ssd_scan": 0,
                             "preprocess": 0, "mla_decode_attention": 0,
                             "paged_mla_decode_attention": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                            "ssd_scan_bwd": 0}
 
 SERVING_ONLY = "a serving kernel: no training path runs it"
 
@@ -159,6 +160,28 @@ class _FlashFn(torch.autograd.Function):
                                     lse, _aligned(do), **ctx.args)
         LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None, None, None
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """The SSD scan on the card with its hand-written backward
+    (``csrc/ssd_scan_bwd.cu``): the forward launches as serving runs them,
+    only the inputs saved (the backward recomputes the states entering each
+    chunk); the final state is a serving output and takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state = _ssd.launch(x, dt, A, B, C, chunk=chunk)
+        LAUNCHES["ssd_scan"] += 1
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        grads = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous())
+        LAUNCHES["ssd_scan_bwd"] += 1
+        return (*grads, None)
 
 
 def _check_kernel_dtype(name, *tensors):
@@ -334,11 +357,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                             f"contiguous int32 on q's device: "
                             f"{segment_starts.dtype}")
     if _needs_grad(q, k, v, *kv[2:]):
-        if hdv != hd:
-            raise NotImplementedError(
-                f"flash_attention kernel has no backward at head dims "
-                f"{(hd, hdv)}: deepseek-v2 training waits for one; its inputs "
-                "require grad")
         if segment_ids is not None or prior_k is not None:
             raise NotImplementedError(
                 "flash_attention kernel has no backward with segment ids or "
@@ -526,7 +544,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
     [b,nh,hd,ds] fp32). The plain version chunks by ``min(chunk, S)`` as the
     JAX model does; the fp32 kernel keeps ``chunk``, the bf16 kernels their
     own chunk of 64 positions, and both mask the ragged tail (the result
-    does not depend on the chunk length, up to rounding).
+    does not depend on the chunk length, up to rounding). On the card,
+    inputs that require grad run through :class:`_SsdScanFn`, whose
+    backward kernel gives y's gradient to x, dt, A, B and C; the final
+    state takes none.
     """
     b, S, nh, hd = x.shape
     if (dt.shape != (b, S, nh) or A.shape != (nh,) or B.ndim != 4
@@ -536,8 +557,6 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
                          f"{tuple(C.shape)}")
     if not _on_cuda(x, dt, A, B, C):
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
-    _refuse_grad("ssd_scan", "mamba2-130m and jamba training wait for an SSD "
-                 "scan backward kernel", x, dt, A, B, C)
     _check_kernel_dtype("ssd_scan", x, B, C)
     _check_last_dim_contiguous("ssd_scan", x, B, C)
     _check_rows_aligned("ssd_scan", x, B, C)
@@ -557,6 +576,12 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
         raise ValueError(f"ssd_scan fp32 kernel: head_dim {hd} not a multiple "
                          f"of {_ssd.COLS}, or chunk {chunk} not a multiple of "
                          f"{_ssd.TILE} up to {_ssd.MAX_CHUNK}")
+    if _needs_grad(x, dt, A, B, C):
+        if x.dtype != torch.bfloat16 and hd not in _ssd.BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"ssd_scan fp32 backward kernel takes head_dim in "
+                f"{_ssd.BWD_HEAD_DIMS}: {hd}; its inputs require grad")
+        return _SsdScanFn.apply(x, dt, A, B, C, chunk)
     y, state = _ssd.launch(x, dt, A, B, C, chunk=chunk)
     LAUNCHES["ssd_scan"] += 1
     return y, state

@@ -232,8 +232,11 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int):
     C.B^T scores plus the state entering it. The scores are cast to x's
     dtype before they meet the inputs, as there. With one B/C group the
     C.B^T product is the same for every head and is computed once.
+    Float64 inputs run in float64 throughout (an oracle for the fp32
+    kernels where the fp32 plain version's own rounding is the larger).
     """
     b, S, nh, hd = x.shape
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     L = min(chunk, S)
     pad = (-S) % L
     if pad:
@@ -241,18 +244,18 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int):
         dt = F.pad(dt, (0, 0, 0, pad))
     nc = x.shape[1] // L
     xa = (x * dt[..., None]).reshape(b, nc, L, nh, hd)  # JAX's promotion
-    dA = (dt * A.float()).reshape(b, nc, L, nh)
+    dA = (dt * A.to(acc)).reshape(b, nc, L, nh)
     Bc = B[:, :, 0].reshape(b, nc, L, -1)
     Cc = C[:, :, 0].reshape(b, nc, L, -1)
     cums = torch.cumsum(dA, dim=2)  # [b,nc,L,nh]
 
     # pass 1: each chunk's contribution to the state at its end
     decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)
-    states = torch.einsum("bcls,bclh,bclhd->bchds", Bc.float(), decay_to_end,
-                          xa.float())
+    states = torch.einsum("bcls,bclh,bclhd->bchds", Bc.to(acc), decay_to_end,
+                          xa.to(acc))
     # pass 2: the recurrence over chunk summaries
     chunk_decay = torch.exp(cums[:, :, -1, :])  # [b,nc,nh]
-    carry = torch.zeros((b, nh, hd, Bc.shape[-1]), dtype=torch.float32,
+    carry = torch.zeros((b, nh, hd, Bc.shape[-1]), dtype=acc,
                         device=x.device)
     prev = []  # the state entering each chunk
     for c in range(nc):
@@ -267,9 +270,27 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int):
                           torch.full_like(tril, float("-inf"), dtype=cs.dtype))
         cb = torch.einsum("bls,bms->blm", Cc[:, c], Bc[:, c])  # [b,L,L]
         sc = (cb[:, None] * torch.exp(seg)).to(x.dtype)  # [b,nh,L,L]
-        y_in = torch.einsum("bhlm,bmhd->blhd", sc.float(), xa[:, c].float())
-        y_x = torch.einsum("bls,bhds->blhd", Cc[:, c].float(), prev[c]) \
+        y_in = torch.einsum("bhlm,bmhd->blhd", sc.to(acc), xa[:, c].to(acc))
+        y_x = torch.einsum("bls,bhds->blhd", Cc[:, c].to(acc), prev[c]) \
             * torch.exp(cums[:, c])[..., None]
         ys.append((y_in + y_x).to(x.dtype))
     y = torch.stack(ys, dim=1).reshape(b, nc * L, nh, hd)[:, :S]
     return y, carry
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk: int, *,
+                     compute=torch.float32):
+    """(dx, ddt, dA, dB, dC): the gradients of :func:`ssd_scan_ref`'s y
+    given dy (the final state takes none), by ``torch.autograd.grad``
+    through it on copies of the inputs in ``compute`` (fp32; float64 for
+    an oracle), cast to the backward kernel's output dtypes (dx in x's,
+    ddt and dA fp32, dB and dC in B's and C's) -- the plain version the
+    SSD-scan backward kernel is held against."""
+    with torch.enable_grad():
+        ins = [t.detach().to(compute).requires_grad_(True)
+               for t in (x, dt, A, B, C)]
+        y, _ = ssd_scan_ref(*ins, chunk)
+        dx, ddt, dA, dB, dC = torch.autograd.grad(y, ins, dy.to(compute))
+    f32 = torch.float32
+    return (dx.to(x.dtype), ddt.to(f32), dA.to(f32), dB.to(B.dtype),
+            dC.to(C.dtype))

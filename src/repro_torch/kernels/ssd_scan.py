@@ -8,6 +8,13 @@ the card: bf16 runs three tensor-core launches over chunks of
 outputs), with scratch allocated here; fp32 runs the CUDA-core kernel.
 :func:`repro_torch.kernels.ops.ssd_scan` is the public entry point that
 checks arguments, counts launches and picks this launcher for CUDA tensors.
+
+Its gradient is :func:`launch_bwd`, the hand-written backward of
+``csrc/ssd_scan_bwd.cu`` (no Pallas counterpart: JAX differentiates its jnp
+``ssd_chunked``): five CUDA-core launches over chunks of :data:`BWD_CHUNK`
+positions that recompute the states entering each chunk instead of saving
+them, for fp32 and bf16 at d_state 16 and 128 and the head dims of
+:data:`BWD_HEAD_DIMS`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ _FWD = build.CFunction("ssd_scan", "ssd_scan_fwd",
                        [_P] * 7 + [_I] * 6 + [_L] * 10)
 _BF16 = build.CFunction("ssd_scan", "ssd_scan_bf16_fwd",
                         [_P] * 8 + [_I] * 6 + [_L] * 10)
+_BWD = build.CFunction("ssd_scan_bwd", "ssd_scan_bwd",
+                       [_P] * 16 + [_I] * 7 + [_L] * 10)
 
 STATE_DIMS = (16, 128)  # d_state the kernels are built for (jamba, mamba2)
 # fp32 (CUDA cores): the config's chunk, a multiple of TILE up to MAX_CHUNK;
@@ -42,7 +51,20 @@ BF16_HEAD_DIMS = (64,)
 HEAD_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 64, 128)
 CTAS_PER_SM = 2  # the output launch's 98 KB (d_state 128) fits two an SM
 
+# the backward: its own chunk of positions for every dtype, and the head
+# dims it is built for (fp32; bf16 takes BF16_HEAD_DIMS)
+BWD_CHUNK = 64
+BWD_HEAD_DIMS = (16, 32, 48, 64)
+
 _sm_count: dict[int, int] = {}
+
+
+def _n_sm(dev: int) -> int:
+    n = _sm_count.get(dev)
+    if n is None:
+        n = _sm_count[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def heads_per_cta(n_chunks: int, nh: int, n_sm: int) -> int:
@@ -84,14 +106,56 @@ def launch(x, dt, A, B, C, *, chunk: int, _heads: int | None = None):
              C.data_ptr(), y.data_ptr(), state.data_ptr(), b, S, nh, hd, ds,
              int(chunk), *strides)
         return y, state
-    n_sm = _sm_count.get(dev)
-    if n_sm is None:
-        n_sm = _sm_count[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    hpc = _heads or heads_per_cta(b * -(-S // CHUNK), nh, n_sm)
+    hpc = _heads or heads_per_cta(b * -(-S // CHUNK), nh, _n_sm(dev))
     scratch = torch.empty(scratch_words(b, S, nh, hd, ds), dtype=torch.float32,
                           device=x.device)
     _BF16(dev, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
           C.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
           b, S, nh, hd, ds, hpc, *strides)
     return y, state
+
+
+def bwd_heads_per_cta(n_chunks: int, nh: int, n_sm: int) -> int:
+    """Heads a CTA of the backward's launch 3 takes, for ``n_chunks``
+    chunks of BWD_CHUNK positions over all batch rows: the most that divide
+    ``nh`` and still give every SM a CTA (a CTA sums dB and dC over its
+    heads in registers, so fewer groups write fewer partials); 1 when even
+    one head a CTA leaves SMs idle."""
+    for g in sorted((d for d in range(1, nh + 1) if nh % d == 0),
+                    reverse=True):
+        if n_chunks * (nh // g) >= n_sm:
+            return g
+    return 1
+
+
+def launch_bwd(x, dt, A, B, C, dy, *, _heads: int | None = None):
+    """The gradients of :func:`launch`'s y given ``dy`` (the final state
+    takes none) through ``csrc/ssd_scan_bwd.cu``. x, dt, A, B, C as
+    :func:`launch` takes them; dy: contiguous [b,S,nh,hd] in x's dtype.
+    Returns new contiguous (dx in x's dtype, ddt fp32 [b,S,nh], dA fp32
+    [nh], dB and dC [b,S,1,ds] in B's dtype). ``_heads`` overrides launch
+    3's heads a CTA (kernel-level comparisons only)."""
+    b, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    dev = x.get_device()
+    nc = -(-S // BWD_CHUNK)
+    hpc = _heads or bwd_heads_per_cta(b * nc, nh, _n_sm(dev))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ddt = torch.empty((b, S, nh), **f32)
+    dA = torch.empty((nh,), **f32)
+    dB, dC = (torch.empty((b, S, 1, ds), dtype=B.dtype, device=x.device)
+              for _ in range(2))
+    states, grads = (torch.empty((b, nc, nh, hd, ds), **f32)
+                     for _ in range(2))
+    decay = torch.empty((b, nc, nh), **f32)
+    dbc = torch.empty((2, b, nh // hpc, S, ds), **f32)
+    da_part = torch.empty((b, nc, nh), dtype=torch.float64, device=x.device)
+    _BWD(dev, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+         C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+         dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
+         grads.data_ptr(), decay.data_ptr(), dbc.data_ptr(), da_part.data_ptr(),
+         b, S, nh, hd, ds, hpc, int(x.dtype == torch.bfloat16),
+         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
+         dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    return dx, ddt, dA, dB, dC

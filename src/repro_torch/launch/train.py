@@ -6,17 +6,34 @@ Runs on the card by default:
       --reduced --device cpu --steps 3
 
 ``--reduced`` takes the config's CPU-test variant at ``--batch`` x
-``--seq``. Without it the JAX launcher builds its production mesh and
-trains ``--shape``'s global batch; the port has one card and no sharding,
-so it works out the training state first -- 12 bytes a parameter: the bf16
-weight and gradient, the fp32 m and v -- and raises ValueError with both
-numbers when that exceeds the card's memory (llama3-8b's 7.5B parameters
-need about 90 GB of an H100's 80). It never shrinks the model on its own.
+``--seq`` (8 x 128 by default). Without it the JAX launcher builds its
+production mesh and trains ``--shape``'s global batch; the port has one
+card and no sharding, so it works out the training state first -- 12
+bytes a parameter: the bf16 weight and gradient, the fp32 m and v -- and
+``check_fits`` raises ValueError with both numbers when that exceeds the
+card's memory. It never shrinks the model on its own: ``--layers N``
+trains the stack's first N layers at full width, and ``--batch`` /
+``--seq`` replace the shape's global batch (256 x 4096 for train_4k, far
+past one card's activations).
+
+On one 80 GB card, at full depth: mamba2-130m (1.5 GB of state),
+seamless-m4t-large-v2 (21 GB) and starcoder2-3b (50 GB). Every other
+configuration is refused at full depth -- llama3-8b 90 GB, pixtral-12b
+139 GB, qwen3-32b 384 GB, granite-34b 563 GB, jamba-v0.1-52b 614 GB,
+deepseek-v2-236b 2.8 TB, grok-1-314b 3.8 TB -- and trains only cut with
+``--layers`` (jamba's first 2 layers: 42 GB; deepseek-v2's first: 10 GB;
+llama3-8b's first 8: 27 GB), e.g.:
+
+  python -m repro_torch.launch.train --arch mamba2-130m --batch 8 \
+      --seq 4096 --steps 10
+  python -m repro_torch.launch.train --arch deepseek-v2-236b --layers 1 \
+      --batch 2 --seq 4096 --steps 10
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 
 import torch
@@ -59,8 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="the config's CPU-test variant at --batch x --seq")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train the stack's first N layers (0: all of them)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch rows (default 8 with --reduced, else the "
+                    "shape's global batch)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (default 128 with --reduced, else "
+                    "the shape's)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--remat-policy", default="full",
@@ -73,14 +96,17 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = Model(cfg, device=args.device, remat=True,
                   remat_policy=args.remat_policy)
     if args.reduced:
-        batch, seq = args.batch, args.seq
+        batch, seq = args.batch or 8, args.seq or 128
     else:
         check_fits(model)
         shape = get_shape(args.shape)
-        batch, seq = shape.global_batch, shape.seq_len
+        batch = args.batch or shape.global_batch
+        seq = args.seq or shape.seq_len
     print(f"training {cfg.name}: {param_count(model) / 1e6:.1f}M params, "
           f"batch={batch} seq={seq} on {model.device}")
     return train(

@@ -20,8 +20,11 @@ kernel ring and paged against its plain versions at split and tile edges,
 and an MLA pool's graph against its eager step. The backward kernels
 (``-k backward``): flash's against ``ref.flash_attention_bwd_ref`` at
 sequence, group, head-dim, window, pad and Sq != Skv edges, fully masked
-rows, two calls bitwise; rmsnorm's against ``ref.rmsnorm_bwd_ref`` at the
-models' widths and ragged row counts; the ops without a backward refusing
+rows, two calls bitwise, and at MLA's head dims (192, 128); rmsnorm's
+against ``ref.rmsnorm_bwd_ref`` at the models' widths and ragged row
+counts; the SSD scan's against ``ref.ssd_scan_bwd_ref`` at mamba2's and
+jamba's widths, the chunk's edges, strong decay, the fp32 head dims and
+every head group, two calls bitwise; the ops without a backward refusing
 inputs that require grad; both autograd Functions under
 ``torch.utils.checkpoint``.
 Every test here skips without a card (the kernels have no CPU mode); the
@@ -742,7 +745,7 @@ def test_mamba_engine_on_card_matches_cpu(cuda_device):
         "paged_decode_attention": 0, "ssd_scan": L * c["prefill_calls"],
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu")
@@ -795,7 +798,7 @@ def test_paged_engine_on_card_matches_cpu_and_ring(cuda_device):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, ceng = serve(cpu, params_cpu, "cpu", paged=True)
@@ -847,7 +850,7 @@ def test_engine_on_card_goes_through_every_kernel(cuda_device):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, _ = serve(cpu, params_cpu, "cpu")
@@ -899,7 +902,7 @@ def test_packed_chunked_engine_on_card_matches_cpu(cuda_device, name):
         "ssd_scan": 0,
         "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0,
     }
     assert eng.logits_all_finite()
     want, cpu_eng = serve(cpu, params_cpu, "cpu")
@@ -980,7 +983,7 @@ def test_disaggregated_engine_on_card_matches_cpu(cuda_device, mode):
             "flash_attention": L * c["prefill_calls"], "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
             "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
         want_launches[decode] = L * c["decode_steps"]
         assert ops.LAUNCHES == want_launches
         assert c["handoffs"] > 0
@@ -1092,7 +1095,7 @@ def test_graph_ring_step_equals_eager(cuda_device, monkeypatch, splits):
         "flash_attention": L * calls, "decode_attention": L * steps,
         "paged_decode_attention": 0, "ssd_scan": 0, "preprocess": 0,
         "mla_decode_attention": 0, "paged_mla_decode_attention": 0,
-        "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -1774,7 +1777,8 @@ def test_flash_backward_is_deterministic(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,w_dtype", [
     ("bf16", "bf16"), ("fp32", "fp32"), ("bf16", "fp32")])
-@pytest.mark.parametrize("D", [128, 1024, 4096, 8192])
+# 512 and 1536: deepseek-v2's latent norms (kv, q); 8192: jamba's gate norm
+@pytest.mark.parametrize("D", [128, 512, 1024, 1536, 4096, 8192])
 @pytest.mark.parametrize("N", [1, 257, 8192])
 def test_rmsnorm_backward_matches_plain(cuda_device, N, D, x_dtype, w_dtype):
     x = _cuda_pair((N, D), x_dtype, cuda_device, 0)
@@ -1791,10 +1795,133 @@ def test_rmsnorm_backward_matches_plain(cuda_device, N, D, x_dtype, w_dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (b, S, decay): below one chunk, the chunk's edges, a ragged tail over
+# several chunks, two batch rows; strong decay (dt about 0.9, A about -1.8)
+SSD_BWD_CASES = [(1, 1, "normal"), (1, 40, "normal"), (2, 63, "normal"),
+                 (1, 64, "normal"), (2, 65, "normal"), (1, 1000, "normal"),
+                 (2, 200, "strong"), (1, 1024, "strong")]
+
+
+def _ssd_bwd_inputs(b, S, dtype, dev, seed, nh, hd, ds, decay):
+    x, dt, A, B, C = _ssd_case(S, dtype, dev, seed, nh=nh, hd=hd, ds=ds, b=b)
+    if decay == "strong":
+        g = torch.Generator().manual_seed(seed + 1)
+        dt = (torch.randn((b, S, nh), generator=g).abs() * 0.5 + 0.5).to(dev)
+        A = (-torch.randn((nh,), generator=g).abs() - 1.0).to(dev)
+    dy = _cuda_pair((b, S, nh, hd), dtype, dev, seed + 2)
+    return x, dt, A, B, C, dy
+
+
+def _ssd_bwd_want(x, dt, A, B, C, dy, dtype):
+    """The plain version in fp32 on bf16 inputs (the kernel rounds nothing
+    but its outputs), in float64 on fp32 inputs (the fp32 plain version
+    sums dt A in fp32, the kernel in fp64: under strong decay its own dA
+    comes within reach of the fp32 rule; chip_smoke.py phase 2 reports
+    that gap)."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    compute = torch.float64 if dtype == "fp32" else torch.float32
+    return ref.ssd_scan_bwd_ref(x, dt, A, B, C, dy, _ssd.BWD_CHUNK,
+                                compute=compute)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", SSD_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_backward_matches_plain(cuda_device, case, dtype, width):
+    """The SSD-scan backward kernel through ops.ssd_scan's autograd
+    Function, x, B and C the model's strided views: every gradient under
+    BWD_TOLS, one launch of each kernel, two calls bitwise equal."""
+    b, S, decay = case
+    w = {"nh": 24, "hd": 64, "ds": 128, **SSD_WIDTHS[width]}
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(b, S, dtype, cuda_device, 7 * S + b,
+                                         decay=decay, **w)
+    ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    ops.reset_launches()
+    y, _ = ops.ssd_scan(*ins, chunk=256)
+    got = torch.autograd.grad(y, ins, dy, retain_graph=True)
+    assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
+    want = _ssd_bwd_want(x, dt, A, B, C, dy, dtype)
+    for g, t in zip(got, want):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    _close_grads(got, want, [dtype] * 5, (case, width),
+                 ("dx", "ddt", "dA", "dB", "dC"))
+    again = torch.autograd.grad(y, ins, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 48])
+@pytest.mark.parametrize("ds", [16, 128])
+def test_ssd_backward_fp32_head_dims(cuda_device, hd, ds):
+    """The fp32 kernel's other head dims (the forward's multiples of 16)."""
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(2, 300, "fp32", cuda_device, hd + ds,
+                                         nh=3, hd=hd, ds=ds, decay="normal")
+    ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    y, _ = ops.ssd_scan(*ins, chunk=64)
+    got = torch.autograd.grad(y, ins, dy)
+    _close_grads(got, _ssd_bwd_want(x, dt, A, B, C, dy, "fp32"), ["fp32"] * 5,
+                 (hd, ds), ("dx", "ddt", "dA", "dB", "dC"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(SSD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_ssd_backward_heads_per_cta(cuda_device, dtype, width):
+    """Launch 3 at every head group that divides the heads: each within
+    BWD_TOLS (dB and dC sum the groups' partials in group order, so the
+    grouping moves their last bits), and the launcher's own pick."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    w = {"nh": 24, "hd": 64, "ds": 128, **SSD_WIDTHS[width]}
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(2, 333, dtype, cuda_device, 5,
+                                         decay="normal", **w)
+    want = _ssd_bwd_want(x, dt, A, B, C, dy, dtype)
+    for g in [d for d in range(1, w["nh"] + 1) if w["nh"] % d == 0]:
+        got = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous(), _heads=g)
+        _close_grads(got, want, [dtype] * 5, (width, g),
+                     ("dx", "ddt", "dA", "dB", "dC"))
+
+
+# (B, S, H, causal, real): MLA's head dims (q/k 192, v 128) at ragged
+# lengths, a pad cutting a tile, cross-tile causal and not
+FLASH_MLA_BWD_CASES = [(2, 77, 16, True, None), (1, 200, 16, True, 150),
+                       (1, 1000, 8, True, None), (2, 130, 4, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_MLA_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_at_mla_head_dims(cuda_device, dtype, case):
+    """The flash backward at (192, 128) through the autograd Function: the
+    bf16 body's dK in two passes, its dQ over key halves; the fp32 body's
+    own tiles. Every gradient under BWD_TOLS, two calls bitwise equal."""
+    B, S, H, causal, real = case
+    q = _cuda_pair((B, S, H, 192), dtype, cuda_device, 0)
+    k = _cuda_pair((B, S, H, 192), dtype, cuda_device, 1)
+    v = _cuda_pair((B, S, H, 128), dtype, cuda_device, 2)
+    do = _cuda_pair((B, S, H, 128), dtype, cuda_device, 3)
+    kw = dict(causal=causal, scale=192 ** -0.5, sq_real=real, skv_real=real)
+    ops.reset_launches()
+    _, got = _grad_run(q, k, v, do, **kw)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    _close_grads(got, want, [dtype] * 3, case, ("dq", "dk", "dv"))
+    _, again = _grad_run(q, k, v, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 @pytest.mark.cuda
 def test_backward_refusals(cuda_device):
     """On CUDA tensors that require grad, every kernel op without a
-    backward raises NotImplementedError; under no_grad it runs."""
+    backward raises NotImplementedError; under no_grad it runs. The SSD
+    scan and flash at MLA's head dims (192, 128) have theirs: their
+    gradients arrive through the backward kernels."""
     dev = cuda_device
     bf = torch.bfloat16
     q = torch.randn(2, 1, 8, 64, device=dev, dtype=bf, requires_grad=True)
@@ -1812,8 +1939,10 @@ def test_backward_refusals(cuda_device):
     dt = torch.rand(1, 64, 2, device=dev)
     A = -torch.rand(2, device=dev)
     Bm = torch.randn(1, 64, 1, 16, device=dev, dtype=bf)
-    with pytest.raises(NotImplementedError, match="SSD"):
-        ops.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    ops.reset_launches()
+    y, _ = ops.ssd_scan(x, dt, A, Bm, Bm, chunk=64)
+    (gx,) = torch.autograd.grad(y.float().sum(), x)
+    assert ops.LAUNCHES["ssd_scan_bwd"] == 1 and gx.shape == x.shape
     ql = torch.randn(1, 1, 16, 512, device=dev, dtype=bf, requires_grad=True)
     qr = torch.randn(1, 1, 16, 64, device=dev, dtype=bf)
     ckv = torch.randn(1, 64, 512, device=dev, dtype=bf)
@@ -1828,8 +1957,10 @@ def test_backward_refusals(cuda_device):
     qf = torch.randn(1, 64, 4, 192, device=dev, dtype=bf, requires_grad=True)
     kf = torch.randn(1, 64, 4, 192, device=dev, dtype=bf)
     vf = torch.randn(1, 64, 4, 128, device=dev, dtype=bf)
-    with pytest.raises(NotImplementedError, match="192"):
-        ops.flash_attention(qf, kf, vf)
+    ops.reset_launches()
+    (gq,) = torch.autograd.grad(ops.flash_attention(qf, kf, vf).float().sum(),
+                                qf)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1 and gq.shape == qf.shape
     qs = torch.randn(1, 64, 4, 64, device=dev, dtype=bf, requires_grad=True)
     seg = torch.zeros(1, 64, dtype=torch.int32, device=dev)
     with pytest.raises(NotImplementedError, match="segment ids"):

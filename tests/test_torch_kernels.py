@@ -162,7 +162,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                             "paged_decode_attention": 0, "ssd_scan": 0,
                             "preprocess": 0, "mla_decode_attention": 0,
                             "paged_mla_decode_attention": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                            "ssd_scan_bwd": 0}
 
 
 def test_rmsnorm_on_cpu_tensors_imports_no_triton_and_loads_no_library():

@@ -364,7 +364,8 @@ def test_launcher_trains_reduced_on_cpu():
 
 
 def test_launcher_refuses_a_state_that_does_not_fit():
-    """The full llama3-8b: 12 bytes a parameter is over an H100's 80 GB;
+    """The full llama3-8b, jamba-v0.1-52b and deepseek-v2-236b: 12 bytes a
+    parameter is over an H100's 80 GB, while mamba2-130m's is under it;
     without a card the check refuses the CPU outright."""
     full = Model(get_config("llama3-8b"), device="cpu")
     n = launch_train.param_count(full)
@@ -372,3 +373,21 @@ def test_launcher_refuses_a_state_that_does_not_fit():
     assert launch_train.STATE_BYTES_PER_PARAM * n > 80e9
     with pytest.raises(ValueError, match="--reduced"):
         launch_train.check_fits(full)
+    for arch, over in (("jamba-v0.1-52b", True), ("deepseek-v2-236b", True),
+                       ("mamba2-130m", False)):
+        model = Model(get_config(arch), device="cpu")
+        state = launch_train.STATE_BYTES_PER_PARAM * launch_train.param_count(
+            model)
+        assert (state > 80e9) == over, (arch, state)
+        with pytest.raises(ValueError, match="--reduced"):
+            launch_train.check_fits(model)
+
+
+def test_launcher_cuts_the_stack_to_its_first_layers():
+    """``--layers`` trains the first N layers at full width (counted by
+    check_fits as such), ``--batch``/``--seq`` set the batch."""
+    params, _, hist = launch_train.main(
+        ["--arch", "mamba2-130m", "--reduced", "--layers", "1", "--device",
+         "cpu", "--steps", "2", "--batch", "1", "--seq", "16"])
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert len(params["decoder"]["g0"]) == 1
