@@ -27,6 +27,15 @@ to one card, and compares each reading only within that call:
   every key tile up to the diagonal): events and device time alone; its
   backward at phase 16's [2, 4096], causal, through the autograd
   Function: events and the device time of its three kernels alone;
+- the SSD-scan backward bf16 through the autograd Function at phase 16
+  (d)'s shapes, mamba2-130m's [8, 4096] and jamba's [2, 4096]: events,
+  the device time of its kernels together and of each launch alone,
+  and the launcher's scratch bytes where the tree states them (reading
+  ``ssd_bwd``);
+- phase 16 (d)'s mamba2-130m training run (24 layers, [8, 4096], 10
+  steps): the median step, tokens/s and one profiled step's device busy
+  time, idle share and the SSD backward's ms and share of busy (reading
+  ``train``);
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
 - phase 5's decode step on that engine (10 whole-batch steps of the
@@ -48,6 +57,13 @@ to one card, and compares each reading only within that call:
   busy time.
 
 A reading whose entry point a tree lacks prints as absent (null).
+
+    python3 chip_ab.py SRC LABEL READING[,READING...]
+
+takes only the named groups of readings: ``kernels`` (rmsnorm, paged and
+ring decode, the SSD scan, flash and its backward, MLA decode),
+``ssd_bwd``, ``serving`` (phases 4, 5, 6 (c), 7 and 13) and ``train``;
+all four without the argument.
 
 It reuses ``chip_smoke.py``'s helpers and fails, printing no result, on a
 machine without a CUDA device.
@@ -163,11 +179,73 @@ def flash(torch, ops, dev):
     return out
 
 
+def ssd_bwd(torch, ops, dev):
+    """The SSD-scan backward bf16 through ``torch.autograd.grad`` of
+    ``ops.ssd_scan`` (the autograd Function, as training calls it) at
+    phase 16 (d)'s shapes: events, its kernels' device time together
+    and each launch's alone, and the launcher's scratch bytes (None where
+    the tree does not state them)."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    out = {}
+    for name, shape, b in (("mamba2_8x4096", cs.SSD_SHAPE, 8),
+                           ("jamba_2x4096", cs.JAMBA_SSD_SHAPE, 2)):
+        S = 4096
+        nh, hd, ds = (shape[k] for k in ("nh", "hd", "ds"))
+        x, dt, A, B, C = cs.ssd_inputs(torch, "bf16", S, dev, shape, b)
+        dy = cs.rand(torch, (b, S, nh, hd), "bf16", dev, 22)
+        ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+        y, _ = ops.ssd_scan(*ins, chunk=shape["chunk"])
+        run = lambda: torch.autograd.grad(  # noqa: E731
+            y, ins, dy, retain_graph=True)
+        scratch = getattr(_ssd, "bwd_scratch_bytes", None)
+        out[name] = {
+            "ms": cs.time_ms(torch, run, reps=5, warmup=2),
+            "device_ms": cs.device_ms(torch, run, "ssd_bwd", reps=5),
+            "launch_device_ms": cs.device_ms_split(
+                torch, run, cs.SSD_BWD_KERNELS, reps=5),
+            "scratch_bytes": None if scratch is None else scratch(
+                b, S, nh, hd, ds, "bf16")}
+        print(f"   ssd_bwd {name}: {out[name]}", flush=True)
+        del x, dt, A, B, C, dy, ins, y, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_mamba2(torch, ops, dev):
+    """Phase 16 (d)'s mamba2-130m run (``chip_smoke.TRAIN_FAMILY``'s first
+    entry) with its gates, and one more step profiled."""
+    arch, layers, batch, changes = cs.TRAIN_FAMILY[0]
+    cfg = cs.train_config(arch, layers, changes)
+    res, model, params, state, data, opt = cs.train_run(
+        torch, ops, dev, cfg, batch, f"{arch}, {layers} layers")
+    prof = cs.train_step_profile(torch, model, params, state, data, opt,
+                                 time_alone=False)
+    del model, params, state
+    torch.cuda.empty_cache()
+    busy = prof.get("device_busy_ms")
+    ssd = prof["parts_ms"].get("ssd_scan_bwd")
+    return {"step_ms_median_after_first": res["step_ms_median_after_first"],
+            "tokens_per_s": res["tokens_per_s"],
+            "device_busy_ms": busy,
+            "device_idle_share": prof.get("device_idle_share"),
+            "parts_ms": prof["parts_ms"],
+            "ssd_bwd_share_of_busy": ssd / busy if busy else None}
+
+
+READINGS = ("kernels", "ssd_bwd", "serving", "train")
+
+
 def main():
-    if len(sys.argv) != 3:
-        print("usage: python3 chip_ab.py SRC LABEL", flush=True)
+    if len(sys.argv) not in (3, 4):
+        print("usage: python3 chip_ab.py SRC LABEL [READING[,READING...]]",
+              flush=True)
         sys.exit(2)
     src, label = Path(sys.argv[1]).resolve(), sys.argv[2]
+    take = sys.argv[3].split(",") if len(sys.argv) == 4 else list(READINGS)
+    if not set(take) <= set(READINGS):
+        print(f"readings are among {READINGS}: {take}", flush=True)
+        sys.exit(2)
     import torch
     import torch.nn.functional as F
 
@@ -191,6 +269,23 @@ def main():
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True,
                check=True).stdout.strip().splitlines()[0]}
+    if "kernels" in take:
+        kernel_readings(torch, F, ops, dev, out)
+    if "ssd_bwd" in take:
+        out["ssd_bwd"] = ssd_bwd(torch, ops, dev)
+    if "serving" in take:
+        serving_readings(torch, ops, dev, out, Request, ServingEngine)
+    if "train" in take:
+        out["train_mamba2"] = train_mamba2(torch, ops, dev)
+    line = json.dumps(out)
+    (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)
+    print(line)
+
+
+def kernel_readings(torch, F, ops, dev, out):
+    """The kernel readings of the module docstring's first five items and
+    the MLA decode kernel's, into ``out``."""
     for N, D in cs.RMSNORM_SHAPES:
         x = cs.rand(torch, (N, D), "bf16", dev, 0)
         w = cs.rand(torch, (D,), "bf16", dev, 1)
@@ -227,6 +322,9 @@ def main():
     out["mla"] = mla(torch, ops, dev)
     print(f"   kernels: {json.dumps(out)}", flush=True)
 
+
+def serving_readings(torch, ops, dev, out, Request, ServingEngine):
+    """Phases 4, 5, 6 (c), 7 and 13's readings, into ``out``."""
     served, engine = cs.main_path(torch, ops)
     out["phase4"] = {"ttft_ms_p50": served["ttft_ms"]["p50"],
                      "tpot_ms_p50": served["tpot_ms"]["p50"]}
@@ -255,10 +353,6 @@ def main():
     torch.cuda.empty_cache()
     out["phase7"] = phase7(torch, ops)
     out["phase13_step"] = phase13_step(torch, dev)
-    line = json.dumps(out)
-    (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)
-    print(line)
 
 
 if __name__ == "__main__":

@@ -61,7 +61,9 @@ result line:
    scan's at mamba2-130m's and jamba's training shapes ([8, 4096], [2,
    4096]), ragged, below one chunk and under strong decay, bf16 and fp32
    (the fp32 oracle the plain version in float64), each with its bound by
-   bytes and by operations, and no ptxas spills in its five kernels;
+   bytes and by operations, each launch's device time and the scratch
+   bytes; its bf16 launches' shapes at those training shapes, no ptxas
+   spills in any of its kernels and HGMMA in its SASS (``ssd_bwd_design``);
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -432,6 +434,12 @@ SSD_BWD_CASES = (  # (widths, b, S, decay)
 # bf16 also by the kernel rounding P and dS to bf16 for its products and
 # reading the bf16-rounded output O for D = rowsum(dO o O)
 BWD_TOLS = {"bf16": (1e-2, 1e-2, 1e-2), "fp32": (1e-5, 1e-4, 1e-5)}
+# the SSD-scan backward's launches by kernel-name key: fp32 runs chunk,
+# pass, out, sum, da; bf16 runs the walk (chunk and pass in one), out, sum,
+# da
+SSD_BWD_KERNELS = {"chunk": "ssd_bwd_chunk", "pass": "ssd_bwd_pass",
+                   "walk": "ssd_bwd_walk", "out": "ssd_bwd_out",
+                   "sum": "ssd_bwd_sum", "da": "ssd_bwd_da"}
 # phase 16: llama3-8b at full width cut to 8 of 32 layers (2.27B parameters,
 # about 27 GB of training state at 12 bytes a parameter; the 32-layer
 # model's 90 GB needs the sharding of several cards), train_4k's sequence at
@@ -723,6 +731,13 @@ def device_ms(torch, fn, key, reps=20):
     torch.profiler over ``reps`` calls: the kernel alone, without the host
     launch time that CUDA events around a launch-bound call also catch.
     None when the profiler reports no device time."""
+    return device_ms_split(torch, fn, {key: key}, reps)[key]
+
+
+def device_ms_split(torch, fn, keys, reps=20):
+    """:func:`device_ms` of each kernel key of ``keys`` (a {part: key}
+    mapping) from one torch.profiler window over ``reps`` calls; a part the
+    trace lacks is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,12 +747,15 @@ def device_ms(torch, fn, key, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0.0)
-             for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA
-             and matches(key, e.key))
-    return us / reps / 1e3 if us else None
+    out = {}
+    for part, key in keys.items():
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and matches(key, e.key))
+        out[part] = us / reps / 1e3 if us else None
+    return out
 
 
 def library_ms(torch, fn, **kw):
@@ -895,8 +913,9 @@ def design_report(torch, build, ops, dev):
     ptxas; the cluster from the launcher's split plan; HGMMA in the flash,
     flash backward, SSD and MLA decode libraries' SASS; registers and
     spills of every instantiation of rmsnorm, the two decode kernels and
-    the SSD scan; the bf16 MLA decode kernel (``mla_design``) and the flash
-    backward (``flash_bwd_design``). Fails when the profiler
+    the SSD scan; the bf16 MLA decode kernel (``mla_design``), the flash
+    backward (``flash_bwd_design``) and the SSD-scan backward
+    (``ssd_bwd_design``, HGMMA in its SASS too). Fails when the profiler
     records no decode launch, when the decode kernel runs one CTA a row
     there, when one of those instantiations spills or takes stack, or when
     cuobjdump finds no HGMMA."""
@@ -958,8 +977,10 @@ def design_report(torch, build, ops, dev):
     out["flash_attention_bwd"] = flash_bwd_design(torch, build, ops, dev)
     out["ptxas"]["flash_attention_bwd"] = out["flash_attention_bwd"].pop(
         "ptxas")
+    out["ssd_scan_bwd"] = ssd_bwd_design(torch, build, ops, dev)
+    out["ptxas"]["ssd_scan_bwd"] = out["ssd_scan_bwd"].pop("ptxas")
     for name in ("flash_attention", "ssd_scan", "mla_decode_attention",
-                 "flash_attention_bwd"):
+                 "flash_attention_bwd", "ssd_scan_bwd"):
         n = hgmma_count(build._lib_path(name))
         print(f"   HGMMA instructions in the {name} library's SASS: "
               f"{'cuobjdump not found' if n is None else n}")
@@ -1020,6 +1041,73 @@ def flash_bwd_design(torch, build, ops, dev):
     out["ptxas"] = stats
     del q, k, v, do, o, qkv, run
     torch.cuda.empty_cache()
+    return out
+
+
+def ctas_per_sm(launch, smem_per_sm=233472, regs_per_sm=65536,
+                threads_per_sm=2048, reserved=1024):
+    """CTAs of a launch one SM holds at once, from its block, registers per
+    thread and shared memory as the profiler recorded them: the fewest that
+    the threads, the registers (allocated 256 a warp at a time) and the
+    shared memory (1 KB a CTA reserved) allow."""
+    threads = math.prod(launch["block"])
+    warps = -(-threads // 32)
+    regs = -(-launch["registers per thread"] * 32 // 256) * 256 * warps
+    smem = launch["shared memory"] + reserved
+    return min(threads_per_sm // threads, regs_per_sm // regs,
+               smem_per_sm // smem, 32)
+
+
+def ssd_bwd_design(torch, build, ops, dev):
+    """The bf16 SSD-scan backward at phase 16 (d)'s shapes (mamba2-130m's
+    [8, 4096], jamba's [2, 4096]) through the autograd Function: each of its
+    four launches' grid, block, shared memory and registers as the profiler
+    saw them and the CTAs an SM those allow; registers, spills and stack of
+    every instantiation in its library (the bf16 tensor-core body and the
+    fp32 CUDA-core body) from ptxas, and ptxas's wgmma advisories. Fails on
+    spills or stack in any instantiation, or when the profiler records no
+    walk or output launch."""
+    out = {"launch": {}}
+    for label, shape, b in (("mamba2-130m", SSD_SHAPE, 8),
+                            ("jamba-v0.1-52b", JAMBA_SSD_SHAPE, 2)):
+        nh, hd = shape["nh"], shape["hd"]
+        x, dt, A, B, C = ssd_inputs(torch, "bf16", 4096, dev, shape, b)
+        dy = rand(torch, (b, 4096, nh, hd), "bf16", dev, 22)
+        ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+        y, _ = ops.ssd_scan(*ins, chunk=shape["chunk"])
+        run = lambda: torch.autograd.grad(  # noqa: E731
+            y, ins, dy, retain_graph=True)
+        rec = {}
+        for part in ("walk", "out", "sum", "da"):
+            info = launch_info(torch, run, SSD_BWD_KERNELS[part])
+            if info.get("block"):
+                info["ctas_per_sm"] = ctas_per_sm(info)
+            rec[part] = info
+            print(f"   ssd_scan_bwd (bf16) {label} [{b}, 4096] {part}: "
+                  f"launch {info}")
+        for part in ("walk", "out"):
+            if not rec[part].get("grid"):
+                raise AssertionError(f"ssd_scan_bwd {label}: the profiler "
+                                     f"recorded no {part} launch")
+        out["launch"][label] = rec
+        del x, dt, A, B, C, dy, ins, y, run
+        torch.cuda.empty_cache()
+    log = build.build_log.get("ssd_scan_bwd", "")
+    stats = ptxas_stats(log)
+    if not stats:
+        raise AssertionError("ssd_scan_bwd: no ptxas report in its build log")
+    for fn, st in sorted(stats.items()):
+        print(f"   ptxas {fn[fn.find('ssd_bwd'):][:60]}: {st}")
+    spilled = {fn: st for fn, st in stats.items()
+               if st.get("spill_stores") or st.get("spill_loads")
+               or st.get("stack")}
+    if spilled:
+        raise AssertionError(f"ssd_scan_bwd: spills or stack in {spilled}")
+    out["wgmma_remarks"] = [line.strip() for line in log.splitlines()
+                            if "(C75" in line]
+    print(f"   ptxas advisories (wgmma serialized, warpgroup.arrive "
+          f"injected): {out['wgmma_remarks'] or 'none'}")
+    out["ptxas"] = stats
     return out
 
 
@@ -2166,11 +2254,13 @@ def ssd_backward_cases(torch, ref, dev):
     fp32 (the kernel in fp64), and under strong decay its own dA comes
     within reach of the fp32 rule's 1e-5 of the largest entry; its gap to
     the float64 oracle is reported beside each case. Also: two
-    calls bitwise equal, the backward's time (CUDA events) and its five
-    kernels' device time (torch.profiler), the bound by bytes and by
-    operations, the plain version's time (no PyTorch call computes it);
-    fails on ptxas spills or stack in any of its kernels."""
-    from repro_torch.kernels import build, ops
+    calls bitwise equal, the backward's time (CUDA events), its kernels'
+    device time together and each launch's alone (torch.profiler),
+    the launcher's scratch bytes, the bound by bytes and by operations, the
+    plain version's time (no PyTorch call computes it). Its launches'
+    shapes and every instantiation's ptxas report are held in
+    ``ssd_bwd_design``."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as _ssd
 
     cases = []
@@ -2215,6 +2305,11 @@ def ssd_backward_cases(torch, ref, dev):
                 time_ms(torch, run, reps=5, warmup=2),
                 time_ms(torch, plain, reps=3, warmup=1), None, nbytes, flops)
             rec["device_ms"] = device_ms(torch, run, "ssd_bwd", reps=5)
+            rec["launch_device_ms"] = device_ms_split(torch, run,
+                                                      SSD_BWD_KERNELS, reps=5)
+            rec["scratch_bytes"] = _ssd.bwd_scratch_bytes(
+                b, S, nh, hd, ds, dtype, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
             rec["bound_bytes_ms"] = nbytes / PEAK_BYTES_S * 1e3
             rec["bound_ops_ms"] = flops / PEAK_FLOPS[dtype] * 1e3
             rec["bound_counted"] = how
@@ -2225,7 +2320,8 @@ def ssd_backward_cases(torch, ref, dev):
             print(f"   {'':16s} share of the elementwise limit, norm error: "
                   f"{shares}", flush=True)
             print(f"   {'':16s} device time alone (torch.profiler): kernels "
-                  f"{rec['device_ms']} ms; bound by bytes "
+                  f"{rec['device_ms']} ms, by launch {rec['launch_device_ms']}; "
+                  f"scratch {rec['scratch_bytes'] / 1e6:.1f} MB; bound by bytes "
                   f"{rec['bound_bytes_ms']:.4f} ms, by operations "
                   f"{rec['bound_ops_ms']:.4f} ms ({how}); library: none"
                   + ("" if plain_gap is None else
@@ -2236,11 +2332,6 @@ def ssd_backward_cases(torch, ref, dev):
             cases.append(rec)
             del x, dt, A, B, C, dy, ins, y, run, plain
             torch.cuda.empty_cache()
-    # ptxas: no spills or stack in any instantiation of its five kernels
-    for fn, st in ptxas_stats(build.build_log.get("ssd_scan_bwd", "")).items():
-        print(f"   ptxas {fn[fn.find('ssd_bwd'):][:60]}: {st}")
-        if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
-            raise AssertionError(f"{fn}: spills or stack {st}")
     return cases
 
 

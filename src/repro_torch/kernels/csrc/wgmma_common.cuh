@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels: the
 // bf16 flash prefill (flash_attention.cu) and its backward
 // (flash_attention_bwd.cu), and the bf16 SSD scan (ssd_scan.cu, whose
-// d_state-16 state contribution is an m64n16 product).
+// d_state-16 state contribution is an m64n16 product) and its backward
+// (ssd_scan_bwd.cu, which reads transposed operands MN-major).
 //
 //   * cp.async copies from global to shared memory (16 bytes, or 4 bytes for
 //     scattered fp32 scalars), zero-filled when their predicate is false, in
@@ -91,10 +92,11 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t saddr, uint32_t lbo, uint32
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-// D[64 x 64] (+)= A[64 x 16] . B, A K-major in shared memory; B in shared
-// memory, K-major (B[64 x 16]^T, TRANS_B = 0) or MN-major (B[16 x 64], one
-// column block, TRANS_B = 1)
-template <int TRANS_B = 0>
+// D[64 x 64] (+)= A . B in shared memory. A K-major (A[64 x 16], TRANS_A =
+// 0) or MN-major (A^T stored [16 x 64], one column block, TRANS_A = 1); B
+// K-major (B[64 x 16]^T, TRANS_B = 0) or MN-major (B[16 x 64], one column
+// block, TRANS_B = 1)
+template <int TRANS_B = 0, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
   asm volatile(
@@ -102,12 +104,12 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory
@@ -123,16 +125,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 16] (+)= A[64 x 16] . B, A and B K-major in shared memory (B[16 x 16]^T:
-// 16 rows of K, two 8-row groups at the stride byte offset)
+// D[64 x 16] (+)= A . B in shared memory, A K-major (A[64 x 16], TRANS_A =
+// 0) or MN-major (A^T stored [16 x 64], TRANS_A = 1), B K-major (B[16 x
+// 16]^T: 16 rows of K, two 8-row groups at the stride byte offset)
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
                                              int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A));
 }
 
 // D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory

@@ -11,10 +11,11 @@ checks arguments, counts launches and picks this launcher for CUDA tensors.
 
 Its gradient is :func:`launch_bwd`, the hand-written backward of
 ``csrc/ssd_scan_bwd.cu`` (no Pallas counterpart: JAX differentiates its jnp
-``ssd_chunked``): five CUDA-core launches over chunks of :data:`BWD_CHUNK`
-positions that recompute the states entering each chunk instead of saving
-them, for fp32 and bf16 at d_state 16 and 128 and the head dims of
-:data:`BWD_HEAD_DIMS`.
+``ssd_chunked``): launches over chunks of :data:`BWD_CHUNK` positions that
+recompute the states entering each chunk instead of saving them -- bf16
+four on the tensor cores (hd 64), fp32 five on the CUDA cores (the head
+dims of :data:`BWD_HEAD_DIMS`), both at d_state 16 and 128; its scratch is
+:func:`bwd_scratch_bytes`.
 """
 
 from __future__ import annotations
@@ -116,11 +117,14 @@ def launch(x, dt, A, B, C, *, chunk: int, _heads: int | None = None):
 
 
 def bwd_heads_per_cta(n_chunks: int, nh: int, n_sm: int) -> int:
-    """Heads a CTA of the backward's launch 3 takes, for ``n_chunks``
+    """Heads a CTA of the backward's output launch takes, for ``n_chunks``
     chunks of BWD_CHUNK positions over all batch rows: the most that divide
     ``nh`` and still give every SM a CTA (a CTA sums dB and dC over its
-    heads in registers, so fewer groups write fewer partials); 1 when even
-    one head a CTA leaves SMs idle."""
+    heads in registers, so fewer groups write fewer partials, and each CTA
+    loads its chunk's B and C once); 1 when even one head a CTA leaves SMs
+    idle. bf16's output launch runs one CTA an SM (171 KiB of shared memory
+    at d_state 128) and hides the next head's loads behind the current
+    head's products with two stages, so a CTA takes many heads."""
     for g in sorted((d for d in range(1, nh + 1) if nh % d == 0),
                     reverse=True):
         if n_chunks * (nh // g) >= n_sm:
@@ -128,13 +132,29 @@ def bwd_heads_per_cta(n_chunks: int, nh: int, n_sm: int) -> int:
     return 1
 
 
+def bwd_scratch_bytes(b: int, S: int, nh: int, hd: int, ds: int, dtype: str,
+                      n_sm: int = 132) -> int:
+    """Bytes of :func:`launch_bwd`'s scratch (``dtype`` "bf16" or "fp32",
+    on a card of ``n_sm`` SMs): the states entering each chunk (H) and the
+    gradients of the states leaving it (G') -- bf16: one bf16 plane each,
+    written by the walk (no chunk contribution goes to memory); fp32: each
+    chunk's contributions, written by launch 1 and turned into H and G' in
+    place by the walks, and the chunks' decays --; the output launch's dB
+    and dC partials (fp32, one a group of heads); the dA parts (fp64)."""
+    nc = -(-S // BWD_CHUNK)
+    state = b * nc * nh * hd * ds
+    ng = nh // bwd_heads_per_cta(b * nc, nh, n_sm)
+    walks = 2 * 2 * state if dtype == "bf16" else 2 * 4 * state + 4 * b * nc * nh
+    return walks + 2 * 4 * b * ng * S * ds + 8 * b * nc * nh
+
+
 def launch_bwd(x, dt, A, B, C, dy, *, _heads: int | None = None):
     """The gradients of :func:`launch`'s y given ``dy`` (the final state
     takes none) through ``csrc/ssd_scan_bwd.cu``. x, dt, A, B, C as
     :func:`launch` takes them; dy: contiguous [b,S,nh,hd] in x's dtype.
     Returns new contiguous (dx in x's dtype, ddt fp32 [b,S,nh], dA fp32
-    [nh], dB and dC [b,S,1,ds] in B's dtype). ``_heads`` overrides launch
-    3's heads a CTA (kernel-level comparisons only)."""
+    [nh], dB and dC [b,S,1,ds] in B's dtype). ``_heads`` overrides the
+    output launch's heads a CTA (kernel-level comparisons only)."""
     b, S, nh, hd = x.shape
     ds = B.shape[-1]
     dev = x.get_device()
@@ -146,16 +166,20 @@ def launch_bwd(x, dt, A, B, C, dy, *, _heads: int | None = None):
     dA = torch.empty((nh,), **f32)
     dB, dC = (torch.empty((b, S, 1, ds), dtype=B.dtype, device=x.device)
               for _ in range(2))
-    states, grads = (torch.empty((b, nc, nh, hd, ds), **f32)
-                     for _ in range(2))
-    decay = torch.empty((b, nc, nh), **f32)
+    # H and G': bf16 planes, or the fp32 chunk contributions and decays the
+    # fp32 walks turn into them in place
+    bf = x.dtype == torch.bfloat16
+    states, grads = (torch.empty((b, nc, nh, hd, ds), device=x.device,
+                                 dtype=x.dtype) for _ in range(2))
+    decay = None if bf else torch.empty((b, nc, nh), **f32)
     dbc = torch.empty((2, b, nh // hpc, S, ds), **f32)
     da_part = torch.empty((b, nc, nh), dtype=torch.float64, device=x.device)
     _BWD(dev, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
          C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
          dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
-         grads.data_ptr(), decay.data_ptr(), dbc.data_ptr(), da_part.data_ptr(),
-         b, S, nh, hd, ds, hpc, int(x.dtype == torch.bfloat16),
+         grads.data_ptr(), 0 if bf else decay.data_ptr(), dbc.data_ptr(),
+         da_part.data_ptr(),
+         b, S, nh, hd, ds, hpc, int(bf),
          x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
          dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
     return dx, ddt, dA, dB, dC

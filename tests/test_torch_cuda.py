@@ -1885,6 +1885,51 @@ def test_ssd_backward_heads_per_cta(cuda_device, dtype, width):
                      ("dx", "ddt", "dA", "dB", "dC"))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [4095, 4096, 4097])
+def test_ssd_backward_bf16_body_at_the_training_length(cuda_device, S):
+    """The bf16 tensor-core body at mamba2-130m's widths and its training
+    length, one position short and one past it (a one-position chunk), with
+    the output launch's head group forced to 1, 2, 3 and 24 and the
+    launcher's pick: every gradient under BWD_TOLS, two calls bitwise equal
+    at each group."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(1, S, "bf16", cuda_device, S, nh=24,
+                                         hd=64, ds=128, decay="normal")
+    want = _ssd_bwd_want(x, dt, A, B, C, dy, "bf16")
+    for g in (1, 2, 3, 24, None):
+        got = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous(), _heads=g)
+        _close_grads(got, want, ["bf16"] * 5, (S, g),
+                     ("dx", "ddt", "dA", "dB", "dC"))
+        again = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous(), _heads=g)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), (S, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S", [(1, 1000), (2, 129)])
+def test_ssd_backward_bf16_ragged_chunk_under_strong_decay_ds16(cuda_device,
+                                                                 b, S):
+    """jamba-v0.1-52b's d_state 16 (H and G' transposed in the scratch, the
+    m64n16 products) with a ragged last chunk under strong decay (dt about
+    0.9, A about -1.8), the head group forced to 1, 2 and 128 and the
+    launcher's pick: every gradient under BWD_TOLS, two calls bitwise
+    equal at each group."""
+    from repro_torch.kernels import ssd_scan as _ssd
+
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(b, S, "bf16", cuda_device, S + b,
+                                         decay="strong",
+                                         **{"nh": 24, "hd": 64, "ds": 128,
+                                            **SSD_WIDTHS["jamba"]})
+    want = _ssd_bwd_want(x, dt, A, B, C, dy, "bf16")
+    for g in (1, 2, 128, None):
+        got = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous(), _heads=g)
+        _close_grads(got, want, ["bf16"] * 5, (b, S, g),
+                     ("dx", "ddt", "dA", "dB", "dC"))
+        again = _ssd.launch_bwd(x, dt, A, B, C, dy.contiguous(), _heads=g)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), (b, S, g)
+
+
 # (B, S, H, causal, real): MLA's head dims (q/k 192, v 128) at ragged
 # lengths, a pad cutting a tile, cross-tile causal and not
 FLASH_MLA_BWD_CASES = [(2, 77, 16, True, None), (1, 200, 16, True, 150),
