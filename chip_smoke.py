@@ -229,7 +229,19 @@ result line:
    4096]) and deepseek-v2-236b (layer 0, [2, 4096]), launches a step from
    each config (``train_structure``), and (b)'s gate on each (mamba2's 24
    layers at [1, 500] against the CPU model in float64, jamba at [1, 256],
-   deepseek-v2 at [1, 512]).
+   deepseek-v2 at [1, 512]);
+17. the dry-run launchers (the host's CPU, the meta device, the package's
+   H100 constants): ``python -m repro_torch.launch.dryrun --all`` and
+   ``--all --multipod`` as two concurrent processes of 4 workers each,
+   every (arch, shape) line printed, each OK but seamless-m4t's long_500k
+   (JAX's stated skip), ``repro_torch.launch.report`` rendering both
+   meshes' tables into chiprun_out/phase17_report.md; then the 1 x 1
+   roofline of phase 16's llama3-8b step (8 layers, [2, 4096], remat full,
+   AdamW) beside its measured step: max(t_compute, t_memory) must not
+   exceed the measured step, its peak a device printed beside phase 16's.
+   Bounds in phase 2 and phase 16's share of peak come from the package's
+   ``kernel_work`` (``kernels/work.py``), ``train_step_flops`` and
+   constants, read through ``launch/roofline.py``.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -251,9 +263,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data-sheet peaks (dense); a card below 700 W runs slower.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # tensor-core bf16; fp32 FMA
 TOLS = {"bf16": 2e-2, "fp32": 2e-5}
 RTOL = 1e-2
 # card vs CPU logits (phase 3): max|diff| over the largest logit
@@ -508,8 +517,9 @@ def main():
     t0 = phase("phase 2: kernels vs their plain versions on the card")
     print(f"   tolerances: |kernel - plain| <= atol + {RTOL} |plain|, atol "
           f"{TOLS['fp32']} fp32 / {TOLS['bf16']} bf16 (different summation "
-          f"orders); bounds from the H100 SXM peaks {PEAK_BYTES_S:.3g} B/s, "
-          f"{PEAK_FLOPS['bf16']:.3g} bf16 / {PEAK_FLOPS['fp32']:.3g} fp32 FLOP/s")
+          f"orders); bounds from the H100 SXM peaks {_rl().HBM_BW:.3g} B/s, "
+          f"{_rl().PEAK_FLOPS['bf16']:.3g} bf16 / "
+          f"{_rl().PEAK_FLOPS['fp32']:.3g} fp32 FLOP/s")
     results["kernels"] = check_kernels(torch, ops, dev)
     print("   rmsnorm's launch path, host time a call at [8, 4096] bf16:")
     results["kernels"]["launch_path"] = launch_path_cost(torch, ops, dev)
@@ -652,6 +662,11 @@ def main():
         for check in TRAIN_FAMILY_CHECK]
     done(t0)
 
+    t0 = phase("phase 17: the dry-run launchers on the meta device (H100 "
+               "constants) and phase 16's step against its roofline")
+    results["dryrun"] = dryrun_path(results["train"])
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
@@ -781,10 +796,16 @@ def compare(torch, got, want, dtype, what, tols=TOLS, rtol=RTOL):
     return float(err.max())
 
 
-def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _rl():
+    """``repro_torch.launch.roofline``: the package's NVIDIA H100 SXM
+    data-sheet peaks (``HBM_BW``, ``PEAK_FLOPS``; dense, and a card below
+    700 W runs slower), its one count of each kernel's work
+    (``kernel_work``), ``bound`` and ``train_step_flops``. Imported at first
+    use: chip_ab.py points ``sys.path`` at another tree before any of the
+    package loads."""
+    from repro_torch.launch import roofline
+
+    return roofline
 
 
 def case_record(torch, name, dtype, shape, got, want, t_kernel, t_plain,
@@ -799,7 +820,7 @@ def err_record(name, dtype, shape, err, t_kernel, t_plain, t_lib, nbytes,
                flops, flop_dtype=None):
     """A case's record and printed line from its error against the plain
     version and its times."""
-    b_ms, b_by = bound(nbytes, flops, flop_dtype or dtype)
+    b_ms, b_by = _rl().bound(nbytes, flops, flop_dtype or dtype)
     rec = {"name": name, "dtype": dtype, "shape": shape, "max_abs_err": err,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1302,11 +1323,12 @@ def check_kernels(torch, ops, dev):
             lib = None
             if hasattr(F, "rms_norm"):
                 lib = library_ms(torch, lambda: F.rms_norm(x, (D,), w, 1e-5))
+            flops, nbytes = _rl().kernel_work("rmsnorm", N, D, isz)
             rec = case_record(
                 torch, "rmsnorm", dtype, [N, D], ops.rmsnorm(x, w),
                 ref.rmsnorm_ref(x, w), time_ms(torch, lambda: ops.rmsnorm(x, w)),
-                time_ms(torch, lambda: ref.rmsnorm_ref(x, w)), lib,
-                (2 * N * D + D) * isz, 4 * N * D)
+                time_ms(torch, lambda: ref.rmsnorm_ref(x, w)), lib, nbytes,
+                flops)
             alone(torch, rec, lambda: ops.rmsnorm(x, w), "rmsnorm",
                   lambda: F.rms_norm(x, (D,), w, 1e-5))
             cases.append(rec)
@@ -1330,19 +1352,16 @@ def check_kernels(torch, ops, dev):
             kw = dict(causal=True, window=window, segment_ids=seg)
             got = ops.flash_attention(q, k, v, **kw)
             want = ref.flash_attention_ref(q, k, v, **kw)
-            qi = torch.arange(S, device=dev)[:, None]
-            ki = torch.arange(S, device=dev)[None, :]
-            mask = qi >= ki
-            if window:
-                mask = mask & (ki > qi - window)
-            if seg is not None:
+            pairs = None  # the causal (and window) mask's, a head
+            if seg is not None:  # the segments' pairs: the data sets them
+                qi = torch.arange(S, device=dev)[:, None]
+                ki = torch.arange(S, device=dev)[None, :]
+                mask = (qi >= ki) & (ki > qi - window) if window else qi >= ki
                 pairs = int((mask[None] & (seg[:, :, None] == seg[:, None, :]))
-                            .sum()) * H
-            else:
-                pairs = int(mask.sum()) * B * H
-            isz = q.element_size()
-            nbytes = 2 * (B * S * H * hd + B * S * Hkv * hd) * isz + (
-                0 if seg is None else 2 * B * S * 4)
+                            .sum())
+            flops, nbytes = _rl().kernel_work(
+                "flash_attention", B, S, S, H, Hkv, hd, isz=q.element_size(),
+                window=window, segments=seg is not None, pairs=pairs)
             lib = None
             if not segmented:
                 qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1355,7 +1374,7 @@ def check_kernels(torch, ops, dev):
                                    reps=10),
                 time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                         reps=5, warmup=1),
-                lib, nbytes, 4 * hd * pairs)
+                lib, nbytes, flops)
             alone(torch, rec, lambda: ops.flash_attention(q, k, v, **kw),
                   "flash", None if segmented else
                   lambda: F.scaled_dot_product_attention(
@@ -1376,9 +1395,8 @@ def check_kernels(torch, ops, dev):
         if not (got[0] == 0).all():
             raise AssertionError("decode kernel: an empty slot must be zeros")
         want = ref.decode_attention_ref(q, k, v, lens)
-        isz = q.element_size()
-        n_pos = sum(lens_host)
-        nbytes = (2 * B * H * hd + 2 * n_pos * Hkv * hd) * isz + B * 4
+        flops, nbytes = _rl().kernel_work("decode_attention", B, H, Hkv, hd,
+                                    sum(lens_host), q.element_size())
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         amask = (torch.arange(W, device=dev)[None, :] < lens[:, None])[:, None, None]
@@ -1388,7 +1406,7 @@ def check_kernels(torch, ops, dev):
             torch, "decode_attention", dtype, [B, W, H, Hkv, hd, lens_host],
             got, want, time_ms(torch, lambda: ops.decode_attention(q, k, v, lens)),
             time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, lens)),
-            lib, nbytes, 4 * hd * H * n_pos)
+            lib, nbytes, flops)
         alone(torch, rec, lambda: ops.decode_attention(q, k, v, lens),
               "decode", lambda: F.scaled_dot_product_attention(
                   qt, kt, vt, attn_mask=amask, enable_gqa=True))
@@ -1510,7 +1528,8 @@ def packed_flash_case(torch, ops, ref, dev, cases):
     want = ref.flash_attention_ref(q, k, v, **kw)
     pairs = sum(n * (n + 1) // 2 for n in lens)
     pad = T - sum(lens)
-    nbytes = 2 * (T * H * hd + T * Hkv * hd) * 2 + 2 * T * 4
+    flops, nbytes = _rl().kernel_work("flash_attention", 1, T, T, H, Hkv, hd,
+                                segments=True, pairs=pairs)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     i = torch.arange(T, device=dev)
     block = (seg[0][:, None] == seg[0][None, :]) & (i[:, None] >= i[None, :])
@@ -1526,7 +1545,7 @@ def packed_flash_case(torch, ops, ref, dev, cases):
             q, k, v, segment_starts=starts, **kw), reps=10),
         time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                 reps=3, warmup=1),
-        library_ms(torch, lib_fn, reps=5), nbytes, 4 * hd * H * pairs)
+        library_ms(torch, lib_fn, reps=5), nbytes, flops)
     alone(torch, rec, lambda: ops.flash_attention(
         q, k, v, segment_starts=starts, **kw), "flash", lib_fn)
     bucket = next(c for c in cases if c["name"] == "flash_attention"
@@ -1643,16 +1662,15 @@ def backward_cases(torch, ref, dev):
                 print(f"   (library call unavailable: {e})")
             t_lib = None if lib_fn is None else library_ms(torch, lib_fn,
                                                            reps=5, warmup=1)
-            pairs = S * (S + 1) // 2 * B * H
-            isz = q.element_size()
-            nbytes = (4 * B * S * H * hd + 4 * B * S * Hkv * hd) * isz \
-                + 4 * B * H * S
+            flops, nbytes = _rl().kernel_work(
+                "flash_attention_bwd", B, S, H, Hkv,
+                hd, isz=q.element_size())
             rec = err_record(
                 "flash_attention_bwd", dtype, shape, err,
                 time_ms(torch, run, reps=5, warmup=2),
                 time_ms(torch, lambda: ref.flash_attention_bwd_ref(
                     q, k, v, do, causal=True), reps=3, warmup=1),
-                t_lib, nbytes, 10 * hd * pairs)
+                t_lib, nbytes, flops)
             rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
             rec["library_device_ms"] = (None if t_lib is None else
                                         device_ms(torch, lib_fn, "", reps=5))
@@ -1693,12 +1711,12 @@ def backward_cases(torch, ref, dev):
             out = F.rms_norm(xr, (D,), wr, 1e-5)
             lib_fn = lambda: torch.autograd.grad(  # noqa: E731
                 out, (xr, wr), dy, retain_graph=True)
-            isz = x.element_size()
+            flops, nbytes = _rl().kernel_work(
+                "rmsnorm_bwd", N, D, x.element_size())
             rec = err_record(
                 "rmsnorm_bwd", dtype, [N, D], err,
                 time_ms(torch, run), time_ms(torch, lambda: ref.rmsnorm_bwd_ref(
-                    x, w, dy)), library_ms(torch, lib_fn),
-                (3 * N * D + 2 * D) * isz, 10 * N * D)
+                    x, w, dy)), library_ms(torch, lib_fn), nbytes, flops)
             rec["device_ms"] = device_ms(torch, run, "rmsnorm_")
             rec["library_device_ms"] = device_ms(torch, lib_fn, "")
             rec["bitwise_repeat"] = True
@@ -1738,7 +1756,9 @@ def encdec_attention_cases(torch, ops, ref, dev):
         v = rand(torch, (B, 1024, H, hd), dtype, dev, 45)
         full = torch.full((B,), 1024, dtype=torch.int32, device=dev)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        nbytes, flops = flash_cost(B, 1, 1024, H, H, hd, q.element_size())
+        flops, nbytes = _rl().kernel_work(
+            "decode_attention", B, H, H, hd, B * 1024,
+            q.element_size())
         rec = case_record(
             torch, "decode_attention", dtype, [B, 1024, H, H, hd, "cross"],
             ops.decode_attention(q, k, v, full),
@@ -1746,7 +1766,7 @@ def encdec_attention_cases(torch, ops, ref, dev):
             time_ms(torch, lambda: ops.decode_attention(q, k, v, full)),
             time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, full)),
             library_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt)), nbytes + B * 4, flops)
+                qt, kt, vt)), nbytes, flops)
         alone(torch, rec, lambda: ops.decode_attention(q, k, v, full),
               "decode", lambda: F.scaled_dot_product_attention(qt, kt, vt))
         cases.append(rec)
@@ -1755,7 +1775,10 @@ def encdec_attention_cases(torch, ops, ref, dev):
             k = rand(torch, (B, Skv, H, hd), dtype, dev, 41)
             v = rand(torch, (B, Skv, H, hd), dtype, dev, 42)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            nbytes, flops = flash_cost(B, Sq, Skv, H, H, hd, q.element_size())
+            flops, nbytes = _rl().kernel_work(
+                "flash_attention", B, Sq, Skv, H, H,
+                hd, isz=q.element_size(),
+                causal=False)
             rec = case_record(
                 torch, "flash_attention", dtype,
                 [B, Sq, Skv, H, H, hd, "causal=False"],
@@ -1840,8 +1863,9 @@ def preprocess_cases(torch, ops, ref, dev):
         for shape in (PP_FRAMES, (8, 128), (100, 512), (1000, 64)):
             x, mean, std = inputs(shape, 40)
             n = x.numel()
-            D = shape[-1]
-            nbytes = n + n * torch.empty((), dtype=tdt).element_size() + 8 * D
+            flops, nbytes = _rl().kernel_work(
+                "preprocess", n, shape[-1],
+                torch.empty((), dtype=tdt).element_size())
             rec = case_record(
                 torch, "preprocess", dtype, list(shape),
                 ops.preprocess(x, mean, std, out_dtype=tdt),
@@ -1849,7 +1873,7 @@ def preprocess_cases(torch, ops, ref, dev):
                 time_ms(torch, lambda: ops.preprocess(x, mean, std,
                                                       out_dtype=tdt)),
                 time_ms(torch, lambda: ref.preprocess_ref(x, mean, std, tdt)),
-                None, nbytes, 4 * n, tols, RTOL, flop_dtype="fp32")
+                None, nbytes, flops, tols, RTOL, flop_dtype="fp32")
             rec["library"] = "none: no single PyTorch call computes it"
             rec["device_ms"] = device_ms(
                 torch, lambda: ops.preprocess(x, mean, std, out_dtype=tdt),
@@ -1932,14 +1956,17 @@ def paged_cases(torch, ops, ref, dev):
         # each input read once: the positions the rows need, shared prefix
         # blocks once (q, o and the page table besides)
         uniq = 2 * 1024 + sum(n - 1024 for n in lens_host)
-        nbytes = (2 * B * H * hd + 2 * uniq * Hkv * hd) * isz + pt.numel() * 4 + B * 4
+        flops, nbytes = _rl().kernel_work(
+            "paged_decode_attention", B, H, Hkv, hd,
+            sum(lens_host), unique=uniq,
+            table=pt.numel(), isz=isz)
         per_row = 2 * sum(lens_host) * Hkv * hd * isz
         rec = case_record(
             torch, "paged_decode_attention", dtype,
             [B, n_pages, H, Hkv, hd, lens_host], got, want,
             time_ms(torch, lambda: ops.paged_decode_attention(q, kb, vb, pt, lens)),
             time_ms(torch, lambda: ref.paged_decode_attention_ref(q, kb, vb, pt, lens)),
-            None, nbytes, 4 * hd * H * sum(lens_host))
+            None, nbytes, flops)
         rec["splits"] = splits
         rec["ring_kernel_bitwise_equal"] = True
         rec["ring_ms_same_kv"] = time_ms(
@@ -1981,9 +2008,9 @@ def paged_cases(torch, ops, ref, dev):
         kw = dict(causal=True, prior_k=pk, prior_v=pv, prior_valid=valid)
         got = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
-        isz = q.element_size()
-        nbytes = (2 * B * L * H * hd + 2 * B * (L + Pp) * Hkv * hd) * isz + B * 4
-        pairs = B * H * (L * Pp + L * (L + 1) // 2)
+        flops, nbytes = _rl().kernel_work(
+            "flash_attention", B, L, L, H, Hkv, hd,
+            isz=q.element_size(), prior=Pp)
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (torch.cat([a, b], dim=1).transpose(1, 2).contiguous()
                   for a, b in ((pk, k), (pv, v)))
@@ -1996,7 +2023,7 @@ def paged_cases(torch, ops, ref, dev):
             [B, L, H, Hkv, hd, f"prior={Pp}"], got, want,
             time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw)),
             time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw)),
-            lib, nbytes, 4 * hd * pairs))
+            lib, nbytes, flops))
         del q, k, v, pk, pv, kt, vt, got, want
     return cases
 
@@ -2023,9 +2050,9 @@ def mla_cases(torch, ops, ref, dev):
         kw = dict(causal=True, scale=scale)
         got = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
-        pairs = B * H * S * (S + 1) // 2
-        isz = q.element_size()
-        nbytes = B * S * H * (192 + 192 + 128 + 128) * isz
+        flops, nbytes = _rl().kernel_work(
+            "flash_attention", B, S, S, H, H, 192, 128,
+            q.element_size())
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
         def sdpa():
@@ -2037,7 +2064,7 @@ def mla_cases(torch, ops, ref, dev):
                           reps=10),
             time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
                     reps=3, warmup=1),
-            library_ms(torch, sdpa, reps=10), nbytes, 2 * (192 + 128) * pairs)
+            library_ms(torch, sdpa, reps=10), nbytes, flops)
         alone(torch, rec, lambda: ops.flash_attention(q, k, v, **kw), "flash",
               sdpa if rec["library_ms"] is not None else None)
         cases.append(rec)
@@ -2051,9 +2078,9 @@ def mla_cases(torch, ops, ref, dev):
         splits = _mla.plan(W, B, H, dtype == "bf16", dev.index or 0)
         (q_lat, q_rope, ckv, krope, lens), (cb, rb, table), _ = mla_inputs(
             torch, dev, dtype, page)
-        isz = ckv.element_size()
-        nbytes = n_pos * 576 * isz + B * H * (576 + 512) * isz + B * 4
-        flops = 2 * (576 + 512) * H * n_pos
+        flops, nbytes = _rl().kernel_work(
+            "mla_decode_attention", B, H, 512, 64,
+            n_pos, ckv.element_size())
 
         def ring():
             return ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
@@ -2098,7 +2125,9 @@ def mla_cases(torch, ops, ref, dev):
         rec = case_record(torch, "paged_mla_decode_attention", dtype,
                           [B, n_pages, page, H, MLA_LENS], pgot, paged_plain(),
                           time_ms(torch, paged), time_ms(torch, paged_plain),
-                          None, nbytes + B * n_pages * 4, flops)
+                          None, *_rl().kernel_work(
+                              "paged_mla_decode_attention", B, H, 512, 64,
+                              n_pos, ckv.element_size(), B * n_pages)[::-1])
         alone(torch, rec, paged, "mla_decode")
         cases.append(rec)
         print(f"   {'':16s} paged == ring bitwise; {splits} CTAs (one "
@@ -2151,20 +2180,9 @@ def ssd_cases(torch, ops, ref, dev, shape=SSD_SHAPE, lens=SSD_LENS):
             what = f"ssd_scan {dtype} S={S}"
             err_st = compare(torch, st, want_st, dtype, what + " state",
                              SSD_TOLS, SSD_RTOL)
-            isz = x.element_size()
-            # x, B, C, dt, A read once; y and the fp32 state written once
-            nbytes = ((2 * S * nh * hd + 2 * S * ds) * isz + S * nh * 4
-                      + nh * 4 + nh * hd * ds * 4)
-            # what the function needs per chunk of L positions: the causal
-            # half of C.B^T once (one B/C group serves every head); per head
-            # the causal half of the scores times dt x, the state update,
-            # and C.state from the second chunk on (the state starts at 0)
-            flops = 0
-            for c0 in range(0, S, chunk):
-                L = min(chunk, S - c0)
-                causal = L * (L + 1) // 2
-                flops += 2 * causal * ds + nh * (
-                    2 * causal * hd + 2 * L * hd * ds * (2 if c0 else 1))
+            flops, nbytes = _rl().kernel_work(
+                "ssd_scan", 1, S, nh, hd, ds, chunk,
+                x.element_size())
             rec = case_record(
                 torch, "ssd_scan", dtype, [1, S, nh, hd, ds], y, want_y,
                 time_ms(torch, lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk)),
@@ -2224,17 +2242,7 @@ def ssd_bwd_cost(b, S, nh, hd, ds, isz, L=64):
     state's gradient (not for the first: nothing enters it), G'B^T and
     x'^T G' (not for the last: G' is 0 there), dy^T H (not for the first: H
     is 0 there)."""
-    nbytes = ((3 * b * S * nh * hd + 4 * b * S * ds) * isz
-              + 2 * b * S * nh * 4 + 2 * nh * 4)
-    flops = 0
-    nc = -(-S // L)
-    for c in range(nc):
-        n = min(L, S - c * L)
-        causal = n * (n + 1) // 2
-        state = 2 * n * hd * ds
-        n_state = (c < nc - 1) * 3 + (c > 0) * 2
-        flops += b * (2 * causal * ds + nh * (
-            4 * causal * hd + 4 * causal * ds + n_state * state))
+    flops, nbytes = _rl().kernel_work("ssd_scan_bwd", b, S, nh, hd, ds, isz, L)
     how = (f"bytes: x, dy, dx ({isz} B), B, C, dB, dC ({isz} B), dt, ddt, A, "
            f"dA (fp32) once; FLOPs: per {L}-position chunk the causal C.B^T "
            f"once, per head 4 causal products over hd and ds and the state "
@@ -2310,8 +2318,8 @@ def ssd_backward_cases(torch, ref, dev):
             rec["scratch_bytes"] = _ssd.bwd_scratch_bytes(
                 b, S, nh, hd, ds, dtype, torch.cuda.get_device_properties(
                     dev).multi_processor_count)
-            rec["bound_bytes_ms"] = nbytes / PEAK_BYTES_S * 1e3
-            rec["bound_ops_ms"] = flops / PEAK_FLOPS[dtype] * 1e3
+            rec["bound_bytes_ms"] = nbytes / _rl().HBM_BW * 1e3
+            rec["bound_ops_ms"] = flops / _rl().PEAK_FLOPS[dtype] * 1e3
             rec["bound_counted"] = how
             rec["library"] = "none: no single PyTorch call computes it"
             rec["bitwise_repeat"] = True
@@ -2402,21 +2410,19 @@ def mla_backward_cases(torch, ref, dev):
                     print(f"   (library call unavailable: "
                           f"{type(e).__name__}: {str(e)[:120]})")
                     lib_fn = None
-            n = S if real is None else real
-            pairs = n * (n + 1) // 2 * B * H
-            isz = q.element_size()
-            nbytes = ((2 * B * S * H * hd + 4 * B * S * H * hdv) * isz
-                      + 2 * B * S * H * hd * isz + 4 * B * H * S)
+            flops, nbytes = _rl().kernel_work(
+                "flash_attention_bwd", B, S, H, H, hd,
+                hdv, q.element_size(), real=real)
             rec = err_record(
                 "flash_attention_bwd", dtype, shape, err,
                 time_ms(torch, run, reps=5, warmup=2),
                 time_ms(torch, plain, reps=2, warmup=1), t_lib, nbytes,
-                2 * (3 * hd + 2 * hdv) * pairs)
+                flops)
             rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
             rec["library_device_ms"] = (None if t_lib is None else
                                         device_ms(torch, lib_fn, "", reps=3))
-            rec["bound_bytes_ms"] = nbytes / PEAK_BYTES_S * 1e3
-            rec["bound_ops_ms"] = rec["flops"] / PEAK_FLOPS[dtype] * 1e3
+            rec["bound_bytes_ms"] = nbytes / _rl().HBM_BW * 1e3
+            rec["bound_ops_ms"] = rec["flops"] / _rl().PEAK_FLOPS[dtype] * 1e3
             rec["bitwise_repeat"] = True
             rec["limit_shares"] = shares
             print(f"   {'':16s} share of the elementwise limit, norm error: "
@@ -4642,8 +4648,8 @@ def moe_timing(torch, params, cfg, dev):
                "combine_ms": time_ms(torch, lambda: moe.combine(
                    ye, w, ids, pos, keep, x.dtype)),
                "layer_ms": time_ms(torch, lambda: moe.moe_apply(p, cfg, x)),
-               "experts_bound_ms": bound(nbytes, flops, "bf16")[0],
-               "experts_bound_by": bound(nbytes, flops, "bf16")[1]}
+               "experts_bound_ms": _rl().bound(nbytes, flops, "bf16")[0],
+               "experts_bound_by": _rl().bound(nbytes, flops, "bf16")[1]}
         out[T] = rec
         print(f"   MoE layer at {T} rows (C = {C}): router + plan "
               f"{rec['route_ms']:.4f} ms, gather {rec['gather_ms']:.4f}, "
@@ -4742,9 +4748,9 @@ def moe_path(torch, ops, dev):
     # (C >= 8 slots each), attention, norms, the tied table for the head
     step_bytes = gb * 1e9
     prof = out["warmed"]["decode_profile"]
-    out["decode_bound_ms"] = step_bytes / PEAK_BYTES_S * 1e3
+    out["decode_bound_ms"] = step_bytes / _rl().HBM_BW * 1e3
     print(f"   a decode step's byte bound {out['decode_bound_ms']:.3f} ms "
-          f"({step_bytes / 1e9:.2f} GB of weights at {PEAK_BYTES_S:.3g} B/s)"
+          f"({step_bytes / 1e9:.2f} GB of weights at {_rl().HBM_BW:.3g} B/s)"
           f"; the graphed step's device busy "
           + ("not measured" if not prof["device_busy_ms_per_step"] else
              f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
@@ -4947,12 +4953,12 @@ def mla_path(torch, ops, dev):
     # layers (C = 8 slots each at 8 rows), the attention's, the norms', the
     # tied table for the head
     prof = out["warmed"]["decode_profile"]
-    out["decode_bound_ms"] = gb * 1e9 / PEAK_BYTES_S * 1e3
+    out["decode_bound_ms"] = gb * 1e9 / _rl().HBM_BW * 1e3
     busy = prof["device_busy_ms_per_step"]
     out["mla_kernel_share"] = (prof["kernel_ms_per_step"] / busy
                                if busy else None)
     print(f"   a decode step's byte bound {out['decode_bound_ms']:.3f} ms "
-          f"({gb:.2f} GB at {PEAK_BYTES_S:.3g} B/s); the graphed step's "
+          f"({gb:.2f} GB at {_rl().HBM_BW:.3g} B/s); the graphed step's "
           "device busy " + ("not measured" if not busy else
                             f"{busy:.3f} ms, idle share "
                             f"{prof['device_idle_share']:.3f}, the MLA decode "
@@ -5138,10 +5144,10 @@ def hybrid_path(torch, ops, dev):
     # a decode step reads every weight once (each MoE layer's 16 experts at
     # 8 rows' slots), the tied-free head included
     prof = out["warmed"]["decode_profile"]
-    out["decode_bound_ms"] = gb * 1e9 / PEAK_BYTES_S * 1e3
+    out["decode_bound_ms"] = gb * 1e9 / _rl().HBM_BW * 1e3
     busy = prof["device_busy_ms_per_step"]
     print(f"   a decode step's byte bound {out['decode_bound_ms']:.3f} ms "
-          f"({gb:.2f} GB at {PEAK_BYTES_S:.3g} B/s); the graphed step's "
+          f"({gb:.2f} GB at {_rl().HBM_BW:.3g} B/s); the graphed step's "
           "device busy " + ("not measured" if not busy else
                             f"{busy:.3f} ms ({out['decode_bound_ms'] / busy:.3f}"
                             f" of the bound), idle share "
@@ -5153,13 +5159,6 @@ def hybrid_path(torch, ops, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return out
-
-
-def flash_cost(B, Sq, Skv, H, Hkv, hd, isz=2):
-    """(bytes, FLOPs) of one non-causal flash call: q and o of Sq rows, k
-    and v of Skv, each read or written once; Sq x Skv scores a head."""
-    return (2 * B * (Sq * H + Skv * Hkv) * hd * isz,
-            4 * hd * B * H * Sq * Skv)
 
 
 def encdec_path(torch, ops, dev):
@@ -5252,11 +5251,15 @@ def encdec_path(torch, ops, dev):
     prof = profile_call(torch, lambda: model.prefill(params, toks, feats),
                         "flash", "flash", f"a {B} x {F_}-frame prefill",
                         [B, F_])
-    costs = [flash_cost(B, F_, F_, H, Hkv, hd),  # encoder, bidirectional
-             flash_cost(B, SEAMLESS_PROMPT, SEAMLESS_PROMPT, H, Hkv, hd),
-             flash_cost(B, SEAMLESS_PROMPT, F_, H, Hkv, hd)]  # cross
-    enc_bound = bound(*costs[0], "bf16")
-    total = sum(bound(*c, "bf16")[0] for c in costs) * L
+    # (bytes, FLOPs) of each launch, every one counted without the causal
+    # mask: the encoder's (bidirectional), the decoder's self-attention over
+    # the prompt, the cross-attention
+    costs = [_rl().kernel_work("flash_attention", B, Sq, Skv, H, Hkv, hd,
+                         causal=False)[::-1]
+             for Sq, Skv in ((F_, F_), (SEAMLESS_PROMPT, SEAMLESS_PROMPT),
+                             (SEAMLESS_PROMPT, F_))]
+    enc_bound = _rl().bound(*costs[0], "bf16")
+    total = sum(_rl().bound(*c, "bf16")[0] for c in costs) * L
     prof.update(flash_bound_ms=total, encoder_flash_bound_ms=enc_bound[0],
                 encoder_flash_bound_by=enc_bound[1])
     print(f"   flash in that prefill: {prof['kernel_ms']:.3f} ms device time "
@@ -5447,26 +5450,6 @@ def train_config(arch, layers, changes):
     return dataclasses.replace(get_config(arch), n_layers=layers, **changes)
 
 
-def model_flops(cfg, n_params, B, S):
-    """A step's model FLOPs: 6 N T over the parameters a token passes
-    through (an MoE layer's top-k experts, not all of them) plus causal
-    attention's 6 (hd_qk + hd_v) a (query, key) pair a head; the SSD scan's
-    own products are not counted."""
-    active = n_params
-    for i in range(cfg.n_layers):
-        if cfg.layer_is_moe(i):
-            active -= ((cfg.moe.n_experts - cfg.moe.top_k) * 3 * cfg.d_model
-                       * cfg.moe.d_ff)
-    if cfg.mla is not None:
-        hd_qk = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
-        hd_v = cfg.mla.v_head_dim
-    else:
-        hd_qk = hd_v = cfg.head_dim
-    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    attn = 6 * (hd_qk + hd_v) * (S * (S + 1) // 2) * B * cfg.n_heads * n_attn
-    return 6 * active * B * S + attn
-
-
 def train_run(torch, ops, dev, cfg, batch, label):
     """``repro_torch.training.train``: TRAIN_STEPS AdamW steps of ``cfg``
     (full remat, bf16), ``SyntheticLM`` batches of ``batch``, seed 0; the
@@ -5529,13 +5512,13 @@ def train_run(torch, ops, dev, cfg, batch, label):
         raise AssertionError(f"{label} training launches {launches} != {want}")
     steady = statistics.median(step_ms[1:])
     T = B * S
-    flops = model_flops(cfg, n_params, B, S)
+    flops = _rl().train_step_flops(cfg, n_params, B, S)
     res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
            "params": n_params, "state_gb": state_gb,
            "losses": losses, "grad_norms": norms, "launches": launches,
            "step_ms": step_ms, "step_ms_median_after_first": steady,
            "tokens_per_s": T / steady * 1e3, "model_flops": flops,
-           "mfu": flops / (steady / 1e3) / PEAK_FLOPS["bf16"],
+           "mfu": flops / (steady / 1e3) / _rl().PEAK_FLOPS["bf16"],
            "peak_mem_gb": peak / 1e9, "data_batch_host_ms": data_ms}
     print(f"   step wall (CUDA events) first {step_ms[0]:.1f} ms, median of "
           f"the rest {steady:.1f} ms; {res['tokens_per_s']:.0f} tokens/s; "
@@ -5724,6 +5707,106 @@ def leaf_gap(card, cpu):
     if top:
         return err / top
     return 0.0 if not err else math.inf
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: the dry-run launchers
+# --------------------------------------------------------------------------- #
+DRYRUN_MESHES = (("16x16", []), ("2x16x16", ["--multipod"]))
+DRYRUN_JOBS = 4
+DRYRUN_TIMEOUT_S = 240
+
+
+def dryrun_path(train):
+    """(a) ``repro_torch.launch.dryrun --all`` and ``--all --multipod``, two
+    processes at once (DRYRUN_JOBS workers each), records in the checkout's
+    ``experiments/dryrun_torch``: every case OK but JAX's stated skip
+    (seamless-m4t's long_500k), then ``repro_torch.launch.report`` on both
+    meshes into chiprun_out/phase17_report.md; (b) the 1 x 1 roofline of
+    phase 16's step (``train``: its record) beside its measured step, gated
+    max(t_compute, t_memory) <= the step."""
+    import os
+
+    from repro_torch.configs import ARCHITECTURES, SHAPES
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.mesh import make_local_mesh
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), *flags], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, flags in DRYRUN_MESHES}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    n_cases = len(ARCHITECTURES) * len(SHAPES)
+    out = {"wall_s": wall, "meshes": {}}
+    for name, proc in procs.items():
+        lines = [ln for ln in outs[name].splitlines()
+                 if ln.startswith(("OK ", "SKIP ", "FAIL "))]
+        for ln in lines:
+            print(f"   {ln}")
+        ok = sum(ln.startswith("OK ") for ln in lines)
+        skips = [ln for ln in lines if ln.startswith("SKIP ")]
+        out["meshes"][name] = {"rc": proc.returncode, "ok": ok,
+                               "skips": skips, "lines": lines}
+        print(f"   dryrun --all on {name}: rc {proc.returncode}, {ok} OK, "
+              f"{len(skips)} skipped", flush=True)
+        if (proc.returncode or ok != n_cases - 1 or len(skips) != 1
+                or "seamless-m4t-large-v2" not in skips[0]
+                or "long_500k" not in skips[0]):
+            raise AssertionError(f"dryrun --all on {name}: rc "
+                                 f"{proc.returncode}, {ok} of {n_cases - 1} "
+                                 f"OK, skips {skips}\n{outs[name][-3000:]}")
+    print(f"   both meshes' dry-runs together: {wall:.1f} s of wall",
+          flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase17_report.md").write_text("\n\n".join(
+        f"# {name}\n\n## Roofline\n\n{report.roofline_table(name)}\n\n"
+        f"## Dry-run\n\n{report.dryrun_table(name)}"
+        for name, _ in DRYRUN_MESHES))
+
+    # (b) phase 16's step on one card: 8 layers, [2, 4096], full remat
+    cfg = train_config("llama3-8b", TRAIN_LAYERS, {})
+    B, S = TRAIN_BATCH
+    shape = InputShape("phase16", seq_len=S, global_batch=B, kind="train")
+    rec = dryrun.run_case("llama3-8b", cfg_override=cfg, shape=shape,
+                          meshes=[make_local_mesh()], save=False,
+                          verbose=False)[0]
+    step = train["step_ms_median_after_first"]
+    t_bound = max(rec["t_compute"], rec["t_memory"]) * 1e3
+    one = {k: rec[k] for k in ("t_compute", "t_memory", "t_collective",
+                                "hlo_flops", "hlo_bytes", "model_flops",
+                                "peak_bytes_per_device",
+                                "arg_bytes_per_device")}
+    one.update(measured_step_ms=step, roofline_ms=t_bound,
+               roofline_share=t_bound / step,
+               measured_peak_gb=train["peak_mem_gb"])
+    out["phase16_roofline"] = one
+    print(f"   phase 16's step on 1 x 1: t_compute {rec['t_compute'] * 1e3:.3f}"
+          f" ms ({rec['hlo_flops'] / 1e12:.2f} TFLOP), t_memory "
+          f"{rec['t_memory'] * 1e3:.3f} ms ({rec['hlo_bytes'] / 1e9:.1f} GB "
+          f"unfused), t_collective {rec['t_collective'] * 1e3:.3f} ms; "
+          f"measured step {step:.1f} ms, the roofline "
+          f"{t_bound / step:.3f} of it; peak a device "
+          f"{rec['peak_bytes_per_device'] / 1e9:.2f} GB (arguments "
+          f"{rec['arg_bytes_per_device'] / 1e9:.2f}) against phase 16's "
+          f"{train['peak_mem_gb']:.2f} GB measured", flush=True)
+    if not t_bound <= step:
+        raise AssertionError(f"phase 16's roofline {t_bound:.3f} ms exceeds "
+                             f"its measured step {step:.3f} ms")
+    return out
 
 
 def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",

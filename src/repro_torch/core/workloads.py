@@ -91,8 +91,8 @@ def llm_workload(arch: str, shape_name: str = "decode_32k",
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     results_dir = results_dir or os.path.join(
-        os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun"
-    )
+        os.path.dirname(__file__), "..", "..", "..", "experiments",
+        "dryrun_torch")
     path = os.path.join(results_dir, f"{arch}__{shape_name}__16x16.json")
     with open(path) as f:
         r = json.load(f)

@@ -4,7 +4,11 @@ Each op dispatches on the device of the tensors it is given:
 
 * CPU tensors take the plain PyTorch version (:mod:`repro_torch.kernels.ref`);
 * CUDA tensors launch the hand-written Hopper kernel, or raise. There is no
-  fallback from a CUDA tensor to the plain version.
+  fallback from a CUDA tensor to the plain version;
+* meta tensors (the dry-run's shapes-only pass, ``launch/dryrun.py``) give
+  empty meta outputs of the kernel's shapes and add the kernel's
+  ``kernels/work.py`` ``kernel_work`` to the innermost tally of :data:`META_TALLIES`:
+  no launch, none counted. Meta holds no data, so this hides no device.
 
 Each op checks device, dtype, shape and contiguity before launching, and
 counts its kernel launches in :data:`LAUNCHES` (plain-version calls are not
@@ -40,6 +44,7 @@ from repro_torch.kernels import preprocess as _pp
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.work import kernel_work
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -53,6 +58,12 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "ssd_scan_bwd": 0}
 
 SERVING_ONLY = "a serving kernel: no training path runs it"
+
+
+# the dry-run's tallies: a kernel op on meta tensors calls the innermost's
+# ``add_kernel(name, flops, nbytes, axes)``, ``axes`` the logical axes that
+# split its work across a mesh
+META_TALLIES: list = []
 
 
 def reset_launches() -> None:
@@ -70,8 +81,8 @@ def add_launches(counts: dict, times: int = 1) -> None:
 
 def _on_cuda(*tensors) -> bool:
     """True when every tensor is on one CUDA device, False when every one
-    is on the CPU; anything else raises. Attribute reads only: it runs on
-    every launch."""
+    is on the CPU (or every one on meta, the dry-run's); anything else
+    raises. Attribute reads only: it runs on every launch."""
     first = tensors[0]
     if first.is_cuda:
         dev = first.get_device()
@@ -80,14 +91,62 @@ def _on_cuda(*tensors) -> bool:
                 break
         else:
             return True
-    elif first.is_cpu:
+    else:
+        kind = first.device.type  # cpu, or meta (the dry-run's)
         for t in tensors:
-            if not t.is_cpu:
+            if t.device.type != kind:
                 break
         else:
-            return False
-    raise ValueError(f"tensors must all be on one CUDA device or all on the "
-                     f"CPU: {[str(t.device) for t in tensors]}")
+            if kind in ("cpu", "meta"):
+                return False
+    raise ValueError(f"tensors must all be on one CUDA device, all on the "
+                     f"CPU or all on meta: {[str(t.device) for t in tensors]}")
+
+
+def _tally(name, work, axes) -> None:
+    if META_TALLIES:
+        META_TALLIES[-1].add_kernel(name, *work, axes)
+
+
+class _MetaFn(torch.autograd.Function):
+    """A kernel with a backward, on meta: the forward's and the backward's
+    kernel_work tallied, empty outputs, empty gradients for the inputs
+    that require one."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, outs, n_diff, *inputs):
+        _tally(*fwd)
+        ctx.bwd = bwd
+        ctx.specs = [(t.shape, t.dtype) if isinstance(t, torch.Tensor)
+                     else None for t in inputs]
+        out = outs()
+        if isinstance(out, tuple):
+            ctx.mark_non_differentiable(*out[n_diff:])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _tally(*ctx.bwd)
+        return (None, None, None, None, *(
+            None if s is None or not ctx.needs_input_grad[4 + i]
+            else torch.empty(s[0], dtype=s[1], device="meta")
+            for i, s in enumerate(ctx.specs)))
+
+
+def _meta_call(fwd, outs, inputs, bwd=None, n_diff=1):
+    """An op on meta tensors: ``outs()`` (empty meta outputs of the
+    kernel's shapes) with ``fwd`` = (name, kernel_work, axes) tallied.
+    Where ``inputs`` require grad, through :class:`_MetaFn` with ``bwd``
+    (the backward kernel's triple; the first ``n_diff`` outputs
+    differentiable), or, for a kernel without one, raising as on the
+    card."""
+    if _needs_grad(*inputs):
+        if bwd is None:
+            raise NotImplementedError(f"{fwd[0]} kernel has no backward here; "
+                                      "its inputs require grad")
+        return _MetaFn.apply(fwd, bwd, outs, n_diff, *inputs)
+    _tally(*fwd)
+    return outs()
 
 
 def _needs_grad(*tensors) -> bool:
@@ -216,6 +275,14 @@ def preprocess(x_u8, mean, std, *, out_dtype=torch.bfloat16):
         raise ValueError(f"preprocess: x {tuple(x_u8.shape)}, mean "
                          f"{tuple(mean.shape)}, std {tuple(std.shape)}")
     if not _on_cuda(x_u8, mean, std):
+        if x_u8.is_meta:  # the dry-run's shapes-only pass
+            isz = torch.empty((), dtype=out_dtype).element_size()
+            return _meta_call(
+                ("preprocess", kernel_work("preprocess", x_u8.numel(),
+                                           x_u8.shape[-1], isz), ("batch",)),
+                lambda: torch.empty(x_u8.shape, dtype=out_dtype,
+                                    device="meta"),
+                (mean, std))
         return ref.preprocess_ref(x_u8, mean, std, out_dtype)
     _refuse_grad("preprocess", SERVING_ONLY, mean, std)
     if x_u8.dtype != torch.uint8 or out_dtype not in KERNEL_DTYPES:
@@ -239,6 +306,14 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
     if x.shape[-1:] != w.shape:
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if not _on_cuda(x, w):
+        if x.is_meta:  # the dry-run's shapes-only pass
+            D = w.shape[0]
+            work = (x.numel() // max(D, 1), D, x.element_size())
+            axes = ("batch", "act_seq")
+            return _meta_call(
+                ("rmsnorm", kernel_work("rmsnorm", *work), axes),
+                lambda: torch.empty_like(x), (x, w),
+                ("rmsnorm_bwd", kernel_work("rmsnorm_bwd", *work), axes))
         return ref.rmsnorm_ref(x, w, eps)
     _check_kernel_dtype("rmsnorm", x)
     if w.dtype not in KERNEL_DTYPES or not w.is_contiguous():
@@ -332,6 +407,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     tensors = [q, k, v] + [t for t in (segment_ids, *prior) if t is not None]
     if not _on_cuda(*tensors):
+        if q.is_meta:  # the dry-run's shapes-only pass
+            dims = dict(B=B, H=H, Hkv=Hkv, hd=hd, hdv=hdv,
+                        isz=q.element_size())
+            axes = ("batch", "heads")
+            fwd = kernel_work("flash_attention", Sq=Sq, Skv=Skv, causal=causal,
+                              window=window,
+                              prior=0 if prior_k is None else prior_k.shape[1],
+                              segments=segment_ids is not None, **dims)
+            bwd = None  # packed and suffix prefill are serving paths
+            if segment_ids is None and prior_k is None:
+                bwd = ("flash_attention_bwd", kernel_work(
+                    "flash_attention_bwd", S=Sq, Skv=Skv, causal=causal,
+                    window=window, **dims), axes)
+            return _meta_call(
+                ("flash_attention", fwd, axes),
+                lambda: torch.empty((B, Sq, H, hdv), dtype=q.dtype,
+                                    device="meta"),
+                tensors, bwd)
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, scale=scale,
             segment_ids=segment_ids, sq_real=sq_real, skv_real=skv_real,
@@ -389,6 +482,12 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
     w_real = W if w_real is None else int(w_real)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if not _on_cuda(q, k, v, lengths):
+        if q.is_meta:  # the dry-run's shapes-only pass
+            return _meta_call(
+                ("decode_attention", kernel_work(
+                    "decode_attention", B, H, Hkv, hd, B * min(W, w_real),
+                    q.element_size()), ("batch", "kv_seq", "heads")),
+                lambda: torch.empty_like(q), (q, k, v))
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
                                         w_real=w_real)
     _refuse_grad("decode_attention", SERVING_ONLY, q, k, v)
@@ -427,6 +526,14 @@ def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
                          f"Hkv={Hkv}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if not _on_cuda(q, k_blocks, v_blocks, page_table, lengths):
+        if q.is_meta:  # the dry-run's shapes-only pass
+            pos = B * page_table.shape[1] * k_blocks.shape[1]
+            return _meta_call(
+                ("paged_decode_attention", kernel_work(
+                    "paged_decode_attention", B, H, Hkv, hd, pos,
+                    table=page_table.numel(), isz=q.element_size()),
+                 ("batch", "kv_seq", "heads")),
+                lambda: torch.empty_like(q), (q, k_blocks, v_blocks))
         return ref.paged_decode_attention_ref(q, k_blocks, v_blocks,
                                               page_table, lengths, scale=scale)
     _refuse_grad("paged_decode_attention", SERVING_ONLY, q, k_blocks, v_blocks)
@@ -490,6 +597,13 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, valid_len, *,
     _check_mla("mla_decode_attention", q_lat, q_rope, ckv, krope, valid_len,
                (B, W))
     if not _on_cuda(q_lat, q_rope, ckv, krope, valid_len):
+        if q_lat.is_meta:  # the dry-run's shapes-only pass
+            return _meta_call(
+                ("mla_decode_attention", kernel_work(
+                    "mla_decode_attention", B, q_lat.shape[2], ckv.shape[2],
+                    krope.shape[2], B * W, ckv.element_size()),
+                 ("batch", "kv_seq", "heads")),
+                lambda: torch.empty_like(q_lat), (q_lat, q_rope, ckv, krope))
         return ref.mla_decode_attention_ref(
             q_lat, q_rope, ckv, krope, valid_len.clamp(max=W), scale=scale)
     _refuse_grad("mla_decode_attention", SERVING_ONLY, q_lat, q_rope, ckv,
@@ -515,6 +629,17 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_blocks, krope_blocks,
                krope_blocks, valid_len, ckv_blocks.shape[:2])
     if not _on_cuda(q_lat, q_rope, ckv_blocks, krope_blocks, page_table,
                     valid_len):
+        if q_lat.is_meta:  # the dry-run's shapes-only pass
+            B = q_lat.shape[0]
+            return _meta_call(
+                ("paged_mla_decode_attention", kernel_work(
+                    "paged_mla_decode_attention", B, q_lat.shape[2],
+                    ckv_blocks.shape[2], krope_blocks.shape[2],
+                    B * page_table.shape[1] * ckv_blocks.shape[1],
+                    ckv_blocks.element_size(), page_table.numel()),
+                 ("batch", "kv_seq", "heads")),
+                lambda: torch.empty_like(q_lat),
+                (q_lat, q_rope, ckv_blocks, krope_blocks))
         return ref.paged_mla_decode_attention_ref(
             q_lat, q_rope, ckv_blocks, krope_blocks, page_table, valid_len,
             scale=scale)
@@ -556,6 +681,18 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int):
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}, C "
                          f"{tuple(C.shape)}")
     if not _on_cuda(x, dt, A, B, C):
+        if x.is_meta:  # the dry-run's shapes-only pass
+            ds, isz = B.shape[-1], x.element_size()
+            axes = ("batch", "ssm_heads")
+            return _meta_call(
+                ("ssd_scan",
+                 kernel_work("ssd_scan", b, S, nh, hd, ds, chunk, isz), axes),
+                lambda: (torch.empty_like(x),
+                         torch.empty((b, nh, hd, ds), dtype=torch.float32,
+                                     device="meta")),
+                (x, dt, A, B, C),
+                ("ssd_scan_bwd", kernel_work("ssd_scan_bwd", b, S, nh, hd, ds,
+                                             isz), axes))
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     _check_kernel_dtype("ssd_scan", x, B, C)
     _check_last_dim_contiguous("ssd_scan", x, B, C)

@@ -19,14 +19,14 @@ from repro_torch.models.schema import ParamSpec
 def attn_schema(cfg) -> dict:
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, h * hd)),
-        "wk": ParamSpec((d, hk * hd)),
-        "wv": ParamSpec((d, hk * hd)),
-        "wo": ParamSpec((h * hd, d)),
+        "wq": ParamSpec((d, h * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, hk * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, hk * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((h * hd, d), ("heads", "embed")),
     }
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((hd,), init="ones")
-        s["k_norm"] = ParamSpec((hd,), init="ones")
+        s["q_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+        s["k_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
     return s
 
 

@@ -83,6 +83,28 @@ def leaf_dtype(key: str, dtype):
     return torch.float32 if key in _F32_KEYS else dtype
 
 
+def cache_logical_axes(cfg, sig, kv_seq_sharded: bool) -> dict:
+    """Logical axes of each of a layer's cache leaves (the JAX package's
+    ``cache_logical_axes``): with the sequence sharded (``kv_seq``, decode),
+    the heads stay local."""
+    kind, _ = sig
+    seq_ax = "kv_seq" if kv_seq_sharded else "seq"
+    kvh = None if kv_seq_sharded else "kv_heads"
+    if kind == "attn":
+        if cfg.mla is not None:
+            ax = {"ckv": ("batch", seq_ax, None),
+                  "krope": ("batch", seq_ax, None)}
+        else:
+            ax = {"k": ("batch", seq_ax, kvh, None),
+                  "v": ("batch", seq_ax, kvh, None)}
+        if cfg.is_encdec:
+            ax["xk"] = ("batch", None, "kv_heads", None)
+            ax["xv"] = ("batch", None, "kv_heads", None)
+        return ax
+    return {"conv": ("batch", None, "ssm_in"),
+            "state": ("batch", "ssm_heads", None, None)}
+
+
 def init_layer_cache(shapes: dict, dtype, device) -> dict:
     """Zeroed leaves of one layer's cache, each in its :func:`leaf_dtype`."""
     return {k: torch.zeros(s, dtype=leaf_dtype(k, dtype), device=device)

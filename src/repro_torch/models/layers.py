@@ -14,7 +14,7 @@ from repro_torch.models.schema import ParamSpec
 # RMSNorm
 # --------------------------------------------------------------------------- #
 def rmsnorm_schema(d: int) -> ParamSpec:
-    return ParamSpec((d,), init="ones")
+    return ParamSpec((d,), ("embed",), init="ones")
 
 
 def rmsnorm(x, w, eps: float = 1e-5):
@@ -51,9 +51,9 @@ def apply_rope(x, positions, theta: float):
 # --------------------------------------------------------------------------- #
 def ffn_schema(d: int, d_ff: int) -> dict:
     return {
-        "w_gate": ParamSpec((d, d_ff)),
-        "w_up": ParamSpec((d, d_ff)),
-        "w_down": ParamSpec((d_ff, d)),
+        "w_gate": ParamSpec((d, d_ff), ("embed", "ffn")),
+        "w_up": ParamSpec((d, d_ff), ("embed", "ffn")),
+        "w_down": ParamSpec((d_ff, d), ("ffn", "embed")),
     }
 
 
@@ -70,7 +70,8 @@ def pad_vocab(vocab: int, multiple: int = 256) -> int:
 
 
 def embed_schema(vocab_padded: int, d: int) -> ParamSpec:
-    return ParamSpec((vocab_padded, d), init="small_normal")
+    return ParamSpec((vocab_padded, d), ("vocab", "embed"),
+                     init="small_normal")
 
 
 def embed_lookup(table, tokens):

@@ -26,14 +26,15 @@ def mamba_schema(cfg) -> dict:
     nh = s.n_heads(d)
     conv_ch = d_in + 2 * s.d_state  # x, B, C (one B/C group)
     return {
-        "in_proj": ParamSpec((d, 2 * d_in + 2 * s.d_state + nh)),
-        "conv_w": ParamSpec((s.d_conv, conv_ch)),
-        "conv_b": ParamSpec((conv_ch,), init="zeros"),
-        "A_log": ParamSpec((nh,), init="zeros"),
-        "D": ParamSpec((nh,), init="ones"),
-        "dt_bias": ParamSpec((nh,), init="zeros"),
-        "gate_norm": ParamSpec((d_in,), init="ones"),
-        "out_proj": ParamSpec((d_in, d)),
+        "in_proj": ParamSpec((d, 2 * d_in + 2 * s.d_state + nh),
+                             ("embed", "ssm_in")),
+        "conv_w": ParamSpec((s.d_conv, conv_ch), ("conv", "ssm_in")),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_in",), init="zeros"),
+        "A_log": ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        "D": ParamSpec((nh,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec((nh,), ("ssm_heads",), init="zeros"),
+        "gate_norm": ParamSpec((d_in,), ("ssm_in",), init="ones"),
+        "out_proj": ParamSpec((d_in, d), ("ssm_in", "embed")),
     }
 
 

@@ -34,18 +34,20 @@ def mla_schema(cfg) -> dict:
     m = cfg.mla
     qk_dim = m.qk_nope_dim + m.qk_rope_dim
     s = {
-        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim)),
-        "kv_norm": ParamSpec((m.kv_lora_rank,), init="ones"),
-        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_dim)),
-        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim)),
-        "wo": ParamSpec((h * m.v_head_dim, d)),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), ("embed", "lora")),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("lora",), init="ones"),
+        "wk_b": ParamSpec((m.kv_lora_rank, h, m.qk_nope_dim),
+                          ("lora", "heads", None)),
+        "wv_b": ParamSpec((m.kv_lora_rank, h, m.v_head_dim),
+                          ("lora", "heads", None)),
+        "wo": ParamSpec((h * m.v_head_dim, d), ("heads", "embed")),
     }
     if m.q_lora_rank:
-        s["wq_a"] = ParamSpec((d, m.q_lora_rank))
-        s["q_norm"] = ParamSpec((m.q_lora_rank,), init="ones")
-        s["wq_b"] = ParamSpec((m.q_lora_rank, h * qk_dim))
+        s["wq_a"] = ParamSpec((d, m.q_lora_rank), ("embed", "lora"))
+        s["q_norm"] = ParamSpec((m.q_lora_rank,), ("lora",), init="ones")
+        s["wq_b"] = ParamSpec((m.q_lora_rank, h * qk_dim), ("lora", "heads"))
     else:
-        s["wq"] = ParamSpec((d, h * qk_dim))
+        s["wq"] = ParamSpec((d, h * qk_dim), ("embed", "heads"))
     return s
 
 

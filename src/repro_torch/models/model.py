@@ -111,13 +111,23 @@ class Model:
             s["encoder"] = encoder_schema(cfg)
             s["enc_norm"] = rmsnorm_schema(cfg.d_model)
         if cfg.frontend:
-            s["frontend_proj"] = sch.ParamSpec((FRONTEND_DIM, cfg.d_model))
+            s["frontend_proj"] = sch.ParamSpec((FRONTEND_DIM, cfg.d_model),
+                                                ("frontend", "embed"))
         return s
 
     def init(self, generator: torch.Generator) -> dict:
         """Seeded weights drawn on the model's device from ``generator``
         (which must live on that device)."""
         return sch.init_params(generator, self._schema, self.dtype, self.device)
+
+    def param_specs(self) -> dict:
+        """The parameters as shape-only meta tensors (the dry-run's)."""
+        return sch.meta_params(self._schema, self.dtype)
+
+    def param_pspecs(self, rules: dict) -> dict:
+        """One partition spec a parameter leaf under ``rules`` (JAX's
+        ``Model.param_pspecs``, in the port's one-entry-a-layer layout)."""
+        return sch.partition_specs(self._schema, rules)
 
     # ------------------------------------------------------------------ #
     # Forward passes
@@ -354,6 +364,57 @@ class Model:
             ]
             for gi, g in enumerate(self.groups)
         }
+
+    def cache_pspecs(self, rules: dict) -> dict:
+        """One partition spec a cache leaf under ``rules`` (JAX's
+        ``Model.cache_pspecs``): the sequence dim on ``kv_seq`` when the
+        rules shard it (decode), the heads then local."""
+        kv_sharded = rules.get("kv_seq") is not None
+
+        def one(sig):
+            axes = kvc.cache_logical_axes(self.cfg, sig, kv_sharded)
+            return {k: sch.spec(rules, ax) for k, ax in axes.items()}
+
+        return {f"g{gi}": [{f"l{j}": one(sig) for j, sig in enumerate(g.sigs)}
+                           for _ in range(g.count)]
+                for gi, g in enumerate(self.groups)}
+
+    def input_specs(self, shape) -> dict:
+        """Shape-only meta tensors of one step's inputs at ``shape``'s
+        global size (JAX's ``Model.input_specs``): train ``tokens`` and
+        ``labels`` (and ``features`` for a frontend: an encoder-decoder's
+        source half, a VLM's image share); prefill ``tokens`` (and
+        ``features``); decode one token a row, ``lengths`` and the caches
+        of ``seq_len`` slots."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(*s):
+            return torch.empty(s, dtype=torch.int32, device="meta")
+
+        def feat(*s):
+            return torch.empty(s, dtype=self.dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.is_encdec:
+                s_src = S // 2
+            elif cfg.frontend:
+                s_src = int(S * cfg.frontend_tokens_fraction)
+            else:
+                s_src = 0
+            out = {"tokens": tok(B, S - s_src)}
+            if s_src:
+                out["features"] = feat(B, s_src, FRONTEND_DIM)
+            if shape.kind == "train":
+                out["labels"] = tok(B, S - s_src)
+            return out
+        caches = {
+            gname: [{lname: {k: torch.empty(s, device="meta",
+                                            dtype=kvc.leaf_dtype(k, self.dtype))
+                             for k, s in shapes.items()}
+                     for lname, shapes in block.items()} for block in group]
+            for gname, group in self.cache_specs(B, S).items()}
+        return {"tokens": tok(B, 1), "lengths": tok(B), "caches": caches}
 
     def init_cache(self, B: int, seq_len: int, dtype=None) -> dict:
         """Zeroed caches on the model's device, each leaf in ``dtype``

@@ -29,17 +29,21 @@ def moe_schema(cfg) -> dict:
     d = cfg.d_model
     m = cfg.moe
     s = {
-        "router": ParamSpec((d, m.n_experts), init="small_normal"),
-        "w_gate": ParamSpec((m.n_experts, d, m.d_ff)),
-        "w_up": ParamSpec((m.n_experts, d, m.d_ff)),
-        "w_down": ParamSpec((m.n_experts, m.d_ff, d)),
+        "router": ParamSpec((d, m.n_experts), ("embed", "experts"),
+                            init="small_normal"),
+        "w_gate": ParamSpec((m.n_experts, d, m.d_ff),
+                            ("experts", "expert_embed", "expert_ffn")),
+        "w_up": ParamSpec((m.n_experts, d, m.d_ff),
+                          ("experts", "expert_embed", "expert_ffn")),
+        "w_down": ParamSpec((m.n_experts, m.d_ff, d),
+                            ("experts", "expert_ffn", "expert_embed")),
     }
     if m.n_shared_experts:
         ff = m.n_shared_experts * m.d_ff
         s["shared"] = {
-            "w_gate": ParamSpec((d, ff)),
-            "w_up": ParamSpec((d, ff)),
-            "w_down": ParamSpec((ff, d)),
+            "w_gate": ParamSpec((d, ff), ("embed", "ffn")),
+            "w_up": ParamSpec((d, ff), ("embed", "ffn")),
+            "w_down": ParamSpec((ff, d), ("ffn", "embed")),
         }
     return s
 

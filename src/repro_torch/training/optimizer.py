@@ -69,6 +69,18 @@ def adamw_init(params) -> AdamWState:
                       v=tree_map(zeros, params))
 
 
+def adamw_init_specs(param_specs) -> AdamWState:
+    """The AdamW state as shape-only meta tensors (JAX's
+    ``adamw_init_specs``): the step a 0-d int32 (the port keeps it on the
+    host; JAX's lives on the device, and the dry-run counts it as JAX
+    does), fp32 moments shaped like every leaf of ``param_specs``."""
+    meta = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                 device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=tree_map(meta, param_specs),
+                      v=tree_map(meta, param_specs))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's fp32 sum of
     squares: a 0-d fp32 tensor on the leaves' device."""

@@ -208,7 +208,13 @@ def test_mixed_devices_raise():
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.ones(16, device="meta"))
     with pytest.raises(ValueError):
-        ops.rmsnorm(x.to("meta"), torch.ones(16, device="meta"))
+        ops.rmsnorm(x.to("meta"), torch.ones(16))
+    # every input on meta is the dry-run's shapes-only path: an empty meta
+    # output, no launch counted
+    ops.reset_launches()
+    out = ops.rmsnorm(x.to("meta"), torch.ones(16, device="meta"))
+    assert out.is_meta and out.shape == x.shape
+    assert not any(ops.LAUNCHES.values())
 
 
 def test_plain_versions_mask_past_real_lengths():
