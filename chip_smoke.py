@@ -64,6 +64,12 @@ result line:
    bytes and by operations, each launch's device time and the scratch
    bytes; its bf16 launches' shapes at those training shapes, no ptxas
    spills in any of its kernels and HGMMA in its SASS (``ssd_bwd_design``);
+   the ring and MLA decode kernels with their lse output at phase 18's
+   shard shape (8 rows over 512 slots, a shard with no valid slot among
+   them): out bitwise equal with lse on and off, lse against the plain
+   version's (-inf exactly where no slot is valid), each kernel's device
+   time alone with and without lse; what ``build.CFunction``'s device
+   check costs a launch, in rmsnorm's launch-path rows;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -238,7 +244,29 @@ result line:
    meshes' tables into chiprun_out/phase17_report.md; then the 1 x 1
    roofline of phase 16's llama3-8b step (8 layers, [2, 4096], remat full,
    AdamW) beside its measured step: max(t_compute, t_memory) must not
-   exceed the measured step, its peak a device printed beside phase 16's.
+   exceed the measured step, its peak a device printed beside phase 16's;
+18. the serving tier on a device mesh (runs after phase 9, on phase 4's
+   model; see :func:`mesh_path`): (a) llama3-8b at full width, every
+   layer, under ``DECODE_32K``'s rules on a 1 x 4 (data, model) mesh of
+   the card -- the ring caches split 4 ways by sequence (512 of 2,048
+   slots), the table 4 ways by vocab -- 32 greedy steps after phase 4's
+   first 8 prompts' prefill, sharded against unsharded in bf16 (phase 4's
+   weights: tokens equal or parted at a top-2 gap under 0.02, logits
+   reported) and in fp32 (new weights: logits within 1e-4 of the
+   largest), the decode kernel 4 x 32 a step, busy ms a step each way;
+   (b) deepseek-v2-236b at 3 layers the same way through the MLA kernel
+   (bf16 reported only, its MoE router's choices moving with the
+   rounding; fp32 gated); (c) ``LONG_500K``'s rules on 2 x 2, batch 1,
+   llama3-8b's first 8 layers over a 32,768-slot ring (8,192 a shard; a
+   20,000-token prompt leaves shard 3 empty), bf16 and fp32 as (a); (d) phase
+   8's traffic on the disaggregated tier on a hand-built 2-slot pod mesh
+   (prefill on pod 0, decode on pod 1) and with ``placement=False``, under
+   each mechanism: tokens == phase 8's, extents and wire bytes by hand,
+   the hop's wall; (e) ``ServingCluster.build(mesh=...,
+   pods_per_replica=...)``, fused and disaggregated, 2 replicas: tokens ==
+   the cluster without a mesh. With two cards or more, (d) and (e) also
+   run on the default meshes over distinct cards; on one card the phase
+   prints ``devices: 1`` and the branch it ran.
    Bounds in phase 2 and phase 16's share of peak come from the package's
    ``kernel_work`` (``kernels/work.py``), ``train_step_flops`` and
    constants, read through ``launch/roofline.py``.
@@ -521,6 +549,8 @@ def main():
           f"{_rl().PEAK_FLOPS['bf16']:.3g} bf16 / "
           f"{_rl().PEAK_FLOPS['fp32']:.3g} fp32 FLOP/s")
     results["kernels"] = check_kernels(torch, ops, dev)
+    print("   the decode kernels' lse output at phase 18's shard shapes:")
+    results["kernels"]["lse"] = lse_cases(torch, ops, dev)
     print("   rmsnorm's launch path, host time a call at [8, 4096] bf16:")
     results["kernels"]["launch_path"] = launch_path_cost(torch, ops, dev)
     results["kernels"]["design"] = design_report(torch, build, ops, dev)
@@ -584,6 +614,13 @@ def main():
     t0 = phase("phase 9: the dense family served packed and chunked")
     results["dense_family"] = dense_family_path(torch, ops, dev)
     done(t0)
+
+    t0 = phase("phase 18: the serving tier on a device mesh: sequence- "
+               "and vocab-sharded decode, pod placement, the cluster's slices")
+    results["mesh"] = mesh_path(torch, ops, llama, results["disagg"])
+    done(t0)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = phase("phase 11: tracing, the threaded pipeline, Gateway -> "
                "ServingCluster, process replicas, prefix_cache routing")
@@ -1277,6 +1314,12 @@ def launch_path_cost(torch, ops, dev):
     current_stream = torch._C._cuda_getCurrentRawStream
     stream = current_stream(idx)
     args = (x.data_ptr(), w.data_ptr(), o.data_ptr(), 8, 4096, 1e-5, 3)
+
+    def unchecked(device_index, *a):
+        err = fn(*a, current_stream(device_index))
+        if err:
+            raise RuntimeError(f"rmsnorm launch failed: cudaError {err}")
+
     steps = [
         ("ops.rmsnorm, the whole call", lambda: ops.rmsnorm(x, w)),
         ("ops._on_cuda(x, w)", lambda: ops._on_cuda(x, w)),
@@ -1289,8 +1332,12 @@ def launch_path_cost(torch, ops, dev):
         ("3 x data_ptr(), get_device(), numel()",
          lambda: (x.data_ptr(), w.data_ptr(), o.data_ptr(), x.get_device(),
                   x.numel())),
-        ("build.CFunction: stream, ctypes call, error check",
+        ("build.CFunction: device check, stream, ctypes call, error check",
          lambda: _rn._FWD(idx, *args)),
+        ("the same without the device check (the call before it)",
+         lambda: unchecked(idx, *args)),
+        ("the device check alone (torch._C._cuda_getDevice)",
+         lambda: torch._C._cuda_getDevice() == idx),
         ("the current stream (torch._C._cuda_getCurrentRawStream)",
          lambda: current_stream(idx)),
         ("the ctypes call alone (8 arguments, cudaLaunchKernel)",
@@ -1301,6 +1348,86 @@ def launch_path_cost(torch, ops, dev):
         table.append({"step": what, "host_us": host_us(torch, fn_)})
         print(f"   {'':16s} {table[-1]['host_us']:7.2f} us  {what}")
     return table
+
+
+LSE_SHARD_LENS = [0, 1, 64, 300, 511, 512, 0, 200]  # a 512-slot shard's
+
+
+def lse_cases(torch, ops, dev):
+    """Both decode kernels with their lse output at phase 18 (a)'s and
+    (b)'s shard shape (8 rows over 512 slots: 2048 split 4 ways; llama3-8b's
+    32 / 8 heads of 128, deepseek-v2's 128 heads at latent 512 + 64), the
+    valid slots a shard sees (0: a shard past the row, 1, short, full): out
+    bitwise equal with lse on and off, lse within 1e-4 of the plain
+    version's (-inf exactly where no slot is valid), out within the kernel
+    tolerances, and each kernel's device time alone with and without
+    lse."""
+    from repro_torch.kernels import ref
+
+    B, W = 8, 512
+    lens = torch.tensor(LSE_SHARD_LENS, dtype=torch.int32, device=dev)
+    empty = lens == 0
+    out = []
+    for name in ("decode_attention", "mla_decode_attention"):
+        for dtype in ("bf16", "fp32"):
+            if name == "decode_attention":
+                H = 32
+                q = rand(torch, (B, 1, H, 128), dtype, dev, 40)
+                k = rand(torch, (B, W, 8, 128), dtype, dev, 41)
+                v = rand(torch, (B, W, 8, 128), dtype, dev, 42)
+
+                def call(lse, q=q, k=k, v=v):
+                    return ops.decode_attention(q, k, v, lens,
+                                                return_lse=lse)
+
+                plain = ref.decode_attention_ref(q, k, v, lens,
+                                                 return_lse=True)
+                key = "decode_split"
+            else:
+                H, scale = MLA_HEADS, 192 ** -0.5
+                ql, qr, ckv, kr = (rand(torch, s, dtype, dev, 43 + i)
+                                   for i, s in enumerate((
+                                       (B, 1, H, 512), (B, 1, H, 64),
+                                       (B, W, 512), (B, W, 64))))
+
+                def call(lse, ql=ql, qr=qr, ckv=ckv, kr=kr):
+                    return ops.mla_decode_attention(ql, qr, ckv, kr, lens,
+                                                    scale=scale,
+                                                    return_lse=lse)
+
+                plain = ref.mla_decode_attention_ref(ql, qr, ckv, kr, lens,
+                                                     scale=scale,
+                                                     return_lse=True)
+                key = "mla_decode"
+            off = call(False)
+            got, lse = call(True)
+            torch.cuda.synchronize()
+            if not torch.equal(got, off):
+                raise AssertionError(f"{name} {dtype}: out differs with lse "
+                                     "on and off")
+            err = compare(torch, got, plain[0], dtype, f"{name} {dtype} lse")
+            want = plain[1]
+            if not (torch.isneginf(lse[empty]).all()
+                    and torch.isneginf(want[empty]).all()
+                    and not got[empty].any()):
+                raise AssertionError(f"{name} {dtype}: a shard with no valid "
+                                     "slot must give lse -inf and zeros")
+            lse_err = float((lse[~empty] - want[~empty]).abs().max())
+            if not lse_err <= 1e-4:
+                raise AssertionError(f"{name} {dtype}: lse off the plain "
+                                     f"version's by {lse_err:.3e}")
+            ms = {flag: device_ms(torch, lambda f=flag: call(f), key)
+                  for flag in (False, True)}
+            rec = {"name": name, "dtype": dtype,
+                   "shape": [B, W, H, LSE_SHARD_LENS], "max_abs_err": err,
+                   "lse_max_abs_err": lse_err, "device_ms": ms[False],
+                   "device_ms_lse": ms[True]}
+            print(f"   {name:20s} {dtype} lse: out bitwise with and without; "
+                  f"lse err {lse_err:.2e} (-inf on the {int(empty.sum())} "
+                  f"empty rows); device ms alone {ms[False]} without, "
+                  f"{ms[True]} with", flush=True)
+            out.append(rec)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -3612,6 +3739,7 @@ def disagg_path(torch, ops, llama, shared, ssm_engine):
     agree = sum(a == b for x, y in zip(tokens["host_staged"], tokens["fused"])
                 for a, b in zip(x, y))
     out["host_staged_tokens_equal_fused"] = agree
+    out["tokens"] = tokens  # phase 18 (d) holds the placed tier to them
     ttft = {k: v["ttft_ms_p50"] for k, v in out["ring"].items()}
     out["gdr_ttft_saving"] = {
         k: 1 - ttft["direct_hbm"] / ttft[k] for k in ("direct_dma",
@@ -5881,6 +6009,347 @@ def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
     return {"arch": arch, "layers": L, "batch": [B, S], "loss_card": lg,
             "loss_cpu": lc, "loss_rel": loss_rel, "worst_leaf_rel": worst,
             "cpu_side": side, "launches": launches, "cpu_s": cpu_s, **extra}
+
+
+# --------------------------------------------------------------------------- #
+# phase 18
+# --------------------------------------------------------------------------- #
+MESH_STEPS = 32  # greedy steps of each sharded walk
+MESH_W = 2048  # (a), (b): 512 slots a shard on the 1 x 4 mesh
+LONG_W, LONG_LAYERS, LONG_PROMPT = 32_768, 8, 20_000  # (c): 8,192 a shard
+
+
+def shard_walk(torch, ops, model, params, ctx, prompts, W, kernel, label,
+               logit_limit=None, token_gate=True):
+    """A bucketed (or, for one row, exact) prefill of ``prompts`` without a
+    context, its caches grown to W slots and cloned: one copy laid out for
+    ``ctx`` (``place_for_ctx``: the table by vocab, the caches by kv_seq),
+    one kept whole. Then MESH_STEPS greedy steps, both fed the whole
+    model's token: ``decode_step(..., shard_ctx=ctx)`` against the
+    unsharded ``decode_step``, ``kernel`` launched once a shard and
+    attention layer a step, the logits finite; gated with ``logit_limit``
+    (of the largest logit, at every step) and with ``token_gate`` (each
+    token equal or parted at a top-2 gap under LOGIT_LIMIT), else
+    reported; then each step's device busy time (torch.profiler, every
+    kernel), sharded and not."""
+    import numpy as np
+
+    from repro_torch.models import kvcache as kvc
+    from repro_torch.sharding.partition import place_for_ctx
+
+    dev, V = model.device, model.cfg.vocab_size
+    B = len(prompts)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    if B == 1:
+        logits, caches, lens = model.prefill(
+            params, torch.from_numpy(prompts[0])[None].to(dev))
+    else:
+        L = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
+        toks = np.zeros((B, L), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        logits, caches, lens = model.prefill_bucketed(
+            params, torch.from_numpy(toks).to(dev), lens)
+    caches = kvc.grow_cache(caches, W)
+    whole = kvc.tree_map(lambda t: t.clone(), caches)
+    pp, cc = place_for_ctx(model, ctx, params, caches)
+    n_shards = ctx.axis_size("kv_seq")
+    attn = sum(1 for g in model.groups for _ in range(g.count)
+               for kind, _ in g.sigs if kind == "attn")
+    tok = logits[:, :V].argmax(-1).to(torch.int32)[:, None]
+    lens_s = lens.clone()
+    errs, parts = [], []
+    for t in range(MESH_STEPS):
+        ops.reset_launches()
+        got, cc, lens_s = model.decode_step(pp, cc, tok, lens_s,
+                                            shard_ctx=ctx)
+        torch.cuda.synchronize()
+        n = ops.LAUNCHES[kernel]
+        if n != n_shards * attn:
+            raise AssertionError(f"{label}: step {t} launched {kernel} {n} "
+                                 f"times, not {n_shards} x {attn}")
+        want, whole, lens = model.decode_step(params, whole, tok, lens)
+        g, w = got[:, :V].float(), want[:, :V].float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: step {t}: a logit not finite")
+        top = float(w.abs().max())
+        errs.append(float((g - w).abs().max()) / top)
+        wt = w.argmax(-1)
+        for b in (g.argmax(-1) != wt).nonzero().flatten().tolist():
+            t2 = w[b].topk(2).values
+            parts.append({"step": t, "row": b,
+                          "top2_gap_rel": float(t2[0] - t2[1]) / top})
+        tok = wt.to(torch.int32)[:, None]
+    worst = max(errs)
+    worst_gap = max((p["top2_gap_rel"] for p in parts), default=0.0)
+    print(f"   {label}: logits apart a step (of the largest) "
+          f"{[round(e, 5) for e in errs]}", flush=True)
+    if logit_limit is not None and not worst <= logit_limit:
+        raise AssertionError(f"{label}: logits {worst:.3e} of the largest "
+                             f"apart (limit {logit_limit})")
+    if token_gate and not worst_gap < LOGIT_LIMIT:
+        raise AssertionError(f"{label}: tokens parted at a top-2 gap up to "
+                             f"{worst_gap:.3e} (limit {LOGIT_LIMIT})")
+    busy = device_ms(torch, lambda: model.decode_step(
+        pp, cc, tok, lens_s, shard_ctx=ctx), "", reps=5)
+    busy_whole = device_ms(torch, lambda: model.decode_step(
+        params, whole, tok, lens), "", reps=5)
+    res = {"rows": B, "W": W, "shards": n_shards,
+           "slots_a_shard": W // n_shards, "rules": {
+               k: ctx.rules[k] for k in ("batch", "kv_seq", "vocab")},
+           "launches_a_step": n_shards * attn, "worst_logit_rel": worst,
+           "logit_rel_a_step": errs, "dtype": str(model.dtype),
+           "gates": {"logit_limit": logit_limit, "token_gate": token_gate},
+           "parted": parts, "busy_ms_a_step": busy,
+           "busy_ms_a_step_unsharded": busy_whole}
+    print(f"   {label}: {MESH_STEPS} steps, logits within {worst:.3e} of the "
+          f"largest (gate {logit_limit}); {len(parts)} token(s) parted "
+          f"{[round(p['top2_gap_rel'], 5) for p in parts]}; {kernel} "
+          f"{n_shards} x {attn} a step; busy {busy:.3f} ms a step sharded, "
+          f"{busy_whole:.3f} unsharded", flush=True)
+    del pp, cc, whole, caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def placed_tier(torch, ops, model, params, prompts, mesh, mode, want,
+                template, label, **kw):
+    """Phase 8's traffic through DisaggregatedEngine under ``mode`` on
+    ``mesh`` (or with ``placement=False``): tokens == ``want``, every
+    handoff's extent and the wire bytes == RING_EXTENTS / RING_WIRE and
+    the host-side sum, launches to the path; the hop's wall recorded."""
+    from repro_torch.core.transfer import TransferMode
+    from repro_torch.serving import DisaggregatedEngine
+
+    mode = TransferMode(mode)
+    eng = DisaggregatedEngine(model, params, transfer_mode=mode, mesh=mesh,
+                              max_batch=8, max_seq=2048,
+                              device=model.device, **kw)
+    ext = record_extents(eng)
+    ops.reset_launches()
+    reqs, _ = serve_all(eng, prompts, 32)
+    for d in {eng.device, eng.pool.device}:
+        torch.cuda.synchronize(d)
+    c = eng.counters()
+    if dict(ops.LAUNCHES) != structure(c, N_LAYERS):
+        raise AssertionError(f"{label}: launches {dict(ops.LAUNCHES)}")
+    got = [list(r.generated) for r in reqs]
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{label}: tokens differ in requests {bad}")
+    per = [extent_wire_bytes(torch, template, n, p, mode) for n, p in ext]
+    if (ext != RING_EXTENTS or c["handoff_wire_bytes"] != sum(per)
+            or sum(per) != RING_WIRE[mode.value]):
+        raise AssertionError(f"{label}: extents {ext}, wire "
+                             f"{c['handoff_wire_bytes']} (host-side "
+                             f"{sum(per)}, by hand {RING_WIRE[mode.value]})")
+    pl = eng.placement
+    res = {"placement": None if pl is None else {
+               "prefill": [str(d) for d in pl.prefill_devices()],
+               "decode": [str(d) for d in pl.decode_devices()],
+               "disjoint": pl.disjoint},
+           "wire_bytes": c["handoff_wire_bytes"], "handoffs": c["handoffs"],
+           "hop_ms": eng.handoff_wall_s * 1e3,
+           "hop_ms_a_handoff": eng.handoff_wall_s * 1e3 / c["handoffs"]}
+    print(f"   {label}: tokens == placement=False; {c['handoffs']} handoffs, "
+          f"{c['handoff_wire_bytes']} wire bytes == by hand; hop "
+          f"{res['hop_ms']:.3f} ms ({res['hop_ms_a_handoff']:.3f} a "
+          f"handoff); stages {res['placement']}", flush=True)
+    del eng
+    return res
+
+
+def cluster_tokens(torch, model, params, prompts, label, **kw):
+    """Phase 4's prompts through a 2-replica in-process cluster
+    (round_robin, DIRECT_HBM for disaggregated replicas), all submitted at
+    once; the replicas' slices and the tokens."""
+    from repro_torch.serving import ServingCluster
+
+    from repro_torch.serving import Request
+
+    cl = ServingCluster.build(model, params, n_replicas=2,
+                              policy="round_robin", device=model.device,
+                              max_batch=8, max_seq=2048, **kw)
+    reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=32)
+            for t in prompts]
+    for r in reqs:
+        cl.submit(r)
+    rsps = cl.run_until_drained()
+    torch.cuda.synchronize()
+    if len(rsps) != len(reqs) or any(len(r.generated) != 32 for r in reqs):
+        raise AssertionError(f"{label}: {len(rsps)} of {len(reqs)} requests "
+                             "returned, or one fell short of its budget")
+    if not all(r.engine.logits_all_finite() for r in cl.replicas):
+        raise AssertionError(f"{label}: a logit was not finite")
+    pods = [list(r.pods) for r in cl.replicas]
+    devs = [sorted({str(r.engine.device), str(r.engine.pool.device)})
+            for r in cl.replicas]
+    cl.close()
+    print(f"   {label}: replica pods {pods}, devices {devs}", flush=True)
+    return [list(r.generated) for r in reqs], {"pods": pods, "devices": devs}
+
+
+def mesh_path(torch, ops, llama, disagg):
+    """Phase 18: the serving tier on a device mesh (ROADMAP queue 1 item 3's
+    serving half). (a) llama3-8b at full width, every layer,
+    ``make_ctx(cfg, 1 x 4, DECODE_32K)``: the caches split 4 ways by
+    sequence (512 of 2,048 slots each), the table 4 ways by vocab; phase
+    4's first 8 prompts, the unsharded bucketed prefill, 32 greedy steps
+    sharded against unsharded (:func:`shard_walk`), in bf16 on phase 4's
+    weights (tokens equal or parted at a near tie; the logits reported:
+    bf16's rounding through 32 random layers puts them about 0.02 of the
+    largest apart) and in fp32 on new weights (logits within
+    FP32_LOGIT_LIMIT of the largest: the shard arithmetic against the
+    whole); (b) deepseek-v2-236b at published widths, 3 layers, the same
+    way through the MLA kernel (bf16 reported only: a rounding apart moves
+    the router's choices; fp32 gated as (a)'s); (c) ``LONG_500K``'s rules
+    on 2 x 2 (``kv_seq`` over data and model, batch 1): llama3-8b's first
+    8 layers over a 32,768-slot ring, 8,192 a shard, a 20,000-token prompt
+    (shard 3 starts empty), bf16 and fp32 as (a); (d) phase 8's traffic on
+    the disaggregated tier on a hand-built 2-slot pod mesh (pods 0 and 1:
+    prefill and decode run apart) and with ``placement=False``, each
+    mechanism, tokens == phase 8's (its default ``make_serving_pod_mesh()``
+    placement), wire bytes by hand; (e) ``ServingCluster.build(mesh=...,
+    pods_per_replica=...)`` fused (1 pod a replica) and disaggregated (2),
+    2 replicas, tokens == the cluster built without a mesh. Where the host
+    has two cards or more, (d) and (e) also run on distinct cards (the
+    default meshes); on one card the meshes name the card in every slot,
+    and the phase says so."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import DECODE_32K, LONG_500K
+    from repro_torch.launch.mesh import (
+        DeviceMesh,
+        make_cluster_mesh,
+        make_serving_pod_mesh,
+    )
+    from repro_torch.models import Model
+    from repro_torch.sharding.partition import make_ctx
+
+    model, params = llama
+    dev = model.device
+    n_cards = torch.cuda.device_count()
+    branch = ("distinct cards: (d) and (e) also run on the default meshes"
+              if n_cards >= 2 else "one card: every mesh slot names "
+              f"{dev}; the distinct-card runs of (d) and (e) need two")
+    print(f"   devices: {n_cards} ({branch})", flush=True)
+    out = {"devices": n_cards, "branch": branch}
+    prompts = main_prompts(model.cfg.vocab_size)
+
+    # (a) llama3-8b, 1 x 4, DECODE_32K: phase 4's bf16 weights (tokens
+    # gated; 32 random layers carry bf16's rounding to about 0.02 of the
+    # largest logit, reported), then fp32 weights (the shard arithmetic
+    # against the whole: logits within FP32_LOGIT_LIMIT)
+    mesh14 = DeviceMesh([[dev] * 4], ("data", "model"))
+    ctx = make_ctx(model.cfg, mesh14, DECODE_32K)
+    out["a"] = shard_walk(torch, ops, model, params, ctx, prompts[:8], MESH_W,
+                          "decode_attention", "(a) llama3-8b, 32 layers, 1 x 4")
+    m32 = Model(model.cfg, dtype=torch.float32, device=dev)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(0))
+    out["a_fp32"] = shard_walk(torch, ops, m32, p32, ctx, prompts[:8], MESH_W,
+                               "decode_attention",
+                               "(a) llama3-8b, 32 layers, 1 x 4, fp32",
+                               logit_limit=FP32_LOGIT_LIMIT)
+    del m32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) deepseek-v2-236b, 3 layers, 1 x 4, DECODE_32K: bf16 reported (a
+    # rounding apart moves the MoE router's top-6 choices, and with them
+    # whole logits), fp32 gated as (a)'s
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=MLA_LAYERS)
+    ds_prompts = main_prompts(cfg.vocab_size)[:8]
+    ds_ctx = make_ctx(cfg, mesh14, DECODE_32K)
+    for dtype, key in ((torch.bfloat16, "b"), (torch.float32, "b_fp32")):
+        ds = Model(cfg, dtype=dtype, device=dev)
+        ds_params = ds.init(torch.Generator(device=dev).manual_seed(0))
+        fp32 = dtype is torch.float32
+        out[key] = shard_walk(
+            torch, ops, ds, ds_params, ds_ctx, ds_prompts, MESH_W,
+            "mla_decode_attention", f"(b) deepseek-v2-236b, {MLA_LAYERS} "
+            f"layers, 1 x 4{', fp32' if fp32 else ''}",
+            logit_limit=FP32_LOGIT_LIMIT if fp32 else None, token_gate=fp32)
+        del ds, ds_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) LONG_500K on 2 x 2: batch 1, 8,192 slots a shard; phase 4's
+    # first 8 layers in bf16 (tokens gated), then fp32 weights (gated as
+    # (a)'s)
+    cfg8 = dataclasses.replace(model.cfg, n_layers=LONG_LAYERS)
+    mesh22 = DeviceMesh([[dev] * 2] * 2, ("data", "model"))
+    ctx22 = make_ctx(cfg8, mesh22, LONG_500K)
+    long_prompt = np.random.default_rng(18).integers(
+        0, cfg8.vocab_size, LONG_PROMPT, dtype=np.int32)
+    label = f"(c) llama3-8b, {LONG_LAYERS} layers, 2 x 2, LONG_500K"
+    m8 = Model(cfg8, dtype=model.dtype, device=dev)
+    p8 = dict(params, decoder={"g0": params["decoder"]["g0"][:LONG_LAYERS]})
+    out["c"] = shard_walk(torch, ops, m8, p8, ctx22, [long_prompt], LONG_W,
+                          "decode_attention", label)
+    m8 = Model(cfg8, dtype=torch.float32, device=dev)
+    p8 = m8.init(torch.Generator(device=dev).manual_seed(0))
+    out["c_fp32"] = shard_walk(torch, ops, m8, p8, ctx22, [long_prompt],
+                               LONG_W, "decode_attention", label + ", fp32",
+                               logit_limit=FP32_LOGIT_LIMIT)
+    if out["c"]["slots_a_shard"] != 8192:
+        raise AssertionError(f"(c) {out['c']['slots_a_shard']} slots a shard")
+    del m8, p8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the disaggregated tier, placed
+    template = meta_cache(torch, model, 8, 2048)
+    two = DeviceMesh([dev, dev], ("pod",))
+    out["d"] = {}
+    for mode in DISAGG_MODES:
+        want = disagg["tokens"][mode]
+        runs = {"off": placed_tier(torch, ops, model, params, prompts, None,
+                                   mode, want, template,
+                                   f"(d) {mode}, placement=False",
+                                   placement=False),
+                "two_slot": placed_tier(torch, ops, model, params, prompts,
+                                        two, mode, want, template,
+                                        f"(d) {mode}, pods 0 -> 1 of a "
+                                        "2-slot mesh")}
+        if n_cards >= 2:
+            runs["default"] = placed_tier(
+                torch, ops, model, params, prompts, make_serving_pod_mesh(),
+                mode, want, template, f"(d) {mode}, make_serving_pod_mesh() "
+                "over two cards")
+        out["d"][mode] = runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the cluster's pod slices
+    out["e"] = {}
+    for engine, ppr in (("fused", 1), ("disagg", 2)):
+        base, _ = cluster_tokens(torch, model, params, prompts,
+                                 f"(e) {engine}, no mesh", engine=engine)
+        meshes = {"hand": DeviceMesh([dev] * (2 * ppr), ("pod",))}
+        if n_cards >= 2:
+            meshes["default"] = make_cluster_mesh(2, ppr)
+        out["e"][engine] = {}
+        for name, mesh in meshes.items():
+            got, info = cluster_tokens(
+                torch, model, params, prompts,
+                f"(e) {engine}, {name} mesh {mesh.shape}", engine=engine,
+                mesh=mesh, pods_per_replica=ppr)
+            if got != base:
+                raise AssertionError(f"(e) {engine} on the {name} mesh: "
+                                     "tokens differ from the cluster without "
+                                     "a mesh")
+            out["e"][engine][name] = info
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("   (e) tokens == the cluster without a mesh, fused and "
+          "disaggregated", flush=True)
+    return out
+
 
 
 if __name__ == "__main__":

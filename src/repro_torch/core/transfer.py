@@ -1,14 +1,18 @@
 """Prefill -> decode KV transfer: the paper's three mechanisms as real data
-paths on one device.
+paths between the prefill stage's device and the decode stage's.
 
 The JAX package's ``core/transfer.py`` realises them as a collective
-permute across a mesh "pod" axis; on one H100 prefill and decode share the
-card, and each mechanism moves the payload into decode-side buffers
-disjoint from the prefill artifact, with the copy counts of
-``Transport.handoff_copies``:
+permute across a mesh "pod" axis (its ``pod_tile`` / ``pod_take`` only
+shape a payload for that permute; a copy to the destination takes their
+place here). Each mechanism moves the payload from the source (prefill)
+device into decode-side buffers on the destination device, disjoint from
+the prefill artifact, with the copy counts of
+``Transport.handoff_copies``; on one card the two devices are that card:
 
-  DIRECT_HBM  (GDR)  : one device-to-device copy into the landing buffers.
-  DIRECT_DMA  (RDMA) : device -> pinned host bounce buffer -> device.
+  DIRECT_HBM  (GDR)  : one device-to-device copy into the landing buffers
+                       (across two cards a peer copy, the GDR analogue).
+  DIRECT_DMA  (RDMA) : source device -> pinned host bounce buffer ->
+                       destination device.
   HOST_STAGED (TCP)  : each float leaf requantized to int8 with one fp32
                        scale, copied device -> pageable host, copied again
                        on the CPU (the stack staging), host -> device, then
@@ -24,11 +28,13 @@ copy, not one per layer), HOST_STAGED takes one scale per JAX leaf, and
 :func:`payload_wire_bytes` counts its 4 scale bytes once per JAX leaf: the
 int8 payload, the scales and the byte counts equal JAX's.
 
-On CUDA every copy, quantize and dequantize runs on a dedicated stream,
-fenced by events against the work queued before it (the prefill, the
-previous splice) and the work queued after it (the splice, the decode
-step); :func:`move` returns once the landed payload is complete on the
-device. Packing and the buffers (:class:`HopBuffers`) come apart from the
+On CUDA the hop runs on a dedicated stream on the destination device,
+fenced by events against the work queued before it on the source device
+(the prefill, the previous splice) and the work queued after it on the
+destination (the splice, the decode step); the quantize, on the source's
+tensors, runs on the source device's stream, ahead of its copies.
+:func:`move` returns once the landed payload is complete on the
+destination. Packing and the buffers (:class:`HopBuffers`) come apart from the
 move: a caller keeps one set of buffers, grows it outside its timed
 window (:meth:`HopBuffers.fit`) and times the move alone. A failed pinned
 allocation or copy raises; no mechanism falls back to another.
@@ -153,17 +159,21 @@ def pack(tree) -> Packed:
 
 class HopBuffers:
     """Everything one mechanism writes, one set per JAX leaf: ``land``, the
-    decode-side landing flats; for DIRECT_DMA ``host``, the pinned bounce
-    flats; for HOST_STAGED ``stages``, the flats the wire format passes
-    through -- (prefill-side device, pageable host, CPU staging,
-    decode-side device) -- for the int8 or full-width payload and, for a
-    float leaf, its one-element fp32 scale. Every buffer is 1-D and holds
-    the largest extent seen so far; a payload moves through their leading
-    elements."""
+    landing flats on the destination (decode) device; for DIRECT_DMA
+    ``host``, the pinned bounce flats; for HOST_STAGED ``stages``, the
+    flats the wire format passes through -- (source device, pageable host,
+    CPU staging, destination device) -- for the int8 or full-width payload
+    and, for a float leaf, its one-element fp32 scale. Every buffer is 1-D
+    and holds the largest extent seen so far; a payload moves through their
+    leading elements. ``dst_device`` defaults to ``src_device`` (one
+    device: prefill and decode on the same card, or the CPU); the hop's
+    stream lives on the destination."""
 
-    def __init__(self, mode: TransferMode, device):
+    def __init__(self, mode: TransferMode, src_device, dst_device=None):
         self.mode = mode
-        self.device = torch.device(device)
+        self.src_device = torch.device(src_device)
+        self.device = torch.device(src_device if dst_device is None
+                                   else dst_device)
         cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         self.land: list = []
@@ -190,6 +200,7 @@ class HopBuffers:
                     and have.numel() >= flat.numel()):
                 continue
             n, dev, quant = flat.numel(), self.device, _quantizes(flat.dtype)
+            src = self.src_device
             self.land[i] = torch.empty((n,), dtype=flat.dtype, device=dev)
             if self.mode is TransferMode.DIRECT_DMA:
                 self.host[i] = self._host(n, flat.dtype)
@@ -198,7 +209,7 @@ class HopBuffers:
                 parts = ([(n, torch.int8), (1, torch.float32)] if quant
                          else [(n, flat.dtype)])
                 self.stages[i] = [
-                    (torch.empty((k,), dtype=wdt, device=dev) if quant
+                    (torch.empty((k,), dtype=wdt, device=src) if quant
                      else None, self._host(k, wdt), self._host(k, wdt),
                      torch.empty((k,), dtype=wdt, device=dev))
                     for k, wdt in parts]
@@ -224,14 +235,16 @@ def _stage(src, host, staging, dst):
 
 
 def move(payload: Packed, bufs: HopBuffers) -> Packed:
-    """Move a packed payload through ``bufs``' mechanism into its landing
-    flats (grown to fit by :meth:`HopBuffers.fit` beforehand) and return it
-    landed, complete on the device: one copy per JAX leaf for DIRECT_HBM,
-    two through the pinned bounce for DIRECT_DMA."""
+    """Move a packed payload (on ``bufs.src_device``) through ``bufs``'
+    mechanism into its landing flats on ``bufs.device`` (grown to fit by
+    :meth:`HopBuffers.fit` beforehand) and return it landed, complete on
+    the destination: one copy per JAX leaf for DIRECT_HBM, two through the
+    pinned bounce for DIRECT_DMA."""
     mode, stream = bufs.mode, bufs.stream
     if stream is not None:
         ready = torch.cuda.Event()
-        ready.record()  # everything queued so far: prefill, last splice
+        # everything queued so far on the source: prefill, last splice
+        ready.record(torch.cuda.current_stream(bufs.src_device))
         stream.wait_event(ready)
     landed = []
     with torch.cuda.stream(stream) if stream is not None else nullcontext():
@@ -243,6 +256,12 @@ def move(payload: Packed, bufs: HopBuffers) -> Packed:
             elif mode is TransferMode.DIRECT_DMA:
                 host = bufs.host[i][:n]
                 host.copy_(flat, non_blocking=True)
+                if stream is not None and bufs.src_device != bufs.device:
+                    # the bounce-in ran on the source device's stream
+                    landed_host = torch.cuda.Event()
+                    landed_host.record(
+                        torch.cuda.current_stream(bufs.src_device))
+                    stream.wait_event(landed_host)
                 land.copy_(host, non_blocking=True)
             elif _quantizes(flat.dtype):
                 (q, qh, qs, qd), (s, sh, ss, sd) = bufs.stages[i]
@@ -258,6 +277,7 @@ def move(payload: Packed, bufs: HopBuffers) -> Packed:
     if stream is not None:
         done = torch.cuda.Event()
         done.record(stream)
-        torch.cuda.current_stream().wait_event(done)  # splice, decode after
+        # the splice and the decode steps after it, on the destination
+        torch.cuda.current_stream(bufs.device).wait_event(done)
         done.synchronize()
     return Packed(payload.tree, payload.leaves, landed)

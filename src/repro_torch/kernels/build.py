@@ -9,9 +9,10 @@ at the repository root (listed in ``.gitignore``) at first use;
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every launcher calls its C entry point through a :class:`CFunction`: the
-ctypes function and its ``argtypes`` are resolved once, the caller's
-current stream is appended as the last argument at each call (looked up
-from PyTorch, never cached), and a non-zero ``cudaError_t`` raises.
+ctypes function and its ``argtypes`` are resolved once, the current stream
+of the tensors' device is appended as the last argument at each call
+(looked up from PyTorch, never cached), the call runs with that device
+current, and a non-zero ``cudaError_t`` raises.
 """
 
 from __future__ import annotations
@@ -122,16 +123,23 @@ class CFunction:
     parameter is the stream and whose result is a ``cudaError_t``.
 
     ``fn(device_index, *args)`` launches on the current stream of that
-    device and raises on a non-zero result. The library is built and the
-    function resolved at the first call, so creating one needs no compiler."""
+    device, with that device current, and raises on a non-zero result. The
+    launchers read the current device (``cudaGetDevice``: the shared-memory
+    opt-in, the SM count), so a launch for one card issued while another
+    is current would go wrong: the call switches the current device for
+    its duration where it differs (one C call to compare where it does
+    not). The library is built and the function resolved at the first
+    call, so creating one needs no compiler."""
 
-    __slots__ = ("source", "symbol", "argtypes", "_fn", "_stream")
+    __slots__ = ("source", "symbol", "argtypes", "_fn", "_stream",
+                 "_get_device", "_set_device")
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source, self.symbol = source, symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # the stream
         self._fn = None
         self._stream = None
+        self._get_device = self._set_device = None
 
     def _resolve(self):
         fn = getattr(load(self.source), self.symbol)
@@ -142,11 +150,21 @@ class CFunction:
         # one C call, no Python ``Stream`` object (what PyTorch's own
         # generated launchers call)
         self._stream = torch._C._cuda_getCurrentRawStream
+        self._get_device = torch._C._cuda_getDevice
+        self._set_device = torch._C._cuda_setDevice
         return fn
 
     def __call__(self, device_index: int, *args) -> None:
         fn = self._fn or self._resolve()
-        err = fn(*args, self._stream(device_index))
+        cur = self._get_device()
+        if cur == device_index:
+            err = fn(*args, self._stream(device_index))
+        else:
+            self._set_device(device_index)
+            try:
+                err = fn(*args, self._stream(device_index))
+            finally:
+                self._set_device(cur)
         if err:
             raise RuntimeError(f"{self.symbol} kernel launch failed: "
                                f"cudaError {err}")

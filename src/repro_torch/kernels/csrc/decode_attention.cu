@@ -17,17 +17,19 @@
 
 // q: [B, 1, H, hd] and k/v: [B, W, Hkv, hd] addressed through the given
 // element strides (last dim contiguous, rows 16-byte aligned); lengths:
-// contiguous int32 [B]; o: contiguous [B, 1, H, hd]. Any H / Hkv (groups of
+// contiguous int32 [B]; o: contiguous [B, 1, H, hd]; lse: null, or
+// contiguous fp32 [B, H] for each row's log-sum-exp of its scaled scores
+// (-inf where no slot is valid; decode_split.cuh). Any H / Hkv (groups of
 // at most 16 query heads a CTA); ``splits``, the CTAs (one cluster) a row,
 // 1 to 8. Returns the cudaError_t of the launch (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                     const void* lengths, int B, int W, int H, int Hkv, int hd,
-                                    long long sqb, long long sqh, long long skb, long long skw,
-                                    long long skh, long long svb, long long svw, long long svh,
-                                    int w_real, float scale, int is_bf16, int splits,
-                                    void* stream) {
+                                    void* lse, long long sqb, long long sqh, long long skb,
+                                    long long skw, long long skh, long long svb, long long svw,
+                                    long long svh, int w_real, float scale, int is_bf16,
+                                    int splits, void* stream) {
   const RingRows rows{skb, skw, skh, svb, svw, svh};
-  return launch_decode(is_bf16, hd, q, k, v, o, lengths, rows, B, H, Hkv, sqb, sqh,
+  return launch_decode(is_bf16, hd, q, k, v, o, lse, lengths, rows, B, H, Hkv, sqb, sqh,
                        w_real < W ? w_real : W, scale, splits,
                        static_cast<cudaStream_t>(stream));
 }

@@ -46,6 +46,13 @@
 // atomics. With S = 1 merging one partial multiplies by exp(0) = 1 and adds
 // to 0, both exact.
 //
+// With an lse pointer the kernel also writes each (row, query head)'s
+// log-sum-exp of its scaled scores, M + log(L) from the cluster merge's M
+// and L (-inf where no key is valid), fp32 [B, H]: what a caller that
+// splits the keys over several launches (a sequence-sharded cache) needs
+// to merge their outputs by the same max/sum rule. Its stores are the only
+// difference: the output takes the same path, bit for bit, with or without.
+//
 // Shared memory at hd 128, G <= 4, bf16: 69 KiB a CTA (3 CTAs an SM).
 #pragma once
 
@@ -249,15 +256,17 @@ __device__ __forceinline__ void rows_update_bf16(Rows<HD, R>& st, const float* q
 
 // ---------------------------------------------------------------------------
 // grid (splits * Hkv, B, ceil(G / 16)), clusters of (splits, 1, 1); q: [B, 1,
-// H, HD] through strides sqb, sqh; o: contiguous [B, 1, H, HD]. The launch
+// H, HD] through strides sqb, sqh; o: contiguous [B, 1, H, HD]; lse: null,
+// or contiguous fp32 [B, H]. The launch
 // bounds name one CTA an SM as the least, which leaves ptxas the registers
 // each instantiation needs: left to choose, it spilled a few in some to
 // stay under 64, 72 or 128.
 template <typename T, int HD, int GMAX, class P>
 __global__ void __launch_bounds__(DEC_THREADS, 1)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ o, const int* __restrict__ lengths, const P pol, int H,
-                    int G, long long sqb, long long sqh, int limit, float scale, int splits) {
+                    T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ lengths,
+                    const P pol, int H, int G, long long sqb, long long sqh, int limit,
+                    float scale, int splits) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -371,12 +380,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       O += cluster.map_shared_rank(part_acc, c)[e] * w;
     }
     orow[e] = from_f32<T>(O / fmaxf(L, 1e-30f));
+    if (lse != nullptr && e == g * HD)  // one thread a head
+      lse[(long long)b * H + h0 + g] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
   }
   cluster.sync();  // no CTA leaves while its partial may still be read
 }
 
 template <typename T, int HD, int GMAX, class P>
-int launch_split(const void* q, const void* k, const void* v, void* o, const void* lengths,
+int launch_split(const void* q, const void* k, const void* v, void* o, void* lse,
+                 const void* lengths,
                  const P& pol, int B, int H, int Hkv, long long sqb, long long sqh, int limit,
                  float scale, int splits, cudaStream_t stream) {
   constexpr size_t smem = decode_smem_bytes<T, HD, GMAX>();
@@ -406,30 +418,32 @@ int launch_split(const void* q, const void* k, const void* v, void* o, const voi
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
                            static_cast<const T*>(v), static_cast<T*>(o),
-                           static_cast<const int*>(lengths), pol, H, G, sqb, sqh, limit, scale,
-                           splits);
+                           static_cast<float*>(lse), static_cast<const int*>(lengths), pol, H, G,
+                           sqb, sqh, limit, scale, splits);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The kernel for q's dtype, the head dim and a CTA's query heads (4, 8 or
-// 16 rows of state); cudaErrorInvalidValue for what it does not take.
+// 16 rows of state); cudaErrorInvalidValue for what it does not take. lse:
+// null, or fp32 [B, H].
 template <class P>
 int launch_decode(int is_bf16, int hd, const void* q, const void* k, const void* v, void* o,
-                  const void* lengths, const P& pol, int B, int H, int Hkv, long long sqb,
-                  long long sqh, int limit, float scale, int splits, cudaStream_t s) {
+                  void* lse, const void* lengths, const P& pol, int B, int H, int Hkv,
+                  long long sqb, long long sqh, int limit, float scale, int splits,
+                  cudaStream_t s) {
   if (Hkv < 1 || H % Hkv != 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   const int g = H / Hkv < GROUP_HEADS ? H / Hkv : GROUP_HEADS;  // a CTA's heads
 #define DEC_LAUNCH(T)                                                                        \
   DISPATCH_HD(hd, HD, {                                                                      \
     if (g <= 4)                                                                              \
-      return launch_split<T, HD, 4>(q, k, v, o, lengths, pol, B, H, Hkv, sqb, sqh, limit,    \
+      return launch_split<T, HD, 4>(q, k, v, o, lse, lengths, pol, B, H, Hkv, sqb, sqh, limit,    \
                                     scale, splits, s);                                       \
     if (g <= 8)                                                                              \
-      return launch_split<T, HD, 8>(q, k, v, o, lengths, pol, B, H, Hkv, sqb, sqh, limit,    \
+      return launch_split<T, HD, 8>(q, k, v, o, lse, lengths, pol, B, H, Hkv, sqb, sqh, limit,    \
                                     scale, splits, s);                                       \
-    return launch_split<T, HD, GROUP_HEADS>(q, k, v, o, lengths, pol, B, H, Hkv, sqb, sqh,   \
+    return launch_split<T, HD, GROUP_HEADS>(q, k, v, o, lse, lengths, pol, B, H, Hkv, sqb, sqh,   \
                                             limit, scale, splits, s);                        \
   })
   if (is_bf16) {

@@ -94,6 +94,14 @@
 //     distributed shared memory and merged by the max/sum rule, CTA r
 //     writing its 1/S of the outputs.
 // Shared memory: 183.2 KiB a CTA.
+//
+// Both bodies also write, where the ring entry is given an lse pointer,
+// each (row, head)'s log-sum-exp of its scaled scores (M + log L in natural
+// units from the merge's M and L; -inf where no slot is valid), fp32
+// [B, H]: what a caller that splits the latent rows over several launches
+// (a sequence-sharded cache) needs to merge their outputs by the max/sum
+// rule. Its stores are the only difference: the output takes the same
+// path, bit for bit, with or without.
 #include <cstdint>
 #include <type_traits>
 
@@ -164,14 +172,14 @@ __device__ __forceinline__ void mla_issue_tile(T* tile, const T* cbase, const T*
 
 // grid (splits, H / 16, B), clusters of (splits, 1, 1). q_lat: [B, 1, H, R]
 // and q_rope: [B, 1, H, DR] through strides (b, h); o: contiguous
-// [B, 1, H, R].
+// [B, 1, H, R]; lse: null, or contiguous fp32 [B, H].
 template <typename T, class P>
 __global__ void __launch_bounds__(MLA_THREADS, sizeof(T) == 2 ? 2 : 1)
 mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
                   const T* __restrict__ ckv, const T* __restrict__ krope, T* __restrict__ o,
-                  const int* __restrict__ valid_lens, const P pol, int H, long long sqlb,
-                  long long sqlh, long long sqrb, long long sqrh, int limit, float scale,
-                  int splits) {
+                  float* __restrict__ lse, const int* __restrict__ valid_lens, const P pol,
+                  int H, long long sqlb, long long sqlh, long long sqrb, long long sqrh,
+                  int limit, float scale, int splits) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -345,6 +353,8 @@ mla_decode_kernel(const T* __restrict__ q_lat, const T* __restrict__ q_rope,
       O += cluster.map_shared_rank(part_acc, c)[e] * w;
     }
     orow[e] = from_f32<T>(O / fmaxf(L, 1e-30f));
+    if (lse != nullptr && e == g * MLA_R)  // one thread a head
+      lse[(long long)b * H + h0 + g] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
   }
   cluster.sync();  // no CTA leaves while its partial may still be read
 }
@@ -382,9 +392,9 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, int split
 
 template <typename T, class P>
 int launch_mla(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
-               void* o, const void* valid_len, const P& pol, int B, int H, long long sqlb,
-               long long sqlh, long long sqrb, long long sqrh, int limit, float scale,
-               int splits, cudaStream_t stream) {
+               void* o, void* lse, const void* valid_len, const P& pol, int B, int H,
+               long long sqlb, long long sqlh, long long sqrb, long long sqrh, int limit,
+               float scale, int splits, cudaStream_t stream) {
   constexpr size_t smem = mla_smem_bytes<T>();
   auto kernel = mla_decode_kernel<T, P>;
   static unsigned opted_in = 0;
@@ -396,7 +406,8 @@ int launch_mla(const void* q_lat, const void* q_rope, const void* ckv, const voi
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q_lat), static_cast<const T*>(q_rope),
       static_cast<const T*>(ckv), static_cast<const T*>(krope), static_cast<T*>(o),
-      static_cast<const int*>(valid_len), pol, H, sqlb, sqlh, sqrb, sqrh, limit, scale, splits);
+      static_cast<float*>(lse), static_cast<const int*>(valid_len), pol, H, sqlb, sqlh, sqrb,
+      sqrh, limit, scale, splits);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -414,6 +425,7 @@ constexpr uint32_t WG_BLOCK = 64 * 128;        // bytes of a 64-row column block
 constexpr uint32_t WG_TILE = WG_CB * WG_BLOCK; // a Q or key tile: 72 KiB
 constexpr int WG_ACC = MLA_R + 8;              // elements a head's row of the partial
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 constexpr size_t wg_smem_bytes() {
   // Q, two key tiles, P (one column block); the rescale, m and l [64] each
@@ -541,7 +553,7 @@ mla_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ q_lat,
                         const __nv_bfloat16* __restrict__ q_rope,
                         const __nv_bfloat16* __restrict__ ckv,
                         const __nv_bfloat16* __restrict__ krope, __nv_bfloat16* __restrict__ o,
-                        const int* __restrict__ valid_lens, const P pol,
+                        float* __restrict__ lse, const int* __restrict__ valid_lens, const P pol,
                         const __grid_constant__ TmaMaps maps, int H, long long sqlb,
                         long long sqlh, long long sqrb, long long sqrh, int limit, float scale,
                         int splits) {
@@ -775,6 +787,12 @@ mla_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ q_lat,
   }
   __nv_bfloat16* orow = o + ((long long)b * H + h0) * MLA_R;
   __syncthreads();
+  if (splits == 1 && lse != nullptr && tid < WG_H && h0 + tid < H) {
+    // one partial: the row's own m (log2 domain) and l
+    const float l = part_l[tid];
+    lse[(long long)b * H + h0 + tid] =
+        l > 0.f ? (part_m[tid] + log2f(l)) * LN2 : __int_as_float(0xff800000);
+  }
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(part_l[row_a + 8 * r], 1e-30f);
@@ -836,6 +854,9 @@ mla_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ q_lat,
     for (int c = 0; c < live; ++c) L += l[c] * exp2f(m[c] - M);
     const float inv_L = 1.f / fmaxf(L, 1e-30f);
     for (int c = 0; c < live; ++c) wts[tid * MLA_MAX_SPLITS + c] = exp2f(m[c] - M) * l[c] * inv_L;
+    if (rank == 0 && lse != nullptr && h0 + tid < H)
+      lse[(long long)b * H + h0 + tid] =
+          L > 0.f ? (M + log2f(L)) * LN2 : __int_as_float(0xff800000);
   }
   __syncthreads();
   for (int e = rank * WG_THREADS + tid; e < WG_H * (MLA_R / 8); e += splits * WG_THREADS) {
@@ -866,8 +887,8 @@ mla_decode_wgmma_kernel(const __nv_bfloat16* __restrict__ q_lat,
 
 template <class P, bool TMA>
 int launch_mla_wgmma(const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
-                     void* o, const void* valid_len, const P& pol, const TmaMaps& maps, int B,
-                     int H, long long sqlb, long long sqlh, long long sqrb, long long sqrh,
+                     void* o, void* lse, const void* valid_len, const P& pol,
+                     const TmaMaps& maps, int B, int H, long long sqlb, long long sqlh, long long sqrb, long long sqrh,
                      int limit, float scale, int splits, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   auto kernel = mla_decode_wgmma_kernel<P, TMA>;
@@ -880,6 +901,7 @@ int launch_mla_wgmma(const void* q_lat, const void* q_rope, const void* ckv, con
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf*>(q_lat),
                                      static_cast<const bf*>(q_rope), static_cast<const bf*>(ckv),
                                      static_cast<const bf*>(krope), static_cast<bf*>(o),
+                                     static_cast<float*>(lse),
                                      static_cast<const int*>(valid_len), pol, maps, H, sqlb,
                                      sqlh, sqrb, sqrh, limit, scale, splits);
   if (e != cudaSuccess) return (int)e;
@@ -934,7 +956,7 @@ int encode_q(TmaMaps& maps, const void* q_lat, const void* q_rope, int B, int H,
 
 template <class P>
 int launch_mla_any(int is_bf16, int B, int H, int r, int dr, const void* q_lat,
-                   const void* q_rope, const void* ckv, const void* krope, void* o,
+                   const void* q_rope, const void* ckv, const void* krope, void* o, void* lse,
                    const void* valid_len, const P& pol, TmaMaps& maps, bool tma,
                    long long sqlb, long long sqlh, long long sqrb, long long sqrh, int limit,
                    float scale, int splits, cudaStream_t s) {
@@ -945,14 +967,14 @@ int launch_mla_any(int is_bf16, int B, int H, int r, int dr, const void* q_lat,
     const int err = encode_q(maps, q_lat, q_rope, B, H, sqlb, sqlh, sqrb, sqrh);
     if (err) return err;
 #define MLA_WG(TM)                                                                        \
-  return launch_mla_wgmma<P, TM>(q_lat, q_rope, ckv, krope, o, valid_len, pol, maps, B, H, \
-                                 sqlb, sqlh, sqrb, sqrh, limit, scale, splits, s)
+  return launch_mla_wgmma<P, TM>(q_lat, q_rope, ckv, krope, o, lse, valid_len, pol, maps, B, \
+                                 H, sqlb, sqlh, sqrb, sqrh, limit, scale, splits, s)
     if (tma) MLA_WG(true);
     if constexpr (!std::is_same<P, RingRows>::value) MLA_WG(false);  // the ring always takes TMA
 #undef MLA_WG
     return (int)cudaErrorInvalidValue;
   }
-  return launch_mla<float>(q_lat, q_rope, ckv, krope, o, valid_len, pol, B, H, sqlb, sqlh,
+  return launch_mla<float>(q_lat, q_rope, ckv, krope, o, lse, valid_len, pol, B, H, sqlb, sqlh,
                            sqrb, sqrh, limit, scale, splits, s);
 }
 
@@ -961,11 +983,13 @@ int launch_mla_any(int is_bf16, int B, int H, int r, int dr, const void* q_lat,
 // Ring: q_lat [B, 1, H, r] and q_rope [B, 1, H, dr] through strides (b, h),
 // last dim contiguous; ckv [B, W, r] and krope [B, W, dr] through strides
 // (b, w), last dim contiguous, rows 16-byte aligned; valid_len contiguous
-// int32 [B] (clamped to W); o contiguous [B, 1, H, r]. r = 512, dr = 64, H a
+// int32 [B] (clamped to W); o contiguous [B, 1, H, r]; lse null, or contiguous
+// fp32 [B, H] for each (row, head)'s log-sum-exp. r = 512, dr = 64, H a
 // multiple of 16; ``splits``, the CTAs (one cluster) a (row, head block): 1
 // to 8. Returns the cudaError_t of the launch (0 on success).
 extern "C" int mla_decode_attention_fwd(const void* q_lat, const void* q_rope, const void* ckv,
-                                        const void* krope, void* o, const void* valid_len,
+                                        const void* krope, void* o, void* lse,
+                                        const void* valid_len,
                                         int B, int W, int H, int r, int dr, long long sqlb,
                                         long long sqlh, long long sqrb, long long sqrh,
                                         long long scb, long long scw, long long srb,
@@ -984,7 +1008,7 @@ extern "C" int mla_decode_attention_fwd(const void* q_lat, const void* q_rope, c
     if (!err) err = encode_map(&maps.krope, krope, 3, rdims, rstr, box);
     if (err) return err;
   }
-  return launch_mla_any(is_bf16, B, H, r, dr, q_lat, q_rope, ckv, krope, o, valid_len,
+  return launch_mla_any(is_bf16, B, H, r, dr, q_lat, q_rope, ckv, krope, o, lse, valid_len,
                         rows, maps, true, sqlb, sqlh, sqrb, sqrh, W, scale, splits,
                         static_cast<cudaStream_t>(stream));
 }
@@ -1016,7 +1040,7 @@ extern "C" int paged_mla_decode_attention_fwd(
     if (!err) err = encode_map(&maps.krope, rb, 2, rdims, rstr, box);
     if (err) return err;
   }
-  return launch_mla_any(is_bf16, B, H, r, dr, q_lat, q_rope, cb, rb, o, valid_len,
+  return launch_mla_any(is_bf16, B, H, r, dr, q_lat, q_rope, cb, rb, o, nullptr, valid_len,
                         rows, maps, tma, sqlb, sqlh, sqrb, sqrh, n_pages * page, scale, splits,
                         static_cast<cudaStream_t>(stream));
 }

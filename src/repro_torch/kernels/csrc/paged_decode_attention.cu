@@ -39,6 +39,6 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* kb, const v
                                           int is_bf16, int splits, void* stream) {
   if (page < 1 || skn != page * skp || svn != page * svp) return (int)cudaErrorInvalidValue;
   const PagedRows rows{static_cast<const int*>(page_table), n_pages, page, skp, skh, svp, svh};
-  return launch_decode(is_bf16, hd, q, kb, vb, o, lengths, rows, B, H, Hkv, sqb, sqh,
+  return launch_decode(is_bf16, hd, q, kb, vb, o, nullptr, lengths, rows, B, H, Hkv, sqb, sqh,
                        n_pages * page, scale, splits, static_cast<cudaStream_t>(stream));
 }

@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _FWD = build.CFunction("decode_attention", "decode_attention_fwd",
-                       [_P] * 5 + [_I] * 5 + [_L] * 8
+                       [_P] * 5 + [_I] * 5 + [_P] + [_L] * 8
                        + [_I, ctypes.c_float, _I, _I])
 
 HEAD_DIMS = (32, 64, 128)
@@ -61,18 +61,22 @@ def splits_for(W: int, rows: int, device_index: int) -> int:
     return num_splits(W, rows, n_sm)
 
 
-def launch(q, k, v, lengths, *, scale: float, w_real: int, _splits=None):
+def launch(q, k, v, lengths, *, scale: float, w_real: int, lse=None,
+           _splits=None):
     """q: [B,1,H,hd], k/v: [B,W,Hkv,hd], lengths: int32 [B] contiguous, all
-    on one CUDA device (checked by the caller). Returns a new [B,1,H,hd].
-    ``_splits`` forces the CTAs a row; by default :func:`splits_for` picks
-    it."""
+    on one CUDA device (checked by the caller). Returns a new [B,1,H,hd];
+    with ``lse`` (contiguous fp32 [B,H] there) the kernel also writes each
+    row's log-sum-exp of its scaled scores into it (-inf where no slot is
+    valid). ``_splits`` forces the CTAs a row; by default
+    :func:`splits_for` picks it."""
     B, _, H, hd = q.shape
     _, W, Hkv, _ = k.shape
     dev = q.get_device()
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     sq, sk, sv = q.stride(), k.stride(), v.stride()
     _FWD(dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-         lengths.data_ptr(), B, W, H, Hkv, hd, sq[0], sq[2],
+         lengths.data_ptr(), B, W, H, Hkv, hd,
+         None if lse is None else lse.data_ptr(), sq[0], sq[2],
          sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], w_real, scale,
          q.dtype is torch.bfloat16, _splits or splits_for(W, B * Hkv, dev))
     return o

@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _RING = build.CFunction("mla_decode_attention", "mla_decode_attention_fwd",
-                        [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _I])
+                        [_P] * 7 + [_I] * 5 + [_L] * 8 + [_F, _I, _I])
 _PAGED = build.CFunction("mla_decode_attention",
                          "paged_mla_decode_attention_fwd",
                          [_P] * 7 + [_I] * 7 + [_L] * 8 + [_F, _I, _I])
@@ -114,11 +114,13 @@ def max_active_clusters(splits: int, *, device_index: int = 0) -> int:
     return n.value
 
 
-def launch(q_lat, q_rope, ckv, krope, valid_len, *, scale: float,
+def launch(q_lat, q_rope, ckv, krope, valid_len, *, scale: float, lse=None,
            _splits=None):
     """q_lat [B,1,H,r], q_rope [B,1,H,dr], ckv [B,W,r], krope [B,W,dr],
     valid_len int32 [B] contiguous, on one CUDA device (checked by the
-    caller). Returns a new [B,1,H,r]."""
+    caller). Returns a new [B,1,H,r]; with ``lse`` (contiguous fp32 [B,H]
+    there) the kernel also writes each (row, head)'s log-sum-exp of its
+    scaled scores into it (-inf where no slot is valid)."""
     B, _, H, r = q_lat.shape
     W, dr = ckv.shape[1], krope.shape[2]
     dev = q_lat.get_device()
@@ -126,8 +128,9 @@ def launch(q_lat, q_rope, ckv, krope, valid_len, *, scale: float,
     o = torch.empty(q_lat.shape, dtype=q_lat.dtype, device=q_lat.device)
     sl, sr = q_lat.stride(), q_rope.stride()
     _RING(dev, q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
-          krope.data_ptr(), o.data_ptr(), valid_len.data_ptr(), B, W, H, r,
-          dr, sl[0], sl[2], sr[0], sr[2], ckv.stride(0), ckv.stride(1),
+          krope.data_ptr(), o.data_ptr(),
+          None if lse is None else lse.data_ptr(), valid_len.data_ptr(), B, W,
+          H, r, dr, sl[0], sl[2], sr[0], sr[2], ckv.stride(0), ckv.stride(1),
           krope.stride(0), krope.stride(1), scale, bf16,
           _splits or plan(W, B, H, bf16, dev))
     return o

@@ -243,6 +243,21 @@ class _SsdScanFn(torch.autograd.Function):
         return (*grads, None)
 
 
+def _lse_out(q, wanted: bool):
+    """The fp32 [B, H] buffer a decode kernel writes its log-sum-exp into,
+    or None."""
+    if not wanted:
+        return None
+    return torch.empty(q.shape[:1] + q.shape[2:3], dtype=torch.float32,
+                       device=q.device)
+
+
+def _with_lse(out, wanted: bool):
+    """A meta decode output, paired with its meta lse when one is asked
+    for."""
+    return (out, _lse_out(out, True)) if wanted else out
+
+
 def _check_kernel_dtype(name, *tensors):
     dt = tensors[0].dtype
     if dt not in KERNEL_DTYPES or any(t.dtype != dt for t in tensors):
@@ -467,10 +482,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
-                     w_real: Optional[int] = None):
+                     w_real: Optional[int] = None, return_lse: bool = False):
     """q: [B,1,H,hd]; k,v: [B,W,Hkv,hd] ring cache; lengths: [B] int valid
     slots per row -> [B,1,H,hd]. ``w_real`` masks slots at or past it
-    (default: W)."""
+    (default: W). ``return_lse`` returns (out, lse): lse fp32 [B,H], each
+    row's log-sum-exp of its scaled scores (-inf where no slot is valid),
+    what merges the outputs of a cache split over several calls (a
+    sequence-sharded decode); ``out`` is the same either way."""
     B, one, H, hd = q.shape
     if one != 1 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != hd or tuple(lengths.shape) != (B,):
@@ -487,9 +505,10 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
                 ("decode_attention", kernel_work(
                     "decode_attention", B, H, Hkv, hd, B * min(W, w_real),
                     q.element_size()), ("batch", "kv_seq", "heads")),
-                lambda: torch.empty_like(q), (q, k, v))
+                lambda: _with_lse(torch.empty_like(q), return_lse),
+                (q, k, v))
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                        w_real=w_real)
+                                        w_real=w_real, return_lse=return_lse)
     _refuse_grad("decode_attention", SERVING_ONLY, q, k, v)
     _check_kernel_dtype("decode_attention", q, k, v)
     _check_last_dim_contiguous("decode_attention", q, k, v)
@@ -500,9 +519,10 @@ def decode_attention(q, k, v, lengths, *, scale: Optional[float] = None,
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise TypeError(f"decode_attention kernel: lengths must be contiguous "
                         f"int32: {lengths.dtype}")
-    out = _dec.launch(q, k, v, lengths, scale=scale, w_real=w_real)
+    lse = _lse_out(q, return_lse)
+    out = _dec.launch(q, k, v, lengths, scale=scale, w_real=w_real, lse=lse)
     LAUNCHES["decode_attention"] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 def paged_decode_attention(q, k_blocks, v_blocks, page_table, lengths, *,
@@ -587,12 +607,13 @@ def _check_mla_kernel(name, q_lat, q_rope, ckv, krope, valid_len):
 
 
 def mla_decode_attention(q_lat, q_rope, ckv, krope, valid_len, *,
-                         scale: float):
+                         scale: float, return_lse: bool = False):
     """Absorbed MLA decode over the latent ring: q_lat [B,1,H,r] (the
     query's nope half through W_UK), q_rope [B,1,H,dr] (its RoPE half),
     ckv [B,W,r], krope [B,W,dr]; valid_len [B] int, slots at or past it
     (or W) masked -> [B,1,H,r], the probability-weighted latent rows (see
-    :func:`ref.mla_decode_attention_ref`)."""
+    :func:`ref.mla_decode_attention_ref`). ``return_lse`` returns (out,
+    lse) as :func:`decode_attention` does."""
     B, W = ckv.shape[:2]
     _check_mla("mla_decode_attention", q_lat, q_rope, ckv, krope, valid_len,
                (B, W))
@@ -603,16 +624,20 @@ def mla_decode_attention(q_lat, q_rope, ckv, krope, valid_len, *,
                     "mla_decode_attention", B, q_lat.shape[2], ckv.shape[2],
                     krope.shape[2], B * W, ckv.element_size()),
                  ("batch", "kv_seq", "heads")),
-                lambda: torch.empty_like(q_lat), (q_lat, q_rope, ckv, krope))
+                lambda: _with_lse(torch.empty_like(q_lat), return_lse),
+                (q_lat, q_rope, ckv, krope))
         return ref.mla_decode_attention_ref(
-            q_lat, q_rope, ckv, krope, valid_len.clamp(max=W), scale=scale)
+            q_lat, q_rope, ckv, krope, valid_len.clamp(max=W), scale=scale,
+            return_lse=return_lse)
     _refuse_grad("mla_decode_attention", SERVING_ONLY, q_lat, q_rope, ckv,
                  krope)
     _check_mla_kernel("mla_decode_attention", q_lat, q_rope, ckv, krope,
                       valid_len)
-    out = _mla.launch(q_lat, q_rope, ckv, krope, valid_len, scale=scale)
+    lse = _lse_out(q_lat, return_lse)
+    out = _mla.launch(q_lat, q_rope, ckv, krope, valid_len, scale=scale,
+                      lse=lse)
     LAUNCHES["mla_decode_attention"] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 def paged_mla_decode_attention(q_lat, q_rope, ckv_blocks, krope_blocks,

@@ -64,6 +64,16 @@ def _softmax_rows(s, mask):
     return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
+def _masked_lse(s, mask):
+    """The row's log-sum-exp over its unmasked scores, ``max + log(l)``
+    as the kernels form it; -inf for a row with none (whose output is 0)."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    l = torch.where(mask, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s)).sum(dim=-1)
+    return torch.where(l > 0, m + torch.log(l), torch.full_like(m, -math.inf))
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None,
                         segment_ids=None, sq_real: Optional[int] = None,
@@ -130,11 +140,13 @@ def flash_attention_bwd_ref(q, k, v, do, **kw):
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale: Optional[float] = None,
-                         w_real: Optional[int] = None):
+                         w_real: Optional[int] = None, return_lse: bool = False):
     """q: [B,1,H,hd]; k,v: [B,W,Hkv,hd]; lengths: [B] int -> [B,1,H,hd].
 
     Row b attends to ring slots ``kpos < lengths[b]`` and ``kpos < w_real``;
-    a row of length 0 returns zeros.
+    a row of length 0 returns zeros. ``return_lse`` also returns each
+    (row, head)'s log-sum-exp of its scaled scores, fp32 [B,H] (-inf for a
+    row with no valid slot), as the kernel's ``lse`` output.
     """
     B, _, H, hd = q.shape
     W, Hkv = k.shape[1], k.shape[2]
@@ -147,7 +159,10 @@ def decode_attention_ref(q, k, v, lengths, *, scale: Optional[float] = None,
     valid = (kpos < lengths.to(torch.int64)[:, None]) & (kpos < w_real)
     p = _softmax_rows(s, valid[:, None, None, :])
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    o = o.reshape(B, 1, H, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, _masked_lse(s, valid[:, None, None, :]).reshape(B, H)
 
 
 def paged_decode_attention_ref(q, k_blocks, v_blocks, page_table, lengths, *,
@@ -169,7 +184,7 @@ def paged_decode_attention_ref(q, k_blocks, v_blocks, page_table, lengths, *,
 
 
 def mla_decode_attention_ref(q_lat, q_rope, ckv, krope, valid_len, *,
-                             scale: float):
+                             scale: float, return_lse: bool = False):
     """Absorbed MLA decode: q_lat [B,1,H,r], q_rope [B,1,H,dr] against the
     latent ring ckv [B,W,r] and the shared RoPE key krope [B,W,dr];
     valid_len [B] int -> [B,1,H,r] in ckv's dtype.
@@ -181,7 +196,9 @@ def mla_decode_attention_ref(q_lat, q_rope, ckv, krope, valid_len, *,
     cast to the cache dtype (JAX's order in bf16) against ``ckv``, cast to
     that dtype, divided by ``l`` floored at 1e-30 (a row of length 0 gives
     zeros). Slot order is not position order in a wrapped ring; the sum
-    does not care.
+    does not care. ``return_lse`` also returns each (row, head)'s
+    log-sum-exp of its scaled scores, fp32 [B,H] (-inf for a row with no
+    valid slot), as the kernel's ``lse`` output.
     """
     W = ckv.shape[1]
     s = (torch.einsum("bhr,bkr->bhk", q_lat[:, 0].float(), ckv.float())
@@ -196,7 +213,9 @@ def mla_decode_attention_ref(q_lat, q_rope, ckv, krope, valid_len, *,
     ctx = torch.einsum("bhk,bkr->bhr", e.to(ckv.dtype).float(),
                        ckv.float()).to(ckv.dtype)
     out = ctx / l.clamp_min(1e-30).to(ckv.dtype)[..., None]
-    return out[:, None]
+    if not return_lse:
+        return out[:, None]
+    return out[:, None], _masked_lse(s, valid)
 
 
 def paged_mla_decode_attention_ref(q_lat, q_rope, ckv_blocks, krope_blocks,

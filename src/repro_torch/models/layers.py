@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding.partition import Sharded, axes_of, psum, shard
 
 
 # --------------------------------------------------------------------------- #
@@ -74,13 +75,49 @@ def embed_schema(vocab_padded: int, d: int) -> ParamSpec:
                      init="small_normal")
 
 
-def embed_lookup(table, tokens):
-    return F.embedding(tokens, table)
+def embed_lookup(table, tokens, shard_ctx=None):
+    """Rows of the embedding table for ``tokens``.
+
+    With a vocab-sharded table (a :class:`~repro_torch.sharding.partition.
+    Sharded`, or a context whose rules shard ``vocab``, which splits the
+    table here) it is Megatron's vocab-parallel embedding, as the JAX
+    package's ``shard_map`` body: each vocab block gathers its own id range
+    on its slot's device, ids outside it giving zero rows, and the partials
+    are summed (:func:`~repro_torch.sharding.partition.psum`) onto the
+    mesh's first device. Each token's row comes from one block and zeros
+    from the rest, so the sum is exact. The batch stays whole."""
+    if shard_ctx is not None and shard_ctx.shards_vocab \
+            and not isinstance(table, Sharded):
+        table = shard(table, shard_ctx, "vocab", "embed")
+    if not isinstance(table, Sharded):
+        return F.embedding(tokens, table)
+    parts = []
+    for (vb, _), (_, t) in _vocab_blocks(table):
+        n_local = t.shape[0]
+        ids = tokens.to(t.device) - vb * n_local
+        inside = (ids >= 0) & (ids < n_local)
+        rows = F.embedding(torch.where(inside, ids, 0), t)
+        parts.append(torch.where(inside[..., None], rows, 0).to(t.dtype))
+    return psum(parts, table.mesh.first_device)
+
+
+def _vocab_blocks(table: Sharded):
+    """The vocab blocks of a table split along vocab only, in order."""
+    if any(axes_of(p) for p in table.spec[1:]):
+        raise ValueError(f"a table split past its vocab dim: {table.spec}")
+    return sorted(table.blocks().items())
 
 
 def lm_head(table, x, true_vocab: int):
-    """Logits against the tied table; pad ids masked to -1e9."""
-    logits = x @ table.t().to(x.dtype)  # [..., vocab_padded]
+    """Logits against the tied table; pad ids masked to -1e9. A
+    vocab-sharded table gives each block's logits on its slot's device,
+    concatenated along vocab on the mesh's first device."""
+    if isinstance(table, Sharded):
+        dev = table.mesh.first_device
+        logits = torch.cat([(x.to(t.device) @ t.t().to(x.dtype)).to(dev)
+                            for _, (_, t) in _vocab_blocks(table)], dim=-1)
+    else:
+        logits = x @ table.t().to(x.dtype)  # [..., vocab_padded]
     if table.shape[0] != true_vocab:
         logits[..., true_vocab:] = -1e9
     return logits

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
+from repro_torch.models.attention import seq_sharded_decode
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.schema import ParamSpec
 
@@ -116,20 +117,40 @@ def _project_out(p, cfg, ctx, x):
     return out.reshape(x.shape[0], 1, -1) @ p["wo"]
 
 
-def mla_decode_update(p, cfg, x, cache, lengths, positions, *, valid_len):
+def mla_decode_update(p, cfg, x, cache, lengths, positions, *, valid_len,
+                      shard_ctx=None):
     """One token of absorbed MLA decode over the latent ring: write both
     leaves of x's entry at slot ``lengths % W`` (in place), then attend the
     first ``valid_len[b]`` slots through the MLA decode kernel.
 
     x: [B,1,d]; cache: {"ckv": [B,W,r], "krope": [B,W,rope]}; lengths,
-    valid_len: [B] int32; positions [B,1]. Returns out [B,1,d]."""
+    valid_len: [B] int32; positions [B,1]. Returns out [B,1,d].
+
+    With a context whose rules shard ``kv_seq``, both leaves are
+    :class:`~repro_torch.sharding.partition.Sharded` by their sequence dim
+    and the write and the attention run per shard (the MLA kernel once a
+    shard), merged by the max/sum rule, as the JAX package's ``shard_map``
+    body does (:func:`~repro_torch.models.attention.seq_sharded_decode`)."""
     q_abs, q_rope = _absorbed_query(p, cfg, x, positions)
     ckv_new, krope_new = latent_kv(p, cfg, x, positions)
-    kvc.ring_write(cache["ckv"], ckv_new, lengths)
-    kvc.ring_write(cache["krope"], krope_new, lengths)
-    ctx = ops.mla_decode_attention(q_abs, q_rope, cache["ckv"],
-                                   cache["krope"], valid_len,
-                                   scale=_scale(cfg))
+    if shard_ctx is None or shard_ctx.kv_seq_axes is None:
+        kvc.ring_write(cache["ckv"], ckv_new, lengths)
+        kvc.ring_write(cache["krope"], krope_new, lengths)
+        ctx = ops.mla_decode_attention(q_abs, q_rope, cache["ckv"],
+                                       cache["krope"], valid_len,
+                                       scale=_scale(cfg))
+        return _project_out(p, cfg, ctx, x)
+
+    def attend(locs, rows, vl):
+        ckv_l, krope_l = locs
+        dev = ckv_l.device
+        return ops.mla_decode_attention(
+            q_abs[rows].to(dev), q_rope[rows].to(dev), ckv_l, krope_l, vl,
+            scale=_scale(cfg), return_lse=True)
+
+    ctx = seq_sharded_decode((cache["ckv"], cache["krope"]),
+                             (ckv_new, krope_new), lengths, valid_len,
+                             attend, q_abs.dtype)
     return _project_out(p, cfg, ctx, x)
 
 

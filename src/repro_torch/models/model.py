@@ -17,6 +17,8 @@ cache leaves that decode reads whole.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from repro_torch import resolve_device
@@ -77,6 +79,20 @@ class Model:
         self.groups = layer_groups(cfg)
         self._schema = self.schema()
 
+    def on(self, device) -> "Model":
+        """This model (config, dtype, remat) on ``device``: itself where it
+        already lives there, else a shallow copy whose :attr:`device` --
+        where :meth:`init` and :meth:`init_cache` allocate -- is
+        ``device``. A placed stage (the disaggregated tier's prefill or
+        decode side, a cluster replica) runs the model on its slice's
+        device this way."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = dev
+        return out
+
     @property
     def attention_only(self) -> bool:
         """True when every layer is attention: only then does right-padding
@@ -132,12 +148,13 @@ class Model:
     # ------------------------------------------------------------------ #
     # Forward passes
     # ------------------------------------------------------------------ #
-    def _embed_inputs(self, params, tokens, features=None):
+    def _embed_inputs(self, params, tokens, features=None, shard_ctx=None):
         """Token embeddings [B, S, d], with ``features`` [B, F,
         FRONTEND_DIM] (any float dtype) projected and prepended: cast to
         the model's dtype BEFORE ``frontend_proj`` (the JAX model's
-        rounding order), giving [B, F + S, d]."""
-        x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        rounding order), giving [B, F + S, d]. Vocab-parallel under a
+        context that shards ``vocab`` (:func:`layers.embed_lookup`)."""
+        x = embed_lookup(params["embed"], tokens, shard_ctx).to(self.dtype)
         if features is None:
             return x
         if not self.cfg.frontend:
@@ -161,7 +178,8 @@ class Model:
         x = encoder_apply(params["encoder"], self.cfg, x, pos, remat=remat)
         return rmsnorm(x, params["enc_norm"], self.cfg.norm_eps)
 
-    def backbone(self, params, tokens, features=None, want_cache=True):
+    def backbone(self, params, tokens, features=None, want_cache=True,
+                 shard_ctx=None):
         """Embed (``features`` first, see :meth:`_embed_inputs`) + decoder
         stack + final norm over [B, S] tokens. Returns (x [B,F+S,d], aux,
         caches); aux is the MoE layers' summed load-balance loss. An
@@ -171,7 +189,8 @@ class Model:
 
         ``want_cache=False`` is the training pass (JAX's ``backbone(...,
         want_cache=False)``): caches None, each layer under the model's
-        remat policy."""
+        remat policy. ``shard_ctx`` (serving) makes the embedding
+        vocab-parallel; the layers run whole on the mesh's first device."""
         enc_out = None
         remat = None if want_cache else self._remat
         if self.cfg.is_encdec:
@@ -179,9 +198,10 @@ class Model:
                 raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
                                  "its encoder needs features")
             enc_out = self._encode(params, features, remat)
-            x = embed_lookup(params["embed"], tokens).to(self.dtype)
+            x = embed_lookup(params["embed"], tokens, shard_ctx).to(
+                self.dtype)
         else:
-            x = self._embed_inputs(params, tokens, features)
+            x = self._embed_inputs(params, tokens, features, shard_ctx)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         x, aux, caches = stack_apply_full(
             params["decoder"], self.cfg, x, pos, groups=self.groups,
@@ -189,11 +209,15 @@ class Model:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
-    def forward(self, params, tokens, features=None):
+    def forward(self, params, tokens, features=None, *, shard_ctx=None):
         """Full-sequence logits [B, F+S, vocab_padded], the MoE aux loss and
         the caches (the JAX model's ``forward``)."""
-        x, aux, caches = self.backbone(params, tokens, features)
-        return lm_head(params["embed"], x, self.cfg.vocab_size), aux, caches
+        x, aux, caches = self.backbone(params, tokens, features,
+                                       shard_ctx=shard_ctx)
+        logits = lm_head(params["embed"], x, self.cfg.vocab_size)
+        if shard_ctx is not None:
+            logits = shard_ctx.constrain(logits, "batch", None, "vocab")
+        return logits, aux, caches
 
     def loss(self, params, batch):
         """The training loss of JAX's ``Model.loss``: ``batch`` is a dict of
@@ -215,20 +239,24 @@ class Model:
         return cross_entropy(logits, labels, batch.get("loss_mask")) \
             + aux_w * aux
 
-    def prefill(self, params, tokens, features=None):
+    def prefill(self, params, tokens, features=None, *, shard_ctx=None):
         """tokens [B, S] (after ``features`` [B, F, FRONTEND_DIM], if any)
         -> (last_logits [B,V], caches, lengths [B] = F + S); the LM head
         runs on the last position only. An encoder-decoder's ``features``
         feed its encoder: lengths = S, and the caches' xk/xv hold the F
         encoder rows (grow the ring leaves with
-        :func:`repro_torch.models.kvcache.grow_cache` before decoding)."""
-        x, _, caches = self.backbone(params, tokens, features)
+        :func:`repro_torch.models.kvcache.grow_cache` before decoding).
+        ``shard_ctx`` as :meth:`backbone`; the caches come back whole
+        (``sharding.partition.place_for_ctx`` lays them out for a sharded
+        decode)."""
+        x, _, caches = self.backbone(params, tokens, features,
+                                     shard_ctx=shard_ctx)
         B, S = x.shape[:2]
         logits = lm_head(params["embed"], x[:, -1:], self.cfg.vocab_size)
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
         return logits[:, 0], caches, lengths
 
-    def prefill_bucketed(self, params, tokens, lengths):
+    def prefill_bucketed(self, params, tokens, lengths, *, shard_ctx=None):
         """Padded-bucket prefill: tokens [B, L] right-padded, lengths [B]
         real. Causal attention hides trailing pad from real positions, so
         only the LM-head gather differs from :meth:`prefill`: logits are
@@ -238,7 +266,7 @@ class Model:
         ValueError for others. Returns (last_logits [B,V], caches, lengths
         int32)."""
         self._require_attention_only("prefill_bucketed")
-        x, _, caches = self.backbone(params, tokens)
+        x, _, caches = self.backbone(params, tokens, shard_ctx=shard_ctx)
         S = x.shape[1]
         idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -318,12 +346,20 @@ class Model:
         logits = lm_head(params["embed"], x_last, self.cfg.vocab_size)
         return logits[0], caches
 
-    def decode_step(self, params, caches, tokens, lengths):
+    def decode_step(self, params, caches, tokens, lengths, *,
+                    shard_ctx=None):
         """tokens [B,1], lengths [B] int32 -> (logits [B,V], caches,
-        lengths+1). The caches are ring-written in place and returned."""
-        x = embed_lookup(params["embed"], tokens).to(self.dtype)
+        lengths+1). The caches are ring-written in place and returned.
+
+        With ``shard_ctx`` (the JAX model's ``decode_step(...,
+        shard_ctx)``): the embedding vocab-parallel and, where the rules
+        shard ``kv_seq``, each attention layer's write and attention per
+        sequence shard -- its caches laid out by
+        ``sharding.partition.place_for_ctx`` -- merged by the max/sum rule;
+        the logits come back whole on the mesh's first device."""
+        x = embed_lookup(params["embed"], tokens, shard_ctx).to(self.dtype)
         x = stack_apply_decode(params["decoder"], self.cfg, x, caches, lengths,
-                               groups=self.groups)
+                               groups=self.groups, shard_ctx=shard_ctx)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         logits = lm_head(params["embed"], x, self.cfg.vocab_size)
         return logits[:, 0], caches, lengths + 1

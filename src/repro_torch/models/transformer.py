@@ -275,10 +275,12 @@ def apply_layer_full(lp, cfg, sig, x, positions, *, prior=None,
     return (*_ffn_block(lp, cfg, x), cache)
 
 
-def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
+def apply_layer_decode(lp, cfg, sig, x, lcache, lengths, *, shard_ctx=None):
     """x: [B,1,d]; lcache's k/v (MLA: ckv/krope) ring-written (or its conv
     window and state updated) in place; an encoder-decoder's layer then
-    cross-attends over its static xk/xv. Returns x."""
+    cross-attends over its static xk/xv. Returns x. ``shard_ctx`` reaches
+    the attention's sequence-sharded decode; an SSM layer runs as without
+    it (as in JAX)."""
     B = x.shape[0]
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if sig[0] != "attn":
@@ -289,11 +291,11 @@ def apply_layer_decode(lp, cfg, sig, x, lcache, lengths):
     valid_len = torch.clamp(lengths + 1, max=W).to(torch.int32)
     if cfg.mla is not None:
         o = mla_decode_update(lp["attn"], cfg, h, lcache, lengths, positions,
-                              valid_len=valid_len)
+                              valid_len=valid_len, shard_ctx=shard_ctx)
         return _ffn_block(lp, cfg, x + o)[0]
     q, k, v = project_qkv(lp["attn"], cfg, h, positions)
     o = decode_attention_update(q, k, v, lcache["k"], lcache["v"], lengths,
-                                valid_len=valid_len)
+                                valid_len=valid_len, shard_ctx=shard_ctx)
     x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"]
     if "xk" in lcache:
         x = _cross_block(lp, cfg, x, kv=(lcache["xk"], lcache["xv"]))[0]
@@ -358,11 +360,13 @@ def stack_apply_full(params, cfg, x, positions, *, groups, prior=None,
     return x, aux_total, caches
 
 
-def stack_apply_decode(params, cfg, x, caches, lengths, *, groups):
+def stack_apply_decode(params, cfg, x, caches, lengths, *, groups,
+                       shard_ctx=None):
     """One-token decode pass; ``caches`` are updated in place."""
     for gname, i, lname, sig in _layers(groups):
         x = apply_layer_decode(params[gname][i][lname], cfg, sig, x,
-                               caches[gname][i][lname], lengths)
+                               caches[gname][i][lname], lengths,
+                               shard_ctx=shard_ctx)
     return x
 
 

@@ -2,11 +2,16 @@
 paged path with radix prefix reuse and its exact-shape path, the threaded
 host pipeline, the disaggregated prefill->decode tier, the gateway (the
 proxied first hop), the multi-replica cluster (in-process or a process a
-replica) and seeded traffic for them."""
+replica), the pod placement of the tier's stages and of the cluster's
+replicas on a device mesh, and seeded traffic for them."""
 
 from repro_torch.serving.client import ClosedLoopClient, run_closed_loop
 from repro_torch.serving.cluster import Replica, Router, ServingCluster
-from repro_torch.serving.disagg import DisaggregatedEngine
+from repro_torch.serving.disagg import (
+    DisaggregatedEngine,
+    PodPlacement,
+    make_pod_mesh,
+)
 from repro_torch.serving.engine import (
     DecodePool,
     EnginePipeline,
@@ -32,6 +37,7 @@ __all__ = [
     "DisaggregatedEngine",
     "EnginePipeline",
     "Gateway",
+    "PodPlacement",
     "PrefillArtifact",
     "Replica",
     "Request",
@@ -40,6 +46,7 @@ __all__ = [
     "ServingCluster",
     "ServingEngine",
     "load_trace",
+    "make_pod_mesh",
     "poisson_schedule",
     "run_closed_loop",
     "run_closed_loop_baseline",

@@ -14,14 +14,16 @@ warmup-aware TTFT/TPOT/E2E percentile telemetry
 TCP first hop, router admission, a hardware-accelerated last hop inside
 each replica.
 
-**Replicas on one card.** The JAX package carves a pod axis of a cluster
-mesh into per-replica slices (:func:`replica_pod_slices`); on a backend
-with fewer devices than slices, the slices overlap. The port runs on one
-card, so that placement degenerates: every replica lives on the one
-device, fused replicas share the one params dict (the counterpart of the
-JAX package's overlapping slices on a single device), each replica has its
-own ``DecodePool`` and so its own decode graph, and a disaggregated
-replica is a ``DisaggregatedEngine`` on that device.
+**Replicas on a mesh.** As the JAX package does, :meth:`ServingCluster.
+build` carves the ``('pod',)`` axis of a cluster mesh
+(:func:`~repro_torch.launch.mesh.make_cluster_mesh` by default, or the
+``mesh`` given) into per-replica slices (:func:`replica_pod_slices`): a
+fused replica's engine runs on its slice's device, a disaggregated
+replica places its two stages within its slice (``PodPlacement``). With
+fewer devices than slices, the slices overlap: on one card every replica
+lives on that card, and replicas on one device share one copy of the
+params (a copy is made once a distinct device); each replica has its own
+``DecodePool`` and so its own decode graph.
 
 **Router policies** (:class:`Router`):
 
@@ -80,12 +82,14 @@ from repro_torch.core.metrics import (
 )
 from repro_torch.core.obs import Registry, Sampler
 from repro_torch.core.profiler import ProfileStore, RequestRecord
+from repro_torch.launch.mesh import available_devices, make_cluster_mesh
 from repro_torch.serving.engine import (
     MIN_BUCKET,
     PAGE,
     ServingEngine,
     _next_pow2,
 )
+from repro_torch.sharding.partition import place_on_slice, pod_slice_mesh
 
 
 def replica_pod_slices(n_pods: int, n_replicas: int,
@@ -593,9 +597,12 @@ class ServingCluster:
     # ------------------------------------------------------------------ #
     @classmethod
     def build(cls, model, params, *, n_replicas: int = 2,
-              engine: str = "fused", policy: str = "least_loaded",
+              engine: str = "fused", mesh=None,
+              pods_per_replica: Optional[int] = None,
+              policy: str = "least_loaded",
               router: Optional[Router] = None, warmup: bool = False,
-              backend: str = "inprocess", param_seed: int = 0,
+              backend: str = "inprocess",
+              devices_per_replica: Optional[int] = None, param_seed: int = 0,
               backlog: int = 2, rpc_timeout_s: float = 120.0,
               init_timeout_s: float = 600.0, device="cuda",
               **engine_kw) -> "ServingCluster":
@@ -619,17 +626,18 @@ class ServingCluster:
         cluster (or :meth:`close` it) so they are reaped on every exit
         path.
 
-        The JAX package's ``mesh`` and ``pods_per_replica`` (the pod
-        placement across a mesh) have no counterpart on one card and
-        raise. Remaining ``engine_kw`` (max_batch, max_seq, transfer_mode,
-        temperature, ...) pass through to every replica's engine;
-        ``warmup`` warms each replica at construction.
+        mesh: a ``('pod',)``-axis :class:`~repro_torch.launch.mesh.
+        DeviceMesh` to carve up (in-process backend only; default
+        ``make_cluster_mesh(n_replicas, pods_per_replica, device)``), each
+        replica owning ``pods_per_replica`` pods of it (default 1 fused, 2
+        disaggregated). ``devices_per_replica`` (process backend; default
+        1 fused, 2 disaggregated) hands worker i the card indices ``i *
+        devices_per_replica + j`` modulo the cards there are: on one card
+        every worker gets ``cuda:0``; a disaggregated worker places its two
+        stages on its devices. Remaining ``engine_kw`` (max_batch,
+        max_seq, transfer_mode, temperature, ...) pass through to every
+        replica's engine; ``warmup`` warms each replica at construction.
         """
-        for knob in ("mesh", "pods_per_replica", "devices_per_replica"):
-            if knob in engine_kw:
-                raise ValueError(
-                    f"{knob!r} places replicas across a device mesh: the "
-                    "port's cluster runs on one card")
         if engine not in ("fused", "disagg"):
             raise ValueError(f"engine must be 'fused' or 'disagg': {engine}")
         if backend not in ("inprocess", "process"):
@@ -637,15 +645,25 @@ class ServingCluster:
                 f"backend must be 'inprocess' or 'process': {backend}"
             )
         if backend == "process":
+            if mesh is not None:
+                raise ValueError("mesh carves in-process replicas; the "
+                                 "process backend takes devices_per_replica")
             return cls._build_process(
                 model, n_replicas=n_replicas, engine=engine,
                 policy=policy, router=router, warmup=warmup,
+                devices_per_replica=devices_per_replica,
                 param_seed=param_seed, backlog=backlog,
                 rpc_timeout_s=rpc_timeout_s,
                 init_timeout_s=init_timeout_s, device=device, **engine_kw,
             )
-        slices = replica_pod_slices(1, n_replicas,
-                                    1 if engine == "fused" else 2)
+        ppr = (1 if engine == "fused" else 2) \
+            if pods_per_replica is None else pods_per_replica
+        if mesh is None:
+            mesh = make_cluster_mesh(n_replicas, ppr, device=device)
+        if "pod" not in mesh.axis_names:
+            raise ValueError(f"mesh has no 'pod' axis: {mesh.axis_names}")
+        slices = replica_pod_slices(mesh.shape["pod"], n_replicas, ppr)
+        placed: dict = {}  # device -> params there: one copy a device
         replicas = []
         for i, pods in enumerate(slices):
             # per-replica trace tag: in-process replicas share MainThread,
@@ -653,29 +671,42 @@ class ServingCluster:
             # handoffs) on distinct trace lanes
             kw_i = dict(engine_kw)
             kw_i.setdefault("trace_tag", f"replica{i}")
+            sub = pod_slice_mesh(mesh, pods)
+            dev = sub.first_device
             if engine == "fused":
-                eng = ServingEngine(model, params, warmup=warmup,
-                                    device=device, **kw_i)
+                if dev not in placed:
+                    placed[dev] = place_on_slice(params, mesh, pods)
+                eng = ServingEngine(model.on(dev), placed[dev],
+                                    warmup=warmup, device=dev, **kw_i)
             else:
                 from repro_torch.serving.disagg import DisaggregatedEngine
 
-                eng = DisaggregatedEngine(model, params, warmup=warmup,
-                                          device=device, **kw_i)
+                eng = DisaggregatedEngine(model, params, mesh=sub,
+                                          warmup=warmup, device=dev,
+                                          _placed=placed, **kw_i)
             replicas.append(Replica(i, eng, pods))
-        return cls(replicas, policy=policy, router=router)
+        out = cls(replicas, policy=policy, router=router)
+        out.mesh = mesh
+        return out
 
     @classmethod
     def _build_process(cls, model, *, n_replicas: int, engine: str,
                        policy: str, router: Optional[Router], warmup: bool,
-                       param_seed: int, backlog: int, rpc_timeout_s: float,
+                       devices_per_replica: Optional[int], param_seed: int,
+                       backlog: int, rpc_timeout_s: float,
                        init_timeout_s: float, device,
                        **engine_kw) -> "ServingCluster":
         """Process backend: spawn ``n_replicas`` worker processes, overlap
         their start (imports, handshake) and their init (the param rebuild
-        on ``device``, optional warm-up), and wrap each in a
+        on their devices, optional warm-up), and wrap each in a
         :class:`ProcessReplica`."""
         from repro_torch.serving.ipc import ReplicaClient
 
+        dpr = (1 if engine == "fused" else 2) \
+            if devices_per_replica is None else int(devices_per_replica)
+        if dpr < 1:
+            raise ValueError(f"devices_per_replica must be >= 1: {dpr}")
+        avail = available_devices(device)
         spec = {
             "cfg": model.cfg,
             "dtype": str(model.dtype).removeprefix("torch."),
@@ -707,11 +738,14 @@ class ServingCluster:
                         errors.append(e)
             if errors:
                 raise errors[0]
-            for c in clients:  # overlapped: all workers build concurrently
-                c.start_init(spec)
+            specs = [dict(spec, devices=[
+                str(avail[(i * dpr + j) % len(avail)]) for j in range(dpr)])
+                for i in range(n_replicas)]
+            for c, s in zip(clients, specs):  # overlapped: built concurrently
+                c.start_init(s)
             for i, c in enumerate(clients):
                 info = c.wait_init()
-                replicas.append(ProcessReplica(i, c, spec, pods=(0,),
+                replicas.append(ProcessReplica(i, c, specs[i], pods=(0,),
                                                init_info=info))
         except Exception:
             for c in clients:

@@ -11,11 +11,17 @@ mechanisms (``core.transfer``):
                        memory and a CPU staging copy, CPU on the data path.
 
 The JAX package's ``serving/disagg.py`` moves the payload across a mesh
-"pod" axis. On one H100 both stages share the card and one copy of the
-weights, as the JAX tier's stages share one committed replica on its
-degenerate 1-pod mesh; the handoff is real all the same: it lands in
-decode-side buffers disjoint from the prefill artifact, on a stream of
-its own.
+"pod" axis, and so does this tier: a :class:`PodPlacement` over a
+``('pod',)`` :class:`~repro_torch.launch.mesh.DeviceMesh` (by default
+:func:`make_pod_mesh`: two pods where the host has two cards, else one)
+pins the prefill stage -- its params, its compute, the artifact and the
+prefix store -- to the prefill pod's device, and the decode stage -- its
+params, the pool and its CUDA graph -- to the decode pod's. The hop copies
+from the one to the other (across two cards a peer copy for DIRECT_HBM).
+On one H100 both pods are the card, and the stages share one copy of the
+weights, as the JAX tier's share one committed replica on its degenerate
+1-pod mesh; the handoff is real all the same: it lands in decode-side
+buffers disjoint from the prefill artifact, on a stream of its own.
 
 The hop moves only the valid KV prefix: the artifact's occupied rows and
 the longest row's length, both rounded up to powers of two (the prefix
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
 from repro_torch.core import trace
 from repro_torch.core import transfer as xfer
 from repro_torch.core.transfer import (
@@ -58,12 +65,18 @@ from repro_torch.core.transfer import (
     wire_itemsize,
 )
 from repro_torch.core.transport import Transport
+from repro_torch.launch.mesh import make_serving_pod_mesh
 from repro_torch.models import kvcache as kvc
 from repro_torch.serving.engine import (
     PAGE,
     PrefillArtifact,
     ServingEngine,
     _next_pow2,
+)
+from repro_torch.sharding.partition import (
+    NamedSharding,
+    place_on_slice,
+    pod_slice_mesh,
 )
 
 HANDOFF_BLOCK = 16  # smallest moved KV prefix, in ring slots
@@ -73,10 +86,81 @@ _META_BYTES = 16
 _META_BYTES_PAGED = 20
 
 
+make_pod_mesh = make_serving_pod_mesh  # the JAX tier's re-export
+
+
+@dataclasses.dataclass(frozen=True)
+class PodPlacement:
+    """Which pod-axis slices the two serving stages live on (the JAX
+    package's ``PodPlacement``).
+
+    ``prefill_pods`` / ``decode_pods`` are index tuples into the mesh's
+    "pod" axis. A stage runs on its slice's first device: its params are
+    placed there (:func:`~repro_torch.sharding.partition.place_on_slice`),
+    and the decode stage's pool lives there. The hop copies from
+    ``prefill_pods[0]``'s device to ``decode_pods[0]``'s. Slices may
+    overlap: the 1-pod mesh collapses both onto one device (``disjoint``
+    False). Disjoint pods of a hand-built mesh that repeats a device run
+    the stages' code apart on one device."""
+
+    mesh: object
+    prefill_pods: tuple
+    decode_pods: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "prefill_pods", tuple(self.prefill_pods))
+        object.__setattr__(self, "decode_pods", tuple(self.decode_pods))
+        # pod_slice_mesh validates indices; each slice's mesh built once
+        object.__setattr__(self, "_prefill_mesh",
+                           pod_slice_mesh(self.mesh, self.prefill_pods))
+        object.__setattr__(self, "_decode_mesh",
+                           pod_slice_mesh(self.mesh, self.decode_pods))
+
+    @classmethod
+    def from_mesh(cls, mesh, prefill_pod: int = 0,
+                  decode_pod=None) -> "PodPlacement":
+        """One pod a stage: prefill on ``prefill_pod``, decode on
+        ``decode_pod`` (default: the last pod)."""
+        npods = mesh.shape["pod"]
+        decode_pod = (npods - 1) if decode_pod is None else decode_pod
+        return cls(mesh, (prefill_pod,), (decode_pod,))
+
+    @property
+    def disjoint(self) -> bool:
+        """True when the stages share no pod -- a two-pool split."""
+        return not set(self.prefill_pods) & set(self.decode_pods)
+
+    def prefill_sharding(self, spec: tuple = ()) -> NamedSharding:
+        """Sharding scoped to the prefill slice (replicated by default)."""
+        return NamedSharding(self._prefill_mesh, spec)
+
+    def decode_sharding(self, spec: tuple = ()) -> NamedSharding:
+        """Sharding scoped to the decode slice (replicated by default)."""
+        return NamedSharding(self._decode_mesh, spec)
+
+    def prefill_devices(self) -> tuple:
+        return self._prefill_mesh.device_list
+
+    def decode_devices(self) -> tuple:
+        return self._decode_mesh.device_list
+
+
 class DisaggregatedEngine(ServingEngine):
     """ServingEngine whose prefill output crosses the prefill->decode hop
     under ``transfer_mode`` before it reaches the decode slot pool. Every
     other argument is the fused engine's.
+
+    ``placement`` True (the default) derives a :class:`PodPlacement` from
+    ``mesh`` (default :func:`make_pod_mesh` over the engine's device type),
+    ``prefill_pod`` and ``decode_pod`` (default the last pod), and runs
+    each stage on its pod's device with its own params
+    (``prefill_params`` / ``decode_params``; equal slices share one copy,
+    and a tensor is copied once a distinct device); pass a PodPlacement
+    over ``mesh`` for other slices, or False for both stages on ``device``
+    with ``params`` as given. A placement over another mesh, and a mesh
+    with another non-trivial axis than "pod" under placement, raise (the
+    JAX tier's errors). ``_placed`` (device -> params already there) lets
+    a cluster share the copies among its replicas.
 
     ``warmup=True`` runs the fused engine's :meth:`~ServingEngine.warm`
     once the tier is built (its prefix store included). The JAX tier also
@@ -86,11 +170,56 @@ class DisaggregatedEngine(ServingEngine):
 
     def __init__(self, model, params, *,
                  transfer_mode: TransferMode = TransferMode.DIRECT_HBM,
-                 warmup: bool = False, **kw):
+                 mesh=None, prefill_pod: int = 0, decode_pod=None,
+                 placement=True, warmup: bool = False, device="cuda",
+                 _placed=None, **kw):
         if kw.get("legacy"):
             raise ValueError("the disaggregated tier requires the fast path "
                              "(legacy=True is the fused engine's baseline)")
-        super().__init__(model, params, **kw)
+        dev = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_pod_mesh(
+            device=dev.type)
+        self.npods = self.mesh.shape["pod"]
+        self.prefill_pod = prefill_pod
+        self.decode_pod = (self.npods - 1) if decode_pod is None \
+            else decode_pod
+        self.placement = None
+        prefill_params = decode_params = params
+        decode_dev = None
+        if placement:
+            if placement is True:
+                placement = PodPlacement.from_mesh(
+                    self.mesh, prefill_pod=self.prefill_pod,
+                    decode_pod=self.decode_pod)
+            if placement.mesh != self.mesh:
+                raise ValueError("placement.mesh differs from engine mesh")
+            if self.mesh.size != self.npods:
+                # a stage runs on one device a pod slot
+                raise ValueError(
+                    "per-pod placement requires a mesh whose only "
+                    f"non-trivial axis is 'pod' (got {self.mesh.shape}); "
+                    "pass placement=False for multi-axis meshes")
+            kinds = {d.type for d in self.mesh.device_list}
+            if kinds != {dev.type}:
+                raise ValueError(f"mesh devices {sorted(kinds)} are not the "
+                                 f"engine's {dev.type!r}")
+            self.placement = placement
+            # the hop's endpoints follow the placement
+            self.prefill_pod = placement.prefill_pods[0]
+            self.decode_pod = placement.decode_pods[0]
+            dev = placement.prefill_devices()[0]
+            decode_dev = placement.decode_devices()[0]
+            placed = {} if _placed is None else _placed
+            # one copy a device: equal slices share it
+            prefill_params = self._params_on(params, placement.prefill_pods,
+                                             placed)
+            decode_params = self._params_on(params, placement.decode_pods,
+                                            placed)
+            model = model.on(dev)
+        super().__init__(model, prefill_params, device=dev,
+                         _decode_device=decode_dev, **kw)
+        self.prefill_params = prefill_params
+        self.decode_params = decode_params
         self.transfer_mode = transfer_mode
         self.hop = MODE_TRANSPORT[transfer_mode]
         self.handoffs = 0
@@ -109,7 +238,8 @@ class DisaggregatedEngine(ServingEngine):
             for g, group in model.cache_specs(self.max_batch,
                                               self.max_seq).items()}
         # the hop's buffers, grown to the largest extent seen
-        self._bufs = xfer.HopBuffers(transfer_mode, self.device)
+        self._bufs = xfer.HopBuffers(transfer_mode, self.device,
+                                     self.pool.device)
         if self.prefix_reuse:
             # prefill-side prefix store: suffix prefills gather their prior
             # here, and its blocks pair 1:1 with decode-pool blocks in the
@@ -122,6 +252,14 @@ class DisaggregatedEngine(ServingEngine):
                 device=self.device)
         if warmup:
             self.warm_s = self.warm()
+
+    def _params_on(self, params, pods, placed: dict):
+        """``params`` placed on the ``pods`` slice (its first device), once
+        a device: ``placed`` maps a device to the copy made there."""
+        device = pod_slice_mesh(self.mesh, pods).first_device
+        if device not in placed:
+            placed[device] = place_on_slice(params, self.mesh, pods)
+        return placed[device]
 
     # ------------------------------------------------------------------ #
     def _measured(self) -> bool:

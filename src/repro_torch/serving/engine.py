@@ -126,7 +126,9 @@ class _HostCopy:
             self.tokens.copy_(tokens, non_blocking=True)
             self.done.copy_(done, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            # the copies run on the pool device's stream, whichever device
+            # is current
+            self.event.record(torch.cuda.current_stream(tokens.device))
         else:
             self.tokens, self.done = tokens.clone(), done.clone()
             self.event = None
@@ -304,8 +306,9 @@ class DecodePool:
     # ------------------------------------------------------------------ #
     def note_logits(self, logits):
         """Fold a batch of logits into the device-side finiteness flag
-        (no host sync)."""
-        self.logits_finite &= torch.isfinite(logits).all()
+        (no host sync); a prefill's logits may live on another device (a
+        placed prefill stage)."""
+        self.logits_finite &= torch.isfinite(logits).all().to(self.device)
 
     def sample(self, logits, rng: torch.Generator):
         """Next-token choice on device: argmax at temperature 0 (first
@@ -494,10 +497,15 @@ class DecodePool:
 
     def fill_one(self, params, limit: int) -> bool:
         """Dispatch one decode step if the in-flight window has room
-        (``limit`` caps it below ``inflight``)."""
+        (``limit`` caps it below ``inflight``), with the pool's device
+        current (the capture and the kernels' launches are that card's)."""
         if len(self.window) >= min(self.inflight, limit):
             return False
-        self._decode(params)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._decode(params)
+        else:
+            self._decode(params)
         self.window.append(_InFlight(tuple(self.slots),
                                      _HostCopy(self.tokens, self.done)))
         return True
@@ -537,6 +545,10 @@ class ServingEngine:
 
     ``device`` defaults to CUDA and must be the model's device; with no
     CUDA device the constructor raises unless ``device="cpu"`` is given.
+    Prefill runs there with ``params``; the decode pool runs on the same
+    device with ``decode_params`` (``params`` itself) unless a subclass
+    places it elsewhere (``_decode_device``: the disaggregated tier's
+    decode slice).
     """
 
     def __init__(
@@ -562,6 +574,7 @@ class ServingEngine:
         trace_tag: str = "engine",
         device="cuda",
         _graph: bool = True,
+        _decode_device=None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -594,6 +607,7 @@ class ServingEngine:
                 f"attention-only stack, legacy=False): {model.cfg.name}")
         self.model = model
         self.params = params
+        self.decode_params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.transport = transport
@@ -645,7 +659,8 @@ class ServingEngine:
         self.store = ProfileStore()
         self.queue: deque[Request] = deque()
         self.pool = DecodePool(
-            model, max_batch=max_batch, max_seq=max_seq, eos_token=eos_token,
+            model if _decode_device is None else model.on(_decode_device),
+            max_batch=max_batch, max_seq=max_seq, eos_token=eos_token,
             inflight=self.inflight, temperature=temperature, top_k=top_k,
             sample_seed=sample_seed, paged=self.paged, graph=_graph,
         )
@@ -914,7 +929,7 @@ class ServingEngine:
             _, suffix, _ = self.model.prefill_suffix_dense(
                 self.params, zeros(1, C), zeros(1, fill=1), zeros(1), prior)
             kvc.splice_suffix(prior, suffix, zeros(1))
-        self.pool.fill_one(self.params, limit=1)  # on CUDA: the capture
+        self.pool.fill_one(self.decode_params, limit=1)  # CUDA: the capture
         self.pool.reset_state()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -1445,7 +1460,7 @@ class ServingEngine:
             self._trace_flush_window()  # a window never spans an idle gap
             self._t_mark = time.perf_counter()
         limit = self._window_limit()
-        while self.pool.fill_one(self.params, limit=limit):
+        while self.pool.fill_one(self.decode_params, limit=limit):
             self.decode_steps += 1
 
     def _harvest(self) -> list[Response]:

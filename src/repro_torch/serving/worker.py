@@ -8,9 +8,12 @@ listening socket, answers the ``hello`` clock handshake, then receives an
 ``init`` spec and builds its OWN copy of the serving stack in this
 process:
 
-* its own CUDA context on the spec's device (``"cuda"`` by default; a
-  worker that finds no card raises through the init reply and never
-  carries on on the CPU -- ``"cpu"`` only when the spec asks for it);
+* its own CUDA context on the spec's devices (``devices``, the card
+  indices the cluster handed this replica, else ``device``: ``"cuda"`` by
+  default; a worker that finds no card raises through the init reply and
+  never carries on on the CPU -- ``"cpu"`` only when the spec asks for
+  it); a disaggregated engine places its two stages on a ``('pod',)`` mesh
+  over those devices, a fused one runs on the first;
 * the model and params, rebuilt from ``param_seed`` with
   ``torch.Generator(device=dev).manual_seed(seed)`` on that device, as an
   in-process build of the same seed draws them: params cross the process
@@ -56,7 +59,9 @@ def _build_pipeline(spec: dict):
     from repro_torch.models import Model
     from repro_torch.serving.engine import EnginePipeline, ServingEngine
 
-    dev = resolve_device(spec.get("device", "cuda"))
+    devices = [resolve_device(d) for d in
+               spec.get("devices") or [spec.get("device", "cuda")]]
+    dev = devices[0]
     model = Model(spec["cfg"], dtype=getattr(torch, spec.get("dtype",
                                                              "bfloat16")),
                   device=dev)
@@ -73,7 +78,11 @@ def _build_pipeline(spec: dict):
     if spec.get("engine", "fused") == "disagg":
         from repro_torch.serving.disagg import DisaggregatedEngine
 
-        eng = DisaggregatedEngine(model, params, device=dev, **engine_kw)
+        from repro_torch.launch.mesh import DeviceMesh
+
+        eng = DisaggregatedEngine(model, params, device=dev,
+                                  mesh=DeviceMesh(devices, ("pod",)),
+                                  **engine_kw)
     else:
         eng = ServingEngine(model, params, device=dev, **engine_kw)
     return EnginePipeline(eng, backlog=int(spec.get("backlog", 2)))

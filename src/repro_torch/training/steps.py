@@ -36,20 +36,24 @@ def make_train_step(model, opt_cfg: Optional[AdamWConfig] = None):
     return train_step
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, shard_ctx=None):
     """``prefill_step(params, batch)``: ``Model.prefill`` on the batch's
-    ``tokens`` (and ``features``)."""
+    ``tokens`` (and ``features``), under ``shard_ctx`` if given."""
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], batch.get("features"))
+        return model.prefill(params, batch["tokens"], batch.get("features"),
+                             shard_ctx=shard_ctx)
 
     return prefill_step
 
 
-def make_serve_step(model):
-    """Decode: ONE token against the KV cache (``Model.decode_step``)."""
+def make_serve_step(model, shard_ctx=None):
+    """Decode: ONE token against the KV cache (``Model.decode_step``, under
+    ``shard_ctx`` if given: its params and caches laid out by
+    ``sharding.partition.place_for_ctx``)."""
 
     def serve_step(params, caches, tokens, lengths):
-        return model.decode_step(params, caches, tokens, lengths)
+        return model.decode_step(params, caches, tokens, lengths,
+                                 shard_ctx=shard_ctx)
 
     return serve_step

@@ -30,6 +30,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import trace  # noqa: E402
 from repro_torch.core.transfer import TransferMode  # noqa: E402
 from repro_torch.core.transport import Transport  # noqa: E402
+from repro_torch.launch.mesh import DeviceMesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -377,9 +378,14 @@ def test_cluster_build_validates(models):
     _, _, tm, tp = models
     with pytest.raises(ValueError, match="at least one replica"):
         ServingCluster([])
-    for knob in ("mesh", "pods_per_replica"):
-        with pytest.raises(ValueError, match="one card"):
-            ServingCluster.build(tm, tp, device="cpu", **{knob: 1}, **KW)
+    with pytest.raises(ValueError, match="pods_per_replica >= 1"):
+        ServingCluster.build(tm, tp, device="cpu", pods_per_replica=0, **KW)
+    with pytest.raises(ValueError, match="mesh has no 'pod' axis"):
+        ServingCluster.build(tm, tp, device="cpu", mesh=DeviceMesh(
+            ["cpu"], ("data",)), **KW)
+    with pytest.raises(ValueError, match="devices_per_replica"):
+        ServingCluster.build(tm, tp, device="cpu", backend="process",
+                             mesh=DeviceMesh(["cpu"], ("pod",)), **KW)
     with pytest.raises(ValueError, match="engine must be"):
         ServingCluster.build(tm, tp, engine="split", device="cpu", **KW)
     with pytest.raises(ValueError, match="backend must be"):

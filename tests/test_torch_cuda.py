@@ -1273,8 +1273,11 @@ def test_pipeline_unwarmed_captures_on_dispatch_thread(cuda_device):
 def test_cluster_replicas_replay_their_own_graphs(cuda_device):
     """A 2-replica in-process cluster on one card: the replicas share the
     params, each captures and replays its own decode graph, and the tokens
-    equal independent engines' fed what each replica was routed."""
+    equal independent engines' fed what each replica was routed. (The pod
+    mesh names the card twice: the default mesh would spread the replicas
+    over the cards a host has.)"""
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DeviceMesh
     from repro_torch.serving import Request, ServingCluster, ServingEngine
 
     cfg = get_config("llama3-8b").reduced()
@@ -1285,7 +1288,9 @@ def test_cluster_replicas_replay_their_own_graphs(cuda_device):
     kw = dict(max_batch=2, max_seq=128)
     cl = ServingCluster.build(model, params, n_replicas=2,
                               policy="round_robin", warmup=True,
-                              device=cuda_device, **kw)
+                              device=cuda_device,
+                              mesh=DeviceMesh([cuda_device] * 2, ("pod",)),
+                              **kw)
     reqs = [Request(prompt_tokens=t.copy(), max_new_tokens=10)
             for t in prompts]
     for r in reqs:
@@ -2045,3 +2050,210 @@ def test_backward_functions_under_checkpoint(cuda_device, dtype):
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         assert n_plain[name] == 1 and n_remat[name] == 1
     assert all(torch.equal(a, b) for a, b in zip(plain, remat))
+
+
+# --------------------------------------------------------------------------- #
+# the decode kernels' lse output and the sequence-sharded decode
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_decode_kernel_lse_matches_plain(cuda_device, dtype):
+    """The ring kernel's lse (fp32 [B, H]) against the plain version's at a
+    shard's shape -- 512 slots, rows of 0 (no valid slot: lse -inf, out 0),
+    1, a short row and a full one -- at the launcher's split count and
+    each forced count; ``out`` bitwise the same with lse on and off."""
+    B, W, H, Hkv, hd = 6, 512, 32, 8, 128
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(s, generator=g).to(cuda_device, TDT[dtype])
+               for s in ((B, 1, H, hd), (B, W, Hkv, hd), (B, W, Hkv, hd)))
+    lens = torch.tensor([0, 1, 33, 200, 511, 512], dtype=torch.int32,
+                        device=cuda_device)
+    want, want_lse = ref.decode_attention_ref(q, k, v, lens, return_lse=True)
+    ops.reset_launches()
+    plain = ops.decode_attention(q, k, v, lens)
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    assert ops.LAUNCHES["decode_attention"] == 2
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.isneginf(lse[0]).all() and not out[0].any()
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOLS[dtype],
+                               rtol=1e-2)
+    for splits in (1, 2, 8):
+        buf = torch.empty((B, H), dtype=torch.float32, device=cuda_device)
+        o = _dec.launch(q, k, v, lens, scale=hd ** -0.5, w_real=W, lse=buf,
+                        _splits=splits)
+        assert torch.equal(o, _dec.launch(q, k, v, lens, scale=hd ** -0.5,
+                                          w_real=W, _splits=splits))
+        assert torch.isneginf(buf[0]).all()
+        torch.testing.assert_close(buf[1:], want_lse[1:], atol=1e-4,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("H", [16, 128])
+def test_mla_decode_kernel_lse_matches_plain(cuda_device, dtype, H):
+    """The MLA kernel's lse, from both bodies (bf16 on wgmma, fp32 on the
+    CUDA cores), at one CTA a row and at several, against the plain
+    version's; an empty row gives -inf and zeros; ``out`` bitwise the same
+    with lse on and off."""
+    from repro_torch.kernels import mla_decode_attention as _mla
+
+    B, W = 5, 512
+    q_lat, q_rope, ckv, krope = _mla_case(B, W, H, dtype, cuda_device, 21)
+    lens = torch.tensor([0, 1, 64, 300, 512], dtype=torch.int32,
+                        device=cuda_device)
+    scale = 192 ** -0.5
+    want, want_lse = ref.mla_decode_attention_ref(
+        q_lat, q_rope, ckv, krope, lens, scale=scale, return_lse=True)
+    plain = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
+                                     scale=scale)
+    out, lse = ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lens,
+                                        scale=scale, return_lse=True)
+    assert torch.equal(out, plain)
+    assert torch.isneginf(lse[0]).all() and not out[0].any()
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-4, rtol=1e-5)
+    for splits in (1, 3, 8):
+        buf = torch.empty((B, H), dtype=torch.float32, device=cuda_device)
+        o = _mla.launch(q_lat, q_rope, ckv, krope, lens, scale=scale,
+                        lse=buf, _splits=splits)
+        assert torch.equal(o, _mla.launch(q_lat, q_rope, ckv, krope, lens,
+                                          scale=scale, _splits=splits))
+        torch.testing.assert_close(o.float(), want.float(),
+                                   atol=TOLS[dtype], rtol=1e-2)
+        assert torch.isneginf(buf[0]).all()
+        torch.testing.assert_close(buf[1:], want_lse[1:], atol=1e-4,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-236b"])
+def test_sharded_decode_step_on_a_1x4_mesh_of_the_card(cuda_device, arch):
+    """decode_step under DECODE_32K's rules on a 1 x 4 mesh that names the
+    card four times (the caches split 4 ways by sequence, the table 4 ways
+    by vocab) against the unsharded step on the same weights and caches,
+    fp32: logits within 1e-4 of the largest; the decode kernel launched
+    once a shard and layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import Model
+    from repro_torch.sharding.partition import make_ctx, place_for_ctx
+
+    cfg = _mla_card_cfg() if arch != "llama3-8b" else \
+        get_config(arch).reduced()
+    model = Model(cfg, dtype=torch.float32, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    B, W = 4, 256
+    caches = model.init_cache(B, W)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for grp in caches.values():
+        for blk in grp:
+            for leaves in blk.values():
+                for t in leaves.values():
+                    t.normal_(0.0, 0.5, generator=g)
+    plain = {gn: [{ln: {k: t.clone() for k, t in lv.items()}
+                   for ln, lv in blk.items()} for blk in grp]
+             for gn, grp in caches.items()}
+    mesh = DeviceMesh([[cuda_device] * 4], ("data", "model"))
+    ctx = make_ctx(cfg, mesh, DECODE_32K)
+    pp, cc = place_for_ctx(model, ctx, params, caches)
+    lens = torch.tensor([3, 70, 130, 300], dtype=torch.int32,
+                        device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (B, 2), device=cuda_device,
+                         dtype=torch.int32)
+    kernel = "mla_decode_attention" if cfg.mla else "decode_attention"
+    lens_p = lens.clone()
+    for t in range(2):
+        ops.reset_launches()
+        got, cc, lens = model.decode_step(pp, cc, toks[:, t:t + 1], lens,
+                                          shard_ctx=ctx)
+        assert ops.LAUNCHES[kernel] == 4 * cfg.n_layers
+        want, plain, lens_p = model.decode_step(params, plain,
+                                                toks[:, t:t + 1], lens_p)
+        top = float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=1e-4 * top, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card_while_the_first_is_current(
+        cuda_device):
+    """A kernel call for cuda:1 issued with cuda:0 current runs on cuda:1
+    (``build.CFunction`` switches the current device for the call), and
+    the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch for the second card while "
+                    "the first is current cannot be shown on one")
+    dev1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 4096, generator=g).to(dev1, torch.bfloat16)
+    w = torch.randn(4096, generator=g).to(dev1, torch.bfloat16)
+    q = torch.randn(4, 1, 32, 128, generator=g).to(dev1, torch.bfloat16)
+    k = torch.randn(4, 512, 8, 128, generator=g).to(dev1, torch.bfloat16)
+    lens = torch.tensor([0, 5, 300, 512], dtype=torch.int32, device=dev1)
+    got = ops.rmsnorm(x, w)
+    out, lse = ops.decode_attention(q, k, k, lens, return_lse=True)
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev1)
+    torch.testing.assert_close(got.float(), ref.rmsnorm_ref(x, w).float(),
+                               atol=TOLS["bf16"], rtol=1e-2)
+    want, want_lse = ref.decode_attention_ref(q, k, k, lens, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOLS["bf16"],
+                               rtol=1e-2)
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sharded_decode_step_across_cards(cuda_device):
+    """The sequence- and vocab-sharded decode with each shard on its own
+    card (a 1 x 2 or 1 x 4 mesh of distinct cards: the blocks copied to
+    their cards, each shard's kernel launched there, the partials summed
+    on the first card) against the unsharded step on the first, fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models import Model
+    from repro_torch.sharding.partition import make_ctx, place_for_ctx
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards: shards on distinct cards cannot be "
+                    "shown on one")
+    n = 4 if n >= 4 else 2
+    dev0 = torch.device("cuda", 0)
+    cfg = get_config("llama3-8b").reduced()
+    model = Model(cfg, dtype=torch.float32, device=dev0)
+    params = model.init(torch.Generator(device=dev0).manual_seed(0))
+    caches = model.init_cache(4, 256)
+    g = torch.Generator(device=dev0).manual_seed(1)
+    for grp in caches.values():
+        for blk in grp:
+            for leaves in blk.values():
+                for t in leaves.values():
+                    t.normal_(0.0, 0.5, generator=g)
+    plain = {gn: [{ln: {k: t.clone() for k, t in lv.items()}
+                   for ln, lv in blk.items()} for blk in grp]
+             for gn, grp in caches.items()}
+    mesh = DeviceMesh([[torch.device("cuda", i) for i in range(n)]],
+                      ("data", "model"))
+    ctx = make_ctx(cfg, mesh, DECODE_32K)
+    pp, cc = place_for_ctx(model, ctx, params, caches)
+    leaf = cc["g0"][0]["l0"]["k"]
+    assert {t.device for t in leaf.locals.values()} == set(mesh.device_list)
+    lens = torch.tensor([3, 70, 130, 255], dtype=torch.int32, device=dev0)
+    lens_p = lens.clone()
+    toks = torch.randint(0, cfg.vocab_size, (4, 2), device=dev0,
+                         dtype=torch.int32)
+    for t in range(2):
+        got, cc, lens = model.decode_step(pp, cc, toks[:, t:t + 1], lens,
+                                          shard_ctx=ctx)
+        want, plain, lens_p = model.decode_step(params, plain,
+                                                toks[:, t:t + 1], lens_p)
+        assert got.device == dev0
+        top = float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=1e-4 * top, rtol=0)
+    whole = leaf.gather()
+    torch.testing.assert_close(whole, plain["g0"][0]["l0"]["k"], atol=1e-4,
+                               rtol=0)
