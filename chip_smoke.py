@@ -269,7 +269,23 @@ result line:
    prints ``devices: 1`` and the branch it ran.
    Bounds in phase 2 and phase 16's share of peak come from the package's
    ``kernel_work`` (``kernels/work.py``), ``train_step_flops`` and
-   constants, read through ``launch/roofline.py``.
+   constants, read through ``launch/roofline.py``;
+19. training on a device mesh (runs after phase 17; see
+   :func:`mesh_train_path`): (a) phase 16's llama3-8b (8 of 32 layers,
+   [2, 4096], bf16, full remat) on a 2 x 2 (data, model) mesh naming the
+   card four times under ``train_4k``'s rules -- FSDP over data; heads,
+   kv heads, FFN and vocab over model; the residual sequence-sharded --
+   3 AdamW steps through ``train(..., shard_ctx=)``: losses falling,
+   launches a computing slot's ``train_structure``, one step profiled
+   beside phase 16's unsharded one (busy, idle, peak); (b) llama3-8b at
+   2 layers, fp32, [2, 512], the card's sharded loss and gradients
+   against the CPU's (loss 1e-5 relative, each leaf 5e-4 of its largest,
+   embed 5e-3); (c) deepseek-v2's layer 0 (MLA, the flash backward at
+   (192, 128) on 64 heads a slot): one bf16 step at [2, 4096], its fp32
+   gate at [1, 512] as (b); (d) with two cards or more, llama3-8b's 32
+   layers through the launcher's full-config branch (data = the cards),
+   4 steps, the trained params' loss on the first batch below the first
+   step's; on one card it prints that it needs two and runs nothing.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -704,6 +720,12 @@ def main():
     results["dryrun"] = dryrun_path(results["train"])
     done(t0)
 
+    t0 = phase("phase 19: training on a device mesh: FSDP over data, "
+               "tensor and sequence parallelism over model, the "
+               "vocab-parallel loss")
+    results["mesh_train"] = mesh_train_path(torch, ops, dev, results["train"])
+    done(t0)
+
     # each kernel's launches come from the run of the path that carries it:
     # the ring path (phase 4) for rmsnorm/flash/ring decode, the paged path
     # with reuse (phase 6 (c)) for paged decode, the SSM path (phase 7) for
@@ -736,6 +758,9 @@ def main():
         "train": results["train"]["launches"],
         "serve": results["train"]["serve"]["launches"],
         **{arch: r["launches"] for arch, r in results["train_family"].items()}}
+    results["phase19_launches"] = {
+        "llama3_2x2": results["mesh_train"]["a"]["launches"],
+        "deepseek_layer0_2x2": results["mesh_train"]["c"]["launches"]}
     results["phase15_launches"] = {
         k: {"prefill": v["prefill_launches"],
             "decode_step": v["decode_launches_a_step"]}
@@ -5732,11 +5757,13 @@ def train_serve(torch, ops, model, params):
             "tokens": [r.tokens for r in out]}
 
 
-def train_step_profile(torch, model, params, state, data, opt, time_alone=True):
+def train_step_profile(torch, model, params, state, data, opt, time_alone=True,
+                       shard_ctx=None):
     """One more training step under torch.profiler (device busy by part,
     idle share of the step's wall, the backward kernels' share of busy),
     and with ``time_alone`` cross-entropy, the embedding's backward and the
-    optimizer's update each timed alone (CUDA events)."""
+    optimizer's update each timed alone (CUDA events). With ``shard_ctx``
+    the step is the sharded one, on params placed for it."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5748,10 +5775,11 @@ def train_step_profile(torch, model, params, state, data, opt, time_alone=True):
     from repro_torch.training.steps import make_train_step
 
     dev = model.device
-    p = tree_map(lambda t: t.detach(), params)  # own leaf objects
+    p = tree_map(lambda t: t.detach() if shard_ctx is None  # own leaves
+                 else t.map_parts(torch.Tensor.detach), params)
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in next(make_dataset(data).batches()).items()}
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, shard_ctx)
     p, state, _ = step(p, state, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -6350,6 +6378,363 @@ def mesh_path(torch, ops, llama, disagg):
           "disaggregated", flush=True)
     return out
 
+
+
+# --------------------------------------------------------------------------- #
+# phase 19: training on a device mesh
+# --------------------------------------------------------------------------- #
+MESH_TRAIN_SHAPE = (2, 2)  # (data, model) slots, each naming the one card
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LR = 1e-6
+MESH_CHECK = dict(layers=2, batch=(2, 512))  # (b): llama3-8b, fp32
+MESH_MLA_BATCH = (1, 512)  # (c)'s fp32 gate
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_TOL = 5e-4  # of a leaf's largest |gradient|; embed MESH_EMBED_TOL
+MESH_EMBED_TOL = 5e-3
+MULTI_CARD_STEPS = 4
+
+
+def card_mesh(torch, dev, shape=MESH_TRAIN_SHAPE):
+    from repro_torch.launch.mesh import DeviceMesh
+
+    import numpy as np
+
+    devs = np.empty(shape, dtype=object)
+    devs.flat[:] = [dev] * math.prod(shape)
+    return DeviceMesh(devs, ("data", "model"))
+
+
+def train_ctx(cfg, mesh, batch):
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.sharding.partition import make_ctx
+
+    B, S = batch
+    return make_ctx(cfg, mesh, InputShape("train_4k", seq_len=S,
+                                          global_batch=B, kind="train"))
+
+
+def sharded_structure(cfg, steps, ctx, batch):
+    """:func:`train_structure` a computing slot: every slot of a sharded
+    step that computes runs its own flash (its head shard of its batch
+    rows) and rmsnorm (its block of positions) launches, forward,
+    recompute and backward. Where the batch does not split over ``data``
+    (a batch of 1 on 2 x 2) only the slots of data index 0 compute
+    (``SlotPass.coords``)."""
+    from repro_torch.sharding.partition import SlotPass
+
+    slots = len(SlotPass(ctx, *batch).coords)
+    return {k: v * slots for k, v in train_structure(cfg, steps).items()}
+
+
+def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded):
+    """(a) ``repro_torch.training.train(..., shard_ctx=)``:
+    MESH_TRAIN_STEPS AdamW steps of ``cfg`` (full remat, bf16) on a
+    MESH_TRAIN_SHAPE mesh that names the card in every slot, phase 16's
+    batches; gates: finite and falling losses, launches ==
+    :func:`sharded_structure`; one more step profiled beside phase 16's
+    unsharded step (``unsharded``: its record)."""
+    from repro_torch.launch.train import STATE_BYTES_PER_PARAM, param_count
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
+
+    B, S = batch
+    mesh = card_mesh(torch, dev)
+    ctx = train_ctx(cfg, mesh, batch)
+    model = Model(cfg, remat=True, remat_policy="full", device=dev)
+    n_params = param_count(model)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                      seed=0)
+    # AdamW's first steps move every weight by about lr (the update is the
+    # gradient's sign): from random weights phase 16's lr of 1e-3 spikes
+    # the loss on an H100 (12.6, 21.8, 13.8, 35.5) before it falls, and so
+    # does 1e-4 (12.6, 15.9, 13.0); MESH_TRAIN_LR keeps the steps small
+    opt = AdamWConfig(lr=MESH_TRAIN_LR, warmup_steps=1,
+                      total_steps=MESH_TRAIN_STEPS)
+    print(f"   {label}: {n_params:,} parameters, "
+          f"{STATE_BYTES_PER_PARAM * n_params / 1e9:.1f} GB of state on a "
+          f"{mesh.sizes[0]} x {mesh.sizes[1]} (data, model) mesh of {dev}; "
+          f"rules embed={ctx.rules['embed']} act_seq={ctx.rules['act_seq']} "
+          f"heads={ctx.rules['heads']} kv_heads={ctx.rules['kv_heads']} "
+          f"ffn={ctx.rules['ffn']} vocab={ctx.rules['vocab']}; batch "
+          f"[{B}, {S}], remat full, {MESH_TRAIN_STEPS} steps", flush=True)
+    events = []
+
+    def log(msg):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        print(f"   {msg}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, state, hist = train(model, data, TrainConfig(
+        steps=MESH_TRAIN_STEPS, log_every=1, seed=0), opt, shard_ctx=ctx,
+        log_fn=log)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    marks = [start] + events
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    want = sharded_structure(cfg, MESH_TRAIN_STEPS, ctx, batch)
+    print(f"   launches {launches}; expected {want} ({mesh.size} slots x "
+          f"train_structure)")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    blocks = {}
+    for name, leaf in (("embed", params["embed"]),
+                       ("wq", params["decoder"]["g0"][0]["l0"]["attn"]["wq"]),
+                       ("m embed", state.m["embed"])):
+        blocks[name] = {"spec": list(map(str, leaf.spec)),
+                        "block": list(leaf.parts()[0].shape),
+                        "parts": len(leaf.parts()),
+                        "device": str(leaf.parts()[0].device)}
+    print(f"   blocks: {blocks}", flush=True)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+           "mesh": list(mesh.sizes), "rules": {k: str(v) for k, v in
+                                               ctx.rules.items()},
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "launches": launches, "step_ms": step_ms,
+           "peak_mem_gb": peak / 1e9, "blocks": blocks}
+    prof = train_step_profile(torch, model, params, state, data, opt,
+                              time_alone=False, shard_ctx=ctx)
+    res["profile"] = prof
+    base = unsharded.get("profile", {})
+    if prof.get("device_busy_ms") and base.get("device_busy_ms"):
+        res["busy_ratio"] = prof["device_busy_ms"] / base["device_busy_ms"]
+        print(f"   sharded step: busy {prof['device_busy_ms']:.1f} ms, idle "
+              f"share {prof['device_idle_share']:.3f}, host wall "
+              f"{prof['host_wall_ms']:.1f} ms; phase 16's unsharded step "
+              f"in this run: busy {base['device_busy_ms']:.1f} ms, idle "
+              f"share {base['device_idle_share']:.3f}, host wall "
+              f"{base['host_wall_ms']:.1f} ms; busy ratio "
+              f"{res['busy_ratio']:.3f}; peak {peak / 1e9:.2f} GB sharded "
+              f"against {unsharded.get('peak_mem_gb', float('nan')):.2f} GB "
+              f"unsharded", flush=True)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label):
+    """(b)/(c)'s gate: ``cfg`` in fp32, one sharded loss and gradient on a
+    MESH_TRAIN_SHAPE mesh of the card against the same on a mesh of the
+    CPU (the plain versions), the same weights and batch: the loss within
+    MESH_LOSS_RTOL, every gradient leaf within MESH_GRAD_TOL of its largest
+    entry (``embed`` MESH_EMBED_TOL); launches == :func:`sharded_structure`
+    for one step."""
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.sharding.partition import (
+        place_for_train,
+        tree_parts,
+        tree_with_parts,
+    )
+    from repro_torch.training.data import DataConfig, make_dataset
+
+    B, S = batch
+    gpu = Model(cfg, dtype=torch.float32, device=dev, remat=True)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    whole = gpu.init(torch.Generator(device=dev).manual_seed(0))
+    whole_cpu = tree_map(lambda t: t.cpu(), whole)
+    data = next(make_dataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+        seed=0)).batches())
+
+    def grads(model, mesh, tree):
+        ctx = train_ctx(cfg, mesh, batch)
+        placed = place_for_train(model, ctx, tree)
+        parts = tree_parts(placed)
+        for p in parts:
+            p.requires_grad_(True)
+        loss = model.loss(placed, {k: torch.as_tensor(v, device=model.device)
+                                   for k, v in data.items()}, shard_ctx=ctx)
+        g = torch.autograd.grad(loss, parts, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x
+             for x, p in zip(g, parts)]
+        return float(loss.detach()), [
+            t.sum_copies().gather("cpu")
+            for t in tree_leaves(tree_with_parts(placed, g))]
+
+    ops.reset_launches()
+    lg, gg = grads(gpu, card_mesh(torch, dev), whole)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = sharded_structure(cfg, 1, train_ctx(cfg, card_mesh(torch, dev),
+                                               batch), batch)
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches} != {want}")
+    del whole
+    t0 = time.perf_counter()
+    lc, gc_ = grads(cpu, card_mesh(torch, torch.device("cpu")), whole_cpu)
+    cpu_s = time.perf_counter() - t0
+    gaps = {k: leaf_gap(a.double(), b.double())
+            for k, a, b in zip(_leaf_names(cpu.schema()), gg, gc_)}
+    worst_embed = gaps["embed"]
+    worst = max(v for k, v in gaps.items() if k != "embed")
+    loss_rel = abs(lg - lc) / abs(lc)
+    print(f"   {label}: card vs CPU, both sharded on {MESH_TRAIN_SHAPE[0]} x "
+          f"{MESH_TRAIN_SHAPE[1]}, fp32, [{B}, {S}]: loss {lg:.6f} / {lc:.6f} "
+          f"(relative {loss_rel:.2e}, limit {MESH_LOSS_RTOL}); worst gradient "
+          f"leaf {worst:.2e} of its largest entry over {len(gg) - 1} leaves "
+          f"(limit {MESH_GRAD_TOL}), embed {worst_embed:.2e} (limit "
+          f"{MESH_EMBED_TOL}); CPU pass {cpu_s:.1f} s; launches on the card "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if (loss_rel > MESH_LOSS_RTOL or worst > MESH_GRAD_TOL
+            or worst_embed > MESH_EMBED_TOL):
+        raise AssertionError(f"{label}: card vs CPU sharded gradients apart")
+    del gpu, cpu, whole_cpu, gg, gc_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+            "loss_card": lg, "loss_cpu": lc, "loss_rel": loss_rel,
+            "worst_leaf_rel": worst, "embed_rel": worst_embed,
+            "launches": launches, "cpu_s": cpu_s}
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in ``tree_leaves`` order ("embed", "decoder/g0/0/l0/...")."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def mla_mesh_step(torch, ops, dev, cfg, batch):
+    """(c) deepseek-v2-236b's layer 0 (MLA at 128 heads, 64 a slot, and the
+    dense 12,288 FFN) in bf16: one sharded step on the card, launches ==
+    :func:`sharded_structure`, the flash backward at (192, 128) per head
+    shard."""
+    from repro_torch.models import Model
+    from repro_torch.sharding.partition import place_for_train
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.training.data import DataConfig, make_dataset
+
+    B, S = batch
+    ctx = train_ctx(cfg, card_mesh(torch, dev), batch)
+    model = Model(cfg, remat=True, device=dev)
+    params = place_for_train(model, ctx, model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    state = adamw_init(params)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in next(make_dataset(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                   seed=0)).batches()).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, state, met = make_train_step(model, AdamWConfig(), ctx)(
+        params, state, data)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    want = sharded_structure(cfg, 1, ctx, batch)
+    heads = cfg.n_heads // ctx.axis_size("heads")
+    print(f"   (c) {cfg.name}, layer 0, bf16, [{B}, {S}], {heads} heads a "
+          f"slot: loss {loss:.4f}, step wall {wall:.1f} ms (the first, "
+          f"untimed warm-up included), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if launches != want or not math.isfinite(loss):
+        raise AssertionError(f"(c) launches {launches} != {want} or loss "
+                             f"{loss}")
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "wall_ms": wall, "launches": launches,
+            "heads_a_slot": heads}
+
+
+def multi_card_train(torch):
+    """(d) with two cards or more: llama3-8b at all 32 layers through the
+    launcher's full-config branch (``data`` = the card count, FSDP), batch
+    one row a card at 4,096 positions, MULTI_CARD_STEPS steps at (a)'s
+    learning rate (the launcher's 1e-3 spikes the loss at the second step,
+    12.5 to 28.2 on four H100s). Each step draws a new batch, and at 1e-6
+    the batches part by more than an update moves the loss (12.523,
+    12.544, 12.473, 12.532 over 4 steps on four H100s), so the gate reads
+    the trained params' loss on the first batch again: finite, and below
+    the first step's loss on it. On one card it says so and runs nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import Model
+    from repro_torch.training.data import DataConfig, make_dataset
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"   (d) the launcher's full-config branch over several cards "
+              f"needs two cards or more: this host has {n}; nothing run",
+              flush=True)
+        return {"devices": n, "ran": False}
+    S = 4096
+    t0 = time.perf_counter()
+    params, _, hist = launch_train.main(
+        ["--arch", "llama3-8b", "--steps", str(MULTI_CARD_STEPS), "--batch",
+         str(n), "--seq", str(S), "--lr", str(MESH_TRAIN_LR)])
+    wall = time.perf_counter() - t0
+    cfg = get_config("llama3-8b")
+    mesh = make_train_mesh()
+    model = Model(cfg, remat=True, device=mesh.first_device)
+    first = {k: torch.as_tensor(v, device=mesh.first_device)
+             for k, v in next(make_dataset(DataConfig(
+                 vocab_size=cfg.vocab_size, seq_len=S, batch_size=n,
+                 seed=0)).batches()).items()}
+    with torch.no_grad():
+        again = float(model.loss(params, first,
+                                 shard_ctx=train_ctx(cfg, mesh, (n, S))))
+    losses = [h["loss"] for h in hist]
+    print(f"   (d) llama3-8b, 32 layers, data = {n} cards: losses {losses}, "
+          f"{wall:.1f} s; the first batch's loss {losses[0]:.4f} before "
+          f"training, {again:.4f} after", flush=True)
+    if not all(math.isfinite(x) for x in losses + [again]) \
+            or not again < losses[0]:
+        raise AssertionError(f"(d) losses {losses}, the first batch's "
+                             f"after training {again}")
+    return {"devices": n, "ran": True, "losses": losses,
+            "first_batch_after": again, "wall_s": wall}
+
+
+def mesh_train_path(torch, ops, dev, unsharded):
+    """Phase 19: training on a device mesh (ROADMAP queue 1 item 3b).
+    (a) phase 16's llama3-8b (8 of 32 layers at full width, [2, 4096],
+    full remat, bf16) on a 2 x 2 (data, model) mesh naming the card four
+    times -- FSDP over data, heads, kv heads, FFN and vocab over model,
+    the residual sequence-sharded -- MESH_TRAIN_STEPS AdamW steps through
+    ``train(..., shard_ctx=)``, the launches per slot, one step profiled
+    beside phase 16's unsharded one (``unsharded``); (b) llama3-8b at 2
+    layers, fp32, [2, 512], card vs CPU, both sharded; (c)
+    deepseek-v2-236b's layer 0 (MLA, the flash backward at (192, 128) on
+    64 heads a slot) one bf16 step at [2, 4096], then its fp32 gate at
+    [1, 512]; (d) the launcher's full-config branch over the cards, where
+    there are two or more."""
+    out = {}
+    cfg = train_config("llama3-8b", TRAIN_LAYERS, {})
+    out["a"] = mesh_train_run(
+        torch, ops, dev, cfg, TRAIN_BATCH,
+        f"(a) llama3-8b, {TRAIN_LAYERS} of 32 layers at full width",
+        unsharded)
+    out["b"] = mesh_card_vs_cpu(
+        torch, ops, dev, train_config("llama3-8b", MESH_CHECK["layers"], {}),
+        MESH_CHECK["batch"], f"(b) llama3-8b, {MESH_CHECK['layers']} layers")
+    ds = train_config("deepseek-v2-236b", 1, {})
+    out["c"] = mla_mesh_step(torch, ops, dev, ds, TRAIN_BATCH)
+    out["c"]["gate"] = mesh_card_vs_cpu(torch, ops, dev, ds, MESH_MLA_BATCH,
+                                        "(c) deepseek-v2-236b, layer 0")
+    out["d"] = multi_card_train(torch)
+    return out
 
 
 if __name__ == "__main__":

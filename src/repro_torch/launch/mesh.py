@@ -9,12 +9,14 @@ axis names.
 
 A :class:`DeviceMesh` is axis names over an array of ``torch.device``s:
 what tensors are placed on (``sharding.partition``: the pod slices, the
-sequence- and vocab-sharded decode). Its ``shape`` reads as a
-``LogicalMesh``'s, so ``make_rules`` takes either. The serving meshes are
-the JAX package's: :func:`make_serving_pod_mesh`, the 1-D ``('pod',)`` mesh
-the disaggregated tier carves its prefill and decode slices from, and
-:func:`make_cluster_mesh`, the one a multi-replica cluster carves into
-replica slices. Both take the devices the host has and never repeat one.
+sequence- and vocab-sharded decode, the sharded training step). Its
+``shape`` reads as a ``LogicalMesh``'s, so ``make_rules`` takes either.
+The serving meshes are the JAX package's: :func:`make_serving_pod_mesh`,
+the 1-D ``('pod',)`` mesh the disaggregated tier carves its prefill and
+decode slices from, and :func:`make_cluster_mesh`, the one a
+multi-replica cluster carves into replica slices; :func:`make_train_mesh`
+is the ``('data', 'model')`` mesh the training launcher runs on. All take
+the devices the host has and never repeat one.
 
 Per-device constants, from the NVIDIA H100 Tensor Core GPU datasheet (H100
 SXM5, 80 GB of HBM3): dense peaks (no sparsity) and HBM3 bandwidth. The
@@ -182,6 +184,20 @@ def make_serving_pod_mesh(npods=None, device="cuda") -> DeviceMesh:
     if npods > len(avail):
         raise ValueError(f"npods {npods} > available devices {len(avail)}")
     return DeviceMesh(avail[:npods], ("pod",))
+
+
+def make_train_mesh(n_data=None, device="cuda") -> DeviceMesh:
+    """``('data', 'model')`` training mesh over the host's devices of
+    ``device``'s type (the JAX package's production mesh, at the host's
+    size): ``n_data`` x 1 slots over the first ``n_data`` devices (default:
+    every one). FSDP alone: every leaf split over its ``embed`` dim. A mesh
+    built by hand may name a device several times (``DeviceMesh``)."""
+    avail = available_devices(device)
+    n_data = len(avail) if n_data is None else n_data
+    if not 1 <= n_data <= len(avail):
+        raise ValueError(f"a {n_data}-way data mesh over {len(avail)} "
+                         "device(s)")
+    return DeviceMesh([[d] for d in avail[:n_data]], ("data", "model"))
 
 
 def make_cluster_mesh(n_replicas: int, pods_per_replica: int = 1,

@@ -33,15 +33,17 @@ def attn_schema(cfg) -> dict:
     return s
 
 
-def _split_heads(x, n, hd):
-    return x.reshape(x.shape[:-1] + (n, hd))
+def _split_heads(x, hd):
+    return x.reshape(x.shape[:-1] + (x.shape[-1] // hd, hd))
 
 
 def project_qkv(p, cfg, x, positions):
-    """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,Hkv,hd] with qk-norm + RoPE."""
-    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    """x: [B,S,d] -> q [B,S,H,hd], k/v [B,S,Hkv,hd] with qk-norm + RoPE.
+    The head counts are the weights' widths over ``head_dim``: a
+    tensor-parallel slot passes its columns of ``wq``/``wk``/``wv``."""
+    q = _split_heads(x @ p["wq"], cfg.head_dim)
+    k = _split_heads(x @ p["wk"], cfg.head_dim)
+    v = _split_heads(x @ p["wv"], cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -66,6 +68,46 @@ def prefill_attention(q, k, v, *, window: int = 0, prior=None,
     return ops.flash_attention(q, k, v, causal=True, window=window,
                                prior_k=prior["k"], prior_v=prior["v"],
                                prior_valid=prior_valid)
+
+
+def kv_columns(cfg, h0: int, hq: int):
+    """The kv heads [k0, k1) that query heads [h0, h0 + hq) read (GQA:
+    head h reads kv head h // (H / Hkv)), refused where the flash kernel's
+    grouping of the slice would differ: hq must hold whole groups or lie
+    within one."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hq % g and g % hq:
+        raise ValueError(f"a shard of {hq} query heads splits GQA groups of "
+                         f"{g}")
+    k0 = h0 // g
+    return k0, (h0 + hq - 1) // g + 1
+
+
+def attention_sharded(p, cfg, h, sp):
+    """The training pass's tensor-parallel attention over the normalised
+    residual ``h`` (a SlotPass activation): each slot gathers its batch
+    rows at every position, projects them through its ``heads`` columns of
+    ``wq`` and the kv heads those read (its ``kv_heads`` block, or the
+    columns of a replicated ``wk``/``wv``: :func:`kv_columns`), runs the
+    flash kernel causally over its head shard and multiplies by its rows
+    of ``wo`` (row-parallel). Returns (partials [b, S, d] a slot, whether
+    they sum over ``model``)."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    nh = sp.count("heads")
+    hq = H // nh
+    partials = {}
+    for c in sp.coords:
+        lp = {k: sp.weight(w, c) for k, w in p.items()}
+        if sp.count("kv_heads") == 1 and nh > 1:
+            k0, k1 = kv_columns(cfg, sp.index("heads", c) * hq, hq)
+            for n in ("wk", "wv"):
+                lp[n] = lp[n][:, k0 * hd:k1 * hd]
+        hg = sp.full_seq(h, c)
+        q, k, v = project_qkv(lp, cfg, hg, sp.positions(c))
+        o = ops.flash_attention(q, k, v, causal=True,
+                                window=cfg.sliding_window)
+        partials[c] = o.reshape(hg.shape[:2] + (-1,)) @ lp["wo"]
+    return partials, nh > 1
 
 
 def decode_attention_update(q, k_new, v_new, k_cache, v_cache, lengths, *,

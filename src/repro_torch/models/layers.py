@@ -3,12 +3,21 @@ the training loss."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.schema import ParamSpec
-from repro_torch.sharding.partition import Sharded, axes_of, psum, shard
+from repro_torch.sharding.partition import (
+    Sharded,
+    axes_of,
+    pmax,
+    psum,
+    recompute,
+    shard,
+)
 
 
 # --------------------------------------------------------------------------- #
@@ -91,14 +100,18 @@ def embed_lookup(table, tokens, shard_ctx=None):
         table = shard(table, shard_ctx, "vocab", "embed")
     if not isinstance(table, Sharded):
         return F.embedding(tokens, table)
-    parts = []
-    for (vb, _), (_, t) in _vocab_blocks(table):
-        n_local = t.shape[0]
-        ids = tokens.to(t.device) - vb * n_local
-        inside = (ids >= 0) & (ids < n_local)
-        rows = F.embedding(torch.where(inside, ids, 0), t)
-        parts.append(torch.where(inside[..., None], rows, 0).to(t.dtype))
+    parts = [_block_rows(t, tokens.to(t.device), vb * t.shape[0])
+             for (vb, _), (_, t) in _vocab_blocks(table)]
     return psum(parts, table.mesh.first_device)
+
+
+def _block_rows(t, tokens, start):
+    """The rows of a vocab block ``t`` (ids ``start`` onward) for
+    ``tokens``: zero rows for ids outside it."""
+    ids = tokens - start
+    inside = (ids >= 0) & (ids < t.shape[0])
+    rows = F.embedding(torch.where(inside, ids, 0), t)
+    return torch.where(inside[..., None], rows, 0).to(t.dtype)
 
 
 def _vocab_blocks(table: Sharded):
@@ -133,3 +146,88 @@ def cross_entropy(logits, labels, mask=None):
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def embed_lookup_sharded(table: Sharded, tokens, sp):
+    """The training pass's vocab-parallel embedding (JAX's ``embed_lookup``
+    under a training context): each slot gathers its vocab block of the
+    table over ``data`` (FSDP) and looks up its batch rows' tokens, ids
+    outside the block giving zero rows; the partials are summed over
+    ``model`` onto each slot's block of positions (a
+    :class:`~repro_torch.sharding.partition.SlotPass` ``reduce``). Returns
+    the residual stream's blocks, one a slot."""
+    partials = {}
+    for c in sp.coords:
+        t = sp.weight(table, c)
+        partials[c] = _block_rows(t, sp.batch_rows(tokens, c),
+                                  table.block(c)[0] * t.shape[0])
+    return sp.reduce(partials, summed=table.counts()[0] > 1)
+
+
+def _nll_chunk(starts, true_vocab, dev, *tensors):
+    """One chunk of :func:`vocab_parallel_nll`: ``tensors`` are each vocab
+    block's rows of x, then its table block, then the labels. Each block's
+    fp32 logits on its own device, the max shift (no gradient), the summed
+    exponentials and the gold logit merged onto ``dev``."""
+    k = len(starts)
+    xs, tables, labels = tensors[:k], tensors[k:2 * k], tensors[2 * k]
+    logits = []
+    for x, t, start in zip(xs, tables, starts):
+        lg = (x @ t.t()).float()  # [b, c, V_l]
+        if start + t.shape[0] > true_vocab:
+            ids = start + torch.arange(t.shape[0], device=lg.device)
+            lg = lg.masked_fill(ids >= true_vocab, float("-inf"))
+        logits.append(lg)
+    m = pmax([lg.amax(dim=-1) for lg in logits], dev).detach()
+    se = psum([torch.exp(lg - m.to(lg.device)[..., None]).sum(dim=-1)
+               for lg in logits], dev)
+    golds = []
+    for lg, start in zip(logits, starts):
+        lid = labels.to(lg.device).to(torch.int64) - start
+        inside = (lid >= 0) & (lid < lg.shape[-1])
+        g = torch.gather(lg, -1, lid.clamp(0, lg.shape[-1] - 1)[..., None])
+        golds.append(torch.where(inside, g[..., 0], 0.0))
+    return ((torch.log(se) + m) - psum(golds, dev),)
+
+
+def vocab_parallel_nll(x: Sharded, table: Sharded, labels, sp,
+                       true_vocab: int, chunk: int = 1024):
+    """Fused LM head + cross-entropy with the table split by ``vocab``
+    (JAX's ``vocab_parallel_nll``): for each batch block, each slot of its
+    ``model`` row computes its vocab block's fp32 logits on its own device,
+    ``chunk`` positions at a time, each chunk rematerialised in the
+    backward (``sharding.partition.recompute``, JAX's ``jax.checkpoint``
+    in its scan); pad ids are masked to -inf; the shift is the max over the blocks
+    with no gradient (JAX's ``_pmax_sg``), the log-sum-exp comes from the
+    sum of the blocks' summed exponentials and the gold logit from the
+    block that holds the label. The whole [B, S, V] logits never exist.
+    ``x`` is the residual stream (split by batch and ``act_seq``), gathered
+    over positions; ``labels`` [B, S] whole or split by batch. Returns the
+    token NLL [B, S] fp32 on the mesh's first device. With ``vocab`` whole
+    (one block) it is the plain cross-entropy of the tied head."""
+    S = sp.S
+    c = min(chunk, S)
+    if S % c:  # ragged: one chunk, as JAX
+        c = S
+    first = sp.mesh.first_device
+    rows = {}
+    for coord in sp.coords:
+        bi = sp.rows(coord).start
+        if bi in rows:
+            continue
+        slots, seen = [], set()
+        for r in sp.model_row(coord):  # one slot a vocab block
+            if table.block(r)[0] not in seen:
+                seen.add(table.block(r)[0])
+                slots.append(r)
+        xs = [sp.full_seq(x, r) for r in slots]
+        tables = [sp.weight(table, r) for r in slots]
+        starts = [table.block(r)[0] * t.shape[0]
+                  for r, t in zip(slots, tables)]
+        dev = sp.dev(slots[0])
+        lab = sp.batch_rows(labels, coord).to(dev)
+        fn = functools.partial(_nll_chunk, starts, true_vocab, dev)
+        pieces = [recompute(fn, *(t[:, j:j + c] for t in xs), *tables,
+                            lab[:, j:j + c])[0] for j in range(0, S, c)]
+        rows[bi] = torch.cat(pieces, dim=1).to(first)
+    return torch.cat([rows[b] for b in sorted(rows)])

@@ -65,7 +65,8 @@ def _project_q(p, cfg, x):
         q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
     else:
         q = x @ p["wq"]
-    q = q.reshape(x.shape[:-1] + (cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim))
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    q = q.reshape(x.shape[:-1] + (q.shape[-1] // qk, qk))
     return q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
 
 
@@ -98,8 +99,26 @@ def mla_prefill(p, cfg, x, positions, *, window: int = 0):
     out = ops.flash_attention(q, k, v.contiguous(), causal=True,
                               window=window, scale=_scale(cfg))
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * m.v_head_dim) @ p["wo"]
+    out = out.reshape(B, S, out.shape[2] * out.shape[3]) @ p["wo"]
     return out, {"ckv": c_kv, "krope": k_rope}
+
+
+def mla_sharded(p, cfg, h, sp):
+    """The training pass's MLA with ``heads`` over ``model`` (JAX's
+    ``mla_prefill`` under a training context): the latent projections
+    (``wkv_a``, ``wq_a``, the norms) stay whole, as JAX's rules leave
+    ``lora`` unsplit, and every slot computes them for its batch rows at
+    every position; the per-head ``wq_b``, ``wk_b`` and ``wv_b`` and the
+    flash kernel (q/k 192, v 128 at deepseek-v2's widths) run on the
+    slot's head shard; ``wo`` is row-parallel. Returns (partials [b, S, d]
+    a slot, whether they sum over ``model``)."""
+    partials = {}
+    for c in sp.coords:
+        lp = {k: sp.weight(w, c) for k, w in p.items()}
+        partials[c] = mla_prefill(lp, cfg, sp.full_seq(h, c),
+                                  sp.positions(c),
+                                  window=cfg.sliding_window)[0]
+    return partials, sp.count("heads") > 1
 
 
 def _absorbed_query(p, cfg, x, positions):

@@ -29,11 +29,13 @@ from repro_torch.models import schema as sch
 from repro_torch.models.layers import (
     cross_entropy,
     embed_lookup,
+    embed_lookup_sharded,
     embed_schema,
     lm_head,
     pad_vocab,
     rmsnorm,
     rmsnorm_schema,
+    vocab_parallel_nll,
 )
 from repro_torch.models.transformer import (
     REMAT_POLICIES,
@@ -43,8 +45,10 @@ from repro_torch.models.transformer import (
     stack_apply_decode,
     stack_apply_decode_paged,
     stack_apply_full,
+    stack_apply_sharded,
     stack_schema,
 )
+from repro_torch.sharding.partition import SlotPass, Sharded
 
 FRONTEND_DIM = 1024  # stubbed ViT / speech-encoder feature width
 
@@ -189,8 +193,13 @@ class Model:
 
         ``want_cache=False`` is the training pass (JAX's ``backbone(...,
         want_cache=False)``): caches None, each layer under the model's
-        remat policy. ``shard_ctx`` (serving) makes the embedding
-        vocab-parallel; the layers run whole on the mesh's first device."""
+        remat policy. With ``shard_ctx`` the training pass runs on its
+        mesh (:meth:`_backbone_sharded`: x is then the residual stream
+        split by batch and ``act_seq``); a serving pass with ``shard_ctx``
+        takes the vocab-parallel embedding and runs the layers whole on the
+        mesh's first device."""
+        if shard_ctx is not None and not want_cache:
+            return self._backbone_sharded(params, tokens, features, shard_ctx)
         enc_out = None
         remat = None if want_cache else self._remat
         if self.cfg.is_encdec:
@@ -209,6 +218,41 @@ class Model:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         return x, aux, caches
 
+    def _backbone_sharded(self, params, tokens, features, ctx):
+        """The training pass on ``ctx``'s mesh (JAX's sharded ``backbone``):
+        the params laid out by ``sharding.partition.place_for_train``, the
+        vocab-parallel embedding of each slot's batch rows, the residual
+        stream split ("batch", "act_seq", None) (JAX's constraint of the
+        embedded input), every layer tensor- and sequence-parallel
+        (:func:`~repro_torch.models.transformer.stack_apply_sharded`), the
+        final norm per block. Attention stacks only: SSM and hybrid layers
+        (``ssm_heads``/``ssm_in`` over ``model``), an encoder-decoder and a
+        feature frontend raise ValueError. Returns (x as a SlotPass
+        activation, aux, None)."""
+        cfg = self.cfg
+        why = ("an SSM layer" if not self.attention_only else
+               "an encoder-decoder" if cfg.is_encdec else
+               "a feature frontend" if cfg.frontend else None)
+        if why is not None:
+            raise ValueError(
+                f"{cfg.name} has {why}: training it on a mesh waits for "
+                "its sharding (ROADMAP queue 1 item 3c)")
+        if features is not None:
+            raise ValueError(f"{cfg.name} takes no features")
+        if not all(isinstance(t, Sharded) for t in sch.tree_leaves(params)):
+            raise TypeError("a sharded training pass takes its params laid "
+                            "out by sharding.partition.place_for_train")
+        sp = SlotPass(ctx, *tokens.shape)
+        x = sp.act(embed_lookup_sharded(params["embed"], tokens, sp),
+                   cfg.d_model)
+        x, aux = stack_apply_sharded(params["decoder"], cfg, x,
+                                     groups=self.groups, sp=sp,
+                                     remat=self._remat)
+        w = params["final_norm"]
+        x = sp.act({c: rmsnorm(x.locals[c], sp.weight(w, c), cfg.norm_eps)
+                    for c in sp.coords}, cfg.d_model)
+        return x, aux, None
+
     def forward(self, params, tokens, features=None, *, shard_ctx=None):
         """Full-sequence logits [B, F+S, vocab_padded], the MoE aux loss and
         the caches (the JAX model's ``forward``)."""
@@ -219,7 +263,7 @@ class Model:
             logits = shard_ctx.constrain(logits, "batch", None, "vocab")
         return logits, aux, caches
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, shard_ctx=None):
         """The training loss of JAX's ``Model.loss``: ``batch`` is a dict of
         tensors on :attr:`device` -- ``tokens`` [B, S], ``labels`` [B, S],
         optionally ``features`` [B, F, FRONTEND_DIM] (a model with a
@@ -227,12 +271,30 @@ class Model:
         [B, S]. The mean (or masked mean) fp32 token NLL over the labels --
         a VLM's over the text suffix only -- plus ``router_aux_weight``
         times the MoE layers' load-balance loss. A full pass that keeps no
-        caches, each layer under the model's remat policy."""
+        caches, each layer under the model's remat policy.
+
+        With ``shard_ctx`` (a training context, ``make_ctx(cfg, mesh,
+        shape)``) the pass runs on its mesh (:meth:`backbone`) over params
+        laid out by ``sharding.partition.place_for_train``; the batch may
+        be whole (any device) or split by ``batch``. The NLL is
+        :func:`~repro_torch.models.layers.vocab_parallel_nll`, its mean
+        over the global tokens (with a mask, the global masked sum over the
+        global count); the loss lands on the mesh's first device."""
         labels = batch["labels"]
         features = batch.get("features") if self.cfg.frontend else None
         aux_w = self.cfg.moe.router_aux_weight if self.cfg.moe else 0.0
         x, aux, _ = self.backbone(params, batch["tokens"], features,
-                                  want_cache=False)
+                                  want_cache=False, shard_ctx=shard_ctx)
+        if shard_ctx is not None:
+            nll = vocab_parallel_nll(x, params["embed"], labels,
+                                     SlotPass(shard_ctx, *x.shape[:2]),
+                                     self.cfg.vocab_size)
+            mask = batch.get("loss_mask")
+            if mask is None:
+                return nll.mean() + aux_w * aux
+            m = (mask.gather(nll.device) if isinstance(mask, Sharded)
+                 else mask.to(nll.device)).float()
+            return (nll * m).sum() / m.sum().clamp_min(1.0) + aux_w * aux
         if features is not None and not self.cfg.is_encdec:
             x = x[:, -labels.shape[1]:]  # VLM: loss only over the text suffix
         logits = lm_head(params["embed"], x, self.cfg.vocab_size)

@@ -22,7 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import ffn_apply
 from repro_torch.models.schema import ParamSpec
+from repro_torch.sharding.partition import psum
 
 
 def moe_schema(cfg) -> dict:
@@ -159,7 +161,86 @@ def moe_apply(p, cfg, x2d):
     ye = expert_ffn(p, gather_tokens(x2d, slot_tok))  # [E, C, d]
     out = combine(ye, weights, ids, pos, keep, x2d.dtype)
     if cfg.moe.n_shared_experts:
-        sp = p["shared"]
-        hs = F.silu(x2d @ sp["w_gate"]) * (x2d @ sp["w_up"])
-        out = out + hs @ sp["w_down"]
+        out = out + ffn_apply(p["shared"], x2d)
+    return out, aux
+
+
+def _spans(n: int, parts: int, i: int) -> slice:
+    return slice(i * n // parts, (i + 1) * n // parts)
+
+
+def moe_apply_sharded(p, cfg, h, sp):
+    """The training pass's MoE layer over the normalised residual ``h`` (a
+    SlotPass activation [B, S, d]), JAX's ``moe_apply`` under a training
+    context. The dispatch plan is global, as JAX's: the capacity comes from
+    the global token count T = B * S, the slot positions from the cumsum
+    over the global batch-major order (not contiguous per slot once
+    ``act_seq`` splits S), and the load-balance loss from the global means.
+    So each token block's router logits are computed on the slot that
+    holds it (the router gathered whole) and brought to the mesh's first
+    device, where :func:`route`'s steps run once. The expert products run
+    once for each (``experts`` block, ``moe_cap`` block, ``expert_ffn``
+    block) on the first slot that holds those weights: it gathers its
+    slots' token rows (the plan's ``slot_tok``) from the whole [T, d]
+    stream. The expert outputs are summed over ``expert_ffn`` blocks and
+    gathered, and each slot combines its own tokens' K choices (plus the
+    shared experts, tensor-parallel as a dense FFN). Returns (out [b, s, d]
+    a slot, aux)."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    B, S, d = h.shape
+    T, C = B * S, capacity(B * S, m)
+    first = sp.mesh.first_device
+    blocks = {}
+    for c in sp.coords:
+        key = (sp.rows(c).start, sp.cols(c).start)
+        if key not in blocks:
+            x = h.locals[c]
+            r = sp.weight(p["router"], c, keep=None)
+            blocks[key] = (x @ r.to(x.dtype)).to(first)
+    by_row = {}
+    for r, s in sorted(blocks):
+        by_row.setdefault(r, []).append(blocks[r, s])
+    logits = torch.cat([torch.cat(v, dim=1) for v in by_row.values()])
+    logits = logits.reshape(T, E)
+    weights, ids = router_topk(logits, K)
+    aux = load_balance_loss(logits, ids, E)
+    pos, keep, slot_tok = dispatch_plan(ids, E, C)
+
+    ne, nc = sp.count("experts"), sp.count("moe_cap")
+    work = {}
+    for c in sp.mesh.coords():  # every capacity block, computing or not
+        key = (sp.index("experts", c), sp.index("moe_cap", c),
+               sp.index("expert_ffn", c))
+        if key in work:
+            continue
+        dev = sp.dev(c)
+        xg = sp.whole(h, c).reshape(T, d)
+        st = slot_tok[_spans(E, ne, key[0]), _spans(C, nc, key[1])].to(dev)
+        wp = {n: sp.weight(p[n], c) for n in ("w_gate", "w_up", "w_down")}
+        work[key] = expert_ffn(wp, gather_tokens(xg, st))
+    nf = sp.count("expert_ffn")
+
+    shared = None
+    if m.n_shared_experts:
+        partials = {c: ffn_apply({n: sp.weight(w, c)
+                                  for n, w in p["shared"].items()},
+                                 sp.full_seq(h, c)) for c in sp.coords}
+        shared = sp.reduce(partials, summed=sp.count("ffn") > 1)
+
+    ye, out = {}, {}
+    for c in sp.coords:
+        dev = sp.dev(c)
+        if dev not in ye:
+            ye[dev] = torch.cat([torch.cat([
+                psum([work[e, j, f] for f in range(nf)], dev)
+                for j in range(nc)], dim=1) for e in range(ne)])
+        rs, cs = sp.rows(c), sp.cols(c)
+        tok = (torch.arange(rs.start, rs.stop, device=first)[:, None] * S
+               + torch.arange(cs.start, cs.stop, device=first)[None]
+               ).reshape(-1)
+        o = combine(ye[dev], *(t[tok].to(dev) for t in (weights, ids, pos,
+                                                        keep)), h.dtype)
+        o = o.reshape(rs.stop - rs.start, cs.stop - cs.start, d)
+        out[c] = o if shared is None else o + shared[c]
     return out, aux

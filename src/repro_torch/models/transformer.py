@@ -31,6 +31,7 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (
+    attention_sharded,
     attn_schema,
     decode_attention_update,
     paged_decode_attention_update,
@@ -43,9 +44,11 @@ from repro_torch.models.mla import (
     mla_decode_update,
     mla_prefill,
     mla_schema,
+    mla_sharded,
     paged_mla_decode_update,
 )
-from repro_torch.models.moe import moe_apply, moe_schema
+from repro_torch.models.moe import moe_apply, moe_apply_sharded, moe_schema
+from repro_torch.sharding.partition import recompute, tree_parts, tree_with_parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,3 +382,85 @@ def stack_apply_decode_paged(params, cfg, x, blocks, page_table, lengths, *,
                                      blocks[gname][i][lname], page_table,
                                      lengths)
     return x
+
+
+# --------------------------------------------------------------------------- #
+# The training pass on a device mesh
+# --------------------------------------------------------------------------- #
+def _norm_sharded(x, w, eps, sp):
+    """rmsnorm of each slot's block of the residual stream, the weight
+    gathered over ``data``: a SlotPass activation."""
+    return sp.act({c: rmsnorm(x.locals[c], sp.weight(w, c), eps)
+                   for c in sp.coords}, x.shape[2])
+
+
+def apply_layer_sharded(lp, cfg, sig, x, sp):
+    """One attention layer (GQA or MLA, dense or MoE FFN) of the training
+    pass on ``sp``'s mesh (JAX's ``apply_layer_full`` under a training
+    context), x the residual stream split ("batch", "act_seq", None).
+    Megatron's sequence parallelism: each half gathers its normalised
+    block over positions, runs tensor-parallel (attention:
+    :func:`attention_sharded` or :func:`mla_sharded`; FFN: column-parallel
+    ``w_gate``/``w_up``, row-parallel ``w_down``; MoE:
+    :func:`moe_apply_sharded`) and reduce-scatters its partials back onto
+    the slots' blocks of positions, which keeps the residual in JAX's
+    ``("batch", "act_seq", None)`` constraint after the layer. Returns
+    (the new residual's blocks, aux or None)."""
+    sp = sp.scope()
+    d = x.shape[2]
+    h = _norm_sharded(x, lp["ln1"], cfg.norm_eps, sp)
+    attend = mla_sharded if cfg.mla is not None else attention_sharded
+    r = sp.reduce(*attend(lp["attn"], cfg, h, sp))
+    x = sp.act({c: x.locals[c] + r[c] for c in sp.coords}, d)
+    h = _norm_sharded(x, lp["ln2"], cfg.norm_eps, sp)
+    if "moe" in lp:
+        o, aux = moe_apply_sharded(lp["moe"], cfg, h, sp)
+    else:
+        partials = {c: ffn_apply({n: sp.weight(w, c)
+                                  for n, w in lp["ffn"].items()},
+                                 sp.full_seq(h, c)) for c in sp.coords}
+        o, aux = sp.reduce(partials, summed=sp.count("ffn") > 1), None
+    return {c: x.locals[c] + o[c] for c in sp.coords}, aux
+
+
+def _remat_layer_sharded(lp, cfg, sig, x, sp):
+    """:func:`apply_layer_sharded` fully rematerialised: its inputs -- the
+    layer's weight parts and the computing slots' residual blocks -- are
+    all it saves (``sharding.partition.recompute``, whose backward runs
+    once however many devices the layer spans)."""
+    n, coords = len(tree_parts(lp)), sp.coords
+
+    def run(*ts):
+        locs, aux = apply_layer_sharded(
+            tree_with_parts(lp, ts[:n]), cfg, sig,
+            sp.act(dict(zip(coords, ts[n:])), x.shape[2]), sp)
+        return tuple(locs[c] for c in coords) + (() if aux is None
+                                                 else (aux,))
+
+    out = recompute(run, *tree_parts(lp), *(x.locals[c] for c in coords))
+    aux = out[len(coords)] if len(out) > len(coords) else None
+    return dict(zip(coords, out)), aux
+
+
+def stack_apply_sharded(params, cfg, x, *, groups, sp, remat=None):
+    """The training pass over every layer on a device mesh (attention
+    stacks: GQA or MLA, dense or MoE). x and the result are the residual
+    stream as a SlotPass activation. With ``remat="full"`` each layer, its
+    gathers included, is rematerialised in the backward
+    (:func:`_remat_layer_sharded`), so the backward re-gathers and keeps no
+    layer's whole weights; ``None`` or ``"none"`` saves everything.
+    (``"dots"``, a selective policy, is the unsharded pass's alone.)
+    Returns (x, aux: the MoE layers' summed load-balance loss)."""
+    if remat not in (None, "none", "full"):
+        raise ValueError(f"the sharded pass rematerialises a whole layer "
+                         f"or nothing: remat_policy {remat!r}")
+    layer = (_remat_layer_sharded if remat == "full"
+             else apply_layer_sharded)
+    aux_total = torch.zeros((), dtype=torch.float32,
+                            device=sp.mesh.first_device)
+    for gname, i, lname, sig in _layers(groups):
+        locs, aux = layer(params[gname][i][lname], cfg, sig, x, sp)
+        x = sp.act(locs, x.shape[2])
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total

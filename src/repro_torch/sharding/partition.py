@@ -20,19 +20,30 @@ The placing half, over a :class:`repro_torch.launch.mesh.DeviceMesh`:
   embedding, the sequence-sharded ring and latent decode -- where JAX runs
   a ``shard_map``;
 * :func:`place_for_ctx`, which lays a model's params and caches out for a
-  context: the embedding table by ``vocab``, the attention and latent
-  caches by ``kv_seq``.
+  serving context: the embedding table by ``vocab``, the attention and
+  latent caches by ``kv_seq``;
+* :func:`place_for_train`, which splits every parameter leaf by its spec
+  for a training context (FSDP: ``embed`` over ``data``; Megatron:
+  ``heads``, ``kv_heads``, ``ffn``, ``vocab`` and the experts over
+  ``model``), and the differentiable moves a training pass runs between the
+  slots: :func:`gathered` (an all-gather of some dims of a slot's block),
+  :func:`fsdp_gather` (a weight gathered over every axis but the tensor
+  axis) and :func:`psum_scatter` (the partials of a row-parallel product
+  summed onto the slots holding each block of the result).
 
-One controller places everything: there are no process groups. Outside the
-shard bodies every tensor lives whole on the mesh's first device, so
-:meth:`ShardCtx.constrain` checks that a tensor divides as its spec says
-and returns it unchanged (JAX's constraint changes no value either);
-tensor-parallel dense layers, FSDP and sequence-parallel activations are
-the training slice's (ROADMAP queue 1 item 3).
+One controller places everything: there are no process groups. A move is
+``.to(device)``, ``narrow`` and ``torch.cat``, which autograd
+differentiates: the gradient of a gathered tensor flows back to each block,
+summed over the slots that read it (FSDP's reduce-scatter), and a block
+that is an autograd leaf collects it. Outside a training pass and the
+serving shard bodies a tensor lives whole on the mesh's first device, and
+:meth:`ShardCtx.constrain` checks that it divides as its spec says and
+returns it unchanged (JAX's constraint changes no value either).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -91,8 +102,9 @@ class ShardCtx:
     def constrain(self, x, *logical):
         """``x`` itself, once each of its dims divides the mesh axes its
         logical axis maps to (JAX's ``with_sharding_constraint`` changes no
-        value; the port keeps such tensors whole on the mesh's first
-        device)."""
+        value). Serving keeps such tensors whole on the mesh's first
+        device; a training pass moves its blocks with :func:`gathered` and
+        :func:`psum_scatter` instead."""
         spec = self.spec(*logical)
         if len(spec) != x.ndim:
             raise ValueError(f"constrain: {len(spec)} logical axes for a "
@@ -235,20 +247,302 @@ class Sharded:
         return out
 
     def gather(self, device=None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default: the mesh's first)."""
+        """The whole tensor on ``device`` (default: the mesh's first), a
+        copy outside any autograd graph."""
         device = self.mesh.first_device if device is None else device
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        for block, (_, t) in self.blocks().items():
-            dst = out
-            for d, b in enumerate(block):
-                w = t.shape[d]
-                dst = dst.narrow(d, b * w, w)
-            dst.copy_(t)
+        with torch.no_grad():
+            for block, (_, t) in self.blocks().items():
+                dst = out
+                for d, b in enumerate(block):
+                    w = t.shape[d]
+                    dst = dst.narrow(d, b * w, w)
+                dst.copy_(t)
         return out
+
+    def parts(self) -> list:
+        """The distinct local tensors, one a (block, device), in slot
+        order: what a training step differentiates and updates (a block
+        held on two devices is two parts, kept equal)."""
+        seen, out = set(), []
+        for coord in self.mesh.coords():
+            t = self.locals[coord]
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+        return out
+
+    def with_parts(self, parts) -> "Sharded":
+        """This layout over ``parts`` (one a :meth:`parts` entry, in its
+        order): the slots that share a tensor share its replacement."""
+        it = iter(parts)
+        made, locals_ = {}, {}
+        for coord in self.mesh.coords():
+            t = self.locals[coord]
+            if id(t) not in made:
+                made[id(t)] = next(it)
+            locals_[coord] = made[id(t)]
+        dtype = next(iter(made.values())).dtype
+        return Sharded(self.mesh, self.spec, self.shape, dtype, locals_)
+
+    def map_parts(self, fn) -> "Sharded":
+        """This layout with each part ``t`` replaced by ``fn(t)``."""
+        return self.with_parts([fn(t) for t in self.parts()])
+
+    def sum_copies(self) -> "Sharded":
+        """Each block's copies (the parts holding one block on several
+        devices) replaced by their sum, on each copy's device: the
+        all-reduce of a replicated parameter's gradient."""
+        by_block = {}
+        for coord in self.mesh.coords():
+            t = self.locals[coord]
+            group = by_block.setdefault(self.block(coord), [])
+            if all(t is not u for u in group):
+                group.append(t)
+        if all(len(g) == 1 for g in by_block.values()):
+            return self
+        total = {id(t): psum(g, t.device) for g in by_block.values()
+                 for t in g}
+        return self.map_parts(lambda t: total[id(t)])
 
     def __repr__(self):
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, spec="
                 f"{self.spec}, mesh={self.mesh.shape})")
+
+
+def gathered(sh: Sharded, coord, dims, cache=None) -> torch.Tensor:
+    """Slot ``coord``'s block of ``sh`` with ``dims`` made whole: every
+    block along those dims (the slot's own index on the others), each
+    taken from a slot on ``coord``'s device where one holds it, moved there
+    and concatenated in block order -- an all-gather, differentiable.
+    ``cache`` (a dict a pass keeps) reuses one gather for every slot on a
+    device that needs the same one."""
+    counts = sh.counts()
+    dims = tuple(d for d in dims if counts[d] > 1)
+    if not dims:
+        return sh.locals[tuple(coord)]
+    dev = sh.mesh.device_at(coord)
+    want = list(sh.block(coord))
+    key = (id(sh), tuple(None if d in dims else b for d, b in enumerate(want)),
+           dev)
+    if cache is not None and key in cache:
+        return cache[key][1]
+    holders = {}
+    for c in sh.mesh.coords():
+        b, t = sh.block(c), sh.locals[c]
+        if b not in holders or (holders[b].device != dev and t.device == dev):
+            holders[b] = t
+
+    def build(i):
+        if i == len(dims):
+            return holders[tuple(want)].to(dev)
+        pieces = []
+        for j in range(counts[dims[i]]):
+            want[dims[i]] = j
+            pieces.append(build(i + 1))
+        return torch.cat(pieces, dim=dims[i])
+
+    out = build(0)
+    if cache is not None:
+        cache[key] = (sh, out)  # sh kept alive: its id stays its own
+    return out
+
+
+def fsdp_gather(w: Sharded, coord, cache=None, keep="model") -> torch.Tensor:
+    """A weight as slot ``coord`` computes with it: every dim split over an
+    axis other than ``keep`` (FSDP's ``data``) gathered, the dims split
+    over ``keep`` (the tensor axis) left as the slot's block. ``keep=None``
+    gathers the whole weight."""
+    dims = [d for d, p in enumerate(w.spec)
+            if axes_of(p) and (keep is None or keep not in axes_of(p))]
+    return gathered(w, coord, dims, cache)
+
+
+def psum_scatter(partials: dict, mesh, axis, dim, blocks_axes, summed,
+                 coords) -> dict:
+    """The row-parallel reduction: slot ``c``'s result is the sum over
+    ``axis`` (every slot that differs from ``c`` on that axis alone, in
+    axis order) of their ``partials`` -- or ``c``'s own partial where
+    ``summed`` is False (the product was not split over ``axis``) --
+    narrowed along ``dim`` to ``c``'s block of the mesh axes
+    ``blocks_axes`` (a reduce-scatter; with no such axes an all-reduce),
+    on ``c``'s device. ``partials`` maps each slot of ``coords`` to a
+    tensor whole along ``dim``; the results, one a slot of ``coords``, are
+    contiguous."""
+    ai = mesh.axis_names.index(axis) if axis in mesh.axis_names else None
+    n = math.prod(mesh.shape[a] for a in blocks_axes)
+    out = {}
+    for c in coords:
+        dev = mesh.device_at(c)
+        srcs = [c]
+        if summed and ai is not None:
+            srcs = [c[:ai] + (j,) + c[ai + 1:] for j in range(mesh.sizes[ai])]
+        blk = shard_index(mesh, c, blocks_axes)
+        parts = []
+        for s in srcs:
+            p = partials[s]
+            w = p.shape[dim] // n
+            parts.append(p.narrow(dim, blk * w, w))
+        out[c] = psum(parts, dev).contiguous()
+    return out
+
+
+class _Recompute(torch.autograd.Function):
+    """:func:`recompute`'s node: the forward without a graph, the backward
+    a second forward with one and its ``torch.autograd.grad``."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        ctx.fn = fn
+        ctx.save_for_backward(*tensors)
+        with torch.no_grad():
+            return tuple(fn(*tensors))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and want else [None] * len(want))
+        return (None, *(next(got) if t.requires_grad else None
+                        for t in inputs))
+
+
+def recompute(fn, *tensors) -> tuple:
+    """``fn(*tensors)`` (a tuple of tensors) saved for the backward as its
+    inputs alone and run again there: full rematerialisation, for a pass
+    that spans several devices. ``torch.utils.checkpoint``'s non-reentrant
+    form recomputes from whichever device's autograd thread first reads a
+    saved tensor, and two devices' threads can start it at once; this node
+    runs its backward once, on one thread. ``tensors`` must hold every
+    tensor ``fn`` differentiates (the weights too, not captured)."""
+    return _Recompute.apply(fn, *tensors)
+
+
+class SlotPass:
+    """One sharded training pass over ``ctx``'s mesh: each slot computes
+    its own block on its own device. The residual stream [B, S, width] is
+    split ("batch", "act_seq", None): a slot holds its batch rows' block of
+    positions. A layer gathers the positions it needs (:meth:`full_seq`)
+    and the weights (:meth:`weight`, FSDP's gather over ``data``), and
+    reduce-scatters its row-parallel partials back (:meth:`reduce`).
+    :meth:`scope` gives a copy with its own gather cache: a layer takes one
+    for its pass, so no gathered weight outlives the layer (under remat the
+    backward's recompute gathers again).
+
+    :attr:`coords` are the slots that compute: one for each (block of the
+    residual, ``model`` index). Where the rules leave the batch whole (a
+    global batch that does not divide the batch axes) the slots that
+    differ on those axes alone would compute the same rows; only the first
+    does, and the rest hold its blocks (:meth:`act`) and lend their weight
+    blocks to its gathers."""
+
+    def __init__(self, ctx: ShardCtx, batch: int, seq: int):
+        mesh = ctx.mesh
+        self.ctx, self.mesh = ctx, mesh
+        self.act_spec = ctx.spec("batch", "act_seq", None)
+        self.batch_axes = axes_of(self.act_spec[0])
+        self.seq_axes = axes_of(self.act_spec[1])
+        self.nb = math.prod(mesh.shape[a] for a in self.batch_axes)
+        self.ns = math.prod(mesh.shape[a] for a in self.seq_axes)
+        if batch % self.nb or seq % self.ns:
+            raise ValueError(f"a [{batch}, {seq}] batch does not split "
+                             f"{self.nb} x {self.ns} ways over "
+                             f"{self.act_spec[:2]}")
+        self.B, self.S = batch, seq
+        mi = (mesh.axis_names.index("model") if "model" in mesh.axis_names
+              else None)
+        first, self.rep = {}, {}
+        for c in mesh.coords():
+            key = (shard_index(mesh, c, self.batch_axes),
+                   shard_index(mesh, c, self.seq_axes),
+                   None if mi is None else c[mi])
+            self.rep[c] = first.setdefault(key, c)
+        self.coords = list(dict.fromkeys(self.rep.values()))
+        self.cache = {}
+
+    def scope(self) -> "SlotPass":
+        out = copy.copy(self)
+        out.cache = {}
+        return out
+
+    def dev(self, c) -> torch.device:
+        return self.mesh.device_at(c)
+
+    def count(self, logical: str) -> int:
+        """Blocks the rules split a logical axis into."""
+        return self.ctx.axis_size(logical)
+
+    def index(self, logical: str, c) -> int:
+        """Slot ``c``'s block of a logical axis (0 where it is whole)."""
+        return shard_index(self.mesh, c, axes_of(self.ctx.rules.get(logical)))
+
+    def rows(self, c) -> slice:
+        b = self.B // self.nb
+        i = shard_index(self.mesh, c, self.batch_axes)
+        return slice(i * b, (i + 1) * b)
+
+    def cols(self, c) -> slice:
+        s = self.S // self.ns
+        i = shard_index(self.mesh, c, self.seq_axes)
+        return slice(i * s, (i + 1) * s)
+
+    def model_row(self, c) -> list:
+        """The slots that differ from ``c`` on the ``model`` axis alone."""
+        if "model" not in self.mesh.axis_names:
+            return [tuple(c)]
+        ai = self.mesh.axis_names.index("model")
+        return [c[:ai] + (j,) + c[ai + 1:] for j in range(self.mesh.sizes[ai])]
+
+    def act(self, locals_: dict, width: int) -> Sharded:
+        """A residual-stream tensor [B, S, width] from each computing
+        slot's block (:attr:`coords`); a slot that does not compute holds
+        its representative's."""
+        dtype = next(iter(locals_.values())).dtype
+        return Sharded(self.mesh, self.act_spec, (self.B, self.S, width),
+                       dtype, {c: locals_[r] for c, r in self.rep.items()})
+
+    def weight(self, w: Sharded, c, keep="model") -> torch.Tensor:
+        return fsdp_gather(w, c, self.cache, keep)
+
+    def full_seq(self, x: Sharded, c) -> torch.Tensor:
+        """Slot ``c``'s batch rows of ``x`` at every position."""
+        return gathered(x, c, (1,), self.cache)
+
+    def whole(self, x: Sharded, c) -> torch.Tensor:
+        """All of ``x`` on ``c``'s device."""
+        return gathered(x, c, (0, 1), self.cache)
+
+    def reduce(self, partials: dict, summed: bool) -> dict:
+        """Row-parallel partials [b, S, width] (one a computing slot)
+        summed over ``model`` where ``summed`` (else each slot's own), each
+        slot's block of positions kept."""
+        return psum_scatter(partials, self.mesh, "model", 1, self.seq_axes,
+                            summed, self.coords)
+
+    def batch_rows(self, t, c) -> torch.Tensor:
+        """Slot ``c``'s rows of a batch tensor [B, ...] on its device: the
+        local block of a :class:`Sharded` one split by ``batch``, else
+        the rows of a whole one (one copy a device)."""
+        if isinstance(t, Sharded):
+            return t.locals[tuple(c)]
+        key = ("rows", id(t), self.rows(c).start, self.dev(c))
+        if key not in self.cache:
+            self.cache[key] = (t, t[self.rows(c)].to(self.dev(c)))
+        return self.cache[key][1]
+
+    def positions(self, c) -> torch.Tensor:
+        key = ("positions", self.dev(c))
+        if key not in self.cache:
+            self.cache[key] = torch.arange(self.S, device=self.dev(c))[None]
+        return self.cache[key]
 
 
 def shard(x, ctx: ShardCtx, *logical) -> Sharded:
@@ -462,3 +756,58 @@ def place_for_ctx(model, ctx: ShardCtx, params=None, caches=None):
                      for i, block in enumerate(group)]
                  for g, group in caches.items()}
     return out_p, out_c
+
+
+def place_for_train(model, ctx: ShardCtx, params):
+    """``params`` laid out for a training context: every leaf split by its
+    ``param_pspecs(ctx.rules)`` spec over ``ctx``'s mesh -- the ``embed``
+    dim over ``data`` (FSDP), ``heads``, ``kv_heads``, ``ffn``, ``vocab``,
+    ``experts`` or ``expert_ffn`` over ``model`` where the rules split them
+    -- a leaf whose spec names no axis as one block. Each part (a block on
+    a device) is a fresh contiguous tensor, so a step updates it without
+    touching ``params``; :func:`repro_torch.training.adamw_init` of the
+    result gives moments split the same way."""
+    from repro_torch.models.schema import tree_leaves, tree_unflatten
+
+    mesh = ctx.mesh
+    specs = tree_leaves(model.param_pspecs(ctx.rules))
+    leaves = tree_leaves(params)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(leaves)} parameter leaves for {len(specs)} "
+                         "specs")
+
+    def place(t, spec):
+        src = t.detach()
+        return Sharded.split(src, mesh, spec).map_parts(
+            lambda b: (b.clone(memory_format=torch.contiguous_format)
+                       if b.device == src.device else b.contiguous()))
+
+    return tree_unflatten(params, [place(t, s) for t, s in zip(leaves, specs)])
+
+
+def tree_parts(tree) -> list:
+    """Every part of a tree of :class:`Sharded` leaves, in leaf order: what
+    a sharded step differentiates."""
+    from repro_torch.models.schema import tree_leaves
+
+    return [p for leaf in tree_leaves(tree) for p in leaf.parts()]
+
+
+def tree_with_parts(like, parts):
+    """``like``'s structure and layouts over ``parts`` (in
+    :func:`tree_parts` order)."""
+    from repro_torch.models.schema import tree_leaves, tree_unflatten
+
+    it = iter(parts)
+    return tree_unflatten(like, [
+        leaf.with_parts([next(it) for _ in leaf.parts()])
+        for leaf in tree_leaves(like)])
+
+
+def gather_tree(tree, device=None):
+    """A tree with every :class:`Sharded` leaf gathered whole on ``device``
+    (default: the mesh's first), other leaves as they are."""
+    from repro_torch.models.schema import tree_map
+
+    return tree_map(lambda t: t.gather(device) if isinstance(t, Sharded)
+                    else t, tree)

@@ -8,6 +8,11 @@ Keys are JAX's tree paths: ``params/decoder/g0/l0/attn/wq``, ...,
 per-layer lists back into it); bf16 is stored as fp32 (lossless). A file is
 written to a temp file and renamed; the last ``keep`` are kept. A file
 saved by either package restores in the other.
+
+A sharded run's trees (``sharding.partition.Sharded`` leaves) are gathered
+whole on the host to save, so the file is the same and an unsharded run
+restores it; restoring into a sharded tree re-places each leaf by its
+layout.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.convert import params_to_numpy
+from repro_torch.sharding.partition import Sharded, gather_tree
 from repro_torch.training.optimizer import AdamWState
 
 _CKPT = re.compile(r"ckpt_\d+\.npz$")
@@ -37,10 +43,11 @@ def _flat(tree, prefix):
 def save_checkpoint(ckpt_dir: str, step: int, params, opt_state: AdamWState,
                     keep: int = 3) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = _flat(params_to_numpy(params), "params/")
+    host = lambda t: params_to_numpy(gather_tree(t, "cpu"))  # noqa: E731
+    flat = _flat(host(params), "params/")
     flat["opt/.step"] = np.asarray(opt_state.step, dtype=np.int32)
-    flat.update(_flat(params_to_numpy(opt_state.m), "opt/.m/"))
-    flat.update(_flat(params_to_numpy(opt_state.v), "opt/.v/"))
+    flat.update(_flat(host(opt_state.m), "opt/.m/"))
+    flat.update(_flat(host(opt_state.v), "opt/.v/"))
     flat["step"] = np.asarray(step)
     tmp = os.path.join(ckpt_dir, f".tmp_ckpt_{step}.npz")
     final = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
@@ -79,6 +86,10 @@ def _fill(tree, prefix, data, path="", index=None):
         arr = arr[i]
     if arr.shape != tuple(tree.shape):
         raise ValueError(f"{key}: stored {arr.shape}, held {tuple(tree.shape)}")
+    if isinstance(tree, Sharded):
+        whole = torch.as_tensor(arr).to(dtype=tree.dtype)
+        return Sharded.split(whole, tree.mesh, tree.spec).map_parts(
+            lambda t: t.contiguous())
     return torch.as_tensor(arr).to(dtype=tree.dtype, device=tree.device)
 
 

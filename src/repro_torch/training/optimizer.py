@@ -13,6 +13,12 @@ Weight decay applies to every leaf, as in JAX.
 The port updates in place: the moments and the parameters are written
 under ``torch.no_grad()``, leaf by leaf (one leaf's fp32 temporaries at a
 time, not the whole tree's).
+
+A tree laid out for a training context (``sharding.partition.
+place_for_train``) has :class:`~repro_torch.sharding.partition.Sharded`
+leaves: its moments are split the same way, each part (a block on a
+device) is updated on its device with JAX's arithmetic unchanged, and the
+global norm counts each distinct block once.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.schema import tree_leaves, tree_map
+from repro_torch.sharding.partition import Sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,12 +68,19 @@ def lr_at(cfg: AdamWConfig, step) -> float:
     return float(warm if step < cfg.warmup_steps else cfg.lr * cos)
 
 
+def _zeros(p):
+    """fp32 zeros shaped like ``p``: a Sharded leaf's moment split as it
+    is, part by part."""
+    if isinstance(p, Sharded):
+        return p.map_parts(_zeros)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> AdamWState:
-    """Step 0 and fp32 zero moments shaped like every leaf of ``params``."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
-    return AdamWState(step=0, m=tree_map(zeros, params),
-                      v=tree_map(zeros, params))
+    """Step 0 and fp32 zero moments shaped like every leaf of ``params``
+    (split like a Sharded leaf)."""
+    return AdamWState(step=0, m=tree_map(_zeros, params),
+                      v=tree_map(_zeros, params))
 
 
 def adamw_init_specs(param_specs) -> AdamWState:
@@ -83,13 +97,28 @@ def adamw_init_specs(param_specs) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's fp32 sum of
-    squares: a 0-d fp32 tensor on the leaves' device."""
+    squares: a 0-d fp32 tensor on the leaves' device. A Sharded leaf's sum
+    is over its distinct blocks, each counted once (a block replicated over
+    ``model`` is not counted twice), on the mesh's first device."""
     total = None
     with torch.no_grad():
         for g in tree_leaves(tree):
-            s = g.float().square().sum()
+            if isinstance(g, Sharded):
+                dev = g.mesh.first_device
+                s = sum(t.float().square().sum().to(dev)
+                        for _, t in g.blocks().values())
+            else:
+                s = g.float().square().sum()
             total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _pairs(g, m, v, p):
+    """(gradient, m, v, parameter) a part: one tuple for a plain leaf, one
+    a part of a Sharded leaf."""
+    if isinstance(p, Sharded):
+        return zip(g.parts(), m.parts(), v.parts(), p.parts())
+    return [(g, m, v, p)]
 
 
 def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
@@ -102,10 +131,12 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
     lr = lr_at(cfg, step)
     b1c = float(1 - _f32(cfg.b1) ** _f32(step))
     b2c = float(1 - _f32(cfg.b2) ** _f32(step))
+    parts = [q for leaves in zip(tree_leaves(grads), tree_leaves(state.m),
+                                 tree_leaves(state.v), tree_leaves(params))
+             for q in _pairs(*leaves)]
     with torch.no_grad():
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
-                              tree_leaves(state.v), tree_leaves(params)):
-            g = g.float() * scale
+        for g, m, v, p in parts:
+            g = g.float() * scale.to(g.device)
             m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
             v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
             delta = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))

@@ -17,7 +17,9 @@ a capture that fails raising; an unwarmed EnginePipeline capturing on its
 dispatch thread, and a 2-replica in-process cluster's replayed graphs;
 MLA (deepseek-v2): flash at q/k 192, v 128, the absorbed-MLA decode
 kernel ring and paged against its plain versions at split and tile edges,
-and an MLA pool's graph against its eager step. The backward kernels
+and an MLA pool's graph against its eager step; the sharded training step on
+a 2 x 2 mesh naming the card four times against the CPU's, and its blocks'
+devices (``-k "sharded_train or train_blocks"``). The backward kernels
 (``-k backward``): flash's against ``ref.flash_attention_bwd_ref`` at
 sequence, group, head-dim, window, pad and Sq != Skv edges, fully masked
 rows, two calls bitwise, and at MLA's head dims (192, 128); rmsnorm's
@@ -2257,3 +2259,168 @@ def test_sharded_decode_step_across_cards(cuda_device):
     whole = leaf.gather()
     torch.testing.assert_close(whole, plain["g0"][0]["l0"]["k"], atol=1e-4,
                                rtol=0)
+
+
+def _sharded_grads(model, ctx, params, batch):
+    """Loss and each gradient leaf (gathered on the host) of one sharded
+    pass over ``params`` placed for ``ctx``."""
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.sharding.partition import (
+        place_for_train,
+        tree_parts,
+        tree_with_parts,
+    )
+
+    placed = place_for_train(model, ctx, params)
+    parts = tree_parts(placed)
+    for p in parts:
+        p.requires_grad_(True)
+    loss = model.loss(placed, batch, shard_ctx=ctx)
+    grads = torch.autograd.grad(loss, parts, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, parts)]
+    return float(loss.detach()), [
+        g.sum_copies().gather("cpu")
+        for g in tree_leaves(tree_with_parts(placed, grads))]
+
+
+def _train_mesh(dev, shape):
+    from repro_torch.launch.mesh import DeviceMesh
+
+    devs = np.empty(shape, dtype=object)
+    devs.flat[:] = [dev] * int(np.prod(shape))
+    return DeviceMesh(devs, ("data", "model"))
+
+
+def _train_ctx(cfg, mesh, B, S):
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.sharding.partition import make_ctx
+
+    return make_ctx(cfg, mesh, InputShape("train_4k", seq_len=S,
+                                          global_batch=B, kind="train"))
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_a_2x2_mesh_of_the_card(cuda_device):
+    """Reduced llama3-8b's sharded fp32 loss and gradients on a 2 x 2
+    (data, model) mesh naming the card four times, against the CPU's
+    sharded pass on the same weights and batch: the loss within 1e-5
+    relative, each gradient leaf within 5e-4 of its largest entry (embed
+    5e-3); flash and rmsnorm launched once a slot as the unsharded step
+    launches them once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+
+    cfg = get_config("llama3-8b").reduced()
+    B, S = 4, 128
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device, remat=True)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+             for k in ("tokens", "labels")}
+    ops.reset_launches()
+    lg, gg = _sharded_grads(gpu, _train_ctx(cfg, _train_mesh(
+        gpu.device, (2, 2)), B, S), params,
+        {k: v.to(gpu.device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    L = cfg.n_layers
+    assert launches["flash_attention"] == 4 * 2 * L  # forward + recompute
+    assert launches["flash_attention_bwd"] == 4 * L
+    assert launches["rmsnorm"] == 4 * (2 * 2 * L + 1)
+    assert launches["rmsnorm_bwd"] == 4 * (2 * L + 1)
+    lc, gc_ = _sharded_grads(cpu, _train_ctx(cfg, _train_mesh(
+        "cpu", (2, 2)), B, S), tree_map(lambda t: t.cpu(), params), batch)
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    leaves = tree_leaves(gpu.schema())
+    for spec, a, b in zip(leaves, gg, gc_):
+        tol = 5e-3 if spec.axes == ("vocab", "embed") else 5e-4
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * max(top, 1e-30), spec
+
+
+@pytest.mark.cuda
+def test_train_blocks_sit_on_their_slots_devices(cuda_device):
+    """place_for_train on a 2 x 1 mesh that names the card twice: every
+    leaf's two embed blocks (FSDP) on the card, half the embed dim each,
+    each a fresh tensor (none aliases the whole weight); the moments of
+    ``adamw_init`` split the same way, fp32; one sharded step keeps the
+    layout."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.sharding.partition import place_for_train
+    from repro_torch.training import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_config("llama3-8b").reduced()
+    model = Model(cfg, dtype=torch.bfloat16, device=cuda_device, remat=True)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    mesh = _train_mesh(model.device, (2, 1))
+    ctx = _train_ctx(cfg, mesh, 2, 64)
+    placed = place_for_train(model, ctx, params)
+    state = adamw_init(placed)
+    g = torch.Generator().manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=g).to(
+        model.device) for k in ("tokens", "labels")}
+    placed, state, met = make_train_step(model, AdamWConfig(), ctx)(
+        placed, state, batch)
+    assert np.isfinite(float(met["loss"]))
+    whole = {t.data_ptr() for t in tree_leaves(params)}
+    for spec, p, m in zip(tree_leaves(model.schema()), tree_leaves(placed),
+                          tree_leaves(state.m)):
+        for leaf, dtype in ((p, torch.bfloat16), (m, torch.float32)):
+            parts = leaf.parts()
+            assert len(parts) == (2 if "embed" in spec.axes else 1), spec
+            for coord in mesh.coords():
+                t = leaf.locals[coord]
+                assert t.device == model.device and t.dtype == dtype
+                assert t.data_ptr() not in whole
+                dim = spec.axes.index("embed")
+                assert t.shape[dim] == leaf.shape[dim] // len(parts)
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_across_two_cards(cuda_device):
+    """Where the host has two cards: reduced llama3-8b's sharded fp32 loss
+    and gradients on a 2 x 1 (data, model) mesh over cuda:0 and cuda:1
+    (FSDP across the cards: each embed block on its own card, the gathers
+    peer copies) against the CPU's pass on the same mesh shape: the loss
+    within 1e-5 relative, each gradient leaf within 5e-4 of its largest
+    (embed 5e-3); each part on its slot's card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: FSDP across cards cannot be shown on "
+                    "one")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DeviceMesh, make_train_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.sharding.partition import place_for_train
+
+    cfg = get_config("llama3-8b").reduced()
+    B, S = 4, 128
+    mesh = make_train_mesh(2)
+    gpu = Model(cfg, dtype=torch.float32, device=mesh.first_device,
+                remat=True)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params = gpu.init(torch.Generator(device=gpu.device).manual_seed(0))
+    ctx = _train_ctx(cfg, mesh, B, S)
+    placed = place_for_train(gpu, ctx, params)
+    for leaf in tree_leaves(placed):
+        for coord in mesh.coords():
+            assert leaf.locals[coord].device == mesh.device_at(coord)
+    assert {str(d) for d in mesh.device_list} == {"cuda:0", "cuda:1"}
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+             for k in ("tokens", "labels")}
+    lg, gg = _sharded_grads(gpu, ctx, params,
+                            {k: v.to(gpu.device) for k, v in batch.items()})
+    lc, gc_ = _sharded_grads(cpu, _train_ctx(cfg, DeviceMesh(
+        [["cpu"], ["cpu"]], ("data", "model")), B, S),
+        tree_map(lambda t: t.cpu(), params), batch)
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    for spec, a, b in zip(tree_leaves(gpu.schema()), gg, gc_):
+        tol = 5e-3 if spec.axes == ("vocab", "embed") else 5e-4
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * max(top, 1e-30), spec
