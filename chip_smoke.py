@@ -285,7 +285,16 @@ result line:
    gate at [1, 512] as (b); (d) with two cards or more, llama3-8b's 32
    layers through the launcher's full-config branch (data = the cards),
    4 steps, the trained params' loss on the first batch below the first
-   step's; on one card it prints that it needs two and runs nothing.
+   step's; on one card it prints that it needs two and runs nothing; (e)
+   the other stacks on (a)'s mesh at full width, 3 steps each through
+   ``train(..., shard_ctx=)``: mamba2-130m (24 layers, [8, 4096], its SSD
+   scan at 12 heads a slot), jamba-v0.1-52b (2 layers, [2, 4096], SSD at
+   64 heads a slot, attention + MoE), pixtral-12b (2 layers, 1024 feature
+   rows ahead of 3072 tokens) and seamless-m4t-large-v2 (6 + 6 of 24 +
+   24 layers, 1024 frames, 1024 tokens): the first batch's loss lower
+   after training, launches a slot's ``train_structure``, the SSD
+   launches by head count, a profiled step (busy, idle, host wall, peak),
+   each stack's fp32 gate at 2 layers as (b).
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -294,6 +303,8 @@ the plain version sum in different orders). The full results go to
 chiprun_out/chip_smoke.json.
 """
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -723,7 +734,8 @@ def main():
     t0 = phase("phase 19: training on a device mesh: FSDP over data, "
                "tensor and sequence parallelism over model, the "
                "vocab-parallel loss")
-    results["mesh_train"] = mesh_train_path(torch, ops, dev, results["train"])
+    results["mesh_train"] = mesh_train_path(torch, ops, dev, results["train"],
+                                            results["train_family"])
     done(t0)
 
     # each kernel's launches come from the run of the path that carries it:
@@ -760,7 +772,9 @@ def main():
         **{arch: r["launches"] for arch, r in results["train_family"].items()}}
     results["phase19_launches"] = {
         "llama3_2x2": results["mesh_train"]["a"]["launches"],
-        "deepseek_layer0_2x2": results["mesh_train"]["c"]["launches"]}
+        "deepseek_layer0_2x2": results["mesh_train"]["c"]["launches"],
+        **{f"{arch}_2x2": r["launches"]
+           for arch, r in results["mesh_train"]["e"].items()}}
     results["phase15_launches"] = {
         k: {"prefill": v["prefill_launches"],
             "decode_step": v["decode_launches_a_step"]}
@@ -5567,13 +5581,14 @@ TRAIN_FAMILY_CHECK = (
 def layer_norms(cfg, i):
     """rmsnorm launches of layer ``i``'s forward: ln1, and ln2 unless the
     stack is of the SSM family; an SSM layer's gate_norm; an MLA layer's
-    latent norms (q_norm where the query is low-rank, kv_norm)."""
+    latent norms (q_norm where the query is low-rank, kv_norm); an
+    encoder-decoder's decoder layer's ln_x."""
     n = 1 + (cfg.family != "ssm")
     if cfg.layer_kind(i) == "ssm":
         return n + 1
     if cfg.mla is not None:
         return n + 1 + bool(cfg.mla.q_lora_rank)
-    return n
+    return n + cfg.is_encdec
 
 
 def train_structure(cfg, steps):
@@ -5581,15 +5596,19 @@ def train_structure(cfg, steps):
     full remat: every layer's forward runs twice (the pass, then its
     recompute in the backward) and its backward once -- flash per
     attention layer, the SSD scan per SSM layer, rmsnorm per
-    :func:`layer_norms` -- and the final norm once each way."""
-    L = cfg.n_layers
-    norms = sum(layer_norms(cfg, i) for i in range(L))
+    :func:`layer_norms` -- and the final norm once each way. An
+    encoder-decoder adds its encoder's layers (flash and ln1, ln2 each),
+    each decoder layer's cross-attention (flash) and ``enc_norm``."""
+    L, E = cfg.n_layers, cfg.encoder_layers
+    norms = sum(layer_norms(cfg, i) for i in range(L)) + 2 * E
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
     n_ssm = L - n_attn
-    return {"rmsnorm": (2 * norms + 1) * steps,
-            "flash_attention": 2 * n_attn * steps,
-            "flash_attention_bwd": n_attn * steps,
-            "rmsnorm_bwd": (norms + 1) * steps, "decode_attention": 0,
+    flash = n_attn * (1 + cfg.is_encdec) + E
+    once = 1 + cfg.is_encdec  # the final norm, enc_norm
+    return {"rmsnorm": (2 * norms + once) * steps,
+            "flash_attention": 2 * flash * steps,
+            "flash_attention_bwd": flash * steps,
+            "rmsnorm_bwd": (norms + once) * steps, "decode_attention": 0,
             "paged_decode_attention": 0, "ssd_scan": 2 * n_ssm * steps,
             "preprocess": 0, "mla_decode_attention": 0,
             "paged_mla_decode_attention": 0, "ssd_scan_bwd": n_ssm * steps}
@@ -5758,12 +5777,14 @@ def train_serve(torch, ops, model, params):
 
 
 def train_step_profile(torch, model, params, state, data, opt, time_alone=True,
-                       shard_ctx=None):
+                       shard_ctx=None, cpu_ops=True):
     """One more training step under torch.profiler (device busy by part,
     idle share of the step's wall, the backward kernels' share of busy),
     and with ``time_alone`` cross-entropy, the embedding's backward and the
     optimizer's update each timed alone (CUDA events). With ``shard_ctx``
-    the step is the sharded one, on params placed for it."""
+    the step is the sharded one, on params placed for it. ``cpu_ops=False``
+    traces the device alone: the host's op events of a step of tens of
+    thousands of launches cost the profiler half a minute on an H100."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5782,8 +5803,8 @@ def train_step_profile(torch, model, params, state, data, opt, time_alone=True,
     step = make_train_step(model, opt, shard_ctx)
     p, state, _ = step(p, state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    acts = [ProfilerActivity.CPU] * cpu_ops + [ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
         p, state, _ = step(p, state, batch)
         torch.cuda.synchronize()
@@ -6392,6 +6413,34 @@ MESH_LOSS_RTOL = 1e-5
 MESH_GRAD_TOL = 5e-4  # of a leaf's largest |gradient|; embed MESH_EMBED_TOL
 MESH_EMBED_TOL = 5e-3
 MULTI_CARD_STEPS = 4
+# (e): the SSM, hybrid, VLM and encoder-decoder stacks on the same mesh at
+# full width, each MESH_TRAIN_STEPS steps: (arch, layers, batch [B, tokens],
+# feature rows, config changes, learning rate). mamba2 and jamba take
+# phase 16 (d)'s rate, under which their losses fall from the first step;
+# the attention stacks (a)'s
+MESH_STACKS = (
+    # all 24 layers, as phase 16 (d)
+    ("mamba2-130m", 24, (8, 4096), 0, {}, 1e-3),
+    # TRAIN_FAMILY's interleave: layer 0 SSM + dense FFN, layer 1
+    # attention + MoE
+    ("jamba-v0.1-52b", 2, (2, 4096), 0, dict(attn_every=2, attn_offset=1),
+     1e-3),
+    # 1024 feature rows ahead of 3072 tokens: 4096 positions
+    ("pixtral-12b", 2, (2, 3072), 1024, {}, MESH_TRAIN_LR),
+    # 6 of 24 encoder and 6 of 24 decoder layers (at 24 + 24 a step is 4.7
+    # s of host wall for 80,006 kernels on an H100), 1024 frames and 1024
+    # tokens
+    ("seamless-m4t-large-v2", 6, (2, 1024), 1024, dict(encoder_layers=6),
+     MESH_TRAIN_LR),
+)
+# (e)'s fp32 gates, card vs CPU, both sharded, at 2 layers (seamless: 2 +
+# 2): (arch, batch [B, tokens], feature rows, config changes)
+MESH_STACK_CHECK = (
+    ("mamba2-130m", (1, 512), 0, {}),
+    ("jamba-v0.1-52b", (1, 256), 0, dict(attn_every=2, attn_offset=1)),
+    ("pixtral-12b", (1, 192), 64, {}),
+    ("seamless-m4t-large-v2", (1, 384), 128, dict(encoder_layers=2)),
+)
 
 
 def card_mesh(torch, dev, shape=MESH_TRAIN_SHAPE):
@@ -6426,37 +6475,72 @@ def sharded_structure(cfg, steps, ctx, batch):
     return {k: v * slots for k, v in train_structure(cfg, steps).items()}
 
 
-def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded):
+@contextlib.contextmanager
+def ssd_heads_recorded():
+    """Within it every SSD scan launch, forward and backward, is counted by
+    its head count: yields a Counter of ("ssd_scan" or "ssd_scan_bwd",
+    heads)."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    seen = collections.Counter()
+    real = ssd_mod.launch, ssd_mod.launch_bwd
+
+    def wrap(fn, name):
+        def launch(x, *a, **k):
+            seen[name, x.shape[2]] += 1
+            return fn(x, *a, **k)
+        return launch
+
+    ssd_mod.launch = wrap(real[0], "ssd_scan")
+    ssd_mod.launch_bwd = wrap(real[1], "ssd_scan_bwd")
+    try:
+        yield seen
+    finally:
+        ssd_mod.launch, ssd_mod.launch_bwd = real
+
+
+def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded,
+                   features=0, lr=MESH_TRAIN_LR, recheck=False,
+                   cpu_ops=True):
     """(a) ``repro_torch.training.train(..., shard_ctx=)``:
     MESH_TRAIN_STEPS AdamW steps of ``cfg`` (full remat, bf16) on a
     MESH_TRAIN_SHAPE mesh that names the card in every slot, phase 16's
-    batches; gates: finite and falling losses, launches ==
-    :func:`sharded_structure`; one more step profiled beside phase 16's
-    unsharded step (``unsharded``: its record)."""
+    batches (with ``features`` feature rows a row, from
+    ``DataConfig(feature_rows=)``: a VLM's prepended, an encoder-decoder's
+    its encoder's frames); gates: finite and falling losses -- or, with
+    ``recheck``, the trained params' loss on the first batch below the
+    first step's --, launches == :func:`sharded_structure`, the SSD scan
+    launched at a slot's head count; one more step profiled beside phase
+    16's unsharded step (``unsharded``: its record, or {}; ``cpu_ops``:
+    :func:`train_step_profile`'s)."""
     from repro_torch.launch.train import STATE_BYTES_PER_PARAM, param_count
     from repro_torch.models import Model
     from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
+    from repro_torch.training.data import make_dataset
 
     B, S = batch
     mesh = card_mesh(torch, dev)
-    ctx = train_ctx(cfg, mesh, batch)
+    ctx = train_ctx(cfg, mesh, (B, S + features))
     model = Model(cfg, remat=True, remat_policy="full", device=dev)
     n_params = param_count(model)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
-                      seed=0)
+                      seed=0, feature_rows=features)
     # AdamW's first steps move every weight by about lr (the update is the
     # gradient's sign): from random weights phase 16's lr of 1e-3 spikes
-    # the loss on an H100 (12.6, 21.8, 13.8, 35.5) before it falls, and so
-    # does 1e-4 (12.6, 15.9, 13.0); MESH_TRAIN_LR keeps the steps small
-    opt = AdamWConfig(lr=MESH_TRAIN_LR, warmup_steps=1,
-                      total_steps=MESH_TRAIN_STEPS)
+    # llama3-8b's loss on an H100 (12.6, 21.8, 13.8, 35.5) before it falls,
+    # and so does 1e-4 (12.6, 15.9, 13.0); MESH_TRAIN_LR keeps the steps
+    # small
+    opt = AdamWConfig(lr=lr, warmup_steps=1, total_steps=MESH_TRAIN_STEPS)
+    rules = {k: ctx.rules.get(k) for k in (
+        "embed", "act_seq", "heads", "kv_heads", "ffn", "vocab", "experts",
+        "ssm_heads") if ctx.rules.get(k) is not None}
     print(f"   {label}: {n_params:,} parameters, "
           f"{STATE_BYTES_PER_PARAM * n_params / 1e9:.1f} GB of state on a "
           f"{mesh.sizes[0]} x {mesh.sizes[1]} (data, model) mesh of {dev}; "
-          f"rules embed={ctx.rules['embed']} act_seq={ctx.rules['act_seq']} "
-          f"heads={ctx.rules['heads']} kv_heads={ctx.rules['kv_heads']} "
-          f"ffn={ctx.rules['ffn']} vocab={ctx.rules['vocab']}; batch "
-          f"[{B}, {S}], remat full, {MESH_TRAIN_STEPS} steps", flush=True)
+          f"rules {rules}; batch [{B}, {S}]"
+          + (f" + {features} feature rows" if features else "")
+          + f", remat full, {MESH_TRAIN_STEPS} steps at lr {lr:g}",
+          flush=True)
     events = []
 
     def log(msg):
@@ -6472,25 +6556,49 @@ def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded):
     ops.reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     start.record()
-    params, state, hist = train(model, data, TrainConfig(
-        steps=MESH_TRAIN_STEPS, log_every=1, seed=0), opt, shard_ctx=ctx,
-        log_fn=log)
-    torch.cuda.synchronize()
+    with ssd_heads_recorded() as heads:
+        params, state, hist = train(model, data, TrainConfig(
+            steps=MESH_TRAIN_STEPS, log_every=1, seed=0), opt, shard_ctx=ctx,
+            log_fn=log)
+        torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     marks = [start] + events
     step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     losses = [h["loss"] for h in hist]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+    again = None
+    if recheck:
+        first = {k: torch.as_tensor(v, device=dev) for k, v in next(
+            make_dataset(data).batches()).items()}
+        with torch.no_grad():
+            again = float(model.loss(params, first, shard_ctx=ctx))
+        print(f"   the first batch's loss {losses[0]:.4f} before training, "
+              f"{again:.4f} after", flush=True)
+        if not all(math.isfinite(x) for x in losses + [again]) \
+                or not again < losses[0]:
+            raise AssertionError(f"{label}: losses {losses}, the first "
+                                 f"batch's after training {again}")
+    elif not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses {losses}")
-    want = sharded_structure(cfg, MESH_TRAIN_STEPS, ctx, batch)
+    want = sharded_structure(cfg, MESH_TRAIN_STEPS, ctx, (B, S + features))
     print(f"   launches {launches}; expected {want} ({mesh.size} slots x "
           f"train_structure)")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
+    if cfg.ssm is not None:
+        hl = cfg.ssm.n_heads(cfg.d_model) // ctx.axis_size("ssm_heads")
+        want_heads = {(k, hl): launches[k] for k in ("ssd_scan",
+                                                     "ssd_scan_bwd")}
+        print(f"   SSD launches by heads: {dict(heads)}; {hl} heads a slot")
+        if dict(heads) != want_heads:
+            raise AssertionError(f"{label}: SSD launches by heads "
+                                 f"{dict(heads)} != {want_heads}")
+    first_layer = params["decoder"]["g0"][0]["l0"]
+    mixer = ("attn", "wq") if "attn" in first_layer else ("ssm", "in_proj")
     blocks = {}
     for name, leaf in (("embed", params["embed"]),
-                       ("wq", params["decoder"]["g0"][0]["l0"]["attn"]["wq"]),
+                       ("/".join(mixer), first_layer[mixer[0]][mixer[1]]),
                        ("m embed", state.m["embed"])):
         blocks[name] = {"spec": list(map(str, leaf.spec)),
                         "block": list(leaf.parts()[0].shape),
@@ -6498,22 +6606,30 @@ def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded):
                         "device": str(leaf.parts()[0].device)}
     print(f"   blocks: {blocks}", flush=True)
     res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+           "feature_rows": features, "lr": lr,
            "mesh": list(mesh.sizes), "rules": {k: str(v) for k, v in
                                                ctx.rules.items()},
            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
-           "launches": launches, "step_ms": step_ms,
-           "peak_mem_gb": peak / 1e9, "blocks": blocks}
+           "first_batch_after": again, "launches": launches,
+           "ssd_heads": {f"{k}@{h}": n for (k, h), n in heads.items()},
+           "step_ms": step_ms, "peak_mem_gb": peak / 1e9, "blocks": blocks}
+    t0 = time.perf_counter()
     prof = train_step_profile(torch, model, params, state, data, opt,
-                              time_alone=False, shard_ctx=ctx)
+                              time_alone=False, shard_ctx=ctx,
+                              cpu_ops=cpu_ops)
     res["profile"] = prof
+    res["profile_s"] = time.perf_counter() - t0
     base = unsharded.get("profile", {})
-    if prof.get("device_busy_ms") and base.get("device_busy_ms"):
-        res["busy_ratio"] = prof["device_busy_ms"] / base["device_busy_ms"]
+    if prof.get("device_busy_ms"):
         print(f"   sharded step: busy {prof['device_busy_ms']:.1f} ms, idle "
               f"share {prof['device_idle_share']:.3f}, host wall "
-              f"{prof['host_wall_ms']:.1f} ms; phase 16's unsharded step "
-              f"in this run: busy {base['device_busy_ms']:.1f} ms, idle "
-              f"share {base['device_idle_share']:.3f}, host wall "
+              f"{prof['host_wall_ms']:.1f} ms, peak {peak / 1e9:.2f} GB",
+              flush=True)
+    if prof.get("device_busy_ms") and base.get("device_busy_ms"):
+        res["busy_ratio"] = prof["device_busy_ms"] / base["device_busy_ms"]
+        print(f"   phase 16's unsharded step in this run: busy "
+              f"{base['device_busy_ms']:.1f} ms, idle share "
+              f"{base['device_idle_share']:.3f}, host wall "
               f"{base['host_wall_ms']:.1f} ms; busy ratio "
               f"{res['busy_ratio']:.3f}; peak {peak / 1e9:.2f} GB sharded "
               f"against {unsharded.get('peak_mem_gb', float('nan')):.2f} GB "
@@ -6524,13 +6640,14 @@ def mesh_train_run(torch, ops, dev, cfg, batch, label, unsharded):
     return res
 
 
-def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label):
-    """(b)/(c)'s gate: ``cfg`` in fp32, one sharded loss and gradient on a
-    MESH_TRAIN_SHAPE mesh of the card against the same on a mesh of the
-    CPU (the plain versions), the same weights and batch: the loss within
-    MESH_LOSS_RTOL, every gradient leaf within MESH_GRAD_TOL of its largest
-    entry (``embed`` MESH_EMBED_TOL); launches == :func:`sharded_structure`
-    for one step."""
+def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label, features=0):
+    """(b)/(c)/(e)'s gate: ``cfg`` in fp32, one sharded loss and gradient
+    on a MESH_TRAIN_SHAPE mesh of the card against the same on a mesh of
+    the CPU (the plain versions), the same weights and batch (with
+    ``features`` feature rows a row): the loss within MESH_LOSS_RTOL, every
+    gradient leaf within MESH_GRAD_TOL of its largest entry (``embed``
+    MESH_EMBED_TOL); launches == :func:`sharded_structure` for one
+    step."""
     from repro_torch.models import Model
     from repro_torch.models.schema import tree_leaves, tree_map
     from repro_torch.sharding.partition import (
@@ -6547,10 +6664,11 @@ def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label):
     whole_cpu = tree_map(lambda t: t.cpu(), whole)
     data = next(make_dataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
-        seed=0)).batches())
+        seed=0, feature_rows=features)).batches())
+    rows = (B, S + features)
 
     def grads(model, mesh, tree):
-        ctx = train_ctx(cfg, mesh, batch)
+        ctx = train_ctx(cfg, mesh, rows)
         placed = place_for_train(model, ctx, tree)
         parts = tree_parts(placed)
         for p in parts:
@@ -6569,20 +6687,25 @@ def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     want = sharded_structure(cfg, 1, train_ctx(cfg, card_mesh(torch, dev),
-                                               batch), batch)
+                                               rows), rows)
     if launches != want:
         raise AssertionError(f"{label} launches {launches} != {want}")
     del whole
     t0 = time.perf_counter()
     lc, gc_ = grads(cpu, card_mesh(torch, torch.device("cpu")), whole_cpu)
     cpu_s = time.perf_counter() - t0
-    gaps = {k: leaf_gap(a.double(), b.double())
+    # fp32 differences: a gap of 5e-4 of a leaf's largest is far above
+    # their rounding, and float64 copies of jamba's 2.8B expert weights
+    # took most of its gate's minute and a half on an H100
+    gaps = {k: leaf_gap(a, b)
             for k, a, b in zip(_leaf_names(cpu.schema()), gg, gc_)}
     worst_embed = gaps["embed"]
     worst = max(v for k, v in gaps.items() if k != "embed")
     loss_rel = abs(lg - lc) / abs(lc)
     print(f"   {label}: card vs CPU, both sharded on {MESH_TRAIN_SHAPE[0]} x "
-          f"{MESH_TRAIN_SHAPE[1]}, fp32, [{B}, {S}]: loss {lg:.6f} / {lc:.6f} "
+          f"{MESH_TRAIN_SHAPE[1]}, fp32, [{B}, {S}]"
+          + (f" + {features} feature rows" if features else "")
+          + f": loss {lg:.6f} / {lc:.6f} "
           f"(relative {loss_rel:.2e}, limit {MESH_LOSS_RTOL}); worst gradient "
           f"leaf {worst:.2e} of its largest entry over {len(gg) - 1} leaves "
           f"(limit {MESH_GRAD_TOL}), embed {worst_embed:.2e} (limit "
@@ -6595,6 +6718,7 @@ def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label):
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+            "feature_rows": features,
             "loss_card": lg, "loss_cpu": lc, "loss_rel": loss_rel,
             "worst_leaf_rel": worst, "embed_rel": worst_embed,
             "launches": launches, "cpu_s": cpu_s}
@@ -6707,7 +6831,41 @@ def multi_card_train(torch):
             "first_batch_after": again, "wall_s": wall}
 
 
-def mesh_train_path(torch, ops, dev, unsharded):
+def mesh_stacks_path(torch, ops, dev, family):
+    """(e) MESH_STACKS: mamba2-130m (24 layers, [8, 4096]; its 24 SSD heads
+    12 a slot), jamba-v0.1-52b (2 layers, [2, 4096]; 64 of its 128 SSD heads
+    a slot, attention and MoE), pixtral-12b (2 layers, 1024 feature rows
+    and 3072 tokens a row) and seamless-m4t-large-v2 (6 + 6 of its 24 +
+    24 layers, 1024 frames and 1024 tokens) trained on (a)'s mesh through
+    ``train(..., shard_ctx=)``, each as (a) with the first batch's loss
+    read again after training, then its fp32 gate at 2 layers
+    (MESH_STACK_CHECK).
+    ``family``: phase 16 (d)'s unsharded records, beside which mamba2's and
+    jamba's steps are read."""
+    out = {}
+    for (arch, layers, batch, features, changes, lr), check in zip(
+            MESH_STACKS, MESH_STACK_CHECK):
+        t0 = time.perf_counter()
+        cfg = train_config(arch, layers, changes)
+        res = mesh_train_run(
+            torch, ops, dev, cfg, batch,
+            f"(e) {arch}, {layers} layers at full width",
+            family.get(arch, {}), features=features, lr=lr, recheck=True,
+            cpu_ops=False)
+        t1 = time.perf_counter()
+        c_arch, c_batch, c_features, c_changes = check
+        res["gate"] = mesh_card_vs_cpu(
+            torch, ops, dev, train_config(c_arch, 2, c_changes), c_batch,
+            f"(e) {c_arch}, 2 layers", features=c_features)
+        res["wall_s"] = {"run": t1 - t0, "gate": time.perf_counter() - t1}
+        print(f"   (e) {arch}: the run {t1 - t0:.1f} s (its profiled step "
+              f"{res['profile_s']:.1f} s), the gate "
+              f"{res['wall_s']['gate']:.1f} s", flush=True)
+        out[arch] = res
+    return out
+
+
+def mesh_train_path(torch, ops, dev, unsharded, family=None):
     """Phase 19: training on a device mesh (ROADMAP queue 1 item 3b).
     (a) phase 16's llama3-8b (8 of 32 layers at full width, [2, 4096],
     full remat, bf16) on a 2 x 2 (data, model) mesh naming the card four
@@ -6719,7 +6877,9 @@ def mesh_train_path(torch, ops, dev, unsharded):
     deepseek-v2-236b's layer 0 (MLA, the flash backward at (192, 128) on
     64 heads a slot) one bf16 step at [2, 4096], then its fp32 gate at
     [1, 512]; (d) the launcher's full-config branch over the cards, where
-    there are two or more."""
+    there are two or more; (e) the SSM, hybrid, VLM and encoder-decoder
+    stacks (:func:`mesh_stacks_path`; ``family``: phase 16 (d)'s
+    records)."""
     out = {}
     cfg = train_config("llama3-8b", TRAIN_LAYERS, {})
     out["a"] = mesh_train_run(
@@ -6734,6 +6894,7 @@ def mesh_train_path(torch, ops, dev, unsharded):
     out["c"]["gate"] = mesh_card_vs_cpu(torch, ops, dev, ds, MESH_MLA_BATCH,
                                         "(c) deepseek-v2-236b, layer 0")
     out["d"] = multi_card_train(torch)
+    out["e"] = mesh_stacks_path(torch, ops, dev, family or {})
     return out
 
 

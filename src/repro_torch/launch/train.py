@@ -18,12 +18,18 @@ when the largest device's share exceeds a card's memory. It never shrinks
 the model on its own: ``--layers N`` trains the stack's first N layers at
 full width, and ``--batch`` / ``--seq`` replace the shape's global batch
 (256 x 4096 for train_4k, far past a card's activations). On one card the
-run is the unsharded step, as the mesh is 1 x 1; on several, the stack
-must be one the sharded step takes (attention stacks: GQA or MLA, dense or
-MoE).
+run is the unsharded step, as the mesh is 1 x 1; on several, the sharded
+step, which takes every decoder-only stack: attention (GQA or MLA, dense or
+MoE), Mamba-2 (mamba2-130m) and the hybrid (jamba-v0.1-52b). The batches
+are ``SyntheticLM``'s tokens, which carry no feature rows (nor do the JAX
+trainer's): pixtral-12b trains on its text alone, as JAX's launcher trains
+it, and an encoder-decoder (seamless-m4t-large-v2), whose encoder needs
+features, is refused with ValueError -- train it through
+``training.train`` with ``DataConfig(feature_rows=F)``.
 
 On one 80 GB card, at full depth: mamba2-130m (1.5 GB of state),
-seamless-m4t-large-v2 (21 GB) and starcoder2-3b (50 GB). Every other
+seamless-m4t-large-v2 (21 GB; through ``training.train``, as above) and
+starcoder2-3b (50 GB). Every other
 configuration is refused there at full depth -- llama3-8b 90 GB,
 pixtral-12b 139 GB, qwen3-32b 384 GB, granite-34b 563 GB, jamba-v0.1-52b
 614 GB, deepseek-v2-236b 2.8 TB, grok-1-314b 3.8 TB -- and trains only cut
@@ -151,6 +157,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its encoder needs feature "
+            "rows, which the launcher's synthetic token batches do not carry "
+            "(nor do the JAX trainer's); train it through training.train "
+            "with DataConfig(feature_rows=F)")
     model = Model(cfg, device=args.device, remat=True,
                   remat_policy=args.remat_policy)
     shard_ctx = None

@@ -83,31 +83,62 @@ def kv_columns(cfg, h0: int, hq: int):
     return k0, (h0 + hq - 1) // g + 1
 
 
-def attention_sharded(p, cfg, h, sp):
+def _slot_weights(p, cfg, sp, c):
+    """Slot ``c``'s attention weights: its ``heads`` columns of ``wq``
+    (rows of ``wo``) and the kv heads those read -- its ``kv_heads``
+    block, or the columns of a replicated ``wk``/``wv``
+    (:func:`kv_columns`) -- each gathered over ``data``."""
+    lp = {k: sp.weight(w, c) for k, w in p.items()}
+    nh = sp.count("heads")
+    if sp.count("kv_heads") == 1 and nh > 1:
+        hq, hd = cfg.n_heads // nh, cfg.head_dim
+        k0, k1 = kv_columns(cfg, sp.index("heads", c) * hq, hq)
+        for n in ("wk", "wv"):
+            lp[n] = lp[n][:, k0 * hd:k1 * hd]
+    return lp
+
+
+def attention_sharded(p, cfg, h, sp, causal=True):
     """The training pass's tensor-parallel attention over the normalised
     residual ``h`` (a SlotPass activation): each slot gathers its batch
-    rows at every position, projects them through its ``heads`` columns of
-    ``wq`` and the kv heads those read (its ``kv_heads`` block, or the
-    columns of a replicated ``wk``/``wv``: :func:`kv_columns`), runs the
-    flash kernel causally over its head shard and multiplies by its rows
-    of ``wo`` (row-parallel). Returns (partials [b, S, d] a slot, whether
-    they sum over ``model``)."""
-    H, hd = cfg.n_heads, cfg.head_dim
-    nh = sp.count("heads")
-    hq = H // nh
+    rows at every position, projects them through its weights
+    (:func:`_slot_weights`), runs the flash kernel over its head shard --
+    causal, or bidirectional for an encoder (``causal=False``, no window)
+    -- and multiplies by its rows of ``wo`` (row-parallel). Returns
+    (partials [b, S, d] a slot, whether they sum over ``model``)."""
     partials = {}
     for c in sp.coords:
-        lp = {k: sp.weight(w, c) for k, w in p.items()}
-        if sp.count("kv_heads") == 1 and nh > 1:
-            k0, k1 = kv_columns(cfg, sp.index("heads", c) * hq, hq)
-            for n in ("wk", "wv"):
-                lp[n] = lp[n][:, k0 * hd:k1 * hd]
+        lp = _slot_weights(p, cfg, sp, c)
         hg = sp.full_seq(h, c)
         q, k, v = project_qkv(lp, cfg, hg, sp.positions(c))
-        o = ops.flash_attention(q, k, v, causal=True,
-                                window=cfg.sliding_window)
+        o = ops.flash_attention(q, k, v, causal=causal,
+                                window=cfg.sliding_window if causal else 0)
         partials[c] = o.reshape(hg.shape[:2] + (-1,)) @ lp["wo"]
-    return partials, nh > 1
+    return partials, sp.count("heads") > 1
+
+
+def cross_attention_sharded(p, cfg, h, enc, sp):
+    """The training pass's cross-attention of an encoder-decoder's decoder
+    layer (JAX's ``_cross_kv`` and ``_cross_attend_full`` under a training
+    context), tensor-parallel as :func:`attention_sharded`: each slot's
+    queries come from its batch rows of ``h`` (the normalised residual) at
+    every position, through its ``heads`` columns of ``wq``; its keys and
+    values from its batch rows of ``enc`` (the encoder's output, a tensor
+    [B, F, d] split as a residual stream) gathered over every frame,
+    through the kv heads its queries read; no RoPE; flash with
+    ``causal=False`` over S queries and F keys; its rows of ``wo``.
+    Returns (partials [b, S, d] a slot, whether they sum over
+    ``model``)."""
+    hd = cfg.head_dim
+    partials = {}
+    for c in sp.coords:
+        lp = _slot_weights(p, cfg, sp, c)
+        hg, e = sp.full_seq(h, c), sp.full_seq(enc, c)
+        q = _split_heads(hg @ lp["wq"], hd)
+        o = ops.flash_attention(q, _split_heads(e @ lp["wk"], hd),
+                                _split_heads(e @ lp["wv"], hd), causal=False)
+        partials[c] = o.reshape(hg.shape[:2] + (-1,)) @ lp["wo"]
+    return partials, sp.count("heads") > 1
 
 
 def decode_attention_update(q, k_new, v_new, k_cache, v_cache, lengths, *,

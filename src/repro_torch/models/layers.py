@@ -148,20 +148,33 @@ def cross_entropy(logits, labels, mask=None):
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
-def embed_lookup_sharded(table: Sharded, tokens, sp):
+def embed_lookup_sharded(table: Sharded, tokens, sp, prefix=None):
     """The training pass's vocab-parallel embedding (JAX's ``embed_lookup``
     under a training context): each slot gathers its vocab block of the
     table over ``data`` (FSDP) and looks up its batch rows' tokens, ids
     outside the block giving zero rows; the partials are summed over
     ``model`` onto each slot's block of positions (a
-    :class:`~repro_torch.sharding.partition.SlotPass` ``reduce``). Returns
-    the residual stream's blocks, one a slot."""
+    :class:`~repro_torch.sharding.partition.SlotPass` ``reduce``).
+    ``prefix(c)`` (a VLM's projected features, [b, F, d] for slot ``c``'s
+    batch rows) goes ahead of the token rows, the pass then spanning F + S
+    positions; where the partials sum over ``model`` only the first slot
+    of each ``model`` row adds it (the others add zeros), so the sum stays
+    exact. Returns the residual stream's blocks, one a slot."""
+    summed = table.counts()[0] > 1
     partials = {}
     for c in sp.coords:
         t = sp.weight(table, c)
-        partials[c] = _block_rows(t, sp.batch_rows(tokens, c),
-                                  table.block(c)[0] * t.shape[0])
-    return sp.reduce(partials, summed=table.counts()[0] > 1)
+        rows = _block_rows(t, sp.batch_rows(tokens, c),
+                           table.block(c)[0] * t.shape[0])
+        if prefix is not None:
+            if not summed or tuple(c) == sp.model_row(c)[0]:
+                pre = prefix(c).to(rows.dtype)
+            else:
+                pre = rows.new_zeros((rows.shape[0], sp.S - rows.shape[1],
+                                      rows.shape[2]))
+            rows = torch.cat([pre, rows], dim=1)
+        partials[c] = rows
+    return sp.reduce(partials, summed=summed)
 
 
 def _nll_chunk(starts, true_vocab, dev, *tensors):
@@ -191,7 +204,7 @@ def _nll_chunk(starts, true_vocab, dev, *tensors):
 
 
 def vocab_parallel_nll(x: Sharded, table: Sharded, labels, sp,
-                       true_vocab: int, chunk: int = 1024):
+                       true_vocab: int, chunk: int = 1024, start: int = 0):
     """Fused LM head + cross-entropy with the table split by ``vocab``
     (JAX's ``vocab_parallel_nll``): for each batch block, each slot of its
     ``model`` row computes its vocab block's fp32 logits on its own device,
@@ -202,10 +215,12 @@ def vocab_parallel_nll(x: Sharded, table: Sharded, labels, sp,
     sum of the blocks' summed exponentials and the gold logit from the
     block that holds the label. The whole [B, S, V] logits never exist.
     ``x`` is the residual stream (split by batch and ``act_seq``), gathered
-    over positions; ``labels`` [B, S] whole or split by batch. Returns the
-    token NLL [B, S] fp32 on the mesh's first device. With ``vocab`` whole
-    (one block) it is the plain cross-entropy of the tied head."""
-    S = sp.S
+    over positions from ``start`` on (a VLM's text suffix: its feature rows
+    take no loss); ``labels`` [B, S - start] whole or split by batch.
+    Returns the token NLL [B, S - start] fp32 on the mesh's first device.
+    With ``vocab`` whole (one block) it is the plain cross-entropy of the
+    tied head."""
+    S = sp.S - start
     c = min(chunk, S)
     if S % c:  # ragged: one chunk, as JAX
         c = S
@@ -220,7 +235,7 @@ def vocab_parallel_nll(x: Sharded, table: Sharded, labels, sp,
             if table.block(r)[0] not in seen:
                 seen.add(table.block(r)[0])
                 slots.append(r)
-        xs = [sp.full_seq(x, r) for r in slots]
+        xs = [sp.full_seq(x, r)[:, start:] for r in slots]
         tables = [sp.weight(table, r) for r in slots]
         starts = [table.block(r)[0] * t.shape[0]
                   for r, t in zip(slots, tables)]

@@ -7,7 +7,8 @@ zero state. Decode is the one-token state recurrence in plain PyTorch (the
 JAX package has no kernel for it) and writes the layer's conv window and
 state into its cache in place. The cache -- a ``[K-1, d_in + 2 ds]`` conv
 window and an fp32 ``[nh, hd, ds]`` state per row -- has the same size
-whatever the prompt length: the constant-size serving payload.
+whatever the prompt length: the constant-size serving payload. A training
+pass on a device mesh runs :func:`mamba_sharded`, the block split by heads.
 """
 
 from __future__ import annotations
@@ -114,3 +115,72 @@ def mamba_forward(p, cfg, u, *, cache=None):
     gate = F.silu(z.float()).to(y.dtype)
     y = ops.rmsnorm(y * gate, p["gate_norm"], eps=cfg.norm_eps)
     return y @ p["out_proj"], new_cache
+
+
+def mamba_sharded(p, cfg, h, sp):
+    """The training pass's Mamba-2 block with its heads over ``model``
+    (JAX's ``mamba_forward`` under a training context, whose rules split
+    ``ssm_heads`` and ``ssm_in``), over the normalised residual ``h`` (a
+    SlotPass activation). Each slot gathers its batch rows at every
+    position -- the scan needs the whole sequence -- and computes its
+    ``nh / n`` heads: its columns of ``z``, ``x`` and ``dt`` and the shared
+    ``B``/``C`` columns of ``in_proj``, the causal conv over its ``x``
+    channels and ``B``/``C``, the SSD scan at its head count, ``D`` and
+    the gate.
+
+    ``in_proj``'s columns are laid out [z | x | B | C | dt] and
+    ``conv_w``/``conv_b``'s [x | B | C], so a contiguous ``model`` block of
+    them is not one head shard's: both are gathered whole and each slot
+    takes its columns (the gather's backward sums the shared ``B``/``C``
+    columns' gradient over the row, as GSPMD does). ``A_log``, ``D``,
+    ``dt_bias``, ``gate_norm`` and ``out_proj``'s rows split on head
+    boundaries (``d_in = nh * hd``) and are the slot's blocks. The scan
+    reads x, B and C as views of the conv's output row [b, S, w + 2 ds],
+    as the unsharded block does: w is whole heads, so the rows stay as
+    aligned as the kernel needs.
+
+    The gated norm normalises over the whole ``d_in``: each slot gathers
+    the gated rows of its ``model`` row (:meth:`SlotPass.split_cols`) and
+    runs the rmsnorm kernel on whole rows, then multiplies its own columns
+    by its rows of ``out_proj`` (row-parallel). Returns (partials [b, S,
+    d] a slot, whether they sum over ``model``)."""
+    s = cfg.ssm
+    d_in = cfg.d_model * s.expand
+    nh, hd, ds = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    n = sp.count("ssm_heads")
+    hl, w = nh // n, d_in // n  # a slot's heads and columns
+    gated, cols = {}, {}
+    for c in sp.coords:
+        i = sp.index("ssm_heads", c)
+        cols[c] = own = slice(i * w, (i + 1) * w)  # z's, x's, the gated rows'
+        proj = sp.weight(p["in_proj"], c, keep=None)  # [z | x | B C | dt]
+        conv_w = sp.weight(p["conv_w"], c, keep=None)  # [x | B C]
+        conv_b = sp.weight(p["conv_b"], c, keep=None)
+        bc = slice(d_in, d_in + 2 * ds)  # B and C after x
+        dt0 = 2 * d_in + 2 * ds + i * hl
+        hg = sp.full_seq(h, c)
+        zxbcdt = hg @ torch.cat([proj[:, own], proj[:, d_in:][:, own],
+                                 proj[:, d_in:][:, bc], proj[:, dt0:dt0 + hl]],
+                                dim=1)
+        z, xBC, dt = torch.split(zxbcdt, [w, w + 2 * ds, hl], dim=-1)
+        xBC = _causal_conv(xBC, torch.cat([conv_w[:, own], conv_w[:, bc]], 1),
+                           torch.cat([conv_b[own], conv_b[bc]]))
+        b, S = hg.shape[:2]
+        x = xBC[..., :w].reshape(b, S, hl, hd)
+        B_ = xBC[..., w:w + ds].reshape(b, S, 1, ds)
+        C_ = xBC[..., w + ds:].reshape(b, S, 1, ds)
+        dt = F.softplus(dt.float() + sp.weight(p["dt_bias"], c).float())
+        A = -torch.exp(sp.weight(p["A_log"], c).float())
+        y, _ = ops.ssd_scan(x, dt, A, B_, C_, chunk=s.chunk)
+        D = sp.weight(p["D"], c)
+        y = (y + x * D[None, None, :, None].to(y.dtype)).to(h.dtype)
+        y = y.reshape(b, S, w)
+        gated[c] = y * F.silu(z.float()).to(y.dtype)
+    rows = sp.split_cols(gated, d_in, "ssm_in")
+    partials = {}
+    for c in sp.coords:
+        y = ops.rmsnorm(sp.full_cols(rows, c),
+                        sp.weight(p["gate_norm"], c, keep=None),
+                        eps=cfg.norm_eps)
+        partials[c] = y[..., cols[c]] @ sp.weight(p["out_proj"], c)
+    return partials, n > 1

@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.transformer import (
     REMAT_POLICIES,
     encoder_apply,
+    encoder_apply_sharded,
     encoder_schema,
     layer_groups,
     stack_apply_decode,
@@ -221,37 +222,69 @@ class Model:
     def _backbone_sharded(self, params, tokens, features, ctx):
         """The training pass on ``ctx``'s mesh (JAX's sharded ``backbone``):
         the params laid out by ``sharding.partition.place_for_train``, the
-        vocab-parallel embedding of each slot's batch rows, the residual
-        stream split ("batch", "act_seq", None) (JAX's constraint of the
-        embedded input), every layer tensor- and sequence-parallel
-        (:func:`~repro_torch.models.transformer.stack_apply_sharded`), the
-        final norm per block. Attention stacks only: SSM and hybrid layers
-        (``ssm_heads``/``ssm_in`` over ``model``), an encoder-decoder and a
-        feature frontend raise ValueError. Returns (x as a SlotPass
-        activation, aux, None)."""
+        vocab-parallel embedding of each slot's batch rows -- a VLM's
+        ``features`` projected by ``frontend_proj`` and prepended, the pass
+        then spanning F + S positions --, the residual stream split
+        ("batch", "act_seq", None) (JAX's constraint of the embedded input;
+        F + S must divide the ``act_seq`` count, or SlotPass raises
+        ValueError: the port does not pad a block, where GSPMD would),
+        every layer tensor- and sequence-parallel
+        (:func:`~repro_torch.models.transformer.stack_apply_sharded`:
+        attention, Mamba-2 and hybrid layers, dense or MoE), the final norm
+        per block. An encoder-decoder encodes ``features`` first
+        (:meth:`_encode_sharded`) and runs its decoder over the tokens
+        alone, each attention layer cross-attending to the encoder's
+        output. Returns (x as a SlotPass activation, aux, None)."""
         cfg = self.cfg
-        why = ("an SSM layer" if not self.attention_only else
-               "an encoder-decoder" if cfg.is_encdec else
-               "a feature frontend" if cfg.frontend else None)
-        if why is not None:
-            raise ValueError(
-                f"{cfg.name} has {why}: training it on a mesh waits for "
-                "its sharding (ROADMAP queue 1 item 3c)")
-        if features is not None:
-            raise ValueError(f"{cfg.name} takes no features")
+        if features is not None and not cfg.frontend:
+            raise ValueError(f"{cfg.name} has no frontend to take feature "
+                             "payloads")
         if not all(isinstance(t, Sharded) for t in sch.tree_leaves(params)):
             raise TypeError("a sharded training pass takes its params laid "
                             "out by sharding.partition.place_for_train")
-        sp = SlotPass(ctx, *tokens.shape)
-        x = sp.act(embed_lookup_sharded(params["embed"], tokens, sp),
+        B, S = tokens.shape
+        enc = prefix = None
+        F_ = 0
+        if cfg.is_encdec:
+            if features is None:
+                raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                                 "encoder needs features")
+            enc = self._encode_sharded(params, features, ctx)
+        elif features is not None:
+            F_ = features.shape[1]
+        sp = SlotPass(ctx, B, F_ + S)
+        if F_:
+            def prefix(c):
+                f = sp.batch_rows(features, c).to(self.dtype)
+                return f @ sp.weight(params["frontend_proj"], c)
+        x = sp.act(embed_lookup_sharded(params["embed"], tokens, sp, prefix),
                    cfg.d_model)
         x, aux = stack_apply_sharded(params["decoder"], cfg, x,
                                      groups=self.groups, sp=sp,
-                                     remat=self._remat)
+                                     remat=self._remat, enc=enc)
         w = params["final_norm"]
         x = sp.act({c: rmsnorm(x.locals[c], sp.weight(w, c), cfg.norm_eps)
                     for c in sp.coords}, cfg.d_model)
         return x, aux, None
+
+    def _encode_sharded(self, params, features, ctx):
+        """:meth:`_encode` on ``ctx``'s mesh: a SlotPass of its own over
+        the F frames (F must divide the ``act_seq`` count), each slot
+        projecting its block of frames of its batch rows, the encoder
+        tensor- and sequence-parallel
+        (:func:`~repro_torch.models.transformer.encoder_apply_sharded`),
+        ``enc_norm`` per block. Returns the encoder's output [B, F, d] as
+        that pass's activation."""
+        cfg = self.cfg
+        sp = SlotPass(ctx, features.shape[0], features.shape[1])
+        fp = params["frontend_proj"]
+        x = sp.act({c: sp.batch_rows(features, c)[:, sp.cols(c)].to(
+            self.dtype) @ sp.weight(fp, c) for c in sp.coords}, cfg.d_model)
+        x = encoder_apply_sharded(params["encoder"], cfg, x, sp,
+                                  remat=self._remat)
+        w = params["enc_norm"]
+        return sp.act({c: rmsnorm(x.locals[c], sp.weight(w, c), cfg.norm_eps)
+                       for c in sp.coords}, cfg.d_model)
 
     def forward(self, params, tokens, features=None, *, shard_ctx=None):
         """Full-sequence logits [B, F+S, vocab_padded], the MoE aux loss and
@@ -286,9 +319,13 @@ class Model:
         x, aux, _ = self.backbone(params, batch["tokens"], features,
                                   want_cache=False, shard_ctx=shard_ctx)
         if shard_ctx is not None:
+            # a VLM's loss only over the text suffix: its feature rows lead
+            start = (x.shape[1] - labels.shape[1]
+                     if features is not None and not self.cfg.is_encdec
+                     else 0)
             nll = vocab_parallel_nll(x, params["embed"], labels,
                                      SlotPass(shard_ctx, *x.shape[:2]),
-                                     self.cfg.vocab_size)
+                                     self.cfg.vocab_size, start=start)
             mask = batch.get("loss_mask")
             if mask is None:
                 return nll.mean() + aux_w * aux

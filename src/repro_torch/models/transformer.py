@@ -17,7 +17,9 @@ rematerialise each layer in the backward (``remat``, JAX's
 ``REMAT_POLICIES``): ``"full"`` saves nothing of a layer but its input
 (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` also saves the
 outputs of its matrix products, ``"none"`` saves everything. JAX
-checkpoints a scanned superblock; the port, one layer.
+checkpoints a scanned superblock; the port, one layer. On a device mesh the
+training pass runs every stack tensor- and sequence-parallel
+(:func:`stack_apply_sharded`, an encoder's :func:`encoder_apply_sharded`).
 """
 
 from __future__ import annotations
@@ -33,13 +35,14 @@ from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (
     attention_sharded,
     attn_schema,
+    cross_attention_sharded,
     decode_attention_update,
     paged_decode_attention_update,
     prefill_attention,
     project_qkv,
 )
 from repro_torch.models.layers import ffn_apply, ffn_schema, rmsnorm, rmsnorm_schema
-from repro_torch.models.mamba import mamba_forward, mamba_schema
+from repro_torch.models.mamba import mamba_forward, mamba_schema, mamba_sharded
 from repro_torch.models.mla import (
     mla_decode_update,
     mla_prefill,
@@ -394,24 +397,42 @@ def _norm_sharded(x, w, eps, sp):
                    for c in sp.coords}, x.shape[2])
 
 
-def apply_layer_sharded(lp, cfg, sig, x, sp):
-    """One attention layer (GQA or MLA, dense or MoE FFN) of the training
-    pass on ``sp``'s mesh (JAX's ``apply_layer_full`` under a training
-    context), x the residual stream split ("batch", "act_seq", None).
-    Megatron's sequence parallelism: each half gathers its normalised
-    block over positions, runs tensor-parallel (attention:
-    :func:`attention_sharded` or :func:`mla_sharded`; FFN: column-parallel
-    ``w_gate``/``w_up``, row-parallel ``w_down``; MoE:
-    :func:`moe_apply_sharded`) and reduce-scatters its partials back onto
-    the slots' blocks of positions, which keeps the residual in JAX's
-    ``("batch", "act_seq", None)`` constraint after the layer. Returns
-    (the new residual's blocks, aux or None)."""
+def apply_layer_sharded(lp, cfg, sig, x, sp, enc=None, causal=True):
+    """One layer of the training pass on ``sp``'s mesh (JAX's
+    ``apply_layer_full`` under a training context), x the residual stream
+    split ("batch", "act_seq", None). Megatron's sequence parallelism: each
+    half gathers its normalised block over positions, runs
+    tensor-parallel and reduce-scatters its partials back onto the slots'
+    blocks of positions, which keeps the residual in JAX's ``("batch",
+    "act_seq", None)`` constraint after the layer. The mixer: attention
+    (:func:`attention_sharded`, bidirectional with ``causal=False`` -- an
+    encoder layer --, or :func:`mla_sharded`) or Mamba-2
+    (:func:`mamba_sharded`, ``sig[0] != "attn"``); with ``enc`` (an
+    encoder-decoder's encoder output, split as a residual stream over its
+    frames) then the cross-attention after ``ln_x``
+    (:func:`cross_attention_sharded`); then the FFN half, none in an
+    ``ssm``-family stack: column-parallel ``w_gate``/``w_up`` and
+    row-parallel ``w_down``, or :func:`moe_apply_sharded`. Returns (the
+    new residual's blocks, aux or None)."""
     sp = sp.scope()
     d = x.shape[2]
-    h = _norm_sharded(x, lp["ln1"], cfg.norm_eps, sp)
-    attend = mla_sharded if cfg.mla is not None else attention_sharded
-    r = sp.reduce(*attend(lp["attn"], cfg, h, sp))
-    x = sp.act({c: x.locals[c] + r[c] for c in sp.coords}, d)
+
+    def add(x, w, mix):  # x + the reduced partials of mix(norm(x, w))
+        r = sp.reduce(*mix(_norm_sharded(x, w, cfg.norm_eps, sp)))
+        return sp.act({c: x.locals[c] + r[c] for c in sp.coords}, d)
+
+    if sig[0] != "attn":
+        x = add(x, lp["ln1"], lambda h: mamba_sharded(lp["ssm"], cfg, h, sp))
+    elif cfg.mla is not None:
+        x = add(x, lp["ln1"], lambda h: mla_sharded(lp["attn"], cfg, h, sp))
+    else:
+        x = add(x, lp["ln1"], lambda h: attention_sharded(
+            lp["attn"], cfg, h, sp, causal=causal))
+    if enc is not None:
+        x = add(x, lp["ln_x"], lambda h: cross_attention_sharded(
+            lp["xattn"], cfg, h, enc, sp))
+    if cfg.family == "ssm":
+        return {c: x.locals[c] for c in sp.coords}, None
     h = _norm_sharded(x, lp["ln2"], cfg.norm_eps, sp)
     if "moe" in lp:
         o, aux = moe_apply_sharded(lp["moe"], cfg, h, sp)
@@ -423,44 +444,75 @@ def apply_layer_sharded(lp, cfg, sig, x, sp):
     return {c: x.locals[c] + o[c] for c in sp.coords}, aux
 
 
-def _remat_layer_sharded(lp, cfg, sig, x, sp):
+def _remat_layer_sharded(lp, cfg, sig, x, sp, enc=None, causal=True):
     """:func:`apply_layer_sharded` fully rematerialised: its inputs -- the
-    layer's weight parts and the computing slots' residual blocks -- are
-    all it saves (``sharding.partition.recompute``, whose backward runs
-    once however many devices the layer spans)."""
-    n, coords = len(tree_parts(lp)), sp.coords
+    layer's weight parts, the computing slots' residual blocks and, for a
+    decoder layer of an encoder-decoder, their blocks of the encoder's
+    output -- are all it saves (``sharding.partition.recompute``, whose
+    backward runs once however many devices the layer spans, and gives
+    gradients only to the tensors it is handed: without ``enc``'s blocks
+    among them the cross-attention would send nothing back into the
+    encoder)."""
+    coords = sp.coords
+    n, k = len(tree_parts(lp)), len(coords)
 
     def run(*ts):
+        e = None if enc is None else sp.like(enc, dict(zip(coords,
+                                                           ts[n + k:])))
         locs, aux = apply_layer_sharded(
             tree_with_parts(lp, ts[:n]), cfg, sig,
-            sp.act(dict(zip(coords, ts[n:])), x.shape[2]), sp)
+            sp.act(dict(zip(coords, ts[n:n + k])), x.shape[2]), sp, enc=e,
+            causal=causal)
         return tuple(locs[c] for c in coords) + (() if aux is None
                                                  else (aux,))
 
-    out = recompute(run, *tree_parts(lp), *(x.locals[c] for c in coords))
-    aux = out[len(coords)] if len(out) > len(coords) else None
+    enc_blocks = () if enc is None else tuple(enc.locals[c] for c in coords)
+    out = recompute(run, *tree_parts(lp), *(x.locals[c] for c in coords),
+                    *enc_blocks)
+    aux = out[k] if len(out) > k else None
     return dict(zip(coords, out)), aux
 
 
-def stack_apply_sharded(params, cfg, x, *, groups, sp, remat=None):
-    """The training pass over every layer on a device mesh (attention
-    stacks: GQA or MLA, dense or MoE). x and the result are the residual
-    stream as a SlotPass activation. With ``remat="full"`` each layer, its
-    gathers included, is rematerialised in the backward
+def _sharded_layer(remat):
+    if remat not in (None, "none", "full"):
+        raise ValueError(f"the sharded pass rematerialises a whole layer "
+                         f"or nothing: remat_policy {remat!r}")
+    return _remat_layer_sharded if remat == "full" else apply_layer_sharded
+
+
+def stack_apply_sharded(params, cfg, x, *, groups, sp, remat=None, enc=None):
+    """The training pass over every layer on a device mesh: attention
+    (GQA or MLA), Mamba-2 and hybrid stacks, dense or MoE, and an
+    encoder-decoder's decoder (``enc``: its encoder's output, split as a
+    residual stream over the frames, which every attention layer
+    cross-attends to). x and the result are the residual stream as a
+    SlotPass activation. With ``remat="full"`` each layer, its gathers
+    included, is rematerialised in the backward
     (:func:`_remat_layer_sharded`), so the backward re-gathers and keeps no
     layer's whole weights; ``None`` or ``"none"`` saves everything.
     (``"dots"``, a selective policy, is the unsharded pass's alone.)
     Returns (x, aux: the MoE layers' summed load-balance loss)."""
-    if remat not in (None, "none", "full"):
-        raise ValueError(f"the sharded pass rematerialises a whole layer "
-                         f"or nothing: remat_policy {remat!r}")
-    layer = (_remat_layer_sharded if remat == "full"
-             else apply_layer_sharded)
+    layer = _sharded_layer(remat)
     aux_total = torch.zeros((), dtype=torch.float32,
                             device=sp.mesh.first_device)
     for gname, i, lname, sig in _layers(groups):
-        locs, aux = layer(params[gname][i][lname], cfg, sig, x, sp)
+        locs, aux = layer(params[gname][i][lname], cfg, sig, x, sp,
+                          enc=enc if sig[0] == "attn" else None)
         x = sp.act(locs, x.shape[2])
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
+
+
+def encoder_apply_sharded(params, cfg, x, sp, *, remat=None):
+    """The bidirectional encoder on a device mesh (JAX's ``encoder_apply``
+    under a training context): x [B, F, d] the projected frames as a
+    SlotPass activation over F positions, each layer
+    :func:`apply_layer_sharded` with ``causal=False`` -- self-attention and
+    the dense FFN, tensor-parallel, the residual split by ``act_seq`` --
+    saved as ``remat`` (:func:`stack_apply_sharded`'s policies)."""
+    layer = _sharded_layer(remat)
+    for lp in params["g0"]:
+        locs, _ = layer(lp, cfg, ("attn", False), x, sp, causal=False)
+        x = sp.act(locs, x.shape[2])
+    return x

@@ -24,12 +24,13 @@ The placing half, over a :class:`repro_torch.launch.mesh.DeviceMesh`:
   latent caches by ``kv_seq``;
 * :func:`place_for_train`, which splits every parameter leaf by its spec
   for a training context (FSDP: ``embed`` over ``data``; Megatron:
-  ``heads``, ``kv_heads``, ``ffn``, ``vocab`` and the experts over
-  ``model``), and the differentiable moves a training pass runs between the
-  slots: :func:`gathered` (an all-gather of some dims of a slot's block),
-  :func:`fsdp_gather` (a weight gathered over every axis but the tensor
-  axis) and :func:`psum_scatter` (the partials of a row-parallel product
-  summed onto the slots holding each block of the result).
+  ``heads``, ``kv_heads``, ``ffn``, ``vocab``, the experts and the SSM's
+  ``ssm_heads`` / ``ssm_in`` over ``model``), and the differentiable moves
+  a training pass runs between the slots: :func:`gathered` (an all-gather
+  of some dims of a slot's block), :func:`fsdp_gather` (a weight gathered
+  over every axis but the tensor axis) and :func:`psum_scatter` (the
+  partials of a row-parallel product summed onto the slots holding each
+  block of the result).
 
 One controller places everything: there are no process groups. A move is
 ``.to(device)``, ``narrow`` and ``torch.cat``, which autograd
@@ -505,15 +506,38 @@ class SlotPass:
         """A residual-stream tensor [B, S, width] from each computing
         slot's block (:attr:`coords`); a slot that does not compute holds
         its representative's."""
+        return self._from_slots(self.act_spec, (self.B, self.S, width),
+                                locals_)
+
+    def like(self, sh: Sharded, locals_: dict) -> Sharded:
+        """``sh``'s layout (a tensor split over this pass's batch blocks)
+        over new blocks, one a computing slot."""
+        return self._from_slots(sh.spec, sh.shape, locals_)
+
+    def split_cols(self, locals_: dict, width: int, logical: str) -> Sharded:
+        """A tensor [B, S, width] whose last dim the rules split by
+        ``logical``, from each computing slot's block [b, S, width / n]
+        (its batch rows at every position, its columns): a tensor-parallel
+        activation that :meth:`full_cols` makes whole again."""
+        spec = (self.act_spec[0], None, self.ctx.rules.get(logical))
+        return self._from_slots(spec, (self.B, self.S, width), locals_)
+
+    def _from_slots(self, spec, shape, locals_: dict) -> Sharded:
         dtype = next(iter(locals_.values())).dtype
-        return Sharded(self.mesh, self.act_spec, (self.B, self.S, width),
-                       dtype, {c: locals_[r] for c, r in self.rep.items()})
+        return Sharded(self.mesh, spec, shape, dtype,
+                       {c: locals_[r] for c, r in self.rep.items()})
+
+    def full_cols(self, x: Sharded, c) -> torch.Tensor:
+        """Slot ``c``'s batch rows of a :meth:`split_cols` tensor with
+        every column: its ``model`` row's blocks gathered."""
+        return gathered(x, c, (2,), self.cache)
 
     def weight(self, w: Sharded, c, keep="model") -> torch.Tensor:
         return fsdp_gather(w, c, self.cache, keep)
 
     def full_seq(self, x: Sharded, c) -> torch.Tensor:
-        """Slot ``c``'s batch rows of ``x`` at every position."""
+        """Slot ``c``'s batch rows of ``x`` (a tensor split over this
+        pass's batch blocks, at any length) at every position."""
         return gathered(x, c, (1,), self.cache)
 
     def whole(self, x: Sharded, c) -> torch.Tensor:

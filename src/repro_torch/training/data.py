@@ -7,6 +7,12 @@ bit, as numpy arrays the trainer moves to the model's device.
 Synthetic corpus: a mixture of Zipf-distributed unigrams and short Markov
 motifs, so a ~100M model shows a real falling loss within a few hundred
 steps (pure-uniform tokens would leave nothing to learn).
+
+Beyond the JAX package's pipeline, ``feature_rows`` makes each batch carry
+``features`` [batch, feature_rows, FEATURE_DIM] fp32, standard normal from a
+stream of their own (the tokens stay bit for bit what they are without
+them): the stub frontend's input of a VLM (pixtral-12b) or an
+encoder-decoder (seamless-m4t), which the JAX trainer's data does not make.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import dataclasses
 from typing import Iterator, Optional
 
 import numpy as np
+
+FEATURE_DIM = 1024  # the stub frontend's width (models.model.FRONTEND_DIM)
 
 
 @dataclasses.dataclass
@@ -28,6 +36,7 @@ class DataConfig:
     n_motifs: int = 64
     motif_prob: float = 0.35
     path: Optional[str] = None  # .bin file of uint16/uint32 tokens
+    feature_rows: int = 0  # > 0: each batch also carries "features"
 
 
 class SyntheticLM:
@@ -65,12 +74,18 @@ class SyntheticLM:
 
     def batches(self) -> Iterator[dict]:
         cfg = self.cfg
+        feats = np.random.default_rng([cfg.seed, 1])
         while True:
             seqs = np.stack([self._sequence(cfg.seq_len) for _ in range(cfg.batch_size)])
-            yield {
+            out = {
                 "tokens": seqs[:, :-1].astype(np.int32),
                 "labels": seqs[:, 1:].astype(np.int32),
             }
+            if cfg.feature_rows:
+                out["features"] = feats.standard_normal(
+                    (cfg.batch_size, cfg.feature_rows, FEATURE_DIM),
+                    dtype=np.float32)
+            yield out
 
 
 class BinTokenFile:
@@ -78,6 +93,8 @@ class BinTokenFile:
 
     def __init__(self, cfg: DataConfig):
         assert cfg.path is not None
+        if cfg.feature_rows:
+            raise ValueError("a token file carries no features")
         self.cfg = cfg
         self.tokens = np.memmap(cfg.path, dtype=np.uint32, mode="r")
         self.rng = np.random.default_rng(cfg.seed)

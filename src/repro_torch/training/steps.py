@@ -23,8 +23,9 @@ def make_train_step(model, opt_cfg: Optional[AdamWConfig] = None,
 
     With ``shard_ctx`` (JAX's signature) the step is JAX's sharded one: the
     params and moments laid out by ``sharding.partition.place_for_train``
-    and ``adamw_init``, the loss ``model.loss(..., shard_ctx=)``, the
-    leaves handed to autograd the distinct parts (blocks on devices), a
+    and ``adamw_init``, the loss ``model.loss(..., shard_ctx=)`` (the
+    batch's tensors, ``features`` included, whole or split by ``batch``),
+    the leaves handed to autograd the distinct parts (blocks on devices), a
     block held on several devices given the sum of its copies' gradients;
     the metrics land on the mesh's first device."""
     opt_cfg = opt_cfg or AdamWConfig()

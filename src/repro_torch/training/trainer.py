@@ -9,7 +9,8 @@ as any parameter tree does (``ServingEngine(model, params)``).
 With ``shard_ctx`` (JAX's ``train(..., shard_ctx=)``) it trains on the
 context's mesh: the params (given, or drawn whole on the mesh's first
 device) are split by ``sharding.partition.place_for_train``, the moments
-likewise, each batch split over the ``batch`` axes, and the step is
+likewise, each batch (its ``features`` too, with ``DataConfig(
+feature_rows=)``) split over the ``batch`` axes, and the step is
 ``make_train_step(model, opt_cfg, shard_ctx)``. It returns the params as
 Sharded leaves (``sharding.partition.gather_tree`` makes them whole);
 checkpoints gather on save and re-place on restore.

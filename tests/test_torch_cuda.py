@@ -18,8 +18,11 @@ dispatch thread, and a 2-replica in-process cluster's replayed graphs;
 MLA (deepseek-v2): flash at q/k 192, v 128, the absorbed-MLA decode
 kernel ring and paged against its plain versions at split and tile edges,
 and an MLA pool's graph against its eager step; the sharded training step on
-a 2 x 2 mesh naming the card four times against the CPU's, and its blocks'
-devices (``-k "sharded_train or train_blocks"``). The backward kernels
+a 2 x 2 mesh naming the card four times against the CPU's (reduced
+llama3-8b, mamba2-130m and seamless-m4t-large-v2), and its blocks'
+devices (``-k "sharded_train or train_blocks"``); the SSD scan forward and
+backward at the head counts a ``model`` shard gives mamba2 and jamba (6,
+12, 32, 64; ``-k shard_heads``). The backward kernels
 (``-k backward``): flash's against ``ref.flash_attention_bwd_ref`` at
 sequence, group, head-dim, window, pad and Sq != Skv edges, fully masked
 rows, two calls bitwise, and at MLA's head dims (192, 128); rmsnorm's
@@ -2419,6 +2422,88 @@ def test_sharded_train_step_across_two_cards(cuda_device):
     lc, gc_ = _sharded_grads(cpu, _train_ctx(cfg, DeviceMesh(
         [["cpu"], ["cpu"]], ("data", "model")), B, S),
         tree_map(lambda t: t.cpu(), params), batch)
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    for spec, a, b in zip(tree_leaves(gpu.schema()), gg, gc_):
+        tol = 5e-3 if spec.axes == ("vocab", "embed") else 5e-4
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * max(top, 1e-30), spec
+
+
+# a model shard's SSD heads: mamba2-130m's 24 over model 4 and 2 (d_state
+# 128), jamba-v0.1-52b's 128 over 4 and 2 (d_state 16)
+SHARD_HEADS = {6: 128, 12: 128, 32: 16, 64: 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("nh", list(SHARD_HEADS))
+def test_ssd_kernels_at_shard_heads(cuda_device, nh, dtype):
+    """The SSD scan forward and backward kernels at the head counts the
+    sharded training pass gives them (x, B and C strided views of one
+    conv-output row, as a slot's are): y and the final state against the
+    plain version, every gradient under BWD_TOLS, one launch each."""
+    ds = SHARD_HEADS[nh]
+    x, dt, A, B, C = _ssd_case(1000, dtype, cuda_device, nh, nh=nh, ds=ds,
+                               b=2)
+    _ssd_hold(x, dt, A, B, C, dtype)
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(2, 1000, dtype, cuda_device, nh + 1,
+                                         nh=nh, hd=64, ds=ds, decay="normal")
+    ins = [t.requires_grad_(True) for t in (x, dt, A, B, C)]
+    ops.reset_launches()
+    y, _ = ops.ssd_scan(*ins, chunk=256)
+    got = torch.autograd.grad(y, ins, dy)
+    assert ops.LAUNCHES["ssd_scan"] == 1 and ops.LAUNCHES["ssd_scan_bwd"] == 1
+    _close_grads(got, _ssd_bwd_want(x, dt, A, B, C, dy, dtype), [dtype] * 5,
+                 (nh, dtype), ("dx", "ddt", "dA", "dB", "dC"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "seamless-m4t-large-v2"])
+def test_sharded_train_step_of_other_stacks(cuda_device, arch):
+    """Reduced mamba2-130m (its SSD heads over model, 8 a slot; the fp32
+    kernel's chunk of 64) and reduced seamless-m4t-large-v2 (16 frames into
+    its encoder, the cross-attention at 64 queries over 16 keys): the
+    sharded fp32 loss and gradients on a 2 x 2 mesh naming the card four
+    times against the CPU's sharded pass on the same weights and batch,
+    the loss within 1e-5 relative, each gradient leaf within 5e-4 of its
+    largest (embed 5e-3); each slot launches the SSD scan, or flash, as
+    the unsharded step launches it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.schema import tree_leaves, tree_map
+
+    cfg = get_config(arch).reduced()
+    if cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               chunk=64))
+    B, S, F = 4, 64, 16
+    gpu = Model(cfg, dtype=torch.float32, device=cuda_device, remat=True)
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    params = gpu.init(torch.Generator(device=cuda_device).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+             for k in ("tokens", "labels")}
+    if cfg.is_encdec:
+        batch["features"] = torch.randn((B, F, 1024), generator=g)
+    ops.reset_launches()
+    lg, gg = _sharded_grads(gpu, _train_ctx(cfg, _train_mesh(
+        gpu.device, (2, 2)), B, S), params,
+        {k: v.to(gpu.device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    L, E = cfg.n_layers, cfg.encoder_layers
+    if cfg.ssm is not None:  # SSD forward + recompute, backward, a layer
+        assert launches["ssd_scan"] == 4 * 2 * L
+        assert launches["ssd_scan_bwd"] == 4 * L
+        assert launches["rmsnorm"] == 4 * (2 * 2 * L + 1)
+    else:  # self- and cross-attention a decoder layer, self an encoder one
+        assert launches["flash_attention"] == 4 * 2 * (2 * L + E)
+        assert launches["flash_attention_bwd"] == 4 * (2 * L + E)
+        assert launches["rmsnorm"] == 4 * (2 * (3 * L + 2 * E) + 2)
+    lc, gc_ = _sharded_grads(cpu, _train_ctx(cfg, _train_mesh(
+        "cpu", (2, 2)), B, S), tree_map(lambda t: t.cpu(), params), batch)
     assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
     for spec, a, b in zip(tree_leaves(gpu.schema()), gg, gc_):
         tol = 5e-3 if spec.axes == ("vocab", "embed") else 5e-4

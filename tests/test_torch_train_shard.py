@@ -664,20 +664,3 @@ def test_check_fits_counts_the_largest_devices_share():
     with pytest.raises(ValueError, match=r"90\.1 GB.*80\.0 GB"):
         launch_train.check_fits(model, one, capacity=80e9)
     assert make_train_mesh(device="cpu").shape == {"data": 1, "model": 1}
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b",
-                                  "seamless-m4t-large-v2", "pixtral-12b"])
-def test_stacks_left_out_raise(arch):
-    """The SSM, hybrid, encoder-decoder and VLM stacks refuse a training
-    context, naming ROADMAP's queue item, rather than train whole on the
-    first device."""
-    cfg = _config(arch)
-    model = Model(cfg, dtype=torch.float32, device="cpu")
-    ctx = _ctx(cfg, (2, 2))
-    placed = place_for_train(model, ctx,
-                             model.init(torch.Generator().manual_seed(0)))
-    toks = torch.zeros((B, S), dtype=torch.int64)
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
-        model.loss(placed, {"tokens": toks, "labels": toks},
-                   shard_ctx=ctx)
