@@ -69,7 +69,12 @@ result line:
    them): out bitwise equal with lse on and off, lse against the plain
    version's (-inf exactly where no slot is valid), each kernel's device
    time alone with and without lse; what ``build.CFunction``'s device
-   check costs a launch, in rmsnorm's launch-path rows;
+   check costs a launch, in rmsnorm's launch-path rows; the backward
+   kernels at phase 16 (e)'s shapes: rmsnorm's at qwen3-32b's qk-norm rows
+   [524288, 128], flash's at granite-34b's MQA [2, 4096, 48/1, 128]
+   (causal; the plain version 8 query heads a call) and seamless-m4t's
+   encoder [4, 1024, 16, 64], non-causal (its decoder's cross-attention,
+   Sq and Skv 1024, is the same launch), each as the backward cases above;
 3. the same weights on card and CPU: llama3-8b at full width cut to 2
    layers, a ragged bucketed prefill then 4 decode steps on a ring cache of
    2048 slots (so the card's decode kernel splits each row over a cluster
@@ -235,7 +240,15 @@ result line:
    4096]) and deepseek-v2-236b (layer 0, [2, 4096]), launches a step from
    each config (``train_structure``), and (b)'s gate on each (mamba2's 24
    layers at [1, 500] against the CPU model in float64, jamba at [1, 256],
-   deepseek-v2 at [1, 512]);
+   deepseek-v2 at [1, 512]); (e) the same for the remaining stacks at full
+   width: qwen3-32b (2 of 64 layers, [2, 4096]: qk-norm, its two rmsnorm
+   launches a layer counted), starcoder2-3b (all 30 layers, [2, 4096]),
+   granite-34b (2 of 88 layers, [2, 4096]: MQA), pixtral-12b (2 of 40
+   layers, 1024 feature rows + 3072 tokens) and seamless-m4t-large-v2 (24
+   + 24 layers, 1024 frames + [4, 1024] tokens), each held to the card by
+   the launcher's ``check_fits``, 10 steps, a profiled step (the device
+   traced alone) and (b)'s gate at 2 layers (TRAIN_STACK_CHECK), each
+   model freed before the next;
 17. the dry-run launchers (the host's CPU, the meta device, the package's
    H100 constants): ``python -m repro_torch.launch.dryrun --all`` and
    ``--all --multipod`` as two concurrent processes of 4 workers each,
@@ -294,7 +307,14 @@ result line:
    24 layers, 1024 frames, 1024 tokens): the first batch's loss lower
    after training, launches a slot's ``train_structure``, the SSD
    launches by head count, a profiled step (busy, idle, host wall, peak),
-   each stack's fp32 gate at 2 layers as (b).
+   each stack's fp32 gate at 2 layers as (b);
+20. the port's examples on the card (runs last): ``examples/
+   serve_llm_torch.py``, ``disaggregated_prefill_torch.py`` and
+   ``train_tiny_torch.py`` (50 steps) on their defaults, three processes
+   started together, each exiting 0: every transport serves all 12
+   requests; the direct mechanisms' tokens are 100% the fused engine's and
+   the wire bytes those of the JAX tier on the same prompts
+   (EXAMPLE_WIRE); the loss falls.
 
 Numerics: fp32 references run with TF32 off; kernels are held at fp32 atol
 2e-5 / bf16 atol 2e-2, rtol 1e-2, the SSD scan at fp32 atol 3e-5 / bf16
@@ -472,7 +492,21 @@ SEAMLESS_NEW = 32
 # [8, 1024] bucket (H 32, Hkv 8, hd 128, causal), rmsnorm at phase 16's rows
 # (B * S = 8192 of d_model 4096) and a decode-sized [8, 4096]
 FLASH_BWD_SHAPES = ((2, 4096), (8, 1024))
-RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096))
+# ... and at qwen3-32b's qk-norm rows (phase 16 (e): 2 x 4096 positions x 64
+# query heads at D 128)
+RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096), (524288, 128))
+# the flash backward at phase 16 (e)'s other shapes: (what, B, Sq, Skv, H,
+# Hkv, hd, causal, dtypes). granite-34b's MQA (G = 48); seamless-m4t's
+# encoder over 1024 frames, which is also its decoder's cross-attention
+# from 1024 tokens to them (the training split's Sq and Skv are equal, so
+# the two are one launch; Sq != Skv is held by phase 16 (e)'s fp32 gate,
+# 384 tokens over 128 frames)
+FLASH_BWD_STACK_CASES = (
+    ("granite-34b", 2, 4096, 4096, 48, 1, 128, True, ("bf16",)),
+    ("seamless encoder and cross-attention", 4, 1024, 1024, 16, 16, 64, False,
+     ("bf16", "fp32")),
+)
+STACK_BWD_HEADS = 8  # the plain version's query heads a call at G > 1
 # the flash backward at MLA's head dims (q/k 192, v 128, deepseek-v2-236b's
 # 128 heads, scale 1/sqrt(192), causal): phase 16's [2, 4096], an [8, 1024]
 # batch and a pad (rows and keys at or past 1000 of 1024 masked); the plain
@@ -726,6 +760,21 @@ def main():
         for check in TRAIN_FAMILY_CHECK]
     done(t0)
 
+    t0 = phase("phase 16 (e): training qwen3-32b, starcoder2-3b, "
+               "granite-34b, pixtral-12b and seamless-m4t-large-v2 at full "
+               "width (qk-norm's rmsnorm backward at D 128, the flash "
+               "backward at G 12 and 48, non-causal and across)")
+    print(f"   device memory held before loading: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    results["train_stacks"] = train_stacks_path(torch, ops, dev)
+    t1 = time.perf_counter()
+    results["train_stacks_same_weights"] = [
+        train_card_vs_cpu(torch, ops, dev, arch, layers, batch, changes,
+                          features=features)
+        for arch, layers, batch, features, changes in TRAIN_STACK_CHECK]
+    print(f"   (e)'s gates: {time.perf_counter() - t1:.1f} s", flush=True)
+    done(t0)
+
     t0 = phase("phase 17: the dry-run launchers on the meta device (H100 "
                "constants) and phase 16's step against its roofline")
     results["dryrun"] = dryrun_path(results["train"])
@@ -736,6 +785,11 @@ def main():
                "vocab-parallel loss")
     results["mesh_train"] = mesh_train_path(torch, ops, dev, results["train"],
                                             results["train_family"])
+    done(t0)
+
+    t0 = phase("phase 20: the port's examples on the card (serve_llm, "
+               "disaggregated_prefill, train_tiny)")
+    results["examples"] = examples_path()
     done(t0)
 
     # each kernel's launches come from the run of the path that carries it:
@@ -769,7 +823,8 @@ def main():
     results["phase16_launches"] = {
         "train": results["train"]["launches"],
         "serve": results["train"]["serve"]["launches"],
-        **{arch: r["launches"] for arch, r in results["train_family"].items()}}
+        **{arch: r["launches"] for arch, r in results["train_family"].items()},
+        **{arch: r["launches"] for arch, r in results["train_stacks"].items()}}
     results["phase19_launches"] = {
         "llama3_2x2": results["mesh_train"]["a"]["launches"],
         "deepseek_layer0_2x2": results["mesh_train"]["c"]["launches"],
@@ -1586,6 +1641,7 @@ def check_kernels(torch, ops, dev):
     pp_cases, pp_path = preprocess_cases(torch, ops, ref, dev)
     cases += pp_cases
     cases += backward_cases(torch, ref, dev)
+    cases += stack_backward_cases(torch, ref, dev)
     cases += mla_backward_cases(torch, ref, dev)
     cases += ssd_backward_cases(torch, ref, dev)
 
@@ -1793,64 +1849,16 @@ def backward_cases(torch, ref, dev):
             k, v = (rand(torch, (B, S, Hkv, hd), dtype, dev, sd)
                     for sd in (13, 14))
             shape = [B, S, H, Hkv, hd, "causal"]
-            what = f"flash_attention_bwd {dtype} {shape}"
             qkv = [t.requires_grad_(True) for t in (q, k, v)]
             o = ops.flash_attention(*qkv, causal=True)
-            if type(o.grad_fn).__name__ != "_FlashFnBackward":
-                raise AssertionError(f"{what}: the forward ran outside the "
-                                     f"autograd Function ({o.grad_fn})")
             with torch.no_grad():
                 compare(torch, o, ref.flash_attention_ref(q, k, v, causal=True),
-                        dtype, f"{what} forward (lse written)")
-            run = lambda: torch.autograd.grad(  # noqa: E731
-                o, qkv, do, retain_graph=True)
-            n0 = ops.LAUNCHES["flash_attention_bwd"]
-            got, again = run(), run()
-            if ops.LAUNCHES["flash_attention_bwd"] - n0 != 2:
-                raise AssertionError(f"{what}: two backward calls counted "
-                                     f"{ops.LAUNCHES['flash_attention_bwd'] - n0}")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{what}: two calls differ")
-            want = ref.flash_attention_bwd_ref(q, k, v, do, causal=True)
-            err, shares = grad_errs(torch, got, want, dtype, what,
-                                    ("dq", "dk", "dv"))
-            del got, again, want
-            qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
-                          .requires_grad_(True) for t in (q, k, v))
-            dot = do.transpose(1, 2).contiguous()
-            lib_fn = None
-            try:
-                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                     enable_gqa=True)
-                lib_fn = lambda: torch.autograd.grad(  # noqa: E731
-                    out, (qt, kt, vt), dot, retain_graph=True)
-            except (TypeError, RuntimeError) as e:
-                print(f"   (library call unavailable: {e})")
-            t_lib = None if lib_fn is None else library_ms(torch, lib_fn,
-                                                           reps=5, warmup=1)
-            flops, nbytes = _rl().kernel_work(
-                "flash_attention_bwd", B, S, H, Hkv,
-                hd, isz=q.element_size())
-            rec = err_record(
-                "flash_attention_bwd", dtype, shape, err,
-                time_ms(torch, run, reps=5, warmup=2),
-                time_ms(torch, lambda: ref.flash_attention_bwd_ref(
-                    q, k, v, do, causal=True), reps=3, warmup=1),
-                t_lib, nbytes, flops)
-            rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
-            rec["library_device_ms"] = (None if t_lib is None else
-                                        device_ms(torch, lib_fn, "", reps=5))
-            rec["bitwise_repeat"] = True
-            rec["limit_shares"] = shares
-            print(f"   {'':16s} share of the elementwise limit, norm error: "
-                  f"{shares}", flush=True)
-            print(f"   {'':16s} device time alone (torch.profiler): kernels "
-                  f"{rec['device_ms']} ms, SDPA's backward "
-                  f"{rec['library_device_ms']} ms", flush=True)
-            cases.append(rec)
-            del q, k, v, do, o, qkv, qt, kt, vt, dot, lib_fn, run
-            if t_lib is not None:
-                del out
+                        dtype, f"flash_attention_bwd {dtype} {shape} forward "
+                        "(lse written)")
+            cases.append(flash_bwd_record(
+                torch, dtype, shape, qkv, o, do,
+                lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True)))
+            del q, k, v, do, o, qkv
             torch.cuda.empty_cache()
         for N, D in RMSNORM_BWD_SHAPES:
             x, dy = (rand(torch, (N, D), dtype, dev, sd) for sd in (16, 18))
@@ -2509,24 +2517,144 @@ def ssd_backward_cases(torch, ref, dev):
     return cases
 
 
-def mla_flash_bwd_ref(torch, ref, q, k, v, do, heads=MLA_BWD_HEADS, **kw):
-    """The plain flash backward on ``heads`` heads at a time (G = 1: every
-    query head reads its own key head), concatenated."""
-    parts = [ref.flash_attention_bwd_ref(
-        *(t[:, :, h:h + heads] for t in (q, k, v, do)), **kw)
-        for h in range(0, q.shape[2], heads)]
-    return [torch.cat(g, dim=2) for g in zip(*parts)]
+def chunked_flash_bwd_ref(torch, ref, q, k, v, do, heads, **kw):
+    """The plain flash backward on ``heads`` query heads a call, for
+    ``heads`` a divisor or a multiple of G = H / Hkv (each call reads the kv
+    heads its query heads share), in fp32 (as the plain version computes):
+    dq concatenated, each kv head's dk and dv summed over its calls, each
+    gradient rounded to the inputs' dtype once, at the end."""
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    if G % heads and heads % G:
+        raise ValueError(f"{heads} heads a call split groups of {G}")
+    q32, k32, v32, do32 = (t.detach().float() for t in (q, k, v, do))
+    dq, dk, dv = [], torch.zeros_like(k32), torch.zeros_like(v32)
+    for h in range(0, H, heads):
+        kv = slice(h // G, (h + heads - 1) // G + 1)
+        gq, gk, gv = ref.flash_attention_bwd_ref(
+            q32[:, :, h:h + heads], k32[:, :, kv], v32[:, :, kv],
+            do32[:, :, h:h + heads], **kw)
+        dq.append(gq)
+        dk[:, :, kv] += gk
+        dv[:, :, kv] += gv
+    return [g.to(t.dtype) for g, t in zip((torch.cat(dq, dim=2), dk, dv),
+                                          (q, k, v))]
+
+
+def flash_bwd_record(torch, dtype, shape, qkv, o, do, plain, what=None,
+                     causal=True, scale=None, real=None, reps=(3, 5)):
+    """One flash-backward case, as the training path calls the kernel:
+    ``o`` the output of ``ops.flash_attention`` on ``qkv`` (tensors that
+    require grad; ``causal``, ``scale``, rows and keys at or past ``real``
+    masked), so it must carry the autograd Function; two
+    ``torch.autograd.grad`` calls, counted once each and bitwise equal,
+    held to ``plain()`` (the plain version's (dq, dk, dv)) under
+    BWD_TOLS; CUDA-event and device times, the bound from ``kernel_work``
+    and, where nothing is masked, SDPA's backward beside it (``enable_gqa``
+    where G > 1). ``reps``: the plain version's and the library's timed
+    calls. Returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    q, k, v = qkv
+    B, Sq, H, hd = q.shape
+    Skv, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    label = f"flash_attention_bwd {dtype} {shape}" + (f" ({what})" if what
+                                                      else "")
+    if type(o.grad_fn).__name__ != "_FlashFnBackward":
+        raise AssertionError(f"{label}: the forward ran outside the "
+                             f"autograd Function ({o.grad_fn})")
+    run = lambda: torch.autograd.grad(o, qkv, do,  # noqa: E731
+                                      retain_graph=True)
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    got, again = run(), run()
+    if ops.LAUNCHES["flash_attention_bwd"] - n0 != 2:
+        raise AssertionError(f"{label}: two backward calls counted "
+                             f"{ops.LAUNCHES['flash_attention_bwd'] - n0}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{label}: two calls differ")
+    err, shares = grad_errs(torch, got, plain(), dtype, label,
+                            ("dq", "dk", "dv"))
+    del got, again
+    plain_reps, lib_reps = reps
+    lib_fn, t_lib = None, None
+    if real is None:
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_(True) for t in qkv)
+        dot = do.transpose(1, 2).contiguous()
+        gqa = {"enable_gqa": True} if H != Hkv else {}
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 scale=scale, **gqa)
+            lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qt, kt, vt), dot, retain_graph=True)
+            t_lib = library_ms(torch, lib_fn, reps=lib_reps, warmup=1)
+        except (TypeError, RuntimeError) as e:
+            print(f"   (library call unavailable: {type(e).__name__}: "
+                  f"{str(e)[:120]})")
+            lib_fn = None
+    flops, nbytes = _rl().kernel_work(
+        "flash_attention_bwd", B, Sq, H, Hkv, hd, hdv, q.element_size(),
+        real=real, Skv=Skv, causal=causal)
+    rec = err_record(
+        "flash_attention_bwd", dtype, shape, err,
+        time_ms(torch, run, reps=5, warmup=2),
+        time_ms(torch, plain, reps=plain_reps, warmup=1), t_lib, nbytes,
+        flops)
+    if what:
+        rec["what"] = what
+    rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
+    rec["library_device_ms"] = (None if t_lib is None else
+                                device_ms(torch, lib_fn, "", reps=lib_reps))
+    rec["bound_bytes_ms"] = nbytes / _rl().HBM_BW * 1e3
+    rec["bound_ops_ms"] = flops / _rl().PEAK_FLOPS[dtype] * 1e3
+    rec["bitwise_repeat"] = True
+    rec["limit_shares"] = shares
+    print(f"   {'':16s} share of the elementwise limit, norm error: "
+          f"{shares}", flush=True)
+    print(f"   {'':16s} device time alone (torch.profiler): kernels "
+          f"{rec['device_ms']} ms, SDPA's backward "
+          f"{rec['library_device_ms']} ms; bound by bytes "
+          f"{rec['bound_bytes_ms']:.4f} ms (q, k, v, o, do, dq, dk, dv, lse "
+          f"once), by operations {rec['bound_ops_ms']:.4f} ms (S, dP, dV, "
+          f"dK, dQ over the pairs of the real rows)", flush=True)
+    return rec
+
+
+def stack_backward_cases(torch, ref, dev):
+    """The flash backward at FLASH_BWD_STACK_CASES (phase 16 (e)'s shapes)
+    against its plain version (:func:`flash_bwd_record`), STACK_BWD_HEADS
+    query heads a call of it where G > 1."""
+    from repro_torch.kernels import ops
+
+    cases = []
+    for what, B, Sq, Skv, H, Hkv, hd, causal, dtypes in FLASH_BWD_STACK_CASES:
+        for dtype in dtypes:
+            q, do = (rand(torch, (B, Sq, H, hd), dtype, dev, sd)
+                     for sd in (40, 43))
+            k, v = (rand(torch, (B, Skv, Hkv, hd), dtype, dev, sd)
+                    for sd in (41, 42))
+            shape = ([B, Sq] + ([Skv] if Skv != Sq else [])
+                     + [H, Hkv, hd, "causal" if causal else "non-causal"])
+            qkv = [t.requires_grad_(True) for t in (q, k, v)]
+            o = ops.flash_attention(*qkv, causal=causal)
+            heads = H if H == Hkv else STACK_BWD_HEADS
+            plain = lambda: chunked_flash_bwd_ref(  # noqa: E731
+                torch, ref, q, k, v, do, heads, causal=causal)
+            cases.append(flash_bwd_record(torch, dtype, shape, qkv, o, do,
+                                          plain, what, causal=causal))
+            del q, k, v, do, o, qkv, plain
+            torch.cuda.empty_cache()
+    return cases
 
 
 def mla_backward_cases(torch, ref, dev):
     """The flash backward at MLA's head dims (192, 128) against its plain
-    version at MLA_BWD_CASES, bf16 and fp32, through
-    ``torch.autograd.grad`` of ``ops.flash_attention`` (the autograd
-    Function, as deepseek-v2's training calls it), under BWD_TOLS; two
-    calls bitwise equal; CUDA-event and device times, the bound, the plain
-    version's time, and SDPA's backward at the same shape beside it."""
-    import torch.nn.functional as F
-
+    version (MLA_BWD_HEADS heads a call of it) at MLA_BWD_CASES, bf16 and
+    fp32, through ``torch.autograd.grad`` of ``ops.flash_attention`` (the
+    autograd Function, as deepseek-v2's training calls it), as
+    :func:`flash_bwd_record` holds a case."""
     from repro_torch.kernels import ops
 
     cases = []
@@ -2540,70 +2668,14 @@ def mla_backward_cases(torch, ref, dev):
             kw = dict(causal=True, scale=scale, sq_real=real, skv_real=real)
             shape = [B, S, H, hd, hdv, "causal"] + ([f"pad {real}"] if real
                                                     else [])
-            what = f"flash_attention_bwd {dtype} {shape}"
             qkv = [t.requires_grad_(True) for t in (q, k, v)]
             o = ops.flash_attention(*qkv, **kw)
-            if type(o.grad_fn).__name__ != "_FlashFnBackward":
-                raise AssertionError(f"{what}: the forward ran outside the "
-                                     f"autograd Function ({o.grad_fn})")
-            run = lambda: torch.autograd.grad(  # noqa: E731
-                o, qkv, do, retain_graph=True)
-            n0 = ops.LAUNCHES["flash_attention_bwd"]
-            got, again = run(), run()
-            if ops.LAUNCHES["flash_attention_bwd"] - n0 != 2:
-                raise AssertionError(f"{what}: two backward calls counted "
-                                     f"{ops.LAUNCHES['flash_attention_bwd'] - n0}")
-            if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                raise AssertionError(f"{what}: two calls differ")
-            plain = lambda: mla_flash_bwd_ref(  # noqa: E731
-                torch, ref, q, k, v, do, **kw)
-            want = plain()
-            err, shares = grad_errs(torch, got, want, dtype, what,
-                                    ("dq", "dk", "dv"))
-            del got, again, want
-            lib_fn, t_lib, out = None, None, None
-            if real is None:
-                qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
-                              .requires_grad_(True) for t in (q, k, v))
-                dot = do.transpose(1, 2).contiguous()
-                try:
-                    out = F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, scale=scale)
-                    lib_fn = lambda: torch.autograd.grad(  # noqa: E731
-                        out, (qt, kt, vt), dot, retain_graph=True)
-                    t_lib = library_ms(torch, lib_fn, reps=3, warmup=1)
-                except (TypeError, RuntimeError) as e:
-                    print(f"   (library call unavailable: "
-                          f"{type(e).__name__}: {str(e)[:120]})")
-                    lib_fn = None
-            flops, nbytes = _rl().kernel_work(
-                "flash_attention_bwd", B, S, H, H, hd,
-                hdv, q.element_size(), real=real)
-            rec = err_record(
-                "flash_attention_bwd", dtype, shape, err,
-                time_ms(torch, run, reps=5, warmup=2),
-                time_ms(torch, plain, reps=2, warmup=1), t_lib, nbytes,
-                flops)
-            rec["device_ms"] = device_ms(torch, run, "flash_bwd", reps=5)
-            rec["library_device_ms"] = (None if t_lib is None else
-                                        device_ms(torch, lib_fn, "", reps=3))
-            rec["bound_bytes_ms"] = nbytes / _rl().HBM_BW * 1e3
-            rec["bound_ops_ms"] = rec["flops"] / _rl().PEAK_FLOPS[dtype] * 1e3
-            rec["bitwise_repeat"] = True
-            rec["limit_shares"] = shares
-            print(f"   {'':16s} share of the elementwise limit, norm error: "
-                  f"{shares}", flush=True)
-            print(f"   {'':16s} device time alone (torch.profiler): kernels "
-                  f"{rec['device_ms']} ms, SDPA's backward "
-                  f"{rec['library_device_ms']} ms; bound by bytes "
-                  f"{rec['bound_bytes_ms']:.4f} ms (q, k, dq, dk at 192, v, "
-                  f"o, do, dv at 128, lse once), by operations "
-                  f"{rec['bound_ops_ms']:.4f} ms (S, dP, dV, dK, dQ over "
-                  f"the causal pairs of the real rows)", flush=True)
-            cases.append(rec)
-            del q, k, v, do, o, qkv, run, plain, lib_fn, out
-            if real is None:
-                del qt, kt, vt, dot
+            plain = lambda: chunked_flash_bwd_ref(  # noqa: E731
+                torch, ref, q, k, v, do, MLA_BWD_HEADS, **kw)
+            cases.append(flash_bwd_record(
+                torch, dtype, shape, qkv, o, do, plain, scale=scale,
+                real=real, reps=(2, 3)))
+            del q, k, v, do, o, qkv, plain
             torch.cuda.empty_cache()
     return cases
 
@@ -5578,17 +5650,52 @@ TRAIN_FAMILY_CHECK = (
 )
 
 
+# phase 16 (e): the remaining stacks trained on one card at full width, each
+# as TRAIN_STEPS steps of (a): (arch, layers, batch [B, tokens], feature
+# rows, config changes). The LM head is the embedding table (as in JAX);
+# training state at the launcher's 12 bytes a parameter
+TRAIN_STACKS = (
+    # 2 of 64 layers, 1.75B parameters, 21.0 GB: qk-norm runs rmsnorm and
+    # its backward at D 128 over 524,288 q rows and 65,536 k rows a layer
+    ("qwen3-32b", 2, (2, 4096), 0, {}),
+    # all 30 layers, 4.16B parameters, 49.9 GB: GQA at G = 12
+    ("starcoder2-3b", 30, (2, 4096), 0, {}),
+    # 2 of 88 layers, 1.36B parameters, 16.3 GB: MQA, G = 48 in the flash
+    # backward
+    ("granite-34b", 2, (2, 4096), 0, {}),
+    # 2 of 40 layers, 1.22B parameters, 14.7 GB: 1024 feature rows ahead of
+    # 3072 tokens, the loss over the text suffix
+    ("pixtral-12b", 2, (2, 3072), 1024, {}),
+    # all 24 + 24 layers, 1.77B parameters, 21.3 GB: the encoder over 1024
+    # frames (the flash backward non-causal), the decoder over 1024 tokens
+    # and its cross-attention
+    ("seamless-m4t-large-v2", 24, (4, 1024), 1024, {}),
+)
+# (b)'s gates for them, fp32 at 2 layers (seamless 2 + 2): (arch, layers,
+# batch [B, tokens], feature rows, config changes). 256 tokens: qwen3's and
+# granite's CPU passes over 2 layers at full width took 15.3 and 11.5 s at
+# 512 on the card's host
+TRAIN_STACK_CHECK = (
+    ("qwen3-32b", 2, (1, 256), 0, {}),
+    ("starcoder2-3b", 2, (1, 256), 0, {}),
+    ("granite-34b", 2, (1, 256), 0, {}),
+    ("pixtral-12b", 2, (1, 192), 64, {}),
+    ("seamless-m4t-large-v2", 2, (1, 384), 128, dict(encoder_layers=2)),
+)
+
+
 def layer_norms(cfg, i):
     """rmsnorm launches of layer ``i``'s forward: ln1, and ln2 unless the
     stack is of the SSM family; an SSM layer's gate_norm; an MLA layer's
-    latent norms (q_norm where the query is low-rank, kv_norm); an
-    encoder-decoder's decoder layer's ln_x."""
+    latent norms (q_norm where the query is low-rank, kv_norm); a GQA
+    layer's qk-norm (q_norm and k_norm, one launch each over every head's
+    rows); an encoder-decoder's decoder layer's ln_x."""
     n = 1 + (cfg.family != "ssm")
     if cfg.layer_kind(i) == "ssm":
         return n + 1
     if cfg.mla is not None:
         return n + 1 + bool(cfg.mla.q_lora_rank)
-    return n + cfg.is_encdec
+    return n + 2 * cfg.qk_norm + cfg.is_encdec
 
 
 def train_structure(cfg, steps):
@@ -5622,13 +5729,21 @@ def train_config(arch, layers, changes):
     return dataclasses.replace(get_config(arch), n_layers=layers, **changes)
 
 
-def train_run(torch, ops, dev, cfg, batch, label):
+def train_run(torch, ops, dev, cfg, batch, label, features=0):
     """``repro_torch.training.train``: TRAIN_STEPS AdamW steps of ``cfg``
-    (full remat, bf16), ``SyntheticLM`` batches of ``batch``, seed 0; the
-    gates: finite losses and grad norms, the mean of the last three losses
-    below the first, launches equal to :func:`train_structure`. Returns
-    (its record, model, params, state, data, opt)."""
-    from repro_torch.launch.train import STATE_BYTES_PER_PARAM, param_count
+    (full remat, bf16), ``SyntheticLM`` batches of ``batch``, seed 0 (with
+    ``features`` feature rows a row from ``DataConfig(feature_rows=)``: a
+    VLM's prepended, an encoder-decoder's its encoder's frames); the
+    training state first held to the card by the launcher's
+    ``check_fits``; the gates: finite losses and grad norms, the mean of
+    the last three losses below the first, launches equal to
+    :func:`train_structure`. Returns (its record, model, params, state,
+    data, opt)."""
+    from repro_torch.launch.train import (
+        STATE_BYTES_PER_PARAM,
+        check_fits,
+        param_count,
+    )
     from repro_torch.models import Model
     from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
     from repro_torch.training.data import make_dataset
@@ -5636,14 +5751,16 @@ def train_run(torch, ops, dev, cfg, batch, label):
     B, S = batch
     model = Model(cfg, remat=True, remat_policy="full")
     n_params = param_count(model)
+    check_fits(model)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
-                      seed=0)
+                      seed=0, feature_rows=features)
     opt = AdamWConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
                       total_steps=TRAIN_STEPS)
     state_gb = STATE_BYTES_PER_PARAM * n_params / 1e9
     print(f"   {label}: {n_params:,} parameters, training state "
-          f"{state_gb:.1f} GB; batch [{B}, {S}], remat full, {TRAIN_STEPS} "
-          f"steps", flush=True)
+          f"{state_gb:.1f} GB; batch [{B}, {S}]"
+          + (f" + {features} feature rows" if features else "")
+          + f", remat full, {TRAIN_STEPS} steps", flush=True)
     t0 = time.perf_counter()
     next(make_dataset(data).batches())
     data_ms = (time.perf_counter() - t0) * 1e3
@@ -5683,21 +5800,28 @@ def train_run(torch, ops, dev, cfg, batch, label):
     if launches != want:
         raise AssertionError(f"{label} training launches {launches} != {want}")
     steady = statistics.median(step_ms[1:])
-    T = B * S
-    flops = _rl().train_step_flops(cfg, n_params, B, S)
+    # positions a step: a VLM's feature rows pass every decoder layer as its
+    # tokens do; an encoder-decoder's frames pass only the encoder, so 6 N T
+    # does not count its step and its share of peak is left out
+    T = B * (S + features)
+    flops = (None if cfg.is_encdec else
+             _rl().train_step_flops(cfg, n_params, B, S + features))
     res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
-           "params": n_params, "state_gb": state_gb,
+           "feature_rows": features, "params": n_params, "state_gb": state_gb,
            "losses": losses, "grad_norms": norms, "launches": launches,
            "step_ms": step_ms, "step_ms_median_after_first": steady,
            "tokens_per_s": T / steady * 1e3, "model_flops": flops,
-           "mfu": flops / (steady / 1e3) / _rl().PEAK_FLOPS["bf16"],
+           "mfu": (None if flops is None else
+                   flops / (steady / 1e3) / _rl().PEAK_FLOPS["bf16"]),
            "peak_mem_gb": peak / 1e9, "data_batch_host_ms": data_ms}
+    share = ("not counted for an encoder-decoder" if flops is None else
+             f"model FLOPs {flops / 1e12:.2f} T a step (6 N T + attention), "
+             f"{res['mfu']:.3f} of 989 TFLOP/s")
     print(f"   step wall (CUDA events) first {step_ms[0]:.1f} ms, median of "
-          f"the rest {steady:.1f} ms; {res['tokens_per_s']:.0f} tokens/s; "
-          f"model FLOPs {flops / 1e12:.2f} T a step (6 N T + "
-          f"attention), {res['mfu']:.3f} of 989 TFLOP/s; peak device memory "
-          f"{peak / 1e9:.2f} GB; one batch of the data pipeline "
-          f"{data_ms:.0f} ms of host time", flush=True)
+          f"the rest {steady:.1f} ms; {res['tokens_per_s']:.0f} tokens/s"
+          + (" (feature rows counted)" if features else "") + f"; "
+          f"{share}; peak device memory {peak / 1e9:.2f} GB; one batch of "
+          f"the data pipeline {data_ms:.0f} ms of host time", flush=True)
     return res, model, params, state, data, opt
 
 
@@ -5736,6 +5860,33 @@ def train_family_path(torch, ops, dev):
             f"(d) {arch}, {layers} layer{'s' * (layers > 1)} at full width")
         res["profile"] = train_step_profile(torch, model, params, state,
                                             data, opt, time_alone=False)
+        out[arch] = res
+        del model, params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_stacks_path(torch, ops, dev):
+    """(e) TRAIN_STACKS: qwen3-32b, starcoder2-3b, granite-34b, pixtral-12b
+    and seamless-m4t-large-v2 trained on the card as (a) trains llama3-8b,
+    each with the same gates (launches from the config, qk-norm's two
+    rmsnorm launches a layer counted) and one more step profiled (device
+    busy by part, the idle share, peak), each freed before the next."""
+    out = {}
+    for arch, layers, batch, features, changes in TRAIN_STACKS:
+        t0 = time.perf_counter()
+        cfg = train_config(arch, layers, changes)
+        res, model, params, state, data, opt = train_run(
+            torch, ops, dev, cfg, batch,
+            f"(e) {arch}, {layers} layer{'s' * (layers > 1)}"
+            + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+               else "") + " at full width", features=features)
+        res["profile"] = train_step_profile(torch, model, params, state,
+                                            data, opt, time_alone=False,
+                                            cpu_ops=False)
+        res["run_s"] = time.perf_counter() - t0
+        print(f"   (e) {arch}: the run {res['run_s']:.1f} s", flush=True)
         out[arch] = res
         del model, params, state
         gc.collect()
@@ -5875,15 +6026,107 @@ def train_step_profile(torch, model, params, state, data, opt, time_alone=True,
     return res
 
 
-def leaf_gap(card, cpu):
-    """|card - cpu| over the CPU leaf's largest entry; a leaf whose CPU
-    gradient is all zero (an expert no token reached) must be zero on the
-    card too (0 when it is, infinity when not)."""
-    top = float(cpu.abs().max())
-    err = float((card - cpu).abs().max())
+def leaf_gap(cards, cpus):
+    """|card - cpu| over the CPU leaf's largest entry: ``cards`` and
+    ``cpus`` the leaf's matching blocks (one each for a whole leaf), each
+    CPU block copied to its card block's device and both taken in the CPU
+    block's dtype there (the card's arithmetic over gigabytes takes a
+    fraction of the host's); a leaf whose CPU gradient is all zero (an
+    expert no token reached) must be zero on the card too (0 when it is,
+    infinity when not)."""
+    top = err = 0.0
+    for card, cpu in zip(cards, cpus):
+        cpu = cpu.to(card.device)
+        top = max(top, float(cpu.abs().max()))
+        err = max(err, float((card.to(cpu.dtype) - cpu).abs().max()))
     if top:
         return err / top
     return 0.0 if not err else math.inf
+
+
+# --------------------------------------------------------------------------- #
+# phase 20: the examples
+# --------------------------------------------------------------------------- #
+# the model examples, run as a user runs them on the card: (script, its
+# arguments); train_tiny at 50 of its default 200 steps (cut for the smoke's
+# time: its loss has fallen by half by then)
+EXAMPLES = (("serve_llm_torch.py", []), ("disaggregated_prefill_torch.py", []),
+            ("train_tiny_torch.py", ["--steps", "50"]))
+EXAMPLE_TIMEOUT_S = 300
+# disaggregated_prefill_torch.py's wire bytes a mechanism (reduced llama3-8b
+# in bf16, prompts of 6, 11, 19 and 27 tokens, max_batch 2, max_seq 64):
+# the JAX tier's DisaggregatedEngine moves the same on the same prompts
+EXAMPLE_WIRE = {"direct_hbm": 196_672, "direct_dma": 196_672,
+                "host_staged": 98_384}
+SERVE_LLM_REQUESTS = 4 * 3  # its default clients x requests a client
+
+
+def examples_path():
+    """Phase 20: ``examples/*_torch.py`` that run a model, each a process
+    of its own on the card (EXAMPLES' arguments), started together;
+    each must exit 0. serve_llm: every transport completes all its
+    requests; disaggregated_prefill: the direct mechanisms' tokens 100% the
+    fused engine's, the wire bytes EXAMPLE_WIRE; train_tiny: the loss
+    falls."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    for script, args in EXAMPLES:
+        procs[script] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    out = {}
+    try:
+        for script, p in procs.items():
+            stdout, stderr = p.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            out[script] = {"rc": p.returncode,
+                           "wall_s": time.perf_counter() - t0,
+                           "stdout": stdout[-4000:], "stderr": stderr[-2000:]}
+            print(f"   {script}: rc {p.returncode}, done "
+                  f"{out[script]['wall_s']:.1f} s after the start", flush=True)
+            for line in stdout.strip().splitlines()[-8:]:
+                print(f"      {line}")
+            if p.returncode:
+                print(stderr[-2000:])
+                raise AssertionError(f"{script} exited {p.returncode}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    served = [int(n) for n in re.findall(
+        r"^\s+\w+\s*: (\d+) requests in", out["serve_llm_torch.py"]["stdout"],
+        re.M)]
+    if served != [SERVE_LLM_REQUESTS] * 3:
+        raise AssertionError(f"serve_llm_torch.py: requests completed a "
+                             f"transport {served}, not "
+                             f"{SERVE_LLM_REQUESTS} for each of 3")
+    text = out["disaggregated_prefill_torch.py"]["stdout"]
+    match = dict(re.findall(r"^\s+(\w+)\s+\(.*tokens vs fused engine: "
+                            r"(\d+)%", text, re.M))
+    wire = json.loads(re.search(r"wire bytes by mechanism: (\{.*\})",
+                                text).group(1))
+    if match.get("direct_hbm") != "100" or match.get("direct_dma") != "100":
+        raise AssertionError(f"disaggregated_prefill_torch.py: tokens vs the "
+                             f"fused engine {match}")
+    if wire != EXAMPLE_WIRE:
+        raise AssertionError(f"disaggregated_prefill_torch.py: wire bytes "
+                             f"{wire} != {EXAMPLE_WIRE}")
+    first, last = map(float, re.search(
+        r"loss ([\d.]+) -> ([\d.]+)",
+        out["train_tiny_torch.py"]["stdout"]).groups())
+    if not last < first:
+        raise AssertionError(f"train_tiny_torch.py: loss {first} -> {last}")
+    print(f"   serve_llm: {served} requests a transport; disaggregated: "
+          f"tokens vs fused {match}, wire bytes {wire}; train_tiny: loss "
+          f"{first} -> {last}", flush=True)
+    out["gates"] = {"served": served, "tokens_vs_fused": match,
+                    "wire": wire, "loss": [first, last]}
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -5988,13 +6231,14 @@ def dryrun_path(train):
 
 def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
                       layers=TRAIN_CHECK["layers"], batch=TRAIN_CHECK["batch"],
-                      changes=None, witness64=False):
+                      changes=None, witness64=False, features=0):
     """(b) The same weights on card and CPU, fp32: ``arch`` at full width
-    cut to ``layers`` (llama3-8b at TRAIN_CHECK's by default), one batch;
-    the loss and every leaf's gradient, the card through the forward and
-    backward kernels, the CPU through the plain versions. With
-    ``witness64`` the gate's CPU side is the CPU model in float64, and the
-    fp32 CPU pass's distance from both is reported beside."""
+    cut to ``layers`` (llama3-8b at TRAIN_CHECK's by default), one batch
+    (with ``features`` feature rows a row); the loss and every leaf's
+    gradient, the card through the forward and backward kernels, the CPU
+    through the plain versions. With ``witness64`` the gate's CPU side is
+    the CPU model in float64, and the fp32 CPU pass's distance from both is
+    reported beside."""
     from repro_torch.models import Model
     from repro_torch.models.schema import tree_leaves, tree_map
     from repro_torch.training.data import DataConfig, make_dataset
@@ -6006,7 +6250,8 @@ def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
     params = gpu.init(torch.Generator(device=dev).manual_seed(0))
     params_cpu = tree_map(lambda t: t.cpu(), params)
     batch = next(make_dataset(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=0)).batches())
+        vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=0,
+        feature_rows=features)).batches())
 
     def grads(model, tree):
         leaves = tree_leaves(tree)
@@ -6033,10 +6278,9 @@ def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
                                          params_cpu))
         extra = {"loss_cpu_fp32": lc,
                  "worst_card_vs_cpu_fp32": max(
-                     leaf_gap(a.cpu().double(), b.double())
-                     for a, b in zip(gg, gc_)),
+                     leaf_gap([a], [b.double()]) for a, b in zip(gg, gc_)),
                  "worst_cpu_fp32_vs_float64": max(
-                     leaf_gap(a.double(), b) for a, b in zip(gc_, g64))}
+                     leaf_gap([a], [b]) for a, b in zip(gc_, g64))}
         print(f"   (b) {arch}: the fp32 CPU pass {extra['worst_cpu_fp32_vs_float64']:.2e} "
               f"of a leaf's largest from the float64 one, the card "
               f"{extra['worst_card_vs_cpu_fp32']:.2e} from the fp32 one; the "
@@ -6044,9 +6288,10 @@ def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
         lc, gc_, side = l64, g64, "CPU in float64"
         del cpu64
     loss_rel = abs(lg - lc) / abs(lc)
-    worst = max(leaf_gap(a.cpu().to(b.dtype), b) for a, b in zip(gg, gc_))
+    worst = max(leaf_gap([a], [b]) for a, b in zip(gg, gc_))
     print(f"   (b) card vs {side}, {arch}, fp32, {L} layer{'s' * (L > 1)}, "
-          f"[{B}, {S}]: loss {lg:.6f} / {lc:.6f} (relative {loss_rel:.2e}, "
+          f"[{B}, {S}]" + (f" + {features} feature rows" if features else "")
+          + f": loss {lg:.6f} / {lc:.6f} (relative {loss_rel:.2e}, "
           f"limit {TRAIN_LOSS_RTOL}); worst gradient leaf {worst:.2e} of its "
           f"largest entry over {len(gg)} leaves (limit {TRAIN_GRAD_TOL}); "
           f"CPU pass {cpu_s:.1f} s", flush=True)
@@ -6055,7 +6300,8 @@ def train_card_vs_cpu(torch, ops, dev, arch="llama3-8b",
     del gpu, cpu, params, params_cpu, gg, gc_
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "layers": L, "batch": [B, S], "loss_card": lg,
+    return {"arch": arch, "layers": L, "batch": [B, S],
+            "feature_rows": features, "loss_card": lg,
             "loss_cpu": lc, "loss_rel": loss_rel, "worst_leaf_rel": worst,
             "cpu_side": side, "launches": launches, "cpu_s": cpu_s, **extra}
 
@@ -6679,7 +6925,7 @@ def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label, features=0):
         g = [torch.zeros_like(p) if x is None else x
              for x, p in zip(g, parts)]
         return float(loss.detach()), [
-            t.sum_copies().gather("cpu")
+            t.sum_copies().blocks()
             for t in tree_leaves(tree_with_parts(placed, g))]
 
     ops.reset_launches()
@@ -6697,7 +6943,7 @@ def mesh_card_vs_cpu(torch, ops, dev, cfg, batch, label, features=0):
     # fp32 differences: a gap of 5e-4 of a leaf's largest is far above
     # their rounding, and float64 copies of jamba's 2.8B expert weights
     # took most of its gate's minute and a half on an H100
-    gaps = {k: leaf_gap(a, b)
+    gaps = {k: leaf_gap([a[i][1] for i in b], [t for _, t in b.values()])
             for k, a, b in zip(_leaf_names(cpu.schema()), gg, gc_)}
     worst_embed = gaps["embed"]
     worst = max(v for k, v in gaps.items() if k != "embed")

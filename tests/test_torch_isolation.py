@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module (the
 training package and its launcher among them) loads neither JAX nor the
-``repro`` package, no source file of the port imports them, a replica
-worker process the cluster spawns loads neither, and its entry points
-(serving and training) refuse to fall back to the CPU on their own."""
+``repro`` package, no source file of the port imports them, nor does any
+of its examples (``examples/*_torch.py``), a replica worker process the
+cluster spawns loads neither, and its entry points (serving and training)
+refuse to fall back to the CPU on their own."""
 
 import ast
 import subprocess
@@ -55,6 +56,43 @@ def test_no_source_file_imports_jax_or_repro():
                 if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
                     offenders.append(f"{path.relative_to(ROOT)}: {n}")
     assert not offenders, offenders
+
+
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def test_torch_examples_import_nothing_of_jax_or_repro():
+    """Every ``examples/*_torch.py`` names no JAX or ``repro`` module, and
+    loading each -- its imports, and quickstart's whole run -- leaves none
+    in ``sys.modules``."""
+    assert [p.name for p in EXAMPLES] == [
+        "disaggregated_prefill_torch.py", "quickstart_torch.py",
+        "serve_llm_torch.py", "train_tiny_torch.py"]
+    for path in EXAMPLES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            else:
+                continue
+            assert all(n.split(".")[0] not in ("jax", "jaxlib", "repro")
+                       for n in names), (path.name, names)
+    code = (
+        "import runpy, sys\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    runpy.run_path(p, run_name='example')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "GDR saves" in proc.stdout  # quickstart ran at import
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
