@@ -36,6 +36,17 @@ to one card, and compares each reading only within that call:
   steps): the median step, tokens/s and one profiled step's device busy
   time, idle share and the SSD backward's ms and share of busy (reading
   ``train``);
+- rmsnorm's backward bf16 through the autograd Function at
+  ``chip_smoke.RMSNORM_BWD_SHAPES``: events, its two launches' device time
+  alone, ``F.rms_norm``'s backward beside, and the dw sum's device time
+  at the plan's slices and at one where the tree's plan has slices
+  (reading ``rmsnorm_bwd``);
+- one profiled training step of qwen3-32b, mamba2-130m, deepseek-v2-236b
+  and seamless-m4t at phase 16's shapes: device busy and the rmsnorm
+  backward's and forward's ms (reading ``train_norms``);
+- the wall seconds of each of phase 2's rmsnorm backward cases
+  (``chip_smoke.rmsnorm_bwd_case``, on a tree whose launcher has
+  ``plan_on``; reading ``rmsnorm_cases``);
 - phase 4 of ``chip_smoke.py`` (``repro_torch.launch.serve`` on the
   32-layer llama3-8b): TTFT and TPOT p50;
 - phase 5's decode step on that engine (10 whole-batch steps of the
@@ -62,8 +73,9 @@ A reading whose entry point a tree lacks prints as absent (null).
 
 takes only the named groups of readings: ``kernels`` (rmsnorm, paged and
 ring decode, the SSD scan, flash and its backward, MLA decode),
-``ssd_bwd``, ``serving`` (phases 4, 5, 6 (c), 7 and 13) and ``train``;
-all four without the argument.
+``ssd_bwd``, ``serving`` (phases 4, 5, 6 (c), 7 and 13), ``train``,
+``rmsnorm_bwd``, ``train_norms`` and ``rmsnorm_cases``; all seven without
+the argument.
 
 It reuses ``chip_smoke.py``'s helpers and fails, printing no result, on a
 machine without a CUDA device.
@@ -72,6 +84,7 @@ machine without a CUDA device.
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as cs
@@ -233,7 +246,131 @@ def train_mamba2(torch, ops, dev):
             "ssd_bwd_share_of_busy": ssd / busy if busy else None}
 
 
-READINGS = ("kernels", "ssd_bwd", "serving", "train")
+def rmsnorm_bwd(torch, F, ops, dev):
+    """rmsnorm's backward bf16 through ``torch.autograd.grad`` of
+    ``ops.rmsnorm`` (the autograd Function, as training calls it) at
+    ``chip_smoke.RMSNORM_BWD_SHAPES``: events, the device time of its two
+    launches alone (the rows, the dw sum) and ``F.rms_norm``'s backward
+    beside; where the tree's launcher has a plan with slices of the dw sum,
+    also the dw sum's device time at the plan's slices and at one (each
+    column summed over all partial rows in order by one thread)."""
+    from repro_torch.kernels import rmsnorm as _rn
+
+    out = {}
+    for N, D in cs.RMSNORM_BWD_SHAPES:
+        x, dy = (cs.rand(torch, (N, D), "bf16", dev, sd) for sd in (16, 18))
+        w = cs.rand(torch, (D,), "bf16", dev, 17)
+        xw = [t.requires_grad_(True) for t in (x, w)]
+        y = ops.rmsnorm(*xw, eps=1e-5)
+        run = lambda: torch.autograd.grad(  # noqa: E731
+            y, xw, dy, retain_graph=True)
+        xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+        o = F.rms_norm(xr, (D,), wr, 1e-5)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            o, (xr, wr), dy, retain_graph=True)
+        rec = {"ms": cs.time_ms(torch, run),
+               "launch_device_ms": cs.device_ms_split(
+                   torch, run, cs.RMSNORM_BWD_KERNELS),
+               "library_device_ms": cs.device_ms(torch, lib, "")}
+        if "slices" in getattr(getattr(_rn, "BwdPlan", None), "_fields", ()):
+            rec["dw_sum"] = dw_sum_by_slices(torch, _rn, x.detach(),
+                                             w.detach(), dy)
+        out[f"{N}x{D}"] = rec
+        print(f"   rmsnorm_bwd [{N}, {D}]: {rec}", flush=True)
+        del x, dy, w, xw, y, xr, wr, o, run, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def dw_sum_by_slices(torch, _rn, x, w, dy):
+    """The dw sum's device time (torch.profiler) at the plan's slices and
+    at one slice (each call both launches, the rows' the same), and the
+    largest difference between the two dw."""
+    D = w.shape[0]
+    N = x.numel() // D
+    dev = x.get_device()
+    p, _ = _rn.plan_on(dev, N, D, 2, 3, True)
+    dx, partial = torch.empty_like(x), torch.empty(
+        (p.grid, D), dtype=torch.float32, device=x.device)
+    res = {"grid": p.grid, "slices": p.slices}
+    dws = {}
+    for slices in (p.slices, 1):
+        dw = dws[slices] = torch.empty_like(w)
+        fn = lambda s=slices, o=dw: _rn._BWD(  # noqa: E731
+            dev, x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            o.data_ptr(), partial.data_ptr(), N, D, 1, int(p.wide), p.vecs,
+            p.lanes, p.threads, p.grid, s, 1e-5, 3)
+        res[f"dw_device_ms_slices_{slices}"] = cs.device_ms(torch, fn,
+                                                            "rmsnorm_dw")
+    res["dw_max_abs_diff"] = float((dws[p.slices].float()
+                                    - dws[1].float()).abs().max())
+    return res
+
+
+def rmsnorm_cases(torch, ops, dev):
+    """The wall seconds of each of ``chip_smoke.py`` phase 2's rmsnorm
+    backward cases (``chip_smoke.rmsnorm_bwd_case``: held, and in bf16 or
+    at RMSNORM_BWD_FP32_TIMED timed), bf16 then fp32, and their sums over
+    the shapes before and after the first three."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    walls = {}
+    for dtype in ("bf16", "fp32"):
+        for N, D in cs.RMSNORM_BWD_SHAPES:
+            t0 = time.perf_counter()
+            cs.rmsnorm_bwd_case(torch, F, ops, ref, dev, dtype, N, D)
+            walls[f"{dtype} {N}x{D}"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    old = {f"{d} {N}x{D}" for d in ("bf16", "fp32")
+           for N, D in cs.RMSNORM_BWD_SHAPES[:3]}
+    return {"wall_s": walls,
+            "first_three_s": sum(v for k, v in walls.items() if k in old),
+            "others_s": sum(v for k, v in walls.items() if k not in old)}
+
+
+# phase 16's stacks at the narrow widths: (arch, layers, [B, S], feature
+# rows, config changes) from chip_smoke.TRAIN_FAMILY and TRAIN_STACKS
+NORM_STACKS = ("qwen3-32b", "mamba2-130m", "deepseek-v2-236b",
+               "seamless-m4t-large-v2")
+
+
+def train_norms(torch, ops, dev):
+    """One profiled training step (after two steps and a warm one) of each
+    of NORM_STACKS at phase 16's shapes: device busy, and the rmsnorm
+    kernels' ms by part (``chip_smoke.STEP_PARTS``: the backward's two
+    launches apart from the forward)."""
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, train
+
+    runs = {a: (a, L, b, 0, c) for a, L, b, c in cs.TRAIN_FAMILY}
+    runs.update({r[0]: r for r in cs.TRAIN_STACKS})
+    out = {}
+    for arch in NORM_STACKS:
+        _, layers, (B, S), features, changes = runs[arch]
+        cfg = cs.train_config(arch, layers, changes)
+        model = Model(cfg, remat=True, remat_policy="full")
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                          seed=0, feature_rows=features)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+        params, state, _ = train(model, data, TrainConfig(steps=2, log_every=1,
+                                                          seed=0), opt,
+                                 log_fn=lambda m: None)
+        prof = cs.train_step_profile(torch, model, params, state, data, opt,
+                                     time_alone=False, cpu_ops=False)
+        out[arch] = {"layers": layers, "batch": [B, S],
+                     "device_busy_ms": prof.get("device_busy_ms"),
+                     "rmsnorm_bwd_ms": prof["parts_ms"].get("rmsnorm_bwd"),
+                     "rmsnorm_fwd_ms": prof["parts_ms"].get("rmsnorm")}
+        print(f"   train_norms {arch}: {out[arch]}", flush=True)
+        del model, params, state
+        torch.cuda.empty_cache()
+    return out
+
+
+READINGS = ("kernels", "ssd_bwd", "serving", "train", "rmsnorm_bwd",
+            "train_norms", "rmsnorm_cases")
 
 
 def main():
@@ -277,6 +414,12 @@ def main():
         serving_readings(torch, ops, dev, out, Request, ServingEngine)
     if "train" in take:
         out["train_mamba2"] = train_mamba2(torch, ops, dev)
+    if "rmsnorm_bwd" in take:
+        out["rmsnorm_bwd"] = rmsnorm_bwd(torch, F, ops, dev)
+    if "train_norms" in take:
+        out["train_norms"] = train_norms(torch, ops, dev)
+    if "rmsnorm_cases" in take:
+        out["rmsnorm_cases"] = rmsnorm_cases(torch, ops, dev)
     line = json.dumps(out)
     (cs.ROOT / "chiprun_out").mkdir(exist_ok=True)
     (cs.ROOT / "chiprun_out" / f"ab_{label}.json").write_text(line)

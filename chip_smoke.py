@@ -493,8 +493,17 @@ SEAMLESS_NEW = 32
 # (B * S = 8192 of d_model 4096) and a decode-sized [8, 4096]
 FLASH_BWD_SHAPES = ((2, 4096), (8, 1024))
 # ... and at qwen3-32b's qk-norm rows (phase 16 (e): 2 x 4096 positions x 64
-# query heads at D 128)
-RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096), (524288, 128))
+# query heads at D 128); then the other rows training runs narrow or wide
+# (phase 16 (d), (e)): mamba2-130m's d_model and gate norm over 8 x 4096
+# positions, seamless-m4t's d_model over 4 x 1024, deepseek-v2's latent
+# norms (kv, q) over 2 x 4096, starcoder2-3b's d_model over 2 x 4096
+RMSNORM_BWD_SHAPES = ((8192, 4096), (8, 4096), (524288, 128), (32768, 768),
+                      (32768, 1536), (4096, 1024), (8192, 512), (8192, 1536),
+                      (8192, 3072))
+# the shapes timed in fp32 too (the others held in fp32, timed in bf16)
+RMSNORM_BWD_FP32_TIMED = RMSNORM_BWD_SHAPES[:3]
+# the backward's two launches by kernel name: the rows, the ordered dw sum
+RMSNORM_BWD_KERNELS = {"rows": "rmsnorm_bwd", "dw": "rmsnorm_dw"}
 # the flash backward at phase 16 (e)'s other shapes: (what, B, Sq, Skv, H,
 # Hkv, hd, causal, dtypes). granite-34b's MQA (G = 48); seamless-m4t's
 # encoder over 1024 frames, which is also its decoder's cross-attention
@@ -1860,57 +1869,91 @@ def backward_cases(torch, ref, dev):
                 lambda: ref.flash_attention_bwd_ref(q, k, v, do, causal=True)))
             del q, k, v, do, o, qkv
             torch.cuda.empty_cache()
-        for N, D in RMSNORM_BWD_SHAPES:
-            x, dy = (rand(torch, (N, D), dtype, dev, sd) for sd in (16, 18))
-            w = rand(torch, (D,), dtype, dev, 17)
-            what = f"rmsnorm_bwd {dtype} [{N}, {D}]"
-            xw = [t.requires_grad_(True) for t in (x, w)]
-            y = ops.rmsnorm(*xw, eps=1e-5)
-            if type(y.grad_fn).__name__ != "_RmsnormFnBackward":
-                raise AssertionError(f"{what}: the forward ran outside the "
-                                     f"autograd Function ({y.grad_fn})")
-            run = lambda: torch.autograd.grad(  # noqa: E731
-                y, xw, dy, retain_graph=True)
-            n0 = ops.LAUNCHES["rmsnorm_bwd"]
-            got, again = run(), run()
-            if ops.LAUNCHES["rmsnorm_bwd"] - n0 != 2:
-                raise AssertionError(f"{what}: two backward calls counted "
-                                     f"{ops.LAUNCHES['rmsnorm_bwd'] - n0}")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{what}: two calls differ")
-            want = ref.rmsnorm_bwd_ref(x, w, dy)
-            err, shares = grad_errs(torch, got, want, dtype, what,
-                                    ("dx", "dw"))
-            xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
-            out = F.rms_norm(xr, (D,), wr, 1e-5)
-            lib_fn = lambda: torch.autograd.grad(  # noqa: E731
-                out, (xr, wr), dy, retain_graph=True)
-            flops, nbytes = _rl().kernel_work(
-                "rmsnorm_bwd", N, D, x.element_size())
-            rec = err_record(
-                "rmsnorm_bwd", dtype, [N, D], err,
-                time_ms(torch, run), time_ms(torch, lambda: ref.rmsnorm_bwd_ref(
-                    x, w, dy)), library_ms(torch, lib_fn), nbytes, flops)
-            rec["device_ms"] = device_ms(torch, run, "rmsnorm_")
-            rec["library_device_ms"] = device_ms(torch, lib_fn, "")
-            rec["bitwise_repeat"] = True
-            rec["limit_shares"] = shares
-            print(f"   {'':16s} share of the elementwise limit, norm error: "
-                  f"{shares}", flush=True)
-            print(f"   {'':16s} device time alone (torch.profiler): kernels "
-                  f"{rec['device_ms']} ms, F.rms_norm's backward "
-                  f"{rec['library_device_ms']} ms", flush=True)
-            cases.append(rec)
+        t0 = time.perf_counter()
+        for i, (N, D) in enumerate(RMSNORM_BWD_SHAPES):
+            if i == 3:
+                t3 = time.perf_counter()
+            rec = rmsnorm_bwd_case(torch, F, ops, ref, dev, dtype, N, D)
+            if rec is not None:
+                cases.append(rec)
+        t1 = time.perf_counter()
+        print(f"   rmsnorm_bwd {dtype} cases: {t1 - t0:.2f} s, of which the "
+              f"shapes after the first three {t1 - t3:.2f} s", flush=True)
 
     # ptxas: no spills or stack in rmsnorm's backward (the flash backward's
     # instantiations are held in design_report's flash_bwd_design)
     for fn, st in ptxas_stats(build.build_log.get("rmsnorm", "")).items():
         if not matches(("rmsnorm_bwd", "rmsnorm_dw"), fn):
             continue
-        print(f"   ptxas {fn[:70]}: {st}")
+        print(f"   ptxas {fn[fn.find('rmsnorm'):][:72]}: {st}")
         if st.get("spill_stores") or st.get("spill_loads") or st.get("stack"):
             raise AssertionError(f"{fn}: spills or stack {st}")
     return cases
+
+
+def rmsnorm_bwd_case(torch, F, ops, ref, dev, dtype, N, D):
+    """rmsnorm's backward at [N, D] in ``dtype`` through the autograd
+    Function, as training calls it: held against the plain version, two
+    calls bitwise equal, one launch counted a call, the plan's geometry
+    printed. Timed (CUDA events, its two launches' device time alone,
+    the plain version, ``F.rms_norm``'s backward) in bf16 and at
+    RMSNORM_BWD_FP32_TIMED; else None (held only)."""
+    from repro_torch.kernels import rmsnorm as _rn
+
+    x, dy = (rand(torch, (N, D), dtype, dev, sd) for sd in (16, 18))
+    w = rand(torch, (D,), dtype, dev, 17)
+    what = f"rmsnorm_bwd {dtype} [{N}, {D}]"
+    xw = [t.requires_grad_(True) for t in (x, w)]
+    y = ops.rmsnorm(*xw, eps=1e-5)
+    if type(y.grad_fn).__name__ != "_RmsnormFnBackward":
+        raise AssertionError(f"{what}: the forward ran outside the "
+                             f"autograd Function ({y.grad_fn})")
+    run = lambda: torch.autograd.grad(  # noqa: E731
+        y, xw, dy, retain_graph=True)
+    n0 = ops.LAUNCHES["rmsnorm_bwd"]
+    got, again = run(), run()
+    if ops.LAUNCHES["rmsnorm_bwd"] - n0 != 2:
+        raise AssertionError(f"{what}: two backward calls counted "
+                             f"{ops.LAUNCHES['rmsnorm_bwd'] - n0}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    want = ref.rmsnorm_bwd_ref(x, w, dy)
+    err, shares = grad_errs(torch, got, want, dtype, what, ("dx", "dw"))
+    del got, again, want
+    isz = x.element_size()
+    plan, per_sm = _rn.plan_on(x.get_device(), N, D, isz,
+                               3 if dtype == "bf16" else 0, D * isz % 16 == 0)
+    geometry = {**plan._asdict(), "ctas_per_sm": per_sm}
+    if dtype != "bf16" and (N, D) not in RMSNORM_BWD_FP32_TIMED:
+        print(f"   {what}: err {err:.2e}, bitwise repeat, plan {geometry} "
+              f"(held, not timed)", flush=True)
+        return None
+    xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    out = F.rms_norm(xr, (D,), wr, 1e-5)
+    lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+        out, (xr, wr), dy, retain_graph=True)
+    flops, nbytes = _rl().kernel_work("rmsnorm_bwd", N, D, isz)
+    rec = err_record(
+        "rmsnorm_bwd", dtype, [N, D], err, time_ms(torch, run),
+        time_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
+        library_ms(torch, lib_fn), nbytes, flops)
+    split = device_ms_split(torch, run, RMSNORM_BWD_KERNELS)
+    rec["launch_device_ms"] = split
+    rec["device_ms"] = (None if split["rows"] is None
+                        else split["rows"] + (split["dw"] or 0.0))
+    rec["library_device_ms"] = device_ms(torch, lib_fn, "")
+    rec["device_bound_share"] = (None if rec["device_ms"] is None
+                                 else rec["bound_ms"] / rec["device_ms"])
+    rec["bitwise_repeat"] = True
+    rec["limit_shares"] = shares
+    rec["plan"] = geometry
+    print(f"   {'':16s} share of the elementwise limit, norm error: "
+          f"{shares}; plan {geometry}", flush=True)
+    print(f"   {'':16s} device time alone (torch.profiler): kernels "
+          f"{rec['device_ms']} ms (rows {split['rows']}, dw sum "
+          f"{split['dw']}), {rec['device_bound_share']} of the bound; "
+          f"F.rms_norm's backward {rec['library_device_ms']} ms", flush=True)
+    return rec
 
 
 def encdec_attention_cases(torch, ops, ref, dev):
@@ -5621,6 +5664,7 @@ STEP_PARTS = (  # kernel-name keys of a profiled training step's parts
     ("flash_attention_bwd", ("flash_bwd",)),
     ("ssd_scan_bwd", ("ssd_bwd",)),
     ("ssd_scan_fwd", ("ssd_scan",)),
+    ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_dw")),
     ("rmsnorm", ("rmsnorm",)),
     ("weight_gemms", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "Kernel2")),
 )

@@ -1786,10 +1786,15 @@ def test_flash_backward_is_deterministic(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype,w_dtype", [
-    ("bf16", "bf16"), ("fp32", "fp32"), ("bf16", "fp32")])
-# 512 and 1536: deepseek-v2's latent norms (kv, q); 8192: jamba's gate norm
-@pytest.mark.parametrize("D", [128, 512, 1024, 1536, 4096, 8192])
-@pytest.mark.parametrize("N", [1, 257, 8192])
+    ("bf16", "bf16"), ("fp32", "fp32"), ("bf16", "fp32"), ("fp32", "bf16")])
+# 512 and 1536: deepseek-v2's latent norms (kv, q); 768 and 1536: mamba2's
+# d_model and d_inner (the narrow kernel's whole-warp rows, 96 and 192
+# vectors); 3072: starcoder2-3b; 8192: jamba's gate norm; 100: an odd row
+# in bf16 (one element an access); 128: qwen3's qk-norm (four rows a warp)
+@pytest.mark.parametrize("D", [100, 128, 512, 768, 1024, 1536, 3072, 4096,
+                               8192])
+# 8191: the last warp's groups a partial set of rows
+@pytest.mark.parametrize("N", [1, 257, 8191, 8192])
 def test_rmsnorm_backward_matches_plain(cuda_device, N, D, x_dtype, w_dtype):
     x = _cuda_pair((N, D), x_dtype, cuda_device, 0)
     w = _cuda_pair((D,), w_dtype, cuda_device, 1)
@@ -1803,6 +1808,54 @@ def test_rmsnorm_backward_matches_plain(cuda_device, N, D, x_dtype, w_dtype):
                              else "fp32"], (N, D), ("dx", "dw"))
     again = torch.autograd.grad(ops.rmsnorm(xg, wg), (xg, wg), dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("D", [128, 768, 1536])
+def test_rmsnorm_backward_warps(cuda_device, D, dtype):
+    """The kernel at the geometries the plan picks for 1 to 5000 rows (a
+    narrow CTA's warps cut to few rows, the grid grown with them): a row's
+    dx does not depend on the warps and CTAs around it (its sums stay
+    within its group or CTA), and dw holds to the plain version at each."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    N = 5000
+    x = _cuda_pair((N, D), dtype, cuda_device, 0)
+    w = _cuda_pair((D,), dtype, cuda_device, 1)
+    dy = _cuda_pair((N, D), dtype, cuda_device, 2)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    isz = x.element_size()
+    first, geometries = None, set()
+    for n in (1, 2, 8, 40, N):
+        plan = rn.bwd_plan(n, D, isz, n_sm, 2)
+        geometries.add((plan.threads, plan.grid))
+        got = rn.launch_bwd(x[:n], w, dy[:n], 1e-5)
+        want = ref.rmsnorm_bwd_ref(x[:n], w, dy[:n])
+        _close_grads(got, want, [dtype, dtype], (n, D), ("dx", "dw"))
+        first = first if first is not None else got[0]
+        assert torch.equal(got[0][:1], first), n
+    assert len(geometries) >= 4, geometries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 4096])
+def test_rmsnorm_backward_rejects_grid_past_rows(cuda_device, D):
+    """The C entry refuses more CTAs than rows (a wide CTA loads its first
+    row before it tests it) and launches nothing."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    N = 3
+    x, dy = (_cuda_pair((N, D), "bf16", cuda_device, s) for s in (0, 2))
+    w = _cuda_pair((D,), "bf16", cuda_device, 1)
+    p = rn.bwd_plan(N, D, 2, 132, 2)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    partial = torch.empty((N + 1, D), dtype=torch.float32, device=x.device)
+    dev = x.get_device()
+    with pytest.raises(RuntimeError, match="rmsnorm_bwd"):
+        rn._BWD(dev, x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), partial.data_ptr(), N, D, 1, int(p.wide),
+                p.vecs, p.lanes, p.threads, N + 1, 1, 1e-5, 3)
 
 
 # (b, S, decay): below one chunk, the chunk's edges, a ragged tail over
